@@ -1,0 +1,606 @@
+"""`ServingEngine` -- the request-lifecycle API over the ASAP runtime.
+
+ASAP's argument is about *online* prefill serving: variance in arrival rates
+and sequence lengths is what creates DP imbalance and sync stalls.  The
+engine gives the real executor a continuous-ingestion interface:
+
+    engine.submit(Request) -> RequestHandle     # timed admission
+    engine.poll()          -> [RequestResult]   # streamed, OUT OF ORDER
+    engine.drain()         -> [RequestResult]   # block until all complete
+    engine.stats()         -> EngineStats       # device util + MEASURED
+                                                #   per-expert routing stats
+    engine.close()
+
+Backend:
+
+  ExecutorEngine -- wraps the long-lived `DisaggregatedExecutor`.  Wall time:
+                   a replayable `TraceClock` (trace seconds, optionally
+                   time-scaled) gates admission so `Request.arrival` is
+                   honored; a `LengthAwareBatcher` forms batches online;
+                   un-pinned jobs are pulled by whichever attention group
+                   frees a dual-batch slot first (least-loaded assignment);
+                   completions surface out of order from the group worker
+                   threads.
+
+`RouterStatsCollector` records MEASURED per-expert token fractions from the
+executor's real router assignments and feeds them back as
+`expert_fractions` / `Placement` popularity input.  (The simulator backend of
+the reference is not ported yet.)
+"""
+from __future__ import annotations
+
+import abc
+import dataclasses
+import heapq
+import itertools
+import json
+import threading
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.executor import BatchJob, DisaggregatedExecutor
+from repro_torch.core.scheduler import Batch, LengthAwareBatcher
+from repro_torch.core.trace import Request, TraceClock
+from repro_torch.kernels import _launch
+from repro_torch.models.lm import lm_head
+
+
+# ---------------------------------------------------------------------------
+# Results, handles, stats
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class RequestResult:
+    """Terminal record of one request's prefill (the 'first token' event).
+
+    `decomposition` is the TTFT split in trace seconds.  Contract (pinned by
+    the engine tests): every component is
+    >= 0 and the components sum to <= ttft (+ float slack).  Common keys:
+    "queue" (admission wait), "kernel" (attention-side compute), "comm"
+    (blocked on dispatch/combine + remote MoE), "other".
+    """
+    rid: int
+    arrival: float
+    length: int
+    first_token_time: float
+    decomposition: Dict[str, float]
+    batch_id: Optional[int] = None
+    group: Optional[int] = None  # attention group that served the batch
+    first_token: Optional[int] = None  # sampled token id (executor engine)
+    # Terminal status: "ok" (served) or "failed" (the backend died).  Every
+    # submitted request ends in exactly one of these -- drain() never strands
+    # a handle.
+    status: str = "ok"
+
+    @property
+    def ttft(self) -> float:
+        return self.first_token_time - self.arrival
+
+    @property
+    def ok(self) -> bool:
+        return self.status == "ok"
+
+
+class RequestHandle:
+    """Per-request future returned by `ServingEngine.submit`."""
+
+    def __init__(self, engine: "ServingEngine", request: Request):
+        self.rid = request.rid
+        self.arrival = request.arrival
+        self.length = request.length
+        self._engine = engine
+        self._event = threading.Event()
+        self._result: Optional[RequestResult] = None
+
+    def _fulfill(self, result: RequestResult):
+        self._result = result
+        self._event.set()
+
+    def done(self) -> bool:
+        return self._result is not None
+
+    def result(self, timeout: Optional[float] = None) -> RequestResult:
+        """Block until this request completes."""
+        if self._result is None:
+            self._engine._wait_handle(self, timeout)
+        assert self._result is not None
+        return self._result
+
+
+@dataclasses.dataclass
+class EngineStats:
+    """Point-in-time serving statistics (ServingEngine.stats())."""
+    engine: str
+    elapsed: float  # trace seconds since serving started
+    submitted: int
+    completed: int
+    expert_fractions: np.ndarray  # MEASURED per-expert token fractions
+    router_assignments: float  # assignments behind expert_fractions
+    moe_device_util: Optional[np.ndarray] = None  # busy fraction per device
+    group_util: Optional[np.ndarray] = None  # attention groups (if tracked)
+    placement_policy: Optional[str] = None  # installed placement
+    statuses: Optional[Dict[str, int]] = None  # terminal status histogram
+    # super-kernel launch telemetry
+    moe_launches: int = 0  # super-kernel FFN launches issued
+    moe_batch_regions: float = 0.0  # regions served by those launches
+    moe_batch_occupancy: float = 0.0  # launched rows / capacity slots
+    bucket_hits: int = 0  # launches reusing an already-seen C bucket
+    bucket_misses: int = 0  # first-sighting launches (a new buffer shape);
+    # growth AFTER warm-up means traffic left the pre-warmed buckets
+
+    def regions_per_launch(self) -> float:
+        """Mean regions served per super-kernel launch (1.0 on the
+        per-region path)."""
+        if self.moe_launches <= 0:
+            return 0.0
+        return float(self.moe_batch_regions / self.moe_launches)
+
+    def moe_imbalance(self) -> float:
+        u = self.moe_device_util
+        if u is None or not len(u) or u.mean() <= 0:
+            return 1.0
+        return float(u.max() / u.mean())
+
+
+# ---------------------------------------------------------------------------
+# Measured router statistics
+# ---------------------------------------------------------------------------
+
+
+class RouterStatsCollector:
+    """Accumulates MEASURED per-expert token-assignment counts from live runs.
+
+    The executor records every real `router_topk` assignment here (before
+    placement routing, so the collector sees expert popularity rather than
+    device load).  `fractions()` always sums to 1 and ranks hot experts
+    exactly as the recorded assignments do; `fractions_tuple()` feeds back
+    into `DisaggregatedExecutor(expert_fractions=...)` / `Placement` tables.
+    Thread-safe: group workers record concurrently.
+    """
+
+    def __init__(self, num_experts: int):
+        self.num_experts = max(int(num_experts), 1)
+        self._lock = threading.Lock()
+        self._counts = np.zeros(self.num_experts, dtype=np.float64)  # guarded_by: _lock
+        self._layer_counts: Dict[int, np.ndarray] = {}  # guarded_by: _lock
+
+    def record(self, layer: int, expert_ids: Optional[np.ndarray] = None,
+               *, counts: Optional[np.ndarray] = None):
+        """Record one batch-layer's assignments, either raw expert ids
+        (measured) or a per-expert count vector (expectation-weighted)."""
+        if counts is None:
+            ids = np.asarray(expert_ids, dtype=np.int64).reshape(-1)
+            counts = np.bincount(ids, minlength=self.num_experts)
+        counts = np.asarray(counts, dtype=np.float64)
+        assert len(counts) == self.num_experts, \
+            f"expected {self.num_experts} experts, got {len(counts)}"
+        with self._lock:
+            self._counts += counts
+            lc = self._layer_counts.get(int(layer))
+            if lc is None:
+                self._layer_counts[int(layer)] = counts.copy()
+            else:
+                lc += counts
+
+    @property
+    def total(self) -> float:
+        with self._lock:
+            return float(self._counts.sum())
+
+    def fractions(self, layer: Optional[int] = None) -> np.ndarray:
+        """Measured per-expert token fractions (sum exactly 1; uniform prior
+        before anything was recorded)."""
+        with self._lock:
+            c = self._layer_counts.get(int(layer)) if layer is not None \
+                else self._counts
+            c = None if c is None else c.copy()
+        if c is None or c.sum() <= 0:
+            return np.full(self.num_experts, 1.0 / self.num_experts)
+        return c / c.sum()
+
+    def fractions_tuple(self, layer: Optional[int] = None) -> Tuple[float, ...]:
+        return tuple(float(x) for x in self.fractions(layer))
+
+    def hot_experts(self, k: Optional[int] = None) -> np.ndarray:
+        """Expert ids sorted hottest-first (stable)."""
+        order = np.argsort(-self.fractions(), kind="stable")
+        return order if k is None else order[:k]
+
+    # ------------------------------------------------------- persistence --
+    def to_dict(self) -> dict:
+        with self._lock:
+            return {"num_experts": self.num_experts,
+                    "counts": [float(x) for x in self._counts],
+                    "layer_counts": {str(l): [float(x) for x in c]
+                                     for l, c in self._layer_counts.items()}}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "RouterStatsCollector":
+        c = cls(int(d["num_experts"]))
+        c._counts = np.asarray(d["counts"], dtype=np.float64)
+        c._layer_counts = {int(l): np.asarray(v, dtype=np.float64)
+                           for l, v in d.get("layer_counts", {}).items()}
+        return c
+
+    def save(self, path: str):
+        with open(path, "w") as f:
+            json.dump(self.to_dict(), f)
+
+    @classmethod
+    def load(cls, path: str) -> "RouterStatsCollector":
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+
+# ---------------------------------------------------------------------------
+# The protocol
+# ---------------------------------------------------------------------------
+
+
+class ServingEngine(abc.ABC):
+    """One request lifecycle over an ASAP runtime: submit timed requests,
+    stream out-of-order completions, read measured routing stats, close."""
+
+    @abc.abstractmethod
+    def submit(self, request: Request,
+               tokens: Optional[np.ndarray] = None) -> RequestHandle:
+        """Register one request for admission at `request.arrival`.
+        `tokens` (the prompt; synthesized when omitted) is consumed by
+        backends that run real compute and ignored by analytical ones."""
+
+    @abc.abstractmethod
+    def poll(self) -> List[RequestResult]:
+        """Completions since the last poll()/drain(), in COMPLETION order
+        (out of order w.r.t. submission — the async-serving property)."""
+
+    @abc.abstractmethod
+    def drain(self, timeout: Optional[float] = None) -> List[RequestResult]:
+        """Block until every submitted request completed; return the
+        completions not yet handed out by poll()."""
+
+    @abc.abstractmethod
+    def stats(self) -> EngineStats:
+        """Per-device utilization + measured per-expert routing fractions."""
+
+    @abc.abstractmethod
+    def close(self):
+        """Release backend resources.  drain() first; in-flight work may be
+        abandoned."""
+
+    @abc.abstractmethod
+    def _wait_handle(self, handle: RequestHandle, timeout: Optional[float]):
+        """Backend-specific block until `handle` completes."""
+
+    def submit_all(self, requests: Sequence[Request]) -> List[RequestHandle]:
+        return [self.submit(r) for r in requests]
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Real-executor backend
+# ---------------------------------------------------------------------------
+
+
+def _pad_bucket(n: int, floor: int = 8) -> int:
+    """Next power-of-two sequence bucket -- keeps the set of batch shapes
+    finite under online batching (same trick as the MoE capacity buckets)."""
+    s = max(int(n), floor)
+    return 1 << (s - 1).bit_length()
+
+
+class ExecutorEngine(ServingEngine):
+    """ServingEngine over the long-lived `DisaggregatedExecutor`.
+
+    An admission thread replays `Request.arrival` against a `TraceClock`
+    (speed-scalable trace seconds), feeds admitted requests through a
+    `LengthAwareBatcher`, pads each emitted batch into a power-of-two token
+    bucket, and submits it UN-pinned to the executor's shared job queue --
+    whichever attention group frees a dual-batch slot first pulls it
+    (least-loaded assignment).  Group workers call back on completion, out
+    of order; the engine then decomposes TTFT (queue/kernel/comm/other, all
+    in trace seconds), samples the first token from the returned hidden
+    states (on the executor's device; the token id is the one value read
+    back), and fulfills the per-request handles.  All measured router
+    assignments land in `router_stats`.
+    """
+
+    def __init__(self, executor: DisaggregatedExecutor, *,
+                 clock: Optional[TraceClock] = None,
+                 batcher: Optional[LengthAwareBatcher] = None,
+                 sample_first_token: bool = True,
+                 token_seed: int = 0):
+        self.ex = executor
+        self.cfg = executor.cfg
+        self.clock = clock if clock is not None else TraceClock()
+        self.batcher = batcher if batcher is not None else LengthAwareBatcher(
+            inflection=64, max_tokens=4096, exclusive_cutoff=1 << 30,
+            max_wait=0.05)
+        self.router_stats = RouterStatsCollector(max(self.cfg.num_experts, 1))
+        self.sample_first_token = sample_first_token
+        self._token_seed = token_seed
+        # wire the engine into the executor
+        executor.clock = self.clock.now
+        executor.router_stats = self.router_stats
+        executor.on_complete = self._on_job_done
+        # admission state
+        self._lock = threading.Lock()
+        # _done_cv shares _lock: holding either means holding the same lock
+        self._done_cv = threading.Condition(self._lock)
+        self._arrivals: List[Tuple[float, int, Request]] = []  # heap  guarded_by: _lock
+        self._seq = itertools.count()
+        self._tokens: Dict[int, np.ndarray] = {}  # guarded_by: _lock
+        self._handles: Dict[int, RequestHandle] = {}  # guarded_by: _lock
+        self._outbox: List[RequestResult] = []  # guarded_by: _lock
+        self._submitted = 0  # guarded_by: _lock
+        self._finished = 0  # guarded_by: _lock
+        self._draining = False  # guarded_by: _lock
+        self._completed_rids: set = set()  # guarded_by: _lock
+        self._status_counts: Dict[str, int] = {}  # guarded_by: _lock
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._admit_thread: Optional[threading.Thread] = None
+        self._admit_error: Optional[BaseException] = None
+
+    # ------------------------------------------------------------ intake --
+    def start(self) -> "ExecutorEngine":
+        """Anchor the trace clock and spawn the workers + admission loop."""
+        assert not self._stop.is_set(), "engine reused after close()"
+        if self._admit_thread is None:
+            self.clock.start()
+            self.ex.ensure_started()
+            self._admit_thread = threading.Thread(
+                target=self._admit_loop, name="admission", daemon=True)
+            self._admit_thread.start()
+        return self
+
+    def submit(self, request: Request,
+               tokens: Optional[np.ndarray] = None) -> RequestHandle:
+        self.start()
+        if tokens is None:
+            rng = np.random.RandomState(
+                (self._token_seed * 1_000_003 + request.rid) % (1 << 31))
+            tokens = rng.randint(0, self.cfg.vocab_size,
+                                 size=request.length).astype(np.int32)
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        assert len(tokens) == request.length, \
+            f"tokens ({len(tokens)}) != request.length ({request.length})"
+        h = RequestHandle(self, request)
+        with self._lock:
+            assert request.rid not in self._handles, \
+                f"duplicate rid {request.rid}"
+            self._handles[request.rid] = h
+            self._tokens[request.rid] = tokens
+            heapq.heappush(self._arrivals,
+                           (request.arrival, next(self._seq), request))
+            self._submitted += 1
+            self._draining = False
+        self._wake.set()
+        return h
+
+    def _admit_loop(self):
+        """Replay arrivals on the trace clock; admitted requests flow through
+        the length-aware batcher and onto the executor's shared queue."""
+        try:
+            while not self._stop.is_set():
+                now = self.clock.now()
+                emitted: List[Batch] = []
+                with self._lock:
+                    while self._arrivals and self._arrivals[0][0] <= now:
+                        _, _, req = heapq.heappop(self._arrivals)
+                        emitted += self.batcher.add(req, now)
+                    emitted += self.batcher.poll(now)
+                    if self._draining and not self._arrivals:
+                        emitted += self.batcher.flush(now)
+                    next_arrival = self._arrivals[0][0] \
+                        if self._arrivals else None
+                    flush_due = self.batcher.next_flush_due(now)
+                for b in emitted:
+                    self._launch(b)
+                targets = [t for t in (next_arrival, flush_due)
+                           if t is not None]
+                if targets:
+                    self.clock.sleep_until(min(targets), event=self._wake)
+                else:
+                    self._wake.wait(0.05)
+                self._wake.clear()
+        except BaseException as ex:
+            self._admit_error = ex
+            with self._done_cv:
+                self._done_cv.notify_all()
+
+    def _finalize_locked(self, rid: int, arrival: float, length: int,
+                         now: float, status: str):
+        """Mint a terminal non-ok result the engine decided on its own
+        (backend death).  Caller holds `_lock` -- which IS `_done_cv`'s
+        lock, so the fulfill + notify happen inline without re-acquiring."""
+        if rid in self._completed_rids:  # race-ok: caller holds _lock (documented contract)
+            return
+        self._completed_rids.add(rid)  # race-ok: caller holds _lock (documented contract)
+        self._tokens.pop(rid, None)  # race-ok: caller holds _lock (documented contract)
+        res = RequestResult(
+            rid=rid, arrival=arrival, length=length,
+            first_token_time=max(now, arrival),
+            decomposition={"queue": max(now - arrival, 0.0)},
+            status=status)
+        self._outbox.append(res)  # race-ok: caller holds _lock (documented contract)
+        h = self._handles.get(rid)  # race-ok: caller holds _lock (documented contract)
+        if h is not None:
+            h._fulfill(res)
+        self._finished += 1  # race-ok: caller holds _lock (documented contract)
+        self._status_counts[status] = self._status_counts.get(status, 0) + 1  # race-ok: caller holds _lock (documented contract)
+        self._done_cv.notify_all()
+
+    def _launch(self, batch: Batch):
+        reqs = batch.requests
+        # _tokens is written by submit() on caller threads; the admission
+        # loop must not read it unlocked
+        with self._lock:
+            toks = [self._tokens.pop(r.rid) for r in reqs]
+        S = _pad_bucket(max(len(t) for t in toks))
+        arr = np.zeros((len(reqs), S), np.int32)
+        for i, t in enumerate(toks):
+            arr[i, :len(t)] = t  # zero-pad; causal attention keeps the
+            # valid prefix exact, so row i's position len-1 is unaffected
+        job = BatchJob(tokens=arr, bid=batch.bid,
+                       lengths=[len(t) for t in toks], meta=reqs,
+                       t_submitted=self.clock.now())
+        for r in reqs:
+            r.batch_id = batch.bid
+        self.ex.submit_job(job)
+
+    # ------------------------------------------------------- completions --
+    def _on_job_done(self, job: BatchJob):
+        """Runs in the completing group-worker thread (out of order), on
+        that worker's stream."""
+        reqs: List[Request] = job.meta or []
+        if not reqs:
+            return
+        first = None
+        if self.sample_first_token and job.result is not None:
+            dev = job.result.device
+            rows = torch.arange(len(reqs), device=dev)
+            pos = torch.as_tensor(np.asarray(job.lengths, np.int64) - 1,
+                                  device=dev)
+            h_last = job.result[rows, pos]
+            first = torch.argmax(lm_head(self.ex.params, h_last, self.cfg),
+                                 -1)
+            if first.is_cuda:
+                _launch.note_host_sync()
+            first = first.cpu().numpy()
+        t_done = job.t_finished
+        with self._done_cv:
+            for i, r in enumerate(reqs):
+                if r.rid in self._completed_rids:
+                    continue
+                self._completed_rids.add(r.rid)
+                r.first_token_time = t_done
+                ttft = max(t_done - r.arrival, 0.0)
+                queue = min(max((job.t_started or t_done) - r.arrival, 0.0),
+                            ttft)
+                kernel = min(max(job.kernel_time, 0.0), ttft - queue)
+                comm = min(max(job.comm_time, 0.0), ttft - queue - kernel)
+                status = "failed" if job.failed is not None else "ok"
+                res = RequestResult(
+                    rid=r.rid, arrival=r.arrival, length=r.length,
+                    first_token_time=t_done,
+                    decomposition={
+                        "queue": queue, "kernel": kernel, "comm": comm,
+                        "other": max(ttft - queue - kernel - comm, 0.0)},
+                    batch_id=job.bid, group=job.group,
+                    first_token=int(first[i]) if first is not None else None,
+                    status=status)
+                self._outbox.append(res)
+                h = self._handles.get(res.rid)
+                if h is not None:
+                    h._fulfill(res)
+                self._finished += 1
+                self._status_counts[status] = \
+                    self._status_counts.get(status, 0) + 1
+            self._done_cv.notify_all()
+
+    def _check_errors(self):
+        if self._admit_error is not None:
+            raise RuntimeError("admission thread failed") \
+                from self._admit_error
+        if self.ex.errors:
+            raise RuntimeError("executor thread failed") from self.ex.errors[0]
+
+    def _fail_pending_locked(self) -> List[RequestResult]:
+        """The backend died mid-run (panic or admission failure) and the
+        caller is drain(): honor the lifecycle contract anyway.  Whatever
+        completed keeps its result; every other submitted request ends
+        `failed` right now.  poll() and handle.result() still RAISE on
+        backend death -- drain() alone is the bookend that must terminate
+        with definite states.  Caller holds `_lock`."""
+        now = self.clock.now()
+        for rid, h in list(self._handles.items()):  # race-ok: caller holds _lock (documented contract)
+            self._finalize_locked(rid, h.arrival, h.length, now, "failed")
+        out, self._outbox = self._outbox, []  # race-ok: caller holds _lock (documented contract)
+        return out
+
+    # ---------------------------------------------------------------- API --
+    def poll(self) -> List[RequestResult]:
+        self._check_errors()
+        with self._lock:
+            out, self._outbox = self._outbox, []
+        return out
+
+    def drain(self, timeout: Optional[float] = None) -> List[RequestResult]:
+        """Block (wall time) until every submitted request completed --
+        including ones whose trace arrival is still in the future."""
+        self.start()
+        deadline = None if timeout is None else time.monotonic() + timeout
+        with self._lock:
+            self._draining = True
+        self._wake.set()
+        while True:
+            with self._done_cv:
+                if self._admit_error is not None or self.ex.errors:
+                    # mid-crash drain still terminates with every request
+                    # in a definite state
+                    return self._fail_pending_locked()
+                if self._finished >= self._submitted:
+                    out, self._outbox = self._outbox, []
+                    return out
+                wait = 0.1
+                if deadline is not None:
+                    wait = min(wait, deadline - time.monotonic())
+                    if wait <= 0:
+                        raise TimeoutError(
+                            f"drain: {self._submitted - self._finished} of "
+                            f"{self._submitted} requests still in flight")
+                self._done_cv.wait(wait)
+
+    def _wait_handle(self, handle: RequestHandle, timeout: Optional[float]):
+        deadline = None if timeout is None else time.monotonic() + timeout
+        # slice the wait so a dead worker/admission thread surfaces as an
+        # error instead of deadlocking a timeout=None caller
+        while not handle._event.wait(0.1):
+            self._check_errors()
+            if deadline is not None and time.monotonic() >= deadline:
+                raise TimeoutError(f"request {handle.rid} still in flight")
+
+    def stats(self) -> EngineStats:
+        now = self.clock.now()
+        t0 = self.ex._t_serving_start
+        elapsed = max(now - t0, 1e-9) if t0 is not None else 1e-9
+        with self._lock:
+            submitted, finished = self._submitted, self._finished
+            statuses = dict(self._status_counts)
+        return EngineStats(
+            engine="executor", elapsed=elapsed,
+            submitted=submitted, completed=finished,
+            expert_fractions=self.router_stats.fractions(),
+            router_assignments=self.router_stats.total,
+            moe_device_util=self.ex.moe_busy / elapsed,
+            group_util=self.ex.group_busy / elapsed,
+            placement_policy=self.ex.placement.policy,
+            statuses=statuses,
+            moe_launches=int(self.ex.moe_launches.sum()),
+            moe_batch_regions=float(self.ex.moe_launch_regions.sum()),
+            moe_batch_occupancy=float(
+                self.ex.moe_launch_rows.sum()
+                / max(self.ex.moe_launch_slots.sum(), 1.0)),
+            bucket_hits=int(self.ex.bucket_hits.sum()),
+            bucket_misses=int(self.ex.bucket_misses.sum()))
+
+    def close(self):
+        self._stop.set()
+        self._wake.set()
+        if self._admit_thread is not None:
+            self._admit_thread.join(timeout=10)
+            self._admit_thread = None
+        self.ex.close()
+        # unhook: the executor (and its resident weight stacks) must not stay
+        # alive through a reference cycle with this engine
+        self.ex.on_complete = None

@@ -1,0 +1,126 @@
+"""Builds and loads the port's CUDA kernels.
+
+The sources under `repro_torch/csrc/*.cu` are compiled with `nvcc` for
+`sm_90a` into ONE shared library with a plain C interface and loaded with
+`ctypes` -- seconds to build, against minutes for a build that includes
+PyTorch's headers.  The library is built at first use from the sources beside
+this package and nothing else, into `build/repro_torch/` at the repository
+root (override with `REPRO_TORCH_BUILD_DIR`); its file name carries a hash of
+the sources and flags, so an edited source is rebuilt and a stale library is
+never loaded.  Nothing here runs at import time: a machine without `nvcc`
+imports every module and only fails when a kernel is asked for.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC"]
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None  # guarded_by: _lock
+
+_VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
+        / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch are "
+                       "built on the machine with the card")
+
+
+def _compile(lib_path: pathlib.Path, srcs, verbose: bool) -> None:
+    """One `nvcc -c` per source, all started together, then one link."""
+    nvcc = _nvcc()
+    out = lib_path.parent
+    out.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    extra = ["-Xptxas", "-v"] if verbose else []
+    jobs = []
+    for s in srcs:
+        obj = out / f"{tag}.{s.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(s), "-o", str(obj)]
+        jobs.append((s, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    objs, failed = [], []
+    for s, obj, proc in jobs:
+        log, _ = proc.communicate()
+        if verbose and log:
+            print(log, flush=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {s.name}:\n{log}")
+        objs.append(obj)
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = out / f"{tag}.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp, lib_path)  # atomic: a concurrent build of the same sources loses nothing
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.super_gmm_launch.restype = _I
+    lib.super_gmm_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                     _I, _LL, _LL, _VP]
+    lib.flash_attention_launch.restype = _I
+    lib.flash_attention_launch.argtypes = (
+        [_VP] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _VP])
+
+
+def load(verbose: bool = False) -> ctypes.CDLL:
+    """The kernel library, built first if its sources changed.  Raises if it
+    cannot be built or loaded -- callers never fall back to a plain version."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            srcs = sources()
+            if not srcs:
+                raise RuntimeError(f"no CUDA sources under {CSRC}")
+            path = build_dir() / f"libasap_kernels_{_digest(srcs)}.so"
+            if not path.exists():
+                _compile(path, srcs, verbose)
+            lib = ctypes.CDLL(str(path))
+            _declare(lib)
+            _lib = lib
+        return _lib

@@ -1,0 +1,88 @@
+"""MoE Super Kernel -- layer-oblivious grouped (batched-expert) matmul.
+
+    out[e, c, n] = sum_k x[e, c, k] * w[layer_id[0], e, k, n]   (fp32 out)
+
+`super_gmm` is the wrapper of the CUDA kernel in `csrc/super_gmm.cu`; it
+replaces the TPU kernel `repro.kernels.super_gmm.super_gmm.super_gmm`.  The
+kernel binds the FULL `[L, E, K, N]` weight stack, does the (layer, expert,
+tile) address arithmetic itself, and reads the layer from the one-element
+int32 DEVICE tensor `layer_id` -- the wrapper never reads that tensor, so one
+launch signature serves every layer and no launch costs a host round trip.
+
+`counts` (optional, [E] int32 on x's device) says how many leading rows of
+each expert's capacity buffer are real; the rows beyond are padding and come
+out as zeros.  The kernel skips tiles that are all padding, so its work
+follows the rows that exist -- and, like the layer id, the counts are read on
+the device only.
+
+`super_gmm_ref` is the plain PyTorch version of the same function.  The
+wrapper takes it only for tensors that lie on the CPU; for CUDA tensors it
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, _launch
+
+
+def super_gmm_ref(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                  counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out[e, c, n] = x[e, c, :] @ w[layer_id, e, :, :] (fp32 accumulate);
+    rows c >= counts[e] are padding and give zeros."""
+    wl = w.index_select(0, layer_id.reshape(1).long())[0]
+    x = x.float()
+    if counts is not None:
+        real = torch.arange(x.shape[1], device=x.device)[None, :] \
+            < counts[:, None]
+        x = x * real[:, :, None]
+    return torch.einsum("eck,ekn->ecn", x, wl.float())
+
+
+def super_gmm(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """layer_id: [1] int32 on x's device; w: [L, E, K, N]; x: [E, C, K];
+    counts: None or [E] int32 on x's device; returns [E, C, N] float32."""
+    L, E, K, N = w.shape
+    Ex, C, Kx = x.shape
+    if (Ex, Kx) != (E, K):
+        raise ValueError(f"super_gmm: x {tuple(x.shape)} does not match "
+                         f"w {tuple(w.shape)}")
+    if counts is not None and (counts.shape != (E,)
+                               or counts.dtype != torch.int32
+                               or counts.device != x.device):
+        raise ValueError(f"super_gmm: counts must be [{E}] int32 on "
+                         f"{x.device}")
+    if x.device.type == "cpu":
+        return super_gmm_ref(layer_id, w, x, counts)
+    if not (x.is_cuda and w.device == x.device
+            and layer_id.device == x.device):
+        raise ValueError("super_gmm: layer_id, w and x must lie on one CUDA "
+                         "device")
+    if layer_id.dtype != torch.int32 or layer_id.numel() != 1:
+        raise ValueError("super_gmm: layer_id must be a [1] int32 tensor")
+    if x.dtype != w.dtype or x.dtype not in _launch.DTYPE_CODE:
+        raise ValueError(f"super_gmm: x {x.dtype} / w {w.dtype} must both be "
+                         f"float32 or bfloat16")
+    if w.stride(3) != 1 or w.stride(2) != N:
+        raise ValueError("super_gmm: each [K, N] weight matrix must be "
+                         "contiguous")
+    x = x.contiguous()
+    out = torch.empty((E, C, N), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out  # no expert or no row: nothing to launch
+    lib = _build.load()
+    code = lib.super_gmm_launch(
+        layer_id.data_ptr(),
+        counts.data_ptr() if counts is not None else None,
+        w.data_ptr(), x.data_ptr(), out.data_ptr(),
+        _launch.DTYPE_CODE[x.dtype], E, C, K, N, w.stride(0), w.stride(1),
+        _launch.stream_ptr(x.device))
+    _launch.check(code, "super_gmm")
+    _launch.count_launch(super_gmm)
+    return out
+
+
+super_gmm.launches = 0

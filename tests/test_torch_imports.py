@@ -1,0 +1,61 @@
+"""The port imports torch and numpy, never jax, the JAX package or (at module
+level) triton; its entry point imports where jax cannot be imported."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
+
+
+def _imports(tree, module_level_only):
+    nodes = tree.body if module_level_only else list(ast.walk(tree))
+    if module_level_only:  # also look inside top-level try/if blocks
+        nodes = [n for top in tree.body for n in ast.walk(top)
+                 if not isinstance(top, (ast.FunctionDef, ast.ClassDef,
+                                         ast.AsyncFunctionDef))]
+    for n in nodes:
+        if isinstance(n, ast.Import):
+            for a in n.names:
+                yield a.name.split(".")[0]
+        elif isinstance(n, ast.ImportFrom) and n.level == 0 and n.module:
+            yield n.module.split(".")[0]
+
+
+def test_port_has_files():
+    assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_no_reference_no_module_level_triton(path):
+    tree = ast.parse(path.read_text())
+    anywhere = set(_imports(tree, module_level_only=False))
+    assert not (anywhere & FORBIDDEN), \
+        f"{path} imports {sorted(anywhere & FORBIDDEN)}"
+    assert "triton" not in set(_imports(tree, module_level_only=True)), \
+        f"{path} imports triton at module level"
+
+
+def test_serve_imports_where_jax_is_unimportable(tmp_path):
+    """A `jax` (and `repro`) that raises on import shadows the real ones."""
+    for name in ("jax", "repro"):
+        pkg = tmp_path / name
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('{name} must not be imported by the port')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT / "src")])
+    code = ("import repro_torch.launch.serve as s, repro_torch.bridge, "
+            "repro_torch.core.engine, sys; "
+            "assert 'jax' not in sys.modules and 'repro' not in sys.modules; "
+            "print('imported', s.ARCH)")
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "imported qwen3_moe_235b_a22b" in out.stdout
