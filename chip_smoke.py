@@ -7,19 +7,29 @@ Phases (each prints its own lines; any failure is a non-zero exit):
 
   device    card name and power limit, as nvidia-smi gives them
   build     nvcc builds the kernel library from src/repro_torch/csrc
-  kernels   super_gmm and flash_attention against their plain PyTorch
-            versions on the card: main-path shapes (bf16) and edge shapes
-            (fp32, C=192, S=192, window, softcap, every layer id from one
-            launch signature with no host sync between launches)
+  kernels   super_gmm, flash_attention, dispatch_scatter and
+            combine_gather against their plain PyTorch versions on the
+            card: main-path shapes (bf16) and edge shapes (fp32, C=192,
+            S=192, window, softcap, every layer id from one launch signature
+            with no host sync between launches; d=16/4100, N=0/1, every
+            pair dropped, unaligned bases), and kernel_moe_dispatch/combine
+            against the plain oracles with no host sync
   executor  DisaggregatedExecutor output against the port's own
             lm_backbone(moe_mode="dense") on the card, one small batch at the
             full width of qwen3_moe_235b_a22b
   serve     ExecutorEngine serves 8 requests of 256-2048 tokens at full
             width, bf16, depth cut to 4 layers; launch counts are set to 0
             just before and read just after
-  timing    each kernel timed at the shapes the serve phase gave it, beside
-            its bound, its plain version and one library call (library_ms is
-            a yardstick timed here and used nowhere in the port)
+  pd        prefill->decode: first a teacher-forced check in fp32 at the
+            small config (every generated token == the argmax of the dense
+            lm_forward over prompt + tokens so far), then a PD wave at full
+            width through the serve phase's executor (emit_kv): 8 requests,
+            out_len lognormal mean 16 cv 0.5 capped at 64, decode width 8
+            over a 2112-token cache, KV handoff priced on the H100 link;
+            counts of all four kernels set to 0 just before, read just after
+  timing    each kernel timed at the shapes its path gave it, beside its
+            bound, its plain version and one library call (library_ms is a
+            yardstick timed here and used nowhere in the port)
   profile   (only with --phases ...,profile) the served requests once more
             under torch.profiler: device time by kernel, busy share
 
@@ -285,9 +295,112 @@ def _mha_plain(q, k, v):
     return o.reshape(B, H, S, dh).permute(0, 2, 1, 3)
 
 
+def _pairs(gen, T, E, K, C):
+    """(token_of, slot) int32 of a real routing: K distinct experts per token
+    (top-K of random scores), sorted and cut at capacity C on the card."""
+    from repro_torch.models.moe import dispatch_slots
+    idx = torch.topk(torch.rand((T, E), generator=gen, device=DEV), K,
+                     -1).indices.to(torch.int32)
+    perm, slot, _, _ = dispatch_slots(idx, E, C)
+    return (perm // K).to(torch.int32), slot.to(torch.int32), idx
+
+
+def _unaligned(shape, dtype, gen):
+    """A contiguous tensor whose base is one element past a 16-byte
+    boundary: the kernels' scalar path."""
+    n = int(np.prod(shape))
+    flat = torch.empty(n + 1, dtype=dtype, device=DEV)[1:]
+    flat.copy_(torch.randn(n, generator=gen, device=DEV).to(dtype))
+    return flat.view(shape)
+
+
+def check_dispatch_combine(gen) -> float:
+    """dispatch_scatter / combine_gather against their plain versions,
+    bit for bit: the decode MoE layer's shape in bf16, then fp32 and bf16
+    edges.  Returns 0.0, the max abs error of an exact copy."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, dispatch_scatter)
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
+                                                          dispatch_scatter_ref)
+    from repro_torch.models.moe import moe_combine, moe_dispatch
+
+    def both(token_of, slot, x, rows_out, what):
+        got = dispatch_scatter(token_of, slot, x, rows_out=rows_out)
+        want = dispatch_scatter_ref(token_of, slot, x, rows_out)
+        expect(torch.equal(got, want), f"dispatch_scatter {what}")
+        yb = torch.randn((rows_out, x.shape[1]), generator=gen,
+                         device=DEV).to(x.dtype)
+        yb[-1] = 0
+        got = combine_gather(slot, yb)
+        expect(torch.equal(got, combine_gather_ref(slot, yb)),
+               f"combine_gather {what}")
+
+    full = get_config(ARCH)
+    T, E, K, d = 8, full.num_experts, full.top_k, full.d_model
+    C = 8  # expert_capacity(8) at these widths: every decode step dropless
+    token_of, slot, _ = _pairs(gen, T, E, K, C)
+    x = torch.randn((T, d), generator=gen, device=DEV).bfloat16()
+    both(token_of, slot, x, E * C + 1, "decode shape bf16")
+    print(f"[kernels] dispatch_scatter/combine_gather bf16 T={T} K={K} "
+          f"N={T * K} E={E} C={C} rows_out={E * C + 1} d={d}: "
+          f"array_equal ok")
+    for dtype in (torch.float32, torch.bfloat16):
+        for dd in (16, 4100):
+            for (T, E, K, C) in ((64, 8, 2, 8), (1, 4, 1, 8), (33, 16, 4, 8)):
+                token_of, slot, _ = _pairs(gen, T, E, K, C)
+                x = torch.randn((T, dd), generator=gen, device=DEV).to(dtype)
+                both(token_of, slot, x, E * C + 1, f"{dtype} d={dd} T={T}")
+                both(token_of, slot, _unaligned((T, dd), dtype, gen),
+                     E * C + 1, f"{dtype} d={dd} T={T} unaligned base")
+            x = torch.randn((5, dd), generator=gen, device=DEV).to(dtype)
+            empty = torch.zeros(0, dtype=torch.int32, device=DEV)
+            both(empty, empty, x, 17, f"{dtype} d={dd} N=0")
+            one = torch.tensor([3], dtype=torch.int32, device=DEV)
+            last = torch.tensor([15], dtype=torch.int32, device=DEV)
+            both(one, last, x, 17, f"{dtype} d={dd} N=1 at row E*C-1")
+            trash = torch.full((12,), 16, dtype=torch.int32, device=DEV)
+            tok = torch.arange(12, dtype=torch.int32, device=DEV) % 5
+            both(tok, trash, x, 17, f"{dtype} d={dd} every pair dropped")
+            expect(float(dispatch_scatter(tok, trash, x, rows_out=17)
+                         .abs().max()) == 0.0, "trash row written")
+    print("[kernels] dispatch_scatter/combine_gather fp32 and bf16 edges (d "
+          "16/4100, unaligned bases, N=0, N=1 at row E*C-1, every pair "
+          "dropped): array_equal ok")
+    # the wired-up dispatch/combine on CUDA tensors: equal to the plain
+    # oracles, and not one host sync (the sync debug mode raises on one)
+    T, E, K = 64, 8, 2
+    cfg = get_config(ARCH).smoke().replace(num_experts=E, top_k=K)
+    _, _, idx = _pairs(gen, T, E, K, 8)
+    x = torch.randn((T, cfg.d_model), generator=gen, device=DEV)
+    w = torch.rand((T, K), generator=gen, device=DEV)
+    for cap in (None, 8):  # 8 < the hottest expert's count: pairs drop
+        syncs = _launch.host_syncs
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            xb, info = kernel_moe_dispatch(x, idx, cfg, cap)
+            y = kernel_moe_combine(xb * 2.0, info, w, T)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        expect(_launch.host_syncs == syncs, "kernel_moe_dispatch host sync")
+        xb_p, info_p = moe_dispatch(x, idx, cfg, cap)
+        expect(torch.equal(xb, xb_p), f"kernel_moe_dispatch capacity {cap}")
+        for k in ("perm", "slot", "valid", "group_sizes"):
+            expect(torch.equal(info[k], info_p[k]), f"dispatch info {k}")
+        err = max_err(y, moe_combine(xb_p * 2.0, info_p, w, T))
+        expect(err <= 1e-6, f"kernel_moe_combine: err {err}")
+    print("[kernels] kernel_moe_dispatch == moe_dispatch (xb, perm, slot, "
+          "valid, group_sizes) and kernel_moe_combine vs moe_combine (tol "
+          "1e-6) on CUDA tensors, dropless and dropping, no host sync")
+    return 0.0
+
+
 def phase_kernels(gen) -> dict:
     errs = {"super_gmm": check_super_gmm(gen),
-            "flash_attention": check_flash_attention(gen)}
+            "flash_attention": check_flash_attention(gen),
+            "dispatch_combine": check_dispatch_combine(gen)}
     torch.cuda.synchronize()
     return errs
 
@@ -437,6 +550,209 @@ def phase_serve(cfg, params, seed: int) -> dict:
             "lengths": lengths, "kw": kw}
 
 
+def _pd_kernels():
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, dispatch_scatter)
+    return {"super_gmm": super_gmm, "flash_attention": flash_attention,
+            "dispatch_scatter": dispatch_scatter,
+            "combine_gather": combine_gather}
+
+
+def check_teacher_forced(seed: int):
+    """fp32, the small config (3 layers, 8 experts top-2, d_model 128): a PD
+    run on the card, then every generated token against the argmax of the
+    port's own dense lm_forward over the prompt plus the tokens so far
+    (dropless: 4 decode slots <= C = 8).  Where the oracle's top-2 gap is
+    under 1e-3 the token need only be within 1e-4 of the oracle's max."""
+    from repro_torch.launch.serve import pd_requests, serve_pd
+    from repro_torch.models.lm import init_lm_params, lm_forward
+    cfg = get_config(ARCH).smoke().replace(num_layers=3, num_experts=8,
+                                           top_k=2)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    params = init_lm_params(gen, cfg, DEV)
+    rng = np.random.default_rng(seed)
+    lengths = [int(x) for x in rng.integers(8, 48, size=6)]
+    reqs = pd_requests(lengths, [int(x) for x in rng.integers(2, 9, size=6)],
+                       rps=50.0, seed=seed)
+    prompts = {q.rid: rng.integers(0, cfg.vocab_size, q.length) for q in reqs}
+    out = serve_pd(cfg, params, reqs, prompts=prompts, device=DEV, slots=4,
+                   max_len=128, max_batch_tokens=128)
+    results = out["results"]
+    expect(len(results) == 6 and all(r.ok for r in results),
+           "teacher-forced PD run: not every request ok")
+    out_len = {q.rid: q.out_len for q in reqs}
+    checked = near = 0
+    with torch.inference_mode():
+        for r in results:
+            expect(r.tokens_out == len(r.output_tokens) == out_len[r.rid],
+                   "teacher-forced: token count")
+            seq = list(prompts[r.rid])
+            for tok in r.output_tokens:
+                logits, _ = lm_forward(
+                    params, cfg, torch.tensor([seq], device=DEV),
+                    moe_mode="dense")
+                last = logits[0, -1].float()
+                top2 = torch.topk(last, 2).values
+                if float(top2[0] - top2[1]) > 1e-3:
+                    expect(tok == int(torch.argmax(last)),
+                           f"teacher-forced: rid {r.rid} token {len(seq)}: "
+                           f"{tok} != oracle {int(torch.argmax(last))}")
+                else:
+                    near += 1
+                    expect(float(last.max() - last[tok]) <= 1e-4,
+                           f"teacher-forced near-tie rid {r.rid}")
+                checked += 1
+                seq.append(tok)
+    print(f"[pd] teacher-forced fp32 {cfg.num_layers}L x {cfg.num_experts}e "
+          f"d_model={cfg.d_model}: {checked} tokens of 6 PD requests (first "
+          f"tokens from the prefill executor, the rest from the decode "
+          f"runtime) == argmax of the dense lm_forward over prompt + tokens "
+          f"so far ({near} near-ties checked at 1e-4)")
+    del params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _hop_latency_us(reps: int = 200):
+    """A small (4 KiB) device-to-device copy: its device time by the
+    profiler, and its time as issued back to back (CUDA events around
+    `reps` copies, so the host's issue rate shows)."""
+    src = torch.zeros(1024, dtype=torch.float32, device=DEV)
+    dst = torch.empty_like(src)
+    issued = 1e3 * cuda_ms(lambda: dst.copy_(src), iters=reps, warmup=10)
+    device, _ = _device_ms(lambda: dst.copy_(src), reps)
+    return 1e3 * device, issued
+
+
+def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
+    """A prefill->decode wave at full width through the serve phase's
+    long-lived executor (switched to emit_kv): 8 requests of the serve
+    phase's lengths, out_len lognormal mean 16 cv 0.5 capped at 64, decode
+    width 8 over a 2112-token cache, PDOrchestrator(hw=H100),
+    disaggregated.  The launch counts of all four kernels are set to 0 just
+    before and read just after."""
+    from repro_torch.core.trace import TraceConfig, sample_out_len
+    from repro_torch.launch.serve import pd_requests, serve_pd
+    check_teacher_forced(seed)
+    hop_us, issued_us = _hop_latency_us()
+    print(f"[pd] hop latency: a 4 KiB device-to-device copy takes "
+          f"{hop_us:.3f} us of device time (mean of 200; {issued_us:.2f} us "
+          f"each as issued back to back)")
+    tc = TraceConfig(out_len_mean=16.0, out_len_cv=0.5, seed=seed)
+    lengths = serve["lengths"]
+    out_lens = [min(sample_out_len(i, tc), 64) for i in range(len(lengths))]
+    reqs = pd_requests(lengths, out_lens, rps=8.0, seed=seed)
+    kernels = _pd_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    _launch.reset_host_syncs()
+    out = serve_pd(cfg, params, reqs, device=DEV, slots=8, max_len=2112,
+                   executor=serve["kw"]["executor"], max_batch_tokens=4096,
+                   verbose=True)
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in kernels.items()}
+    results, rt, kv_log = out["results"], out["runtime"], out["kv_log"]
+    by_rid = {r.rid: r for r in results}
+    expect(len(results) == 8 and all(r.ok for r in results),
+           "pd: not every request ok")
+    expect(all(by_rid[q.rid].tokens_out == q.out_len for q in reqs),
+           "pd: tokens_out != out_len")
+    handoffs = sum(1 for q in reqs if q.out_len > 1)
+    expect(kv_log.count == handoffs,
+           f"pd: {kv_log.count} KV handoffs, expected {handoffs}")
+    L, steps = cfg.num_layers, rt.steps
+    for name in ("dispatch_scatter", "combine_gather"):
+        expect(launches[name] == L * steps,
+               f"pd: {name} launched {launches[name]} times, expected "
+               f"{L} layers x {steps} steps")
+    expect(launches["super_gmm"] > 0 and launches["flash_attention"] > 0,
+           f"pd: a prefill kernel was never launched: {launches}")
+    expect(rt.host_syncs == steps, f"pd: {rt.host_syncs} host syncs over "
+           f"{steps} decode steps")
+    expect(rt.trace_counts["decode_step"] == 1,
+           f"pd: {rt.trace_counts['decode_step']} step signatures")
+    expect(not out["executor"].errors, "pd: executor worker failed")
+    copy_ms, n_copies = rt.enroll_copy_ms()
+    expect(n_copies == handoffs, f"pd: {n_copies} enrollment copies")
+    ttft = [r.ttft for r in results]
+    tpot = [r.tpot for r in results if r.tpot is not None]
+    alloc, reserved = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.memory_stats()["reserved_bytes.all.peak"])
+    print(f"[pd] 8 requests, lengths {lengths}, out_lens {out_lens}: all ok "
+          f"with tokens_out == out_len in {out['wall']:.2f}s wall; TTFT mean "
+          f"{np.mean(ttft):.3f}s max {np.max(ttft):.3f}s; TPOT mean "
+          f"{1e3 * np.mean(tpot):.1f} ms median {1e3 * np.median(tpot):.1f} "
+          f"ms max {1e3 * np.max(tpot):.1f} ms")
+    print(f"[pd] decode steps {steps} (width 8), host syncs {rt.host_syncs} "
+          f"= {rt.host_syncs / max(steps, 1):.2f} per step, step signatures "
+          f"{rt.trace_counts['decode_step']}; launches {launches}")
+    print(f"[pd] KV handoffs {kv_log.count}, {kv_log.bytes / 1e6:.1f} MB, "
+          f"priced {1e3 * kv_log.seconds:.3f} ms on the H100 link "
+          f"(datasheet NVLink rate); enrollment copies measured on the card "
+          f"{copy_ms:.3f} ms in all, {copy_ms / n_copies:.3f} ms mean "
+          f"-> {kv_log.bytes / 1e9 / (copy_ms / 1e3):.0f} GB/s")
+    print(f"[pd] peak memory allocated {alloc / 1e9:.1f} GB, reserved "
+          f"{reserved / 1e9:.1f} GB")
+    # the step body itself reads nothing back: one more step (all slots
+    # idle, after the counts were read) with the sync debug mode raising
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rt._step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print("[pd] the decode step body runs with the CUDA sync debug mode "
+          "raising: no hidden host sync besides the token read")
+    _decode_breakdown(rt)
+    return {"launches": launches, "steps": steps, "hop_us": hop_us,
+            "T": rt.slots}
+
+
+def _device_ms(fn, reps: int, match=None):
+    """Device time per call by torch.profiler over `reps` calls: summed over
+    every kernel, or over the kernels whose name contains `match`.  Returns
+    (ms per call, [(name, ms per call, launches per call)] by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    # the device's own events (kernels, copies), not again the host ops
+    # that launched them
+    rows = [(e.key, e.device_time_total / 1e3 / reps, e.count / reps)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and (match is None or match in e.key)]
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows
+
+
+def _decode_breakdown(rt):
+    """Decode steps with all 8 slots active and no prefill on the card
+    (after the counted wave): wall time per step against the device time
+    the profiler sums over its kernels, and where that device time goes."""
+    with torch.inference_mode():
+        rt._active_dev.fill_(True)
+    rt.step_once()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        rt.step_once()
+    wall = 1e3 * (time.perf_counter() - t0) / 10
+    dev, rows = _device_ms(rt.step_once, 5)
+    launches = sum(r[2] for r in rows)
+    print(f"[pd] decode step alone (8 slots active, no prefill): wall "
+          f"{wall:.2f} ms per step, device time summed over its kernels and "
+          f"copies {dev:.2f} ms ({dev / wall:.0%} of the wall), "
+          f"{launches:.0f} of them per step")
+    for name, ms, n in rows[:8]:
+        print(f"[pd]   {ms:8.3f} ms {n:6.1f}x  {name[:80]}")
+
+
 def phase_profile(cfg, params, serve: dict, trace_out):
     """Not in the default run: the same 8 requests once more under
     torch.profiler -- device time by kernel and the device's busy share."""
@@ -469,8 +785,71 @@ def phase_profile(cfg, params, serve: dict, trace_out):
         prof.export_chrome_trace(trace_out)
 
 
-def phase_timing(serve: dict, errs: dict, gen) -> dict:
-    """Each kernel at the shape the serve phase launched it with most."""
+def _copy_rows(gen, pd: dict, errs: dict) -> list:
+    """dispatch_scatter and combine_gather at the shape of every decode step
+    of the pd wave (T slots x top-8 pairs, 128 experts, C = 8, d = 4096,
+    bf16) on a real routing.  Bound by bytes: the scatter reads N rows and
+    writes N rows plus the (E*C+1)-row zero fill; the gather reads N rows
+    and writes N rows."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, dispatch_scatter)
+    from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
+                                                          dispatch_scatter_ref)
+    from repro_torch.models.moe import expert_capacity
+    full = get_config(ARCH)
+    T, E, K, d = pd["T"], full.num_experts, full.top_k, full.d_model
+    C = expert_capacity(T, full)
+    token_of, slot, _ = _pairs(gen, T, E, K, C)
+    rows = E * C + 1
+    N = T * K
+    kept = int((slot < E * C).sum())
+    x = torch.randn((T, d), generator=gen, device=DEV).bfloat16()
+    yb = torch.randn((rows, d), generator=gen, device=DEV).bfloat16()
+    yb[-1] = 0
+    out = torch.zeros((rows, d), dtype=x.dtype, device=DEV)
+    slot64, tok64 = slot.long(), token_of.long()
+    shape = {"T": T, "K": K, "N": N, "E": E, "C": C, "rows_out": rows,
+             "d": d, "dtype": "bf16", "pairs_kept": kept}
+    el = 2
+    timings = [
+        ("dispatch_scatter", 46, lambda: dispatch_scatter(
+            token_of, slot, x, rows_out=rows),
+         lambda: dispatch_scatter_ref(token_of, slot, x, rows),
+         lambda: out.index_copy_(0, slot64, x.index_select(0, tok64)),
+         "out.index_copy_(0, slot, x.index_select(0, token_of))",
+         el * d * (2 * kept + rows)),
+        ("combine_gather", 75, lambda: combine_gather(slot, yb),
+         lambda: combine_gather_ref(slot, yb),
+         lambda: torch.index_select(yb, 0, slot64),
+         "torch.index_select(yb, 0, slot)", el * d * 2 * N)]
+    out_rows = []
+    for name, line, kern, plain, lib, lib_name, nbytes in timings:
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        kernel_dev, _ = _device_ms(kern, 50, match=f"{name}_kernel")
+        call_dev, _ = _device_ms(kern, 50)
+        out_rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/dispatch_combine.cu",
+            "replaces": "src/repro/kernels/dispatch_combine/"
+                        f"dispatch_combine.py:{line}",
+            "launches": pd["launches"][name],
+            "max_abs_err": errs["dispatch_combine"],
+            "ms": cuda_ms(kern, iters=200, warmup=10),
+            "plain_ms": cuda_ms(plain, iters=200, warmup=10),
+            "bound_ms": 1e3 * t_bytes, "bound_by": "bytes",
+            "library_ms": cuda_ms(lib, iters=200, warmup=10),
+            "library_call": lib_name, "shape": shape,
+            # the device alone, by the profiler: the kernel, and every
+            # kernel of one wrapper call (the scatter's zero fill included);
+            # "ms" above is the call as the host issues it back to back
+            "kernel_device_ms": kernel_dev, "call_device_ms": call_dev})
+    return out_rows
+
+
+def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
+    """Each kernel at the shape its path launched it with most: super_gmm
+    and flash_attention from the serve phase, dispatch_scatter and
+    combine_gather from the pd phase."""
     full = get_config(ARCH)
     bf = torch.bfloat16
     # ---- super_gmm: modal capacity bucket, gate/up projection ----------
@@ -536,13 +915,13 @@ def phase_timing(serve: dict, errs: dict, gen) -> dict:
           "library_ms": fa_lib,
           "shape": {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh,
                     "dtype": "bf16", "causal": True}}
-    return {"kernels": [gmm, fa]}
+    return {"kernels": [gmm, fa] + _copy_rows(gen, pd, errs)}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,timing")
+                    "serve,pd,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -561,7 +940,7 @@ def main() -> int:
     if "build" in phases:
         phase_build(args.verbose_build)
     errs = phase_kernels(gen) if "kernels" in phases else None
-    serve = None
+    serve = pd = None
     if "executor" in phases or "serve" in phases:
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
@@ -573,12 +952,15 @@ def main() -> int:
         if "profile" in phases:
             expect(serve is not None, "profile needs the serve phase")
             phase_profile(cfg, params, serve, args.trace_out)
+        if "pd" in phases:
+            expect(serve is not None, "pd needs the serve phase")
+            pd = phase_pd(cfg, params, serve, args.seed)
         del params
         torch.cuda.empty_cache()
     if "timing" in phases:
-        expect(serve is not None and errs is not None,
-               "timing needs the kernels and serve phases")
-        print(json.dumps(phase_timing(serve, errs, gen)))
+        expect(serve is not None and pd is not None and errs is not None,
+               "timing needs the kernels, serve and pd phases")
+        print(json.dumps(phase_timing(serve, pd, errs, gen)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

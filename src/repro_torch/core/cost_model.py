@@ -1,9 +1,12 @@
-"""Expert -> device placement (the routing layer of the cost model).
+"""Expert -> device placement (the routing layer of the cost model), and
+the link figures that price a KV handoff.
 
-The port carries `Placement` only: the executor derives its dispatch tables
-and resident weight stacks from it.  Pure Python/numpy; the tables equal the
-reference's (`repro.core.cost_model.Placement`) for the same inputs.  The
-analytic cost model and `ExpertLoadModel` around it are not ported yet.
+The port carries `Placement` -- the executor derives its dispatch tables
+and resident weight stacks from it; pure Python/numpy, the tables equal the
+reference's (`repro.core.cost_model.Placement`) for the same inputs -- and a
+`Hardware` record with only the fields `core.kv.transfer_seconds` reads.
+The analytic cost model, `ExpertLoadModel` and the rest of `Hardware` are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -14,6 +17,23 @@ import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class Hardware:
+    """What a KV handoff costs on the link between two cards."""
+    name: str
+    ici_bw: float  # bytes/s over one link, one direction
+    hop_latency: float  # seconds of a minimal transfer
+
+
+# One H100 SXM.  ici_bw: NVLink 4, 900 GB/s both ways = 450 GB/s each way
+# (NVIDIA H100 SXM data sheet; a datasheet figure, not measured here).
+# hop_latency: the mean time of a small (4 KiB) device-to-device copy issued
+# back to back (CUDA events around 200 copies), 5.69 us in one run of
+# `chip_smoke.py`'s pd phase on an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit; the phase prints it on every run, beside the copy's device time.
+H100 = Hardware(name="h100-sxm", ici_bw=450e9, hop_latency=5.69e-06)
 
 
 @dataclasses.dataclass(frozen=True)

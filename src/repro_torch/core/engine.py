@@ -24,8 +24,10 @@ Backend:
 
 `RouterStatsCollector` records MEASURED per-expert token fractions from the
 executor's real router assignments and feeds them back as
-`expert_fractions` / `Placement` popularity input.  (The simulator backend of
-the reference is not ported yet.)
+`expert_fractions` / `Placement` popularity input.  With `keep_kv=True` the
+engine keeps each ok request's prompt KV (from an `emit_kv` executor) until
+the prefill/decode orchestrator claims it with `take_kv`.  (The simulator
+backend of the reference is not ported yet.)
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import BatchJob, DisaggregatedExecutor
+from repro_torch.core.kv import KVHandle, KVSpec
 from repro_torch.core.scheduler import Batch, LengthAwareBatcher
 from repro_torch.core.trace import Request, TraceClock
 from repro_torch.kernels import _launch
@@ -71,14 +74,40 @@ class RequestResult:
     batch_id: Optional[int] = None
     group: Optional[int] = None  # attention group that served the batch
     first_token: Optional[int] = None  # sampled token id (executor engine)
-    # Terminal status: "ok" (served) or "failed" (the backend died).  Every
-    # submitted request ends in exactly one of these -- drain() never strands
-    # a handle.
+    # Terminal status: "ok" (served), "timeout" (a decode stage did not
+    # finish in time) or "failed" (the backend died).  Every submitted
+    # request ends in exactly one of these -- drain() never strands a handle.
     status: str = "ok"
+    # --- decode extension --------------------------------------------------
+    # tokens_out counts EVERY emitted token (first token included), so a
+    # prefill-only request has tokens_out == 1 and completion_time ==
+    # first_token_time.  When a decode stage served the request the
+    # decomposition grows "kv_transfer" / "decode_queue" / "decode" keys:
+    # components >= 0 summing <= the completion latency, and
+    # tpot == (completion_time - first_token_time) / (tokens_out - 1).
+    tokens_out: int = 1
+    completion_time: Optional[float] = None  # last-token timestamp
+    token_times: Optional[List[float]] = None  # per-token timestamps
+    output_tokens: Optional[List[int]] = None  # the ids, first token first
 
     @property
     def ttft(self) -> float:
         return self.first_token_time - self.arrival
+
+    @property
+    def completion_latency(self) -> float:
+        t = self.completion_time if self.completion_time is not None \
+            else self.first_token_time
+        return t - self.arrival
+
+    @property
+    def tpot(self) -> Optional[float]:
+        """Mean time per output token over the decode tail (None until a
+        decode stage produced more than the first token)."""
+        if self.completion_time is None or self.tokens_out <= 1:
+            return None
+        return (self.completion_time - self.first_token_time) \
+            / (self.tokens_out - 1)
 
     @property
     def ok(self) -> bool:
@@ -245,6 +274,10 @@ class ServingEngine(abc.ABC):
     """One request lifecycle over an ASAP runtime: submit timed requests,
     stream out-of-order completions, read measured routing stats, close."""
 
+    # True for a backend in virtual time (the reference's simulator); the
+    # port's backends all run against a wall/trace clock
+    virtual = False
+
     @abc.abstractmethod
     def submit(self, request: Request,
                tokens: Optional[np.ndarray] = None) -> RequestHandle:
@@ -318,9 +351,16 @@ class ExecutorEngine(ServingEngine):
                  clock: Optional[TraceClock] = None,
                  batcher: Optional[LengthAwareBatcher] = None,
                  sample_first_token: bool = True,
-                 token_seed: int = 0):
+                 token_seed: int = 0,
+                 keep_kv: bool = False):
         self.ex = executor
         self.cfg = executor.cfg
+        # keep_kv retains each ok request's per-layer KV until the
+        # orchestrator claims it via take_kv(); needs an emit_kv executor
+        if keep_kv and not executor.emit_kv:
+            raise ValueError("keep_kv=True requires "
+                             "DisaggregatedExecutor(emit_kv=True)")
+        self.keep_kv = keep_kv
         self.clock = clock if clock is not None else TraceClock()
         self.batcher = batcher if batcher is not None else LengthAwareBatcher(
             inflection=64, max_tokens=4096, exclusive_cutoff=1 << 30,
@@ -346,6 +386,8 @@ class ExecutorEngine(ServingEngine):
         self._draining = False  # guarded_by: _lock
         self._completed_rids: set = set()  # guarded_by: _lock
         self._status_counts: Dict[str, int] = {}  # guarded_by: _lock
+        # rid -> (k, v, ready): [L, len, kvh, hd] each, on the device
+        self._kv: Dict[int, tuple] = {}  # guarded_by: _lock
         self._stop = threading.Event()
         self._wake = threading.Event()
         self._admit_thread: Optional[threading.Thread] = None
@@ -490,6 +532,8 @@ class ExecutorEngine(ServingEngine):
                 kernel = min(max(job.kernel_time, 0.0), ttft - queue)
                 comm = min(max(job.comm_time, 0.0), ttft - queue - kernel)
                 status = "failed" if job.failed is not None else "ok"
+                if self.keep_kv and job.kv is not None and status == "ok":
+                    self._kv[r.rid] = job.kv[i]
                 res = RequestResult(
                     rid=r.rid, arrival=r.arrival, length=r.length,
                     first_token_time=t_done,
@@ -529,6 +573,22 @@ class ExecutorEngine(ServingEngine):
         return out
 
     # ---------------------------------------------------------------- API --
+    def take_kv(self, rid: int) -> KVHandle:
+        """Claim the completed prefill's KV cache for the decode handoff.
+        Pops the retained tensors -- each handle is claimable exactly once;
+        needs keep_kv=True and a completed ok prefill for `rid`."""
+        with self._lock:
+            kv = self._kv.pop(rid, None)
+            h = self._handles.get(rid)
+        if kv is None or h is None or h._result is None:
+            raise KeyError(f"take_kv({rid}): no retained KV (keep_kv off, "
+                           f"not ok, or already taken)")
+        k, v, ready = kv
+        return KVHandle(rid=rid, prompt_len=h.length,
+                        spec=KVSpec.from_config(self.cfg),
+                        created_at=h._result.first_token_time,
+                        payload=(k, v), ready=ready)
+
     def poll(self) -> List[RequestResult]:
         self._check_errors()
         with self._lock:

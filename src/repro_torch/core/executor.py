@@ -40,6 +40,11 @@ Hot path (fused, per region):
   * Combine: expert outputs are written by (token, k) into a [Tn, top_k, d]
     buffer (every pair is unique: no atomics) and reduced over k in order
     0..K-1 -- deterministic.
+  * KV export (`emit_kv=True`): the attention step also returns the layer's
+    post-RoPE (k, v).  They stay on the card; at the end of a job each
+    request's [L, len, kvh, hd] K and V are gathered into contiguous tensors
+    (a view would pin the whole padded batch) and travel with a CUDA event,
+    for the prefill->decode handoff (`ExecutorEngine(keep_kv=True)`).
 
 Numerical contract (tested against the JAX reference): pipeline output ==
 lm_backbone(..., moe_mode="dense") for the same params -- asynchrony,
@@ -77,7 +82,7 @@ from repro_torch.core.cost_model import Placement
 from repro_torch.kernels import _launch
 from repro_torch.kernels.super_gmm.ops import (pack_capacity, round_capacity,
                                                super_moe_ffn, unpack_capacity)
-from repro_torch.models.attention import attention_forward
+from repro_torch.models.attention import attention_prefill
 from repro_torch.models.common import ModelConfig, act_fn, apply_norm
 from repro_torch.models.lm import embed_tokens, layer_slice, lm_stages
 from repro_torch.models.moe import gated_ffn, router_topk
@@ -100,6 +105,10 @@ class BatchJob:
     kernel_time: float = 0.0  # attention-side compute (this group's stream)
     comm_time: float = 0.0  # blocked in combine (MoE compute + wire + queue)
     failed: Optional[str] = None  # terminal failure reason (result stays None)
+    # emit_kv: per batch row, (k, v, ready) -- k/v [L, lengths[i], kvh, hd]
+    # contiguous device tensors, `ready` the CUDA event after their gather
+    # (None on the CPU)
+    kv: Optional[List[tuple]] = None
 
 
 class DisaggregatedExecutor:
@@ -110,6 +119,7 @@ class DisaggregatedExecutor:
                  expert_fractions: Optional[Sequence[float]] = None,
                  idle_backoff: Optional[float] = 0.05,
                  region_timeout: float = 240.0,
+                 emit_kv: bool = False,
                  device: Any = "cuda"):
         if cfg.family != "moe":
             raise ValueError("executor drives MoE models")
@@ -129,6 +139,7 @@ class DisaggregatedExecutor:
         self.shared_on_attention = shared_on_attention
         self.idle_backoff = idle_backoff  # max CV wait in the MoE workers
         self.region_timeout = region_timeout  # wall s: combine_recv bound
+        self.emit_kv = emit_kv  # attention step also returns the layer's KV
         self.stage = params["stages"][0]
         self._window = opts.get("window")
         # --- replica-aware expert placement -------------------------------
@@ -307,12 +318,14 @@ class DisaggregatedExecutor:
         """Attention + norms + router (+ shared expert) of one layer: the
         layer id indexes the stacked params (views).  Attention takes the
         flash-attention branch: the kernel on a card, its plain version on
-        the CPU."""
+        the CPU.  The layer's post-RoPE (k, v) come back as well (views of
+        the projection, no copy); only `emit_kv` keeps them."""
         cfg = self.cfg
         lp = layer_slice(self._attn_stage, layer)
-        h = h + attention_forward(lp["attn"],
-                                  apply_norm(h, lp["ln_attn"], cfg), cfg,
-                                  window=self._window, use_dense=False)
+        a, cache = attention_prefill(lp["attn"],
+                                     apply_norm(h, lp["ln_attn"], cfg), cfg,
+                                     window=self._window, use_dense=False)
+        h = h + a
         x = apply_norm(h, lp["ln_ffn"], cfg)
         B, S, d = x.shape
         xf = x.reshape(B * S, d)
@@ -322,7 +335,7 @@ class DisaggregatedExecutor:
             s = lp["shared"]
             shared = gated_ffn(xf, s["w_gate"], s["w_up"], s["w_down"],
                                act_fn(cfg.act))
-        return h, xf, weights, idx, shared
+        return h, xf, weights, idx, shared, (cache.k, cache.v)
 
     # ------------------------------------------------------------- dispatch
     def _route(self, flat_e: np.ndarray) -> np.ndarray:
@@ -624,7 +637,8 @@ class DisaggregatedExecutor:
                                  None, self.cfg)
                 active.append({"job": job, "h": h, "layer": 0,
                                "phase": "attn", "slot": free_slots.pop(0),
-                               "ctx": None, "seq": 0, "valid": valid})
+                               "ctx": None, "seq": 0, "valid": valid,
+                               "kv": []})
             if not active:
                 continue  # idle: loop back into the blocking take
             # run attention+dispatch for every slot that is ready
@@ -632,7 +646,10 @@ class DisaggregatedExecutor:
                 if st["phase"] != "attn":
                     continue
                 t0 = self.clock()
-                h, xf, w, idx, shared = self._attn_step(st["layer"], st["h"])
+                h, xf, w, idx, shared, kv = self._attn_step(st["layer"],
+                                                            st["h"])
+                if self.emit_kv:
+                    st["kv"].append(kv)
                 # the one device-to-host read of the batch-layer: the router's
                 # expert ids, which placement routing needs on the host (the
                 # wait also makes the clocked time below device time)
@@ -663,6 +680,8 @@ class DisaggregatedExecutor:
                 t0 = self.clock()
                 result = apply_norm(st["h"], self.params["final_norm"],
                                     self.cfg)
+                if st["kv"]:
+                    job.kv = self._gather_kv(job, st["kv"])
                 # the result leaves this thread's stream (the caller reads
                 # it): one host sync per JOB, not per batch-layer
                 self._sync_stream()
@@ -679,6 +698,18 @@ class DisaggregatedExecutor:
                     self._done_cv.notify_all()
             else:
                 st["phase"] = "attn"
+
+    def _gather_kv(self, job: BatchJob, layers: List[tuple]) -> List[tuple]:
+        """Per batch row, its [L, len, kvh, hd] K and V as contiguous tensors
+        on this thread's stream, plus the event marking them written (the
+        decode runtime reads them on another stream)."""
+        S = layers[0][0].shape[1]
+        lengths = job.lengths or [S] * layers[0][0].shape[0]
+        rows = [(torch.stack([k[i, :n] for k, _ in layers]),
+                 torch.stack([v[i, :n] for _, v in layers]))
+                for i, n in enumerate(lengths)]
+        ready = self._record_ready()
+        return [(k, v, ready) for k, v in rows]
 
     def reset_stats(self):
         """Zero the busy-time and launch telemetry and drop the event log

@@ -2,15 +2,18 @@
 
 ASAP (§3.3): length-aware batching + dual-batch pairing. The batcher only has
 to exceed the MoE inflection point -- it does NOT balance across DP groups,
-because the async pipeline lets groups progress independently.  (The
-synchronous baselines of the reference, balanced partition and chunked
-prefill, belong to its simulator and are not ported.)
+because the async pipeline lets groups progress independently.
+`DecodeAdmissionQueue` admits requests into the decode stage of
+prefill/decode serving.  (The synchronous baselines of the reference,
+balanced partition and chunked prefill, belong to its simulator and are not
+ported.)
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import itertools
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from repro_torch.core.trace import Request
 
@@ -141,3 +144,48 @@ class LengthAwareBatcher:
             self._pending = []
             self._pending_t = []
         return out
+
+
+class DecodeAdmissionQueue:
+    """Ready-time-ordered admission into a width-capped decode batch: pops
+    eligible requests (KV handoff landed, a slot free) in ready order.
+    Single-threaded by design -- each decode engine owns one instance and
+    drives it from its own admission point."""
+
+    def __init__(self, width: int):
+        assert width >= 1
+        self.width = width
+        self._heap: List[Tuple[float, int, object]] = []
+        self._ctr = itertools.count()
+        self.active = 0  # occupied decode slots; caller releases
+
+    def push(self, t_ready: float, item):
+        heapq.heappush(self._heap, (t_ready, next(self._ctr), item))
+
+    def next_ready(self) -> Optional[float]:
+        """Ready time of the head entry (None when empty)."""
+        return self._heap[0][0] if self._heap else None
+
+    def admit(self, now: float) -> List[object]:
+        """Pop every entry ready by `now` that fits under the width cap,
+        marking its slot occupied.  The caller calls release() per leave."""
+        out: List[object] = []
+        while self._heap and self._heap[0][0] <= now \
+                and self.active < self.width:
+            _, _, item = heapq.heappop(self._heap)
+            self.active += 1
+            out.append(item)
+        return out
+
+    def release(self, n: int = 1):
+        """Return `n` slots after requests left the decode batch."""
+        self.active = max(self.active - n, 0)
+
+    def drain_all(self) -> List[object]:
+        """Remove and return every still-pending entry (shutdown path)."""
+        out = [item for _, _, item in self._heap]
+        self._heap = []
+        return out
+
+    def __len__(self) -> int:
+        return len(self._heap)

@@ -106,6 +106,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_launch.argtypes = (
         [_VP] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _VP])
+    lib.dispatch_scatter_launch.restype = _I
+    lib.dispatch_scatter_launch.argtypes = [_VP] * 4 + [_I] * 5 + [_VP]
+    lib.combine_gather_launch.restype = _I
+    lib.combine_gather_launch.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
 
 
 def load(verbose: bool = False) -> ctypes.CDLL:

@@ -18,6 +18,22 @@ random weights from --seed, its depth cut to --layers (default 4; the full
 depth does not fit one card).  --smoke selects the small fp32 config instead;
 with --device cpu the kernels' plain PyTorch versions run.  The exit code is
 0 only if every request has a result.
+
+Prefill/decode disaggregation: `--mode pd` runs the whole request lifecycle.
+The prefill executor (built with `emit_kv`) keeps each prompt's KV on the
+device; the `PDOrchestrator` hands it to a `DecodeExecutor` (a copy into the
+request's cache slot), which generates the remaining tokens in continuous
+batches through the capacity-mode MoE layer (the dispatch/combine kernels);
+every completion line carries tokens_out and TPOT.  Knobs: --out-len-mean /
+--out-len-cv (sampled decode lengths, deterministic per rid),
+--decode-width (decode cache slots), --colocated (baseline: no KV transfer
+cost, no handoffs logged).  The run FAILS unless every request reaches a
+definite status, ok requests produced exactly out_len tokens, and
+(disaggregated) at least one KV handoff happened.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pd
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode pd --smoke \
+      --device cpu --time-scale 20
 """
 from __future__ import annotations
 
@@ -31,12 +47,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.cost_model import Placement
+from repro_torch.core.cost_model import H100, Placement
+from repro_torch.core.decode import DecodeExecutor, ExecDecodeEngine
 from repro_torch.core.engine import ExecutorEngine, RequestResult
 from repro_torch.core.executor import DisaggregatedExecutor
+from repro_torch.core.orchestrator import PDOrchestrator
 from repro_torch.core.scheduler import LengthAwareBatcher
 from repro_torch.core.trace import (Request, TraceClock, TraceConfig,
-                                    sample_lengths)
+                                    sample_lengths, sample_out_len)
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import init_lm_params
 
@@ -121,27 +139,38 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
     }
 
 
-def run_executor(args) -> int:
+def _setup(args):
+    """(device, cfg, params) of the CLI's model, or None without a card."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         print("ERROR: --device cuda but no CUDA device is available (pass "
               "--device cpu --smoke for the CPU check)", file=sys.stderr)
-        return 2
+        return None
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 stays fp32
     if args.smoke:
         cfg = get_config(ARCH).smoke().replace(
             num_layers=args.layers if args.layers is not None else 3,
             num_experts=8, top_k=2)
-        trace = TraceConfig(mean_len=48, max_len=64, seed=args.seed)
-        lo, hi, max_tokens = 8, 64, 128
     else:
         cfg = get_config(ARCH).replace(
             num_layers=args.layers if args.layers is not None else 4)
-        trace = TraceConfig(mean_len=1024, max_len=2048, seed=args.seed)
-        lo, hi, max_tokens = 64, 2048, 4096
     gen = torch.Generator(device=device).manual_seed(args.seed)
     with torch.inference_mode():
         params = init_lm_params(gen, cfg, device)
+    return device, cfg, params
+
+
+def run_executor(args) -> int:
+    setup = _setup(args)
+    if setup is None:
+        return 2
+    device, cfg, params = setup
+    if args.smoke:
+        trace = TraceConfig(mean_len=48, max_len=64, seed=args.seed)
+        lo, hi, max_tokens = 8, 64, 128
+    else:
+        trace = TraceConfig(mean_len=1024, max_len=2048, seed=args.seed)
+        lo, hi, max_tokens = 64, 2048, 4096
     D = args.dp_groups if args.dp_groups is not None else 2
     E = args.moe_devices if args.moe_devices is not None else 4
     placement = Placement.parse(args.placement,
@@ -220,6 +249,190 @@ def run_executor(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Prefill/decode disaggregation (--mode pd)
+# ---------------------------------------------------------------------------
+
+
+def _pd_gate(results, reqs, kv_log, colocated) -> int:
+    """The pd contract: every request reached a definite status, every ok
+    request produced exactly its sampled out_len tokens, and the
+    disaggregated path performed at least one KV handoff."""
+    out_len = {r.rid: r.out_len for r in reqs}
+    rc = 0
+    if len(results) != len(reqs):
+        print(f"ERROR: {len(reqs) - len(results)} request(s) without a "
+              f"result", file=sys.stderr)
+        rc = 1
+    for r in results:
+        if r.status not in ("ok", "timeout", "failed"):
+            print(f"ERROR: rid={r.rid} indefinite status {r.status!r}",
+                  file=sys.stderr)
+            rc = 1
+        if r.status == "ok" and r.tokens_out != out_len[r.rid]:
+            print(f"ERROR: rid={r.rid} produced {r.tokens_out} tokens, "
+                  f"expected out_len={out_len[r.rid]}", file=sys.stderr)
+            rc = 1
+    if not colocated and kv_log.count < 1:
+        print("ERROR: disaggregated run performed no KV handoff",
+              file=sys.stderr)
+        rc = 1
+    return rc
+
+
+def _pd_summary(results, kv_log, colocated):
+    ok = [r for r in results if r.status == "ok"]
+    ttfts = np.array([r.ttft for r in ok]) if ok else np.array([0.0])
+    tpots = [r.tpot for r in ok if r.tpot is not None]
+    toks = sum(r.tokens_out for r in ok)
+    print(f"completed {len(ok)}/{len(results)} ok, {toks} tokens out; "
+          f"mean TTFT {ttfts.mean() * 1000:.0f} ms"
+          + (f", mean TPOT {np.mean(tpots) * 1000:.1f} ms" if tpots else ""))
+    if colocated:
+        print("kv handoffs: 0 (colocated baseline)")
+    else:
+        print(f"kv handoffs: {kv_log.count} "
+              f"({kv_log.bytes / 1e6:.2f} MB, "
+              f"{kv_log.seconds * 1000:.2f} ms link time)")
+
+
+def _print_pd_result(r: RequestResult):
+    print(f"  done rid={r.rid:<3d} tokens_out={r.tokens_out} "
+          f"ttft={r.ttft:.3f}s"
+          + (f" tpot={r.tpot * 1000:.1f}ms" if r.tpot else "")
+          + f" status={r.status}  [{_fmt_decomp(r.decomposition)}]")
+
+
+def pd_requests(lengths: Sequence[int], out_lens: Sequence[int], rps: float,
+                seed: int) -> List[Request]:
+    """Requests with Poisson arrivals at `rps` (the serve phase's draw)."""
+    rng = np.random.default_rng(seed + 1)
+    arrivals = np.cumsum(rng.exponential(1.0 / max(rps, 1e-9),
+                                         size=len(lengths)))
+    return [Request(rid=i, arrival=float(arrivals[i]), length=int(n),
+                    out_len=int(o))
+            for i, (n, o) in enumerate(zip(lengths, out_lens))]
+
+
+def serve_pd(cfg: ModelConfig, params, reqs: Sequence[Request], *,
+             prompts: Optional[dict] = None, device="cuda", D: int = 2,
+             E: int = 4, slots: int = 8, max_len: int = 256, time_scale: float = 1.0,
+             colocated: bool = False, max_batch_tokens: int = 4096,
+             idle_backoff: Optional[float] = 0.05, verbose: bool = False,
+             executor: Optional[DisaggregatedExecutor] = None) -> dict:
+    """Serve `reqs` through prefill/decode disaggregation: ExecutorEngine
+    (keep_kv) over an emit_kv DisaggregatedExecutor(D, E) -> KV handoff
+    priced on the H100's link -> DecodeExecutor(slots, max_len) behind
+    ExecDecodeEngine, federated by a PDOrchestrator.  `prompts` maps rid
+    to its token ids (synthesised from the rid when absent).  Returns the
+    results, the orchestrator, the decode runtime and the executor.
+
+    `executor` hands in a long-lived executor from an earlier wave (workers
+    stopped between waves); it is switched to emit_kv and its stats are
+    reset."""
+    ex = executor
+    if ex is None:
+        ex = DisaggregatedExecutor(params, cfg, D=D, E=E, emit_kv=True,
+                                   idle_backoff=idle_backoff, device=device)
+        ex.prewarm_buckets(max(max_batch_tokens // 2, 1))
+    else:
+        ex.emit_kv = True
+        ex.reset_stats()
+    clock = TraceClock(speed=time_scale)
+    pre = ExecutorEngine(
+        ex, clock=clock, keep_kv=True,
+        batcher=LengthAwareBatcher(inflection=max(max_batch_tokens // 2, 1),
+                                   max_tokens=max_batch_tokens,
+                                   exclusive_cutoff=1 << 30, max_wait=0.05))
+    rt = DecodeExecutor(params, cfg, slots=slots, max_len=max_len,
+                        clock=clock.now)
+    orch = PDOrchestrator([pre], [ExecDecodeEngine(rt)], hw=H100,
+                          colocated=colocated)
+    t0 = time.time()
+    for q in reqs:
+        orch.submit(q, None if prompts is None else prompts[q.rid])
+    results: List[RequestResult] = []
+    while len(results) < len(reqs) and time.time() - t0 < 600:
+        for r in orch.poll():
+            results.append(r)
+            if verbose:
+                _print_pd_result(r)
+        time.sleep(0.002)
+    for r in orch.drain(timeout=120):
+        results.append(r)
+        if verbose:
+            _print_pd_result(r)
+    wall = time.time() - t0
+    orch.close()  # closes the prefill engine too
+    return {"results": results, "orch": orch, "runtime": rt, "wall": wall,
+            "executor": ex, "kv_log": orch.kv_log}
+
+
+def run_pd(args) -> int:
+    """Disaggregated prefill/decode serving (`--mode pd`)."""
+    setup = _setup(args)
+    if setup is None:
+        return 2
+    device, cfg, params = setup
+    out_mean = args.out_len_mean if args.out_len_mean is not None else 4.0
+    out_cv = args.out_len_cv if args.out_len_cv is not None else 0.5
+    label = "colocated baseline" if args.colocated else "disaggregated"
+    D = args.dp_groups if args.dp_groups is not None else 2
+    E = args.moe_devices if args.moe_devices is not None else 4
+    if args.smoke:  # the reference's pd config: 3 layers, 8 experts top-2
+        slots = args.decode_width if args.decode_width is not None else 4
+        max_len, max_tokens = 64, 128
+        tc = TraceConfig(mean_len=24, max_len=32, seed=args.seed,
+                         out_len_mean=out_mean, out_len_cv=out_cv)
+        lengths = np.clip(sample_lengths(args.requests, tc), 8, 32)
+    else:
+        slots = args.decode_width if args.decode_width is not None else 8
+        max_len, max_tokens = 2048 + 64, 4096
+        tc = TraceConfig(mean_len=1024, max_len=2048, seed=args.seed,
+                         out_len_mean=out_mean, out_len_cv=out_cv)
+        lengths = np.clip(sample_lengths(args.requests, tc), 64, 2048)
+    out_lens = [min(sample_out_len(i, tc), max_len - int(n))
+                for i, n in enumerate(lengths)]
+    reqs = pd_requests(lengths, out_lens, args.rps, args.seed)
+    print(f"executor pd engine on {device} ({label}): D={D} prefill groups, "
+          f"E={E} MoE devices, {cfg.name} {cfg.num_layers}L x "
+          f"{cfg.num_experts}e d_model={cfg.d_model} "
+          f"{str(cfg.dtype).replace('torch.', '')} -> decode runtime with "
+          f"{slots} slots x {max_len} tokens; {args.requests} requests, "
+          f"lengths {[int(x) for x in lengths]}, out_lens {out_lens}")
+    out = serve_pd(cfg, params, reqs, device=device, D=D, E=E, slots=slots,
+                   max_len=max_len, time_scale=args.time_scale,
+                   colocated=args.colocated, max_batch_tokens=max_tokens,
+                   idle_backoff=args.idle_backoff, verbose=True)
+    results, rt, kv_log = out["results"], out["runtime"], out["kv_log"]
+    _pd_summary(results, kv_log, args.colocated)
+    print(f"decode runtime: {rt.steps} steps, {rt.trace_counts['decode_step']}"
+          f" step signature(s) (shapes and capacity never changed == 1)")
+    rc = _pd_gate(results, reqs, kv_log, args.colocated)
+    if args.save_stats:
+        ok = [r for r in results if r.status == "ok"]
+        tpots = [r.tpot for r in ok if r.tpot is not None]
+        with open(args.save_stats, "w") as f:
+            json.dump({
+                "engine": f"pd:{'colocated' if args.colocated else 'remote'}",
+                "device": str(device),
+                "requests": len(reqs),
+                "completed_ok": len(ok),
+                "tokens_out": int(sum(r.tokens_out for r in ok)),
+                "expected_tokens": int(sum(r.out_len for r in reqs)),
+                "mean_ttft": float(np.mean([r.ttft for r in ok]))
+                if ok else None,
+                "mean_tpot": float(np.mean(tpots)) if tpots else None,
+                "kv_handoffs": kv_log.count,
+                "kv_bytes": kv_log.bytes,
+                "decode_steps": rt.steps,
+                "decode_step_signatures": rt.trace_counts["decode_step"],
+                "statuses": {r.rid: r.status for r in results},
+            }, f, indent=2)
+        print(f"pd stats saved to {args.save_stats}")
+    return rc
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         description="Serve prefill requests through the disaggregated "
@@ -257,12 +470,50 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (use with --smoke)")
+    ap.add_argument("--mode", default="asap", choices=["asap", "pd"],
+                    help="asap: prefill serving; pd: the disaggregated "
+                         "prefill/decode lifecycle")
+    ap.add_argument("--out-len-mean", type=float, default=None,
+                    help="pd mode: mean sampled decode length (tokens, "
+                         "lognormal, deterministic per rid; default 4)")
+    ap.add_argument("--out-len-cv", type=float, default=None,
+                    help="pd mode: coefficient of variation of the sampled "
+                         "decode lengths (default 0.5)")
+    ap.add_argument("--decode-width", type=int, default=None,
+                    help="pd mode: decode cache slots (default 8 at full "
+                         "width, 4 with --smoke)")
+    ap.add_argument("--colocated", action="store_true",
+                    help="pd mode: colocated baseline -- prefill and decode "
+                         "share the device, KV transfer costs nothing and no "
+                         "handoff is logged")
     args = ap.parse_args(argv)
     if args.requests < 1:
         ap.error("--requests must be >= 1")
     if args.layers is not None and args.layers < 1:
         ap.error("--layers must be >= 1")
-    return run_executor(args)
+    # decode knobs without the mode that consumes them are configuration
+    # mistakes, not silent no-ops
+    if args.mode != "pd":
+        for flag, val in (("--out-len-mean", args.out_len_mean),
+                          ("--out-len-cv", args.out_len_cv),
+                          ("--decode-width", args.decode_width)):
+            if val is not None:
+                ap.error(f"{flag} requires --mode pd (only the "
+                         f"disaggregated lifecycle runs a decode stage)")
+        if args.colocated:
+            ap.error("--colocated requires --mode pd (it selects the "
+                     "colocated prefill+decode baseline)")
+        return run_executor(args)
+    if args.out_len_mean is not None and args.out_len_mean < 1.0:
+        ap.error("--out-len-mean must be >= 1 (every request emits at "
+                 "least the first token)")
+    if args.out_len_cv is not None and args.out_len_cv < 0.0:
+        ap.error("--out-len-cv must be >= 0")
+    if args.decode_width is not None and args.decode_width < 1:
+        ap.error("--decode-width must be >= 1")
+    if args.save_router_stats:
+        ap.error("--save-router-stats is not supported with --mode pd")
+    return run_pd(args)
 
 
 if __name__ == "__main__":

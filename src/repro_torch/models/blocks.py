@@ -9,11 +9,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import (attention_forward,
+from repro_torch.models.attention import (attention_decode_ragged,
+                                          attention_forward, attention_prefill,
                                           init_attention_params)
 from repro_torch.models.common import (ModelConfig, act_fn, apply_norm,
                                        dense_init, make_norm_params)
-from repro_torch.models.moe import init_moe_params, moe_forward_dense
+from repro_torch.models.moe import init_moe_params, moe_forward
 
 # ---------------------------------------------------------------------------
 # Dense FFN
@@ -51,19 +52,52 @@ def init_decoder_block_params(gen: torch.Generator, cfg: ModelConfig, *,
 
 def decoder_block_forward(p, h, cfg: ModelConfig, *,
                           window: Optional[int] = None, moe: bool = False,
-                          moe_mode: str = "dense",
-                          use_dense: Optional[bool] = None) -> torch.Tensor:
-    """h: [B, S, d] -> [B, S, d].  Only the dense MoE mode is ported."""
+                          moe_mode: str = "capacity",
+                          use_dense: Optional[bool] = None):
+    """h: [B, S, d] -> (h, MoEAux or None)."""
     B, S, d = h.shape
     h = h + attention_forward(p["attn"], apply_norm(h, p["ln_attn"], cfg), cfg,
                               window=window, use_dense=use_dense)
     x = apply_norm(h, p["ln_ffn"], cfg)
     if moe:
-        if moe_mode != "dense":
-            raise NotImplementedError(
-                f"moe_mode={moe_mode!r}: the port carries the dense mode "
-                f"only (the capacity mode needs the dispatch/combine "
-                f"kernels)")
-        y = moe_forward_dense(p["ffn"], x.reshape(B * S, d), cfg)
-        return h + y.reshape(B, S, d)
-    return h + ffn_forward(p["ffn"], x, cfg)
+        y, aux = moe_forward(p["ffn"], x.reshape(B * S, d), cfg,
+                             mode=moe_mode)
+        return h + y.reshape(B, S, d), aux
+    return h + ffn_forward(p["ffn"], x, cfg), None
+
+
+def decoder_block_prefill(p, h, cfg: ModelConfig, *,
+                          window: Optional[int] = None, moe: bool = False,
+                          max_len: Optional[int] = None,
+                          use_dense: Optional[bool] = None):
+    """Full-sequence forward that also emits the layer's KV cache:
+    (h, KVCache).  The MoE runs in capacity mode, as in the reference."""
+    B, S, d = h.shape
+    a, cache = attention_prefill(p["attn"], apply_norm(h, p["ln_attn"], cfg),
+                                 cfg, window=window, max_len=max_len,
+                                 use_dense=use_dense)
+    h = h + a
+    x = apply_norm(h, p["ln_ffn"], cfg)
+    if moe:
+        y, _ = moe_forward(p["ffn"], x.reshape(B * S, d), cfg,
+                           mode="capacity")
+        return h + y.reshape(B, S, d), cache
+    return h + ffn_forward(p["ffn"], x, cfg), cache
+
+
+def decoder_block_decode_ragged(p, h, k_cache, v_cache, lengths,
+                                cfg: ModelConfig, *, moe: bool = False):
+    """One-token decode over a ragged continuous batch.  h: [B, 1, d];
+    k_cache/v_cache: [B, S_max, kvh, hd] (written in place, see
+    `attention_decode_ragged`); lengths: [B] int32 per-row cache lengths.
+    Returns (h, k_cache, v_cache); the caller advances `lengths`."""
+    B = h.shape[0]
+    a, ck, cv = attention_decode_ragged(
+        p["attn"], apply_norm(h, p["ln_attn"], cfg), k_cache, v_cache,
+        lengths, cfg)
+    h = h + a
+    x = apply_norm(h, p["ln_ffn"], cfg)
+    if moe:
+        y, _ = moe_forward(p["ffn"], x.reshape(B, -1), cfg, mode="capacity")
+        return h + y.reshape(B, 1, -1), ck, cv
+    return h + ffn_forward(p["ffn"], x, cfg), ck, cv

@@ -13,8 +13,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.models import blocks as B
+from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
                                        embed_init, make_norm_params)
+from repro_torch.models.moe import MoEAux
 
 # ---------------------------------------------------------------------------
 # Stage specs
@@ -84,22 +86,59 @@ def layer_slice(sp, l: int):
     return None if sp is None else sp[l]
 
 
+def _zero_aux(cfg: ModelConfig, device) -> MoEAux:
+    z = torch.zeros((), device=device)
+    return MoEAux(z, z, torch.zeros((max(cfg.num_experts, 1),),
+                                    device=device))
+
+
+def _mean_aux(auxs) -> MoEAux:
+    return MoEAux(*(torch.stack(f).mean(0) for f in zip(*auxs)))
+
+
 def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
-                moe_mode: str = "dense", use_dense: Optional[bool] = None):
-    """Embed + all stages + final norm. Returns (h [B,S,d], None) -- the
-    second slot is where the reference returns its MoE aux losses."""
+                moe_mode: str = "capacity", use_dense: Optional[bool] = None):
+    """Embed + all stages + final norm. Returns (h [B,S,d], MoEAux): the
+    aux is averaged over each stage's layers, then over the stages, as in
+    the reference (zeros for a stage without experts)."""
     h = embed_tokens(params, tokens, embeddings, cfg)
+    auxs = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
+        layer_auxs = []
         for l in range(n):
-            h = B.decoder_block_forward(
+            h, aux = B.decoder_block_forward(
                 layer_slice(sp, l), h, cfg, window=opts.get("window"),
                 moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense)
-    return apply_norm(h, params["final_norm"], cfg), None
+            layer_auxs.append(aux if aux is not None
+                              else _zero_aux(cfg, h.device))
+        auxs.append(_mean_aux(layer_auxs))
+    return apply_norm(h, params["final_norm"], cfg), _mean_aux(auxs)
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
-               moe_mode: str = "dense", use_dense: Optional[bool] = None):
+               moe_mode: str = "capacity", use_dense: Optional[bool] = None):
     """Full logits (use for small scales / sampling)."""
     h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
                          use_dense=use_dense)
     return lm_head(params, h, cfg), aux
+
+
+def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
+               max_len: Optional[int] = None,
+               use_dense: Optional[bool] = None):
+    """Returns (last-position logits [B, V], caches): one `KVCache` per
+    stage, its k/v stacked on a leading [L] layer axis ([L, B, S, kvh, hd])
+    and its length [L], as the reference's scan stacks them."""
+    h = embed_tokens(params, tokens, embeddings, cfg)
+    caches = []
+    for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
+        layer = []
+        for l in range(n):
+            h, cache = B.decoder_block_prefill(
+                layer_slice(sp, l), h, cfg, window=opts.get("window"),
+                moe=opts["moe"], max_len=max_len, use_dense=use_dense)
+            layer.append(cache)
+        caches.append(KVCache(*(torch.stack(f) for f in zip(*layer))))
+    h = apply_norm(h, params["final_norm"], cfg)
+    logits = lm_head(params, h[:, -1:], cfg)[:, 0]
+    return logits, caches

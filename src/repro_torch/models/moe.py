@@ -1,16 +1,36 @@
 """Mixture-of-Experts FFN: top-k router + expert FFN + shared experts.
 
-The port carries the ``dense`` mode -- the exact dropless reference that
-computes every expert on every token and combines with the router weights.
-It is the oracle the disaggregated executor is held against.  (The
-``capacity`` mode of the reference rides on the dispatch/combine kernels,
-which are not ported yet.)
+Two execution modes, as in the reference:
+  * ``dense``    -- exact dropless reference (every expert on every token,
+                    combined with the router weights).  The oracle the
+                    disaggregated executor is held against.
+  * ``capacity`` -- sort tokens by expert, scatter into fixed [E, C, d]
+                    capacity buffers, batched expert matmul, gather and
+                    combine.  The payload movement runs through the
+                    dispatch/combine kernels (`kernels/dispatch_combine`): on
+                    a card their CUDA kernels, on the CPU their plain
+                    versions.  The decode step of prefill/decode serving
+                    runs this mode.  `moe_dispatch`/`moe_combine` are its
+                    plain torch oracles.
+
+The batched expert matmul is pluggable (`gmm=`), as in the reference.
 """
 from __future__ import annotations
 
+from typing import Callable, NamedTuple, Optional
+
 import torch
 
+from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                      kernel_moe_dispatch)
 from repro_torch.models.common import ModelConfig, act_fn, dense_init
+
+
+class MoEAux(NamedTuple):
+    load_balance_loss: torch.Tensor  # scalar
+    dropped_fraction: torch.Tensor  # scalar, share of routed pairs dropped
+    expert_load: torch.Tensor  # [E] share of routed pairs per expert
+
 
 # ---------------------------------------------------------------------------
 # Params
@@ -53,6 +73,18 @@ def router_topk(p_router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
     return weights, idx.to(torch.int32), probs
 
 
+def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
+                      num_experts: int):
+    """Switch-style auxiliary loss: E * sum_e f_e * P_e, f by scatter-add
+    (exact integer counts, no [T, K, E] one-hot and no host read)."""
+    flat = idx.reshape(-1).long()
+    counts = torch.zeros(num_experts, dtype=torch.float32, device=idx.device)
+    counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
+    f = counts / max(idx.shape[0], 1)
+    P = torch.mean(probs, dim=0)
+    return num_experts * torch.sum(f * P), f / max(idx.shape[1], 1)
+
+
 # ---------------------------------------------------------------------------
 # Expert FFN (gated)
 # ---------------------------------------------------------------------------
@@ -81,14 +113,15 @@ def default_gmm(xb: torch.Tensor, experts: dict,
 # ---------------------------------------------------------------------------
 
 
-def moe_forward_dense(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Exact dropless MoE. x: [T, d]. O(T*E*f) compute -- smoke/oracle only.
+def moe_forward_dense(p, x: torch.Tensor, cfg: ModelConfig):
+    """Exact dropless MoE. x: [T, d] -> (y [T, d], MoEAux with
+    dropped_fraction 0).  O(T*E*f) compute -- smoke/oracle only.
 
     Every expert runs on every token; the loop over experts keeps the
     [T, E, d] intermediate of the reference's einsum out of memory (at 128
     experts it would not fit) while summing experts in the same order."""
     T, d = x.shape
-    weights, idx, _ = router_topk(p["router"], x, cfg)
+    weights, idx, probs = router_topk(p["router"], x, cfg)
     act = act_fn(cfg.act)
     combine = torch.zeros((T, cfg.num_experts), dtype=torch.float32,
                           device=x.device)
@@ -103,4 +136,122 @@ def moe_forward_dense(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if "shared" in p:
         y = y + gated_ffn(x, p["shared"]["w_gate"], p["shared"]["w_up"],
                           p["shared"]["w_down"], act)
-    return y
+    lb, load = load_balance_loss(probs, idx, cfg.num_experts)
+    return y, MoEAux(lb, torch.zeros((), device=x.device), load)
+
+
+# ---------------------------------------------------------------------------
+# Capacity mode
+# ---------------------------------------------------------------------------
+
+
+def expert_capacity(num_tokens: int, cfg: ModelConfig) -> int:
+    c = int(num_tokens * cfg.top_k / max(cfg.num_experts, 1)
+            * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)  # the reference rounds up to 8
+
+
+def dispatch_slots(idx: torch.Tensor, num_experts: int, capacity: int):
+    """Index arithmetic of the dispatch, on idx's device, no host read.
+    idx: [T, K] -> (perm [T*K] sorted (token, k) pairs by expert, stable;
+    slot [T*K] capacity-buffer row of each sorted pair, E*C when dropped;
+    valid [T*K]; group_sizes [E] pairs routed to each expert)."""
+    E, C = num_experts, capacity
+    flat_e = idx.reshape(-1).long()
+    perm = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[perm]
+    # exact integer counts; bincount would read its maximum back
+    group_sizes = torch.zeros(E, dtype=torch.long, device=idx.device)
+    group_sizes.scatter_add_(0, flat_e, torch.ones_like(flat_e))
+    group_offset = torch.cumsum(group_sizes, 0) - group_sizes
+    pos = torch.arange(flat_e.numel(), device=idx.device) \
+        - group_offset[sorted_e]
+    valid = pos < C
+    slot = torch.where(valid, sorted_e * C + pos,
+                       torch.full_like(pos, E * C))
+    return perm, slot, valid, group_sizes
+
+
+def moe_dispatch(x: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig,
+                 capacity: Optional[int] = None):
+    """Plain sort-based dispatch (the oracle of `kernel_moe_dispatch`).
+    x: [T, d]; idx: [T, K] -> (xb [E, C, d], dispatch info)."""
+    T, d = x.shape
+    K, E = cfg.top_k, cfg.num_experts
+    C = capacity or expert_capacity(T, cfg)
+    perm, slot, valid, group_sizes = dispatch_slots(idx, E, C)
+    rows = x.index_select(0, perm // K)
+    xb = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
+    xb.index_copy_(0, slot, rows)  # dropped pairs land in row E*C
+    info = dict(perm=perm, slot=slot, valid=valid, group_sizes=group_sizes,
+                capacity=C)
+    return xb[:E * C].reshape(E, C, d), info
+
+
+def moe_combine(yb: torch.Tensor, info, weights: torch.Tensor, T: int,
+                via_gather: bool = False) -> torch.Tensor:
+    """Plain inverse of dispatch (the oracle of `kernel_moe_combine`):
+    gather expert outputs, un-permute, weight, sum over K.  via_gather
+    un-permutes with a gather through argsort(perm) instead of a row
+    scatter."""
+    E, C, d = yb.shape
+    K = weights.shape[1]
+    flat = yb.reshape(E * C, d)
+    valid = info["valid"]
+    rows = flat.index_select(0, torch.where(valid, info["slot"], 0))
+    gathered = torch.where(valid[:, None], rows, torch.zeros_like(rows))
+    if via_gather:
+        out_sorted = gathered.index_select(0, torch.argsort(info["perm"]))
+    else:
+        out_sorted = torch.zeros((T * K, d), dtype=flat.dtype,
+                                 device=flat.device)
+        out_sorted.index_copy_(0, info["perm"], gathered)
+    out = out_sorted.reshape(T, K, d)
+    return torch.einsum("tkd,tk->td", out, weights.to(out.dtype))
+
+
+def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
+                         gmm: Optional[Callable] = None,
+                         capacity: Optional[int] = None):
+    """Capacity-mode MoE. x: [T, d] -> (y [T, d], MoEAux).
+
+    Each of the `dispatch_groups` groups sorts and scatters only its own
+    tokens (the reference vmaps over groups; here a loop); one expert matmul
+    runs over all groups' buffers.  The payload moves through the
+    dispatch/combine kernels; `combine_via_gather` selects how the combine
+    un-permutes, as in the reference."""
+    if cfg.moe_shard_constraints:
+        raise NotImplementedError(
+            "moe_shard_constraints: multi-device sharding of the capacity "
+            "layer is not ported")
+    T, d = x.shape
+    E, K = cfg.num_experts, cfg.top_k
+    weights, idx, probs = router_topk(p["router"], x, cfg)
+    G = cfg.dispatch_groups if T % max(cfg.dispatch_groups, 1) == 0 else 1
+    Tg = T // G
+    C = capacity or expert_capacity(Tg, cfg)
+    xg, idxg, wg = (a.reshape(G, Tg, -1) for a in (x, idx, weights))
+    xbs, infos = zip(*(kernel_moe_dispatch(xg[g], idxg[g], cfg, C)
+                       for g in range(G)))
+    # [G, E, C, d] -> [E, G*C, d]: one matmul per expert over all groups
+    xb2 = torch.stack(xbs, 1).reshape(E, G * C, d)
+    yb = (gmm or default_gmm)(xb2, p["experts"], cfg).reshape(E, G, C, d)
+    ys = [kernel_moe_combine(yb[:, g].contiguous(), infos[g], wg[g], Tg,
+                             via_gather=cfg.combine_via_gather)
+          for g in range(G)]
+    y = ys[0] if G == 1 else torch.cat(ys, 0)
+    lb, load = load_balance_loss(probs, idx, E)
+    kept = sum(info["valid"].sum() for info in infos)
+    aux = MoEAux(lb, 1.0 - kept / (T * K), load)
+    if "shared" in p:
+        y = y + gated_ffn(x, p["shared"]["w_gate"], p["shared"]["w_up"],
+                          p["shared"]["w_down"], act_fn(cfg.act))
+    return y, aux
+
+
+def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *,
+                mode: str = "capacity", gmm: Optional[Callable] = None,
+                capacity: Optional[int] = None):
+    if mode == "dense":
+        return moe_forward_dense(p, x, cfg)
+    return moe_forward_capacity(p, x, cfg, gmm=gmm, capacity=capacity)
