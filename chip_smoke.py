@@ -29,9 +29,22 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             counts of all four kernels set to 0 just before, read just after
   timing    each kernel timed at the shapes its path gave it, beside its
             bound, its plain version and one library call (library_ms is a
-            yardstick timed here and used nowhere in the port)
+            yardstick timed here and used nowhere in the port): super_gmm
+            gate/up and down at the serve wave's median launch (counts) and
+            dense, flash_attention at the wave's modal (B, S) and at the one
+            with the largest share of launches * B * S^2
   profile   (only with --phases ...,profile) the served requests once more
             under torch.profiler: device time by kernel, busy share
+
+Every super_gmm and flash_attention launch of the serve wave must take the
+wgmma route (the per-route launch counts say so).
+
+To time another tree's kernels at the same shapes (a parent commit, say):
+with the {"kernels": ...} line of a full run in the file F, copy this script
+into the other tree's root and run it there as
+    python3 chip_smoke.py --phases device,build,timing --shapes-from F
+which times super_gmm and flash_attention alone at that line's shapes, with
+the repro_torch beside the script, and prints one {"timing": ...} line.
 
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -87,6 +100,21 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def row_rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The worst row (last axis) of |got - ref| / |ref|: an attention row's
+    output shrinks as 1/sqrt(keys seen), so a bound on the absolute error
+    alone misses faults on the late rows (a lost key tile, a wrong rescale)."""
+    ref = ref.float()
+    return float(((got.float() - ref).norm(dim=-1)
+                  / ref.norm(dim=-1)).max())
+
+
+# flash_attention's bound on row_rel_err, beside the absolute bound: ~12x
+# and ~3x the worst a sound kernel gave over every case of the kernels
+# phase on an H100 (fp32 8.2e-7, bf16 5.9e-3)
+ROW_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Mean time of one call in ms, by CUDA events around `iters` calls."""
     for _ in range(warmup):
@@ -118,10 +146,13 @@ def phase_device() -> str:
 
 def phase_build(verbose: bool):
     t0 = time.time()
-    _build.load(verbose=verbose)
+    _build.load()
     srcs = [s.name for s in _build.sources()]
     print(f"[build] {srcs} -> {_build.build_dir()} in "
           f"{time.time() - t0:.1f}s")
+    if verbose:  # registers, shared memory and spills of every kernel
+        print("\n".join(f"[build] {line}" for line in
+                        _build.ptxas_report().splitlines() if line.strip()))
 
 
 def _gmm_inputs(gen, L, E, C, K, N, dtype):
@@ -131,25 +162,42 @@ def _gmm_inputs(gen, L, E, C, K, N, dtype):
     return w, x
 
 
+def _routes(wrapper) -> dict:
+    return dict(wrapper.launches_by_route)
+
+
+def _took(wrapper, before: dict, route: str, what: str):
+    """Every launch since `before` (a _routes snapshot) took `route`."""
+    now = _routes(wrapper)
+    diff = {r: now[r] - before.get(r, 0) for r in now}
+    expect(diff.get(route, 0) > 0 and sum(diff.values()) == diff[route],
+           f"{what}: launches by route {diff}, expected all {route}")
+
+
 def check_super_gmm(gen) -> float:
     """Edge shapes in fp32 and bf16, then the main-path shapes in bf16.
     Returns the max abs error at the main-path shapes."""
     # every layer id through ONE launch signature, no host sync in between
     L, E, C, K, N = 3, 4, 192, 128, 64
-    w, x = _gmm_inputs(gen, L, E, C, K, N, torch.float32)
-    lids = torch.arange(L, dtype=torch.int32, device=DEV)
-    syncs_before = _launch.host_syncs
-    outs = [super_gmm(lids[l:l + 1], w, x) for l in range(L)]
-    expect(_launch.host_syncs == syncs_before,
-           "a host sync between super_gmm launches")
-    torch.cuda.synchronize()
-    for l in range(L):
-        ref = super_gmm_ref(lids[l:l + 1], w, x)
-        err = max_err(outs[l], ref)
-        expect(err <= 1e-5, f"super_gmm fp32 C=192 layer {l}: err {err}")
-    expect(not torch.equal(outs[0], outs[1]), "layer id ignored")
-    print(f"[kernels] super_gmm fp32 L={L} E={E} C={C} K={K} N={N}: every "
-          f"layer id from one launch signature, tol 1e-5 ok")
+    for dtype, tol, route in ((torch.float32, 1e-5, "fma"),
+                              (torch.bfloat16, 2e-3, "wgmma")):
+        w, x = _gmm_inputs(gen, L, E, C, K, N, dtype)
+        lids = torch.arange(L, dtype=torch.int32, device=DEV)
+        syncs_before, routes = _launch.host_syncs, _routes(super_gmm)
+        outs = [super_gmm(lids[l:l + 1], w, x) for l in range(L)]
+        expect(_launch.host_syncs == syncs_before,
+               "a host sync between super_gmm launches")
+        _took(super_gmm, routes, route, f"super_gmm {dtype} layers")
+        torch.cuda.synchronize()
+        for l in range(L):
+            ref = super_gmm_ref(lids[l:l + 1], w, x)
+            err = max_err(outs[l], ref)
+            expect(err <= tol, f"super_gmm {dtype} C=192 layer {l}: err "
+                   f"{err}")
+        expect(not torch.equal(outs[0], outs[1]), "layer id ignored")
+    print(f"[kernels] super_gmm fp32 (fma) and bf16 (wgmma) L={L} E={E} "
+          f"C={C} K={K} N={N}: every layer id from one launch signature, "
+          f"tol 1e-5 / 2e-3 ok")
     # ragged edges: C=8, K and N off the tile and off the 16-byte chunk
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
         for (E, C, K, N) in ((4, 8, 128, 64), (3, 70, 72, 40),
@@ -159,8 +207,17 @@ def check_super_gmm(gen) -> float:
             err = max_err(super_gmm(lid, w, x), super_gmm_ref(lid, w, x))
             expect(err <= tol, f"super_gmm {dtype} E={E} C={C} K={K} N={N}: "
                    f"err {err} > {tol}")
+        # an x base one element past a 16-byte boundary: not for TMA
+        if dtype == torch.bfloat16:
+            w, _ = _gmm_inputs(gen, 2, 3, 1, 64, 64, dtype)
+            x = _unaligned((3, 40, 64), dtype, gen)
+            routes = _routes(super_gmm)
+            got = super_gmm(lid, w, x)
+            _took(super_gmm, routes, "wmma", "super_gmm unaligned x")
+            err = max_err(got, super_gmm_ref(lid, w, x))
+            expect(err <= tol, f"super_gmm unaligned x: err {err}")
     print("[kernels] super_gmm ragged C/K/N edges fp32 (tol 1e-5) and bf16 "
-          "(tol 2e-3) ok")
+          "(tol 2e-3; K or N off 8 and an unaligned x take wmma) ok")
     # per-expert row counts: rows beyond counts[e] are padding -> zeros, also
     # where x holds something there; counts of 0 and above C included
     for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-3)):
@@ -176,8 +233,30 @@ def check_super_gmm(gen) -> float:
                and float(got[2, 64:].abs().max()) == 0.0
                and float(got[2, :64].abs().max()) > 0.0,
                "super_gmm: padding rows are not zero")
+    # the persistent walk at 128 experts (counts 0, 1, BM, BM + 1, C, > C)
+    # on a strided view of the weights, as the resident stacks are
+    E, C, K, N = 128, 160, 256, 264
+    wfull, x = _gmm_inputs(gen, 2, 2 * E, C, K, N, torch.bfloat16)
+    w, x = wfull[:, 1::2], x[:E]
+    pick = torch.tensor([0, 1, 128, 129, 160, 999, 7, 64],
+                        dtype=torch.int32, device=DEV)
+    counts = pick[torch.randint(0, len(pick), (E,), generator=gen,
+                                device=DEV)]
+    routes = _routes(super_gmm)
+    # the output lands in a block the allocator just freed full of NaN, so
+    # an element the kernel's walk does not write shows
+    torch.full((E, C, N), float("nan"), device=DEV)
+    got = super_gmm(lid, w, x, counts)
+    _took(super_gmm, routes, "wgmma", "super_gmm E=128 strided")
+    err = max_err(got, super_gmm_ref(lid, w, x, counts))
+    expect(err <= 2e-3, f"super_gmm E=128 strided weights: err {err}")
+    pad = torch.arange(C, device=DEV)[None, :] >= counts[:, None]
+    expect(float(got[pad].abs().max()) == 0.0,
+           "super_gmm E=128: padding rows are not exactly zero")
     print("[kernels] super_gmm with per-expert row counts (0, 1, 64, 65, C, "
-          ">C): padding rows zero, real rows vs plain ok")
+          ">C; and 128 experts with counts 0, 1, BM, BM+1, C, >C on strided "
+          "weights into a NaN-filled block): padding rows exactly zero, real "
+          "rows vs plain ok")
     # merged capacity buffer == per-region, bitwise (bf16, tensor cores)
     cfg = get_config(ARCH).smoke().replace(dtype=torch.bfloat16)
     n_e, d, f = 4, cfg.d_model, cfg.expert_d_ff
@@ -216,6 +295,7 @@ def check_super_gmm(gen) -> float:
     # main-path shapes: one MoE device of qwen3 (32 experts), gate/up + down
     full = get_config(ARCH)
     worst = 0.0
+    routes = _routes(super_gmm)
     for (K, N) in ((full.d_model, full.expert_d_ff),
                    (full.expert_d_ff, full.d_model)):
         for C in (8, 64, 512):
@@ -225,6 +305,7 @@ def check_super_gmm(gen) -> float:
                    f"err {err}")
             worst = max(worst, err)
             del w, x
+    _took(super_gmm, routes, "wgmma", "super_gmm main-path shapes")
     print(f"[kernels] super_gmm bf16 main-path shapes n_e=32 C in (8,64,512) "
           f"K/N {full.d_model}/{full.expert_d_ff}: max err {worst:.2e} "
           f"(tol 2e-3) ok")
@@ -238,26 +319,48 @@ def check_flash_attention(gen) -> float:
     cases = [dict(causal=True), dict(causal=True, window=24),
              dict(causal=True, softcap=30.0),
              dict(causal=True, window=7, softcap=20.0), dict(causal=False)]
+    routes = _routes(flash_attention)
+    rel = dict.fromkeys(ROW_REL_TOL, 0.0)  # worst row_rel_err by dtype
+
+    def check(got, ref, dtype, tol, what):
+        err, r = max_err(got, ref), row_rel_err(got, ref)
+        rel[dtype] = max(rel[dtype], r)
+        expect(err <= tol and r <= ROW_REL_TOL[dtype],
+               f"{what}: err {err} (tol {tol}), row rel err {r} (tol "
+               f"{ROW_REL_TOL[dtype]})")
+        return err
+
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 4e-2)):
         for dh in (32, 64, 128):
             for S in (192, 50, 257):
                 q, k, v = (rnd((3, S, dh), dtype) for _ in range(3))
                 for kw in cases:
-                    err = max_err(flash_attention(q, k, v, **kw),
-                                  attention_ref(q, k, v, **kw))
-                    expect(err <= tol, f"flash_attention {dtype} dh={dh} "
-                           f"S={S} {kw}: err {err} > {tol}")
+                    check(flash_attention(q, k, v, **kw),
+                          attention_ref(q, k, v, **kw), dtype, tol,
+                          f"flash_attention {dtype} dh={dh} S={S} {kw}")
+    now = _routes(flash_attention)
+    expect(all(now[r] > routes.get(r, 0) for r in now),
+           f"flash_attention edges: not every route ran: {now}")
     print("[kernels] flash_attention [BH,S,dh] S in (192,50,257) dh in "
           "(32,64,128), causal/window/softcap/non-causal: fp32 tol 2e-5, "
-          "bf16 tol 4e-2 ok")
-    # model layout + GQA, the KV head indexed in the kernel
+          "bf16 tol 4e-2 ok (routes fma, wmma at dh 32, wgmma at 64/128)")
+    # model layout + GQA, the KV head indexed in the kernel: dh 32 (wmma),
+    # dh 128 (wgmma), and dh 128 from an unaligned base (wmma)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 4e-2)):
-        q = rnd((2, 192, 8, 32), dtype)
-        k, v = rnd((2, 192, 2, 32), dtype), rnd((2, 192, 2, 32), dtype)
-        got = mha_flash(q, k, v, window=40)
-        ref = mha_flash(q.cpu(), k.cpu(), v.cpu(), window=40).to(DEV)
-        err = max_err(got, ref)
-        expect(err <= tol, f"mha_flash GQA {dtype}: err {err} > {tol}")
+        for dh, B, S, H, KVH in ((32, 2, 192, 8, 2), (128, 2, 300, 8, 2),
+                                 (64, 1, 1000, 4, 1)):
+            q = rnd((B, S, H, dh), dtype)
+            k, v = rnd((B, S, KVH, dh), dtype), rnd((B, S, KVH, dh), dtype)
+            got = mha_flash(q, k, v, window=40)
+            ref = mha_flash(q.cpu(), k.cpu(), v.cpu(), window=40).to(DEV)
+            check(got, ref, dtype, tol, f"mha_flash GQA {dtype} dh={dh}")
+    q = _unaligned((1, 130, 4, 128), torch.bfloat16, gen)
+    k = rnd((1, 130, 2, 128), torch.bfloat16)
+    routes = _routes(flash_attention)
+    got = mha_flash(q, k, k)
+    _took(flash_attention, routes, "wmma", "flash_attention unaligned q")
+    check(got, mha_flash(q.cpu(), k.cpu(), k.cpu()).to(DEV), torch.bfloat16,
+          4e-2, "mha_flash unaligned q")
     try:
         flash_attention(rnd((1, 8, 48), torch.float32),
                         rnd((1, 8, 48), torch.float32),
@@ -266,21 +369,27 @@ def check_flash_attention(gen) -> float:
         pass
     else:
         raise Failed("flash_attention took a head dim it has no kernel for")
-    print("[kernels] mha_flash [B,S,H,dh] GQA ok; unsupported head dim "
-          "raises")
+    print("[kernels] mha_flash [B,S,H,dh] GQA (dh 32/128/64, window 40, "
+          "unaligned base on wmma) ok; unsupported head dim raises")
     # main-path shape: qwen3 heads, bf16
     full = get_config(ARCH)
     worst = 0.0
+    routes = _routes(flash_attention)
     for (B, S) in ((1, 256), (2, 1024)):
         q = rnd((B, S, full.num_heads, full.head_dim), torch.bfloat16)
         k = rnd((B, S, full.num_kv_heads, full.head_dim), torch.bfloat16)
         v = rnd((B, S, full.num_kv_heads, full.head_dim), torch.bfloat16)
-        err = max_err(mha_flash(q, k, v), _mha_plain(q, k, v))
-        expect(err <= 4e-2, f"mha_flash bf16 main B={B} S={S}: err {err}")
+        err = check(mha_flash(q, k, v), _mha_plain(q, k, v), torch.bfloat16,
+                    4e-2, f"mha_flash bf16 main B={B} S={S}")
         worst = max(worst, err)
+    _took(flash_attention, routes, "wgmma", "mha_flash main-path shapes")
     print(f"[kernels] mha_flash bf16 main-path shape H={full.num_heads} "
           f"KVH={full.num_kv_heads} dh={full.head_dim}: max err {worst:.2e} "
           f"(tol 4e-2) ok")
+    print(f"[kernels] flash_attention worst row relative error over every "
+          f"case above: fp32 {rel[torch.float32]:.2e} (tol "
+          f"{ROW_REL_TOL[torch.float32]:.0e}), bf16 "
+          f"{rel[torch.bfloat16]:.2e} (tol {ROW_REL_TOL[torch.bfloat16]:.0e})")
     return worst
 
 
@@ -483,8 +592,8 @@ def phase_serve(cfg, params, seed: int) -> dict:
                         **kw)["executor"]
     kw["executor"] = ex
     torch.cuda.synchronize()
-    super_gmm.launches = 0
-    flash_attention.launches = 0
+    _launch.reset_launches(super_gmm)
+    _launch.reset_launches(flash_attention)
     _launch.reset_host_syncs()
     torch.cuda.reset_peak_memory_stats()
     ms = torch.cuda.memory_stats()
@@ -494,6 +603,8 @@ def phase_serve(cfg, params, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = {"super_gmm": super_gmm.launches,
                 "flash_attention": flash_attention.launches}
+    by_route = {"super_gmm": _routes(super_gmm),
+                "flash_attention": _routes(flash_attention)}
     syncs = _launch.reset_host_syncs()
     results, st = out["results"], out["stats"]
     expect(len(results) == 8 and all(r.ok for r in results),
@@ -503,6 +614,9 @@ def phase_serve(cfg, params, seed: int) -> dict:
            "serve: bad first token")
     expect(launches["super_gmm"] > 0 and launches["flash_attention"] > 0,
            f"serve: a kernel was never launched: {launches}")
+    for name, n in launches.items():  # the main path is the Hopper route
+        expect(by_route[name]["wgmma"] == n,
+               f"serve: {name} launches by route {by_route[name]}")
     tokens = sum(lengths)
     batch_layers = out["batch_layers"]
     decomp = {k: float(np.mean([r.decomposition[k] for r in results]))
@@ -525,7 +639,8 @@ def phase_serve(cfg, params, seed: int) -> dict:
           f"{ms['num_device_alloc'] - alloc0[0]}, cudaFree calls "
           f"{ms['num_device_free'] - alloc0[1]}, allocation retries "
           f"{ms['num_alloc_retries'] - alloc0[2]} during the served run")
-    print(f"[serve] launches {launches}; host syncs {syncs} over "
+    print(f"[serve] launches {launches}, by route {by_route}; host syncs "
+          f"{syncs} over "
           f"{batch_layers} batch-layers = "
           f"{syncs / max(batch_layers, 1):.2f} per batch-layer (1 read of "
           f"the router ids per batch-layer on the attention side, 1 stream "
@@ -545,9 +660,9 @@ def phase_serve(cfg, params, seed: int) -> dict:
           f"attention group util "
           f"{np.round(burst['stats'].group_util, 2).tolist()}")
     expect(not ex.errors, "executor worker failed")
-    return {"launches": launches, "shapes": out["shapes"],
-            "buckets": out["buckets"], "counts": out["counts"],
-            "lengths": lengths, "kw": kw}
+    return {"launches": launches, "by_route": by_route,
+            "shapes": out["shapes"], "buckets": out["buckets"],
+            "counts": out["counts"], "lengths": lengths, "kw": kw}
 
 
 def _pd_kernels():
@@ -646,7 +761,7 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
-        k.launches = 0
+        _launch.reset_launches(k)
     _launch.reset_host_syncs()
     out = serve_pd(cfg, params, reqs, device=DEV, slots=8, max_len=2112,
                    executor=serve["kw"]["executor"], max_batch_tokens=4096,
@@ -846,76 +961,146 @@ def _copy_rows(gen, pd: dict, errs: dict) -> list:
     return out_rows
 
 
-def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
-    """Each kernel at the shape its path launched it with most: super_gmm
-    and flash_attention from the serve phase, dispatch_scatter and
-    combine_gather from the pd phase."""
-    full = get_config(ARCH)
-    bf = torch.bfloat16
-    # ---- super_gmm: modal capacity bucket, gate/up projection ----------
+def wave_shapes(serve: dict) -> dict:
+    """What the timing phase times, from the serve wave: super_gmm at the
+    modal capacity bucket (n_e, C) and, of the launches in it, the one with
+    the median row total (its counts); flash_attention at the modal (B, S)
+    and at the (B, S) with the largest share of launches * B * S^2."""
     (n_e, C), _ = collections.Counter(serve["buckets"]).most_common(1)[0]
-    # of the launches in that bucket, the one with the median row total
     same = sorted((c for b, c in zip(serve["buckets"], serve["counts"])
                    if b == (n_e, C)), key=sum)
-    cnt = same[len(same) // 2]
-    counts = torch.tensor(cnt, dtype=torch.int32, device=DEV)
-    K, N = full.d_model, full.expert_d_ff
-    w, x = _gmm_inputs(gen, SERVE_LAYERS, n_e, C, K, N, bf)
-    x = x * (torch.arange(C, device=DEV)[None, :, None]
-             < counts[:, None, None])  # as pack_capacity leaves it
+    seen = collections.Counter(tuple(s) for s in serve["shapes"])
+    modal = seen.most_common(1)[0][0]
+    heaviest = max(seen, key=lambda bs: seen[bs] * bs[0] * bs[1] ** 2)
+    return {"super_gmm": {"n_e": n_e, "C": C,
+                          "counts": [int(c) for c in same[len(same) // 2]]},
+            "flash_attention": [list(modal)] + (
+                [list(heaviest)] if heaviest != modal else [])}
+
+
+def _case(name, match, kern, plain, lib, lib_name, nbytes, ops, dtype,
+          shape):
+    """One timed shape: the kernel, its plain version on the same inputs
+    (also the max abs error between the two), one library call; the bound
+    from this run's bytes and operations.  `ms` is a wrapper call as the host
+    issues them back to back; `device_ms` the kernel alone (profiler, the
+    kernels whose name holds `match`), `library_device_ms` every kernel of
+    the library call; tflops are the real work over `device_ms`."""
+    got = kern()
+    want = plain()
+    err = max_err(got, want)
+    del got, want
+    ms = cuda_ms(kern, iters=50, warmup=5)
+    dev, _ = _device_ms(kern, 20, match=match)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return {"case": name, "ms": ms, "device_ms": dev,
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": cuda_ms(lib, iters=50, warmup=5),
+            "library_device_ms": _device_ms(lib, 20)[0],
+            "library_call": lib_name, "tflops": ops / dev / 1e9,
+            "max_abs_err": err, "shape": shape}
+
+
+def time_super_gmm(shapes: dict, gen) -> list:
+    """gate/up (K = d_model, N = d_ff) and down (K = d_ff, N = d_model) at
+    the wave's median launch (counts), then both dense (no counts).  What a
+    launch's data needs: the rows that exist, the weights of the experts
+    that have any, the whole output written once; the operations on the
+    real rows."""
+    full = get_config(ARCH)
+    bf = torch.bfloat16
+    n_e, C, cnt = shapes["n_e"], shapes["C"], shapes["counts"]
     lid = torch.tensor([1], dtype=torch.int32, device=DEV)
-    gmm_ms = cuda_ms(lambda: super_gmm(lid, w, x, counts))
-    gmm_dense = cuda_ms(lambda: super_gmm(lid, w, x))
-    gmm_plain = cuda_ms(lambda: super_gmm_ref(lid, w, x, counts), iters=3,
-                        warmup=1)
-    gmm_lib = cuda_ms(lambda: torch.bmm(x, w[1]))
-    # what this launch's data needs: the rows that exist, the weights of the
-    # experts that have any, the whole output written once
-    real = sum(min(c, C) for c in cnt)
-    used = sum(1 for c in cnt if c > 0)
-    nbytes = 2 * (used * K * N + real * K) + 4 * n_e * C * N
-    ops = 2.0 * real * K * N
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[bf]
-    gmm = {"name": "super_gmm", "route": "cuda",
-           "source": "src/repro_torch/csrc/super_gmm.cu",
-           "replaces": "src/repro/kernels/super_gmm/super_gmm.py:68",
-           "launches": serve["launches"]["super_gmm"],
-           "max_abs_err": errs["super_gmm"], "ms": gmm_ms,
-           "plain_ms": gmm_plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": gmm_lib,
-           "ms_without_counts": gmm_dense,
-           "shape": {"n_e": n_e, "C": C, "K": K, "N": N, "dtype": "bf16",
-                     "real_rows": real, "experts_with_rows": used}}
-    del w, x
-    # ---- flash_attention: modal (B, S) of the served batches -----------
-    (B, S), _ = collections.Counter(serve["shapes"]).most_common(1)[0]
+    cases = []
+    for proj, (K, N) in (("gate_up", (full.d_model, full.expert_d_ff)),
+                         ("down", (full.expert_d_ff, full.d_model))):
+        w, x = _gmm_inputs(gen, SERVE_LAYERS, n_e, C, K, N, bf)
+        counts = torch.tensor(cnt, dtype=torch.int32, device=DEV)
+        x = x * (torch.arange(C, device=DEV)[None, :, None]
+                 < counts[:, None, None])  # as pack_capacity leaves it
+        for c in (counts, None):
+            real = n_e * C if c is None else sum(min(v, C) for v in cnt)
+            used = n_e if c is None else sum(1 for v in cnt if v > 0)
+            cases.append(_case(
+                f"{proj}_{'dense' if c is None else 'counts'}", "super_gmm",
+                lambda c=c: super_gmm(lid, w, x, c),
+                lambda c=c: super_gmm_ref(lid, w, x, c),
+                lambda: torch.bmm(x, w[1]), "torch.bmm(x, w[layer]) (dense)",
+                2 * (used * K * N + real * K) + 4 * n_e * C * N,
+                2.0 * real * K * N, bf,
+                {"n_e": n_e, "C": C, "K": K, "N": N, "dtype": "bf16",
+                 "real_rows": real, "experts_with_rows": used,
+                 "counts": None if c is None else cnt}))
+        del w, x
+    return cases
+
+
+def time_flash_attention(shapes: list, gen) -> list:
+    full = get_config(ARCH)
+    bf = torch.bfloat16
     H, KVH, dh = full.num_heads, full.num_kv_heads, full.head_dim
-    q = torch.randn((B, S, H, dh), generator=gen, device=DEV).to(bf)
-    k = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
-    v = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
-    fa_ms = cuda_ms(lambda: mha_flash(q, k, v))
-    fa_plain = cuda_ms(lambda: _mha_plain(q, k, v), iters=3, warmup=1)
-    qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).contiguous()
-                  for t in (q, k, v))
-    fa_lib = cuda_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(
-            qh, kh, vh, is_causal=True))
-    nbytes = 2 * (2 * B * S * H * dh + 2 * B * S * KVH * dh)
-    ops = 4.0 * B * H * S * S * dh / 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[bf]
-    fa = {"name": "flash_attention", "route": "cuda",
-          "source": "src/repro_torch/csrc/flash_attention.cu",
-          "replaces":
-              "src/repro/kernels/flash_attention/flash_attention.py:97",
-          "launches": serve["launches"]["flash_attention"],
-          "max_abs_err": errs["flash_attention"], "ms": fa_ms,
-          "plain_ms": fa_plain, "bound_ms": 1e3 * max(t_bytes, t_ops),
-          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-          "library_ms": fa_lib,
-          "shape": {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh,
-                    "dtype": "bf16", "causal": True}}
-    return {"kernels": [gmm, fa] + _copy_rows(gen, pd, errs)}
+    cases = []
+    for i, (B, S) in enumerate(shapes):
+        q = torch.randn((B, S, H, dh), generator=gen, device=DEV).to(bf)
+        k = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
+        v = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
+        qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).contiguous()
+                      for t in (q, k, v))
+        cases.append(_case(
+            "modal" if i == 0 else "heaviest", "flash",
+            lambda: mha_flash(q, k, v),
+            lambda: _mha_plain(q, k, v),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True),
+            "scaled_dot_product_attention (expanded heads)",
+            2 * (2 * B * S * H * dh + 2 * B * S * KVH * dh),
+            4.0 * B * H * S * S * dh / 2, bf,
+            {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh, "dtype": "bf16",
+             "causal": True}))
+        del q, k, v, qh, kh, vh
+    return cases
+
+
+def _row(name, line, cases, serve, errs):
+    """A kernel's row of the {"kernels": ...} line: the first case's
+    numbers, the serve wave's launches, and every case timed."""
+    first = cases[0]
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{name}/{name}.py:{line}",
+            "launches": serve["launches"][name],
+            "launches_by_route": serve["by_route"][name],
+            "max_abs_err": errs[name],
+            **{k: first[k] for k in ("ms", "device_ms", "plain_ms",
+                                     "bound_ms", "bound_by", "library_ms",
+                                     "library_device_ms", "tflops",
+                                     "shape")},
+            "cases": cases}
+
+
+def shapes_from(kernels_line: dict) -> dict:
+    """The shapes a full run's {"kernels": ...} line timed, as wave_shapes
+    gives them."""
+    rows = {r["name"]: r for r in kernels_line["kernels"]}
+    g = rows["super_gmm"]["cases"][0]["shape"]
+    return {"super_gmm": {k: g[k] for k in ("n_e", "C", "counts")},
+            "flash_attention": [[c["shape"]["B"], c["shape"]["S"]]
+                                for c in rows["flash_attention"]["cases"]]}
+
+
+def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
+    """Each kernel at the shapes its path launched it with: super_gmm and
+    flash_attention from the serve phase, dispatch_scatter and
+    combine_gather from the pd phase."""
+    shapes = wave_shapes(serve)
+    return {"kernels": [
+        _row("super_gmm", 68, time_super_gmm(shapes["super_gmm"], gen),
+             serve, errs),
+        _row("flash_attention", 97,
+             time_flash_attention(shapes["flash_attention"], gen), serve,
+             errs)] + _copy_rows(gen, pd, errs)}
 
 
 def main() -> int:
@@ -926,7 +1111,12 @@ def main() -> int:
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
     ap.add_argument("--verbose-build", action="store_true",
-                    help="print nvcc's -Xptxas -v output")
+                    help="print ptxas's registers, shared memory and spills "
+                    "of every kernel")
+    ap.add_argument("--shapes-from", default=None, metavar="PATH",
+                    help="a file holding the {\"kernels\": ...} line of a "
+                    "full run: time super_gmm and flash_attention alone at "
+                    "its shapes (--phases device,build,timing)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device -- this script measures on the "
@@ -939,6 +1129,19 @@ def main() -> int:
     card = phase_device()
     if "build" in phases:
         phase_build(args.verbose_build)
+    if args.shapes_from:
+        expect(phases == ["device", "build", "timing"],
+               "--shapes-from times the kernels alone: --phases "
+               "device,build,timing")
+        with open(args.shapes_from) as f:
+            shapes = shapes_from(json.loads(f.read()))
+        print(json.dumps({"timing": {
+            "src": os.path.dirname(os.path.abspath(__file__)),
+            "super_gmm": time_super_gmm(shapes["super_gmm"], gen),
+            "flash_attention": time_flash_attention(
+                shapes["flash_attention"], gen)}}))
+        print(card)
+        return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = None
     if "executor" in phases or "serve" in phases:

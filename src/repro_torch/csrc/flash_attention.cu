@@ -5,26 +5,52 @@
 // Replaces the TPU kernel src/repro/kernels/flash_attention/
 // flash_attention.py::flash_attention (`_kernel`, pl.pallas_call at line 97).
 // Same function: causal and sliding-window masks (kpos > qpos - window),
-// optional softcap (tanh(s / cap) * cap), NEG_INF = -1e30 for masked scores,
-// fp32 running (m, l, acc), final acc / max(l, 1e-30), key tiles wholly
-// outside the causal/window frontier never visited.
+// optional softcap (tanh(s / cap) * cap), fp32 running (m, l, acc), final
+// acc / max(l, 1e-30), key tiles wholly outside the causal/window frontier
+// never visited.  A masked score contributes exactly zero (the kernels keep
+// it at -inf and take exp2 against a finite row max), which agrees with
+// the reference's NEG_INF = -1e30 on every row that has a visible key.
 //
 // What bounds it on an H100: 4 * B * H * S^2 * dh / 2 operations (causal)
-// against B * (2 H + 2 KVH) * S * dh elements moved -- for S beyond a few
-// hundred the tensor cores are the bound, not the memory.  What the design
-// does about it: the [S, S] score matrix never leaves the SM (one block per
-// (batch*head, 64-query tile), scores, probabilities and the fp32 output
-// accumulator live in shared memory); bf16 inputs run both products on the
-// tensor cores (wmma 16x16x16, fp32 accumulate); fp32 inputs run them as
-// plain fp32 FMA loops.  The TPU's sequential key-block grid axis becomes the
-// loop over key tiles inside the block.  KV heads are indexed h / (H / KVH)
-// in the kernel, so the head-expanded K and V are never written, and q, k, v
-// and o are addressed through (batch, position, head) strides, so the model
-// layout [B, S, H, dh] needs no transpose.  A sequence length that is not a
-// multiple of the tile is masked, not rounded to a divisor.
+// against B * (2 H + 2 KVH) * S * dh elements moved.  At the serving shapes
+// (qwen3: H=64, KVH=4, dh=128, S=256..2048) that is 20-150 operations per
+// byte read from L2-resident K/V and far above the card's 295 per HBM byte:
+// the tensor cores are the bound, so what counts is keeping them fed.
+//
+// bf16, head dim 64 or 128 (`flash_wgmma_kernel`, the main path): one block
+// per (batch*head, 128-query tile), heaviest query tiles first; three
+// warpgroups.  Warpgroup 2 is the producer: one thread loads Q once and then
+// streams K and V tiles by TMA into a two-stage ring, each tile completing on
+// its own mbarrier, so the next tile lands while the current one is being
+// multiplied.  The K/V tensor maps are 4-D over [B, S, KVH, dh] with the
+// tensors' real strides, so the batch, the KV head h / (H / KVH) (GQA, never
+// expanded) and the key offset are TMA coordinates and the model layout needs
+// no transpose.  Warpgroups 0 and 1 each own 64 query rows and keep every
+// intermediate in registers: S = Q K^T by wgmma from swizzled shared memory
+// into the accumulator registers; the online softmax on those registers (row
+// max and sum over the four threads that share a row, ex2.approx with
+// sm_scale * log2(e) folded into one multiply-add); P converted to bf16 in
+// registers is the register A operand of O += P V (V the MN-major shared B
+// operand); O is rescaled in registers.  Masks are applied only on the tiles
+// where they bite (the causal diagonal, the window edge, the ragged end of
+// S).  setmaxnreg moves registers from the producer warpgroup (24) to the
+// consumers (240).
+//
+// Other routes, picked by shape in the wrapper (`route`) and handed to
+// flash_attention_launch, which refuses tensors the wgmma route cannot
+// take: a bf16 tensor that TMA cannot describe (a
+// base not 16-byte aligned, a stride not a multiple of 16 bytes) or head
+// dim 32 takes `flash_attention_kernel` on wmma, whose scores and fp32
+// accumulator live in shared memory; fp32 takes the same kernel's plain FMA
+// loops (correctness only).  A sequence length that is not a multiple of the
+// tile is masked, not rounded to a divisor, on every route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <cmath>
+
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -284,10 +310,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
            int KVH, int S, Strides sq, Strides sk, Strides sv, Strides so,
            int causal, int window, float softcap, float sm_scale, int vec_ok,
            cudaStream_t stream) {
-  auto kern = flash_attention_kernel<T, DH, BQ, BKV>;
-  constexpr size_t bytes = Layout<T, DH, BQ, BKV>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  constexpr auto kern = flash_attention_kernel<T, DH, BQ, BKV>;
+  constexpr int bytes = static_cast<int>(Layout<T, DH, BQ, BKV>::BYTES);
+  cudaError_t err = hopper::allow_smem<kern>(bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, bytes, stream>>>(
@@ -297,15 +322,285 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ------------------------------------------- bf16 on wgmma + TMA (sm_90a) --
+namespace wg {
+
+constexpr int BQ = 128;       // query rows per block: two warpgroups of 64
+constexpr int BKV = 128;      // keys per tile
+constexpr int STAGES = 2;     // depth of the K/V ring
+constexpr int THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DH> struct Smem {
+  static constexpr int CH = DH / 64;          // 64-column chunks of a row
+  static constexpr int Q_CHUNK = BQ * 128;    // bytes of one chunk of Q
+  static constexpr int KV_CHUNK = BKV * 128;  // ... of K or V
+  static constexpr int KV_TILE = CH * KV_CHUNK;
+  static constexpr int OFF_K = CH * Q_CHUNK;  // Q | K ring | V ring | bars
+  static constexpr int OFF_V = OFF_K + STAGES * KV_TILE;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+// Accumulator layout of wgmma m64nN (fp32): thread (warp w, lane l) of the
+// warpgroup holds rows 16w + l/4 and 16w + l/4 + 8; element i sits in row
+// half (i >> 1) & 1 and column 8 (i >> 2) + 2 (l & 3) + (i & 1).  The
+// layout of S over 16 keys is the register A layout of P for P V, so P
+// passes from the accumulators to the next product with a pack, no shuffle.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   bf16* __restrict__ o, Strides so, int H, int KVH, int S,
+                   int causal, int window, float softcap, float sm_scale) {
+  using L = Smem<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + STAGES;
+  uint64_t* empty = bars + 1 + 2 * STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);  // GQA: the KV head this query head reads
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  // key tiles inside the causal / window frontier of this query tile
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / BKV;
+  const int n_tiles = (kv_hi + BKV - 1) / BKV - t_lo;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {  // ---------------------------------------- producer --
+    hopper::regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_expect_tx(q_full, L::CH * L::Q_CHUNK);
+      for (int c = 0; c < L::CH; ++c)
+        hopper::tma_load_4d(smem + c * L::Q_CHUNK, &tq, q_full, 64 * c, q0, h,
+                            b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % STAGES;
+        const uint32_t ph = (i / STAGES) & 1;
+        const int k0 = (t_lo + i) * BKV;
+        hopper::mbar_wait(&empty[s], ph ^ 1);
+        unsigned char* ks = smem + L::OFF_K + s * L::KV_TILE;
+        unsigned char* vs = smem + L::OFF_V + s * L::KV_TILE;
+        hopper::mbar_expect_tx(&k_full[s], L::KV_TILE);
+        for (int c = 0; c < L::CH; ++c)
+          hopper::tma_load_4d(ks + c * L::KV_CHUNK, &tk, &k_full[s], 64 * c,
+                              k0, hk, b);
+        hopper::mbar_expect_tx(&v_full[s], L::KV_TILE);
+        for (int c = 0; c < L::CH; ++c)
+          hopper::tma_load_4d(vs + c * L::KV_CHUNK, &tv, &v_full[s], 64 * c,
+                              k0, hk, b);
+      }
+    }
+  } else {  // --------------------------------------------- consumers --
+    hopper::regs_alloc<240>();
+    const int tid = threadIdx.x % 128, lane = tid % 32;
+    const int qw = q0 + 64 * wgi;                // first row of this warpgroup
+    const int qa = qw + (tid / 32) * 16 + lane / 4;  // rows qa, qa + 8
+    const float c2 = sm_scale * LOG2E;
+    const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+    const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+    const unsigned char* qs = smem + wgi * 64 * 128;
+
+    float sacc[BKV / 2], oacc[DH / 2];
+#pragma unroll
+    for (int i = 0; i < BKV / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) oacc[i] = 0.f;
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+    hopper::mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int k0 = (t_lo + i) * BKV;
+      const unsigned char* ks = smem + L::OFF_K + s * L::KV_TILE;
+      const unsigned char* vs = smem + L::OFF_V + s * L::KV_TILE;
+
+      // ---- S = Q K^T into registers ------------------------------------
+      hopper::mbar_wait(&k_full[s], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(
+            qs + (kk / 4) * L::Q_CHUNK + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(
+            ks + (kk / 4) * L::KV_CHUNK + (kk % 4) * 32, 16, 1024);
+        hopper::wgmma_ss_n128<0>(sacc, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+
+      // ---- online softmax on the registers -----------------------------
+      if (softcap > 0.f) {  // kept in raw units: c2 applies the scale
+#pragma unroll
+        for (int j = 0; j < BKV / 2; ++j)
+          sacc[j] = tanhf(sacc[j] * cap_in) * cap_out;
+      }
+      const bool edge = k0 + BKV > S;
+      const bool diag = causal && k0 + BKV - 1 > qw;
+      const bool wedge = window > 0 && k0 <= qw + 63 - window;
+      if (edge || diag || wedge) {  // only tiles where a mask bites
+#pragma unroll
+        for (int j = 0; j < BKV / 2; ++j) {
+          const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const int qpos = qa + 8 * ((j >> 1) & 1);
+          bool ok = kpos < S;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) sacc[j] = -INFINITY;
+        }
+      }
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int j = 0; j < BKV / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sacc[j]);
+      float bias[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with no visible key so far keeps p = 0 (exp2(-inf))
+        bias[r] = mx[r] == -INFINITY ? 0.f : mx[r] * c2;
+        corr[r] = ex2(m_run[r] * c2 - bias[r]);
+        m_run[r] = mx[r];
+      }
+      uint32_t pa[BKV / 16][4];  // P in bf16: the A operand of P V
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e0 = 8 * kk + 2 * j, r = j & 1;
+          const float p0 = ex2(fmaf(sacc[e0], c2, -bias[r]));
+          const float p1 = ex2(fmaf(sacc[e0 + 1], c2, -bias[r]));
+          rs[r] += p0 + p1;
+          pa[kk][j] = pack_bf16(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < DH / 2; ++j) oacc[j] *= corr[(j >> 1) & 1];
+
+      // ---- O += P V ------------------------------------------------------
+      hopper::mbar_wait(&v_full[s], ph);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint64_t db =
+            hopper::desc_sw128(vs + kk * 16 * 128, L::KV_CHUNK, 1024);
+        if constexpr (DH == 128)
+          hopper::wgmma_rs_n128(oacc, pa[kk], db, 1);
+        else
+          hopper::wgmma_rs_n64(oacc, pa[kk], db, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oacc);
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K/V stage is free
+    }
+
+    // ---- o = acc / l, rows beyond S not stored -------------------------
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_run[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      inv[r] = 1.f / fmaxf(l, 1e-30f);
+    }
+    bf16* op = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qpos = qa + 8 * r;
+      if (qpos >= S) continue;
+      bf16* row = op + qpos * so.s + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv[r],
+                                  oacc[4 * j + 2 * r + 1] * inv[r]);
+    }
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
+           int KVH, int S, Strides sq, Strides sk, Strides sv, Strides so,
+           int causal, int window, float softcap, float sm_scale,
+           cudaStream_t stream) {
+  // 4-D maps over [B, S, heads, dh] with the real strides: (dh chunk, key
+  // or query offset, head, batch) are the coordinates of a tile
+  const uint32_t box[4] = {64, BQ, 1, 1};
+  auto map = [&](CUtensorMap* m, const void* base, int heads,
+                 const Strides& st) {
+    const uint64_t dims[4] = {DH, static_cast<uint64_t>(S),
+                              static_cast<uint64_t>(heads),
+                              static_cast<uint64_t>(B)};
+    const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+    return hopper::make_map(m, base, 4, dims, strides, box);
+  };
+  static_assert(BQ == BKV, "one box shape serves Q, K and V");
+  CUtensorMap tq, tk, tv;
+  if (!map(&tq, q, H, sq) || !map(&tk, k, KVH, sk) || !map(&tv, v, KVH, sv))
+    return -3;
+  constexpr auto kern = flash_wgmma_kernel<DH>;
+  cudaError_t err = hopper::allow_smem<kern>(Smem<DH>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(B * H, (S + BQ - 1) / BQ);
+  kern<<<grid, THREADS, Smem<DH>::BYTES, stream>>>(
+      tq, tk, tv, reinterpret_cast<bf16*>(o), so, H, KVH, S, causal, window,
+      softcap, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q, o: [B, S, H, dh]-strided; k, v:
-// [B, S, KVH, dh]-strided (strides in elements, dh contiguous).  window <= 0
-// and softcap <= 0 switch those options off.  Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError(), -1 for a dtype
-// and -2 for a head dim it does not take.
+// Routes, as kernels/flash_attention/flash_attention.py::route picks them
+// by shape:
+constexpr int ROUTE_FMA = 0;    // fp32: plain FMA loops
+constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe, or dh 32
+constexpr int ROUTE_WGMMA = 2;  // bf16, dh 64 or 128, TMA-describable
+
+// route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
+// q, o: [B, S, H, dh]-strided; k, v: [B, S, KVH, dh]-strided (strides in
+// elements, dh contiguous).  window <= 0 and softcap <= 0 switch those
+// options off.  Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError(), -1 for an unknown route, -2 for
+// a head dim it does not take, -3 for a tensor map the driver refuses and
+// -4 for tensors the wgmma route cannot take.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, int route, int B,
     int H, int KVH, int S, int dh, long long q_sb, long long q_ss,
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, long long o_sb,
@@ -316,23 +611,30 @@ extern "C" int flash_attention_launch(
       sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
 #define FA_ARGS q, k, v, o, B, H, KVH, S, sq, sk, sv, so, causal, window, \
                 softcap, sm_scale
-  if (dtype == 0) {
+  if (route == ROUTE_FMA) {
     if (dh == 32) return launch<float, 32, 32, 32>(FA_ARGS, 0, s);
     if (dh == 64) return launch<float, 64, 32, 32>(FA_ARGS, 0, s);
     if (dh == 128) return launch<float, 128, 32, 32>(FA_ARGS, 0, s);
     return -2;
   }
-  if (dtype == 1) {
+  if (route == ROUTE_WMMA || route == ROUTE_WGMMA) {
+    // TMA takes 16-byte-aligned bases and strides that are multiples of 16
+    // bytes; the same test lets the wmma kernel copy rows 16 bytes at a time
     auto mult8 = [](const Strides& t) {
       return t.b % 8 == 0 && t.s % 8 == 0 && t.h % 8 == 0;
     };
-    const int vec_ok =
-        (reinterpret_cast<size_t>(q) % 16 == 0 &&
-         reinterpret_cast<size_t>(k) % 16 == 0 &&
-         reinterpret_cast<size_t>(v) % 16 == 0 && mult8(sq) && mult8(sk) &&
-         mult8(sv))
-            ? 1
-            : 0;
+    const bool aligned =
+        reinterpret_cast<size_t>(q) % 16 == 0 &&
+        reinterpret_cast<size_t>(k) % 16 == 0 &&
+        reinterpret_cast<size_t>(v) % 16 == 0 && mult8(sq) && mult8(sk) &&
+        mult8(sv);
+    if (route == ROUTE_WGMMA) {
+      if (!aligned) return -4;
+      if (dh == 64) return wg::launch<64>(FA_ARGS, s);
+      if (dh == 128) return wg::launch<128>(FA_ARGS, s);
+      return -4;
+    }
+    const int vec_ok = aligned ? 1 : 0;
     if (dh == 32) return launch<bf16, 32, 64, 64>(FA_ARGS, vec_ok, s);
     if (dh == 64) return launch<bf16, 64, 64, 64>(FA_ARGS, vec_ok, s);
     if (dh == 128) return launch<bf16, 128, 64, 64>(FA_ARGS, vec_ok, s);

@@ -4,39 +4,67 @@
 //
 // Replaces the TPU kernel src/repro/kernels/super_gmm/super_gmm.py::super_gmm
 // (`_kernel`, pl.pallas_call at line 68).  The three defining properties are
-// kept: the kernel is handed the base pointer and strides of the FULL
-// [L, E, K, N] weight stack, the (layer, expert, tile) address arithmetic is
-// done here, and the layer id is read in the kernel from a one-element int32
-// device tensor, so one launch signature serves every layer with no host
-// round trip.
-//
-// What bounds it on an H100: at the serving shapes one launch reads one MoE
-// device's expert weights once (n_e * K * N elements) against
-// 2 * n_e * C * K * N operations.  Below about 300 rows per expert the weight
-// read over HBM is the bound, above it the tensor cores are.  What the design
-// does about it: one block per (expert, C-tile, N-tile) so a small C still
-// spreads the weight read over hundreds of blocks; 16-byte cp.async loads
-// through a three-stage shared-memory ring, so the next K-tiles are in flight
-// while the current one is multiplied; bf16 inputs go through the tensor
-// cores (wmma 16x16x16, fp32 accumulate), fp32 inputs through a
-// register-tiled FMA loop in full fp32.
+// kept: the kernel is handed the FULL [L, E, K, N] weight stack, the
+// (layer, expert, tile) address arithmetic is done here, and the layer id is
+// read in the kernel from a one-element int32 device tensor, so one launch
+// signature serves every layer with no host round trip.
 //
 // Capacity buffers are mostly padding when routing is skewed (every expert's
 // buffer is as long as the hottest expert's).  `counts` (optional, [E] int32
-// on the device -- the dispatch protocol's per-expert row counts) tells the
-// kernel how many leading rows of each expert's buffer are real: a C-tile
-// wholly beyond counts[e] reads no weight and issues no product, it only
-// writes its zeros, so the work follows the rows that exist.  Like the layer
-// id, the counts are device data: no host round trip, one launch signature.
+// on the device -- the dispatch protocol's per-expert row counts) says how
+// many leading rows of each expert's buffer are real; the rest come out as
+// zeros, also where x holds something there.  Like the layer id, the counts
+// are device data: no host round trip, one launch signature.
 //
-// The TPU's sequential fourth grid axis (K) has no counterpart: the K loop is
-// inside the block with a register accumulator.  The K reduction order
-// depends on (K, dtype) only -- fixed BK, ascending, no split-K -- never on C,
+// What bounds it on an H100: one launch reads the weights of the experts
+// that have rows (K * N each) and writes the whole fp32 output, against
+// 2 * rows * K * N operations.  At the serving shapes (qwen3, one MoE device:
+// 32 experts, K/N 4096/1536, ~1300 real rows in a 512-row bucket) the weight
+// read and the fp32 output (padding zeros included) over HBM are the bound;
+// a dense buffer of 512 rows per expert is bound by the tensor cores.
+//
+// bf16 (`super_gmm_wgmma_kernel`, the main path): wgmma on a TMA-fed ring.
+// One persistent block per SM, three warpgroups.  Each block reads
+// counts[0..E) into shared memory and prefix-sums the real 128-row tiles of
+// every expert (ceil(min(counts[e], C) / 128)) and the padding rows beyond
+// them; it first writes its even share of the padding rows' zeros with
+// 16-byte stores, then walks the real (expert, n-tile, m-tile) tiles with a
+// stride of gridDim.x -- m-tiles innermost, so blocks that run together share
+// an expert's weights in L2.  Warpgroup 2 is the producer: one thread reads
+// the layer id and streams each tile's K-steps (BK = 64: a 128x64 x tile and
+// a 64x256 weight tile, 48 KB) by TMA into a four-stage ring with mbarriers,
+// skipping the half of the x tile that holds no real row.  One weight tensor
+// map over the whole [L, E, K, N] stack, with its real strides (the resident
+// stacks are strided views), serves every layer: layer and expert are TMA
+// coordinates.  It is built on the host once per weight tensor and cached
+// by (pointer, shape, strides).  x gets a 3-D map over [E, C, K] per call, so
+// rows beyond C read as zeros and no tile spills into the next expert.
+// Warpgroups 0 and 1 own 64 rows each and run wgmma m64n256k16 from the
+// swizzled ring (weights MN-major), one group in flight while the next stage
+// lands.  The epilogue writes fp32 pairs straight from the accumulator
+// registers, padding rows as zeros, masked at the C and N edges.
+//
+// The K reduction order depends on (K, dtype) only -- BM, BN and BK fixed by
+// dtype, K ascending in steps of 16, no split-K -- never on C or the counts,
 // so a row's result is bitwise the same wherever it sits in a capacity
-// buffer.  Ragged C, N and K edges are masked, not rounded to divisors.
+// buffer.
+//
+// Other routes, picked by shape in the wrapper (`route`) and handed to
+// super_gmm_launch, which refuses tensors the wgmma route cannot take: bf16
+// that TMA cannot describe (K or N not a multiple of
+// 8, K = 0, a base not 16-byte aligned, a weight stride not a multiple of 16
+// bytes, more than 1024 experts) takes `super_gmm_bf16_kernel` on wmma with a
+// cp.async ring; fp32 takes `super_gmm_f32_kernel`, a register-tiled FMA
+// loop (correctness only).  Ragged C, N and K edges are masked, not rounded
+// to divisors, on every route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include <mutex>
+#include <vector>
+
+#include "hopper.cuh"
 
 using bf16 = __nv_bfloat16;
 
@@ -129,7 +157,7 @@ super_gmm_f32_kernel(const int* __restrict__ layer_ptr,
   }
 }
 
-// ------------------------------------------------------------------ bf16 --
+// ------------------------------------------------------- bf16 on wmma --
 // 128x128 output tile, BK = 32, 8 warps in a 2x4 arrangement, each warp a
 // 64x32 sub-tile = 4x2 wmma accumulators.  x and w tiles travel global ->
 // shared by cp.async through a ring of H_STAGES stages, so the loads of the
@@ -290,42 +318,323 @@ super_gmm_bf16_kernel(const int* __restrict__ layer_ptr,
   }
 }
 
+// ------------------------------------------- bf16 on wgmma + TMA (sm_90a) --
+namespace wg {
+
+constexpr int BM = 128, BN = 256, BK = 64;  // fixed: never chosen from C
+constexpr int STAGES = 4;
+constexpr int THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
+constexpr int MAX_E = 1024;
+constexpr int A_HALF = 64 * BK * 2;   // 64 rows of x, K-major: 8 KB
+constexpr int B_CHUNK = BK * 64 * 2;  // 64 K-rows of 64 weight columns: 8 KB
+constexpr int STAGE = 2 * A_HALF + (BN / 64) * B_CHUNK;  // 48 KB
+constexpr int OFF_BAR = STAGES * STAGE;
+constexpr int OFF_TILES = OFF_BAR + 8 * 2 * STAGES;    // int[MAX_E + 1]
+constexpr int OFF_ROWS = OFF_TILES + 4 * (MAX_E + 1);  // int[MAX_E]
+constexpr int OFF_ZEROS = (OFF_ROWS + 4 * MAX_E + 7) / 8 * 8;  // ll[MAX_E+1]
+constexpr int SMEM = OFF_ZEROS + 8 * (MAX_E + 1) + 1024;
+static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+
+// The largest e < E with pre[e] <= v (pre non-decreasing, pre[E] > v).
+template <typename T>
+__device__ __forceinline__ int find_expert(const T* pre, int E, T v) {
+  int lo = 0, hi = E;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (pre[mid] <= v) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+struct Tile {
+  int e, m0, n0, rows;  // rows: the expert's real rows
+};
+
+// Real tile t of the walk: experts outermost, then n-tiles, then m-tiles.
+__device__ __forceinline__ Tile tile_at(int t, const int* tiles,
+                                        const int* rows, int E) {
+  Tile r;
+  r.e = find_expert(tiles, E, t);
+  r.rows = rows[r.e];
+  const int mt = (r.rows + BM - 1) / BM;
+  const int local = t - tiles[r.e];
+  r.n0 = (local / mt) * BN;
+  r.m0 = (local % mt) * BM;
+  return r;
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
+                       const __grid_constant__ CUtensorMap tx,
+                       const int* __restrict__ layer_ptr,
+                       const int* __restrict__ counts,
+                       float* __restrict__ out, int E, int C, int K, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* empty = full + STAGES;
+  int* tiles = reinterpret_cast<int*>(smem + OFF_TILES);  // prefix, real tiles
+  int* rows = reinterpret_cast<int*>(smem + OFF_ROWS);
+  long long* zeros = reinterpret_cast<long long*>(smem + OFF_ZEROS);
+  const int NT = (N + BN - 1) / BN, nk = (K + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Real rows per expert (device data), and two prefix sums over experts:
+  // real tiles, and padding elements beyond the last real tile.
+  if (warp == 0) {
+    int run_t = 0;
+    long long run_z = 0;
+    for (int e0 = 0; e0 < E; e0 += 32) {
+      const int e = e0 + lane;
+      int t = 0;
+      long long z = 0;
+      if (e < E) {
+        const int r = counts == nullptr ? C : min(max(counts[e], 0), C);
+        const int mt = (r + BM - 1) / BM;
+        rows[e] = r;
+        t = mt * NT;
+        z = static_cast<long long>(C - min(C, mt * BM)) * N;
+      }
+#pragma unroll
+      for (int off = 1; off < 32; off *= 2) {
+        const int tv = __shfl_up_sync(0xffffffffu, t, off);
+        const long long zv = __shfl_up_sync(0xffffffffu, z, off);
+        if (lane >= off) {
+          t += tv;
+          z += zv;
+        }
+      }
+      if (e < E) {
+        tiles[e + 1] = run_t + t;
+        zeros[e + 1] = run_z + z;
+      }
+      run_t += __shfl_sync(0xffffffffu, t, 31);
+      run_z += __shfl_sync(0xffffffffu, z, 31);
+    }
+    if (lane == 0) {
+      tiles[0] = 0;
+      zeros[0] = 0;
+    }
+  }
+  if (threadIdx.x == 32) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  const int total = tiles[E];
+
+  if (threadIdx.x >= 256) {  // ------------------------------ producer --
+    hopper::regs_dealloc<40>();
+    if (threadIdx.x == 256) {
+      const int layer = *layer_ptr;  // dynamic resolution: the layer is data
+      int it = 0;  // K-steps issued: the position in the ring
+      for (int t = blockIdx.x; t < total; t += gridDim.x) {
+        const Tile tl = tile_at(t, tiles, rows, E);
+        const bool hi_live = tl.m0 + 64 < tl.rows;  // second x half has a row
+        const uint32_t bytes =
+            (hi_live ? 2 : 1) * A_HALF + (BN / 64) * B_CHUNK;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          unsigned char* st = smem + s * STAGE;
+          hopper::mbar_expect_tx(&full[s], bytes);
+          hopper::tma_load_3d(st, &tx, &full[s], kt * BK, tl.m0, tl.e);
+          if (hi_live)
+            hopper::tma_load_3d(st + A_HALF, &tx, &full[s], kt * BK,
+                                tl.m0 + 64, tl.e);
+#pragma unroll
+          for (int c = 0; c < BN / 64; ++c)
+            hopper::tma_load_4d(st + 2 * A_HALF + c * B_CHUNK, &tw, &full[s],
+                                tl.n0 + 64 * c, kt * BK, tl.e, layer);
+        }
+      }
+    }
+  } else {  // --------------------------------------------- consumers --
+    hopper::regs_alloc<232>();
+    const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+    // 1. this block's even share of the padding rows beyond the real
+    //    tiles: whole rows, so each expert's share is one contiguous run
+    const long long zall = zeros[E];
+    const long long z0 = zall / 4 * blockIdx.x / gridDim.x * 4;
+    const long long z1 = zall / 4 * (blockIdx.x + 1) / gridDim.x * 4;
+    for (long long pos = z0; pos < z1;) {
+      const int e = find_expert(zeros, E, pos);
+      const long long end = min(z1, zeros[e + 1]);
+      const int mt = (rows[e] + BM - 1) / BM;
+      float* base = out + (static_cast<long long>(e) * C + mt * BM) * N +
+                    (pos - zeros[e]);
+      float4* dst = reinterpret_cast<float4*>(base);
+      const long long n4 = (end - pos) / 4;
+      for (long long i = threadIdx.x; i < n4; i += 256)
+        dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      pos = end;
+    }
+
+    // 2. the real tiles.  A warpgroup whose rows are all padding multiplies
+    //    too (its x half was not loaded; its rows are stored as zeros):
+    //    a branch around wgmma would make ptxas serialise every product.
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    const int r0 = (tid / 32) * 16 + lane / 4;  // rows r0, r0 + 8 of 64
+    int it = 0;
+    for (int t = blockIdx.x; t < total; t += gridDim.x) {
+      const Tile tl = tile_at(t, tiles, rows, E);
+      const int mw = tl.m0 + 64 * wgi;  // this warpgroup's first row
+      int prev = 0;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        hopper::mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = smem + s * STAGE;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          const uint64_t da =
+              hopper::desc_sw128(st + wgi * A_HALF + kk * 32, 16, 1024);
+          const uint64_t db = hopper::desc_sw128(
+              st + 2 * A_HALF + kk * 16 * 128, B_CHUNK, 1024);
+          hopper::wgmma_ss_n256<1>(acc, da, db, (kt | kk) != 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous K-step's products are done
+        if (kt > 0 && lane == 0) hopper::mbar_arrive(&empty[prev]);
+        prev = s;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (lane == 0) hopper::mbar_arrive(&empty[prev]);
+      // epilogue: fp32 pairs from the registers; padding rows as zeros
+      float* ob = out + static_cast<long long>(tl.e) * C * N;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = mw + r0 + 8 * r;
+        if (row >= C) continue;
+        const bool real = row < tl.rows;
+        float* orow = ob + static_cast<long long>(row) * N + tl.n0 +
+                      2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          if (tl.n0 + 8 * j + 2 * (lane & 3) >= N) continue;
+          *reinterpret_cast<float2*>(orow + 8 * j) =
+              real ? make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1])
+                   : make_float2(0.f, 0.f);
+        }
+      }
+    }
+  }
+}
+
+// One weight tensor map per weight tensor, built on the host once and kept
+// by (pointer, shape, strides): the map is a pure function of that key, so
+// an entry can never go stale.  Launches come from several host threads.
+struct WeightKey {
+  const void* w;
+  long long L, E, K, N, sl, se;
+  bool operator==(const WeightKey& o) const {
+    return w == o.w && L == o.L && E == o.E && K == o.K && N == o.N &&
+           sl == o.sl && se == o.se;
+  }
+};
+
+bool weight_map(CUtensorMap* out, const WeightKey& key) {
+  static std::mutex mu;
+  static std::vector<std::pair<WeightKey, CUtensorMap>> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& kv : cache)
+    if (kv.first == key) {
+      *out = kv.second;
+      return true;
+    }
+  // 4-D over [L, E, K, N]: (n, k, expert, layer) are a tile's coordinates
+  const uint64_t dims[4] = {static_cast<uint64_t>(key.N),
+                            static_cast<uint64_t>(key.K),
+                            static_cast<uint64_t>(key.E),
+                            static_cast<uint64_t>(key.L)};
+  const uint64_t strides[3] = {2ull * key.N, 2ull * key.se, 2ull * key.sl};
+  const uint32_t box[4] = {64, BK, 1, 1};
+  if (!hopper::make_map(out, key.w, 4, dims, strides, box)) return false;
+  if (cache.size() >= 256) cache.clear();
+  cache.emplace_back(key, *out);
+  return true;
+}
+
+int launch(const int* lid, const int* cnt, const void* w, const void* x,
+           float* o, int L, int E, int C, int K, int N, long long w_stride_l,
+           long long w_stride_e, cudaStream_t stream) {
+  CUtensorMap tw, tx;
+  if (!weight_map(&tw, {w, L, E, K, N, w_stride_l, w_stride_e})) return -3;
+  // 3-D over [E, C, K]: rows beyond C read as zeros
+  const uint64_t dims[3] = {static_cast<uint64_t>(K),
+                            static_cast<uint64_t>(C),
+                            static_cast<uint64_t>(E)};
+  const uint64_t strides[2] = {2ull * K, 2ull * C * K};
+  const uint32_t box[3] = {BK, 64, 1};
+  if (!hopper::make_map(&tx, x, 3, dims, strides, box)) return -3;
+  cudaError_t err = hopper::allow_smem<super_gmm_wgmma_kernel>(SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = hopper::sm_count();
+  if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  super_gmm_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(tw, tx, lid, cnt, o,
+                                                         E, C, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  `counts` may be null (every row real).
-// Launches on `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() (or -1 for a bad dtype).
+// Routes, as kernels/super_gmm/super_gmm.py::route picks them by shape:
+constexpr int ROUTE_FMA = 0;    // fp32
+constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe
+constexpr int ROUTE_WGMMA = 2;  // bf16, TMA-describable: the main path
+
+// route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
+// `counts` may be null (every row real).  w: [L, E, K, N] with layer/expert
+// strides w_stride_l/w_stride_e (elements) and each [K, N] matrix
+// contiguous; x: [E, C, K] contiguous.  Launches on `stream`, allocates
+// nothing, does not synchronise; returns cudaGetLastError(), -1 for an
+// unknown route, -3 for a tensor map the driver refuses and -4 for tensors
+// the wgmma route cannot take.
 extern "C" int super_gmm_launch(const void* layer_id, const void* counts,
                                 const void* w, const void* x, void* out,
-                                int dtype, int E,
-                                int C, int K, int N, long long w_stride_l,
-                                long long w_stride_e, void* stream) {
+                                int route, int L, int E, int C, int K, int N,
+                                long long w_stride_l, long long w_stride_e,
+                                void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* lid = reinterpret_cast<const int*>(layer_id);
   const int* cnt = reinterpret_cast<const int*>(counts);
   float* o = reinterpret_cast<float*>(out);
-  if (dtype == 0) {
+  if (route == ROUTE_FMA) {
     dim3 grid((N + F_BN - 1) / F_BN, (C + F_BC - 1) / F_BC, E);
     super_gmm_f32_kernel<<<grid, F_THREADS, 0, s>>>(
         lid, cnt, reinterpret_cast<const float*>(w),
         reinterpret_cast<const float*>(x), o, C, K, N, w_stride_l,
         w_stride_e);
-  } else if (dtype == 1) {
-    const bool aligned =
-        (reinterpret_cast<size_t>(w) % 16 == 0) &&
-        (reinterpret_cast<size_t>(x) % 16 == 0) && (K % 8 == 0) &&
-        (N % 8 == 0) && (w_stride_l % 8 == 0) && (w_stride_e % 8 == 0);
-    dim3 grid((N + H_BN - 1) / H_BN, (C + H_BC - 1) / H_BC, E);
-    cudaError_t err = cudaFuncSetAttribute(
-        super_gmm_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        H_SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    super_gmm_bf16_kernel<<<grid, H_THREADS, H_SMEM, s>>>(
-        lid, cnt, reinterpret_cast<const bf16*>(w),
-        reinterpret_cast<const bf16*>(x), o, C, K, N, w_stride_l, w_stride_e,
-        aligned ? 1 : 0);
-  } else {
-    return -1;
+    return static_cast<int>(cudaGetLastError());
   }
+  // TMA takes 16-byte-aligned bases and strides that are multiples of 16
+  // bytes; the same test lets the wmma kernel copy 16 bytes at a time
+  const bool aligned =
+      (reinterpret_cast<size_t>(w) % 16 == 0) &&
+      (reinterpret_cast<size_t>(x) % 16 == 0) && (K % 8 == 0) &&
+      (N % 8 == 0) && (w_stride_l % 8 == 0) && (w_stride_e % 8 == 0);
+  if (route == ROUTE_WGMMA) {
+    if (!(aligned && K > 0 && E <= wg::MAX_E)) return -4;
+    return wg::launch(lid, cnt, w, x, o, L, E, C, K, N, w_stride_l,
+                      w_stride_e, s);
+  }
+  if (route != ROUTE_WMMA) return -1;
+  cudaError_t err =
+      hopper::allow_smem<super_gmm_bf16_kernel>(H_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((N + H_BN - 1) / H_BN, (C + H_BC - 1) / H_BC, E);
+  super_gmm_bf16_kernel<<<grid, H_THREADS, H_SMEM, s>>>(
+      lid, cnt, reinterpret_cast<const bf16*>(w),
+      reinterpret_cast<const bf16*>(x), o, C, K, N, w_stride_l, w_stride_e,
+      aligned ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,23 +3,43 @@ counter and the error check every launch goes through."""
 from __future__ import annotations
 
 import threading
+from typing import Optional
 
 import torch
 
 _count_lock = threading.Lock()
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = (torch.float32, torch.bfloat16)  # the dtypes the kernels take
+# The kernels of a launch function with several routes, indexed by the code
+# the wrapper hands it: plain FMA (fp32), wmma (bf16 that TMA cannot
+# describe), wgmma on TMA-fed shared memory (the Hopper main path).
+ROUTES = ("fma", "wmma", "wgmma")
 
 # Host syncs (a device-to-host read the host waits on) counted by the code
 # that performs them, so a run can print how many a batch-layer costs.
 host_syncs = 0  # guarded_by: _count_lock
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, route: Optional[str] = None) -> None:
     """Add one to `wrapper.launches` -- called where, and only where, the
-    wrapper launches its kernel."""
+    wrapper launches its kernel.  A wrapper with several routes also names
+    the one it launched; the launch is counted in
+    `wrapper.launches_by_route` too, and a route it does not have raises."""
     with _count_lock:
+        if route is not None:
+            if route not in wrapper.launches_by_route:
+                raise KeyError(f"{wrapper.__name__}: no route {route!r}")
+            wrapper.launches_by_route[route] += 1
         wrapper.launches += 1
+
+
+def reset_launches(wrapper) -> None:
+    """Set a wrapper's launch counts (and per-route counts) to zero."""
+    with _count_lock:
+        wrapper.launches = 0
+        if hasattr(wrapper, "launches_by_route"):
+            wrapper.launches_by_route = dict.fromkeys(
+                wrapper.launches_by_route, 0)
 
 
 def note_host_sync(n: int = 1) -> None:

@@ -6,17 +6,36 @@
 `attention_ref` is the plain PyTorch version of the same function.  The
 wrapper takes it only for tensors that lie on the CPU; for CUDA tensors it
 launches the kernel or raises.
+
+`route` picks one of three kernels by shape and the launch function runs
+it: "wgmma" (bf16, head dim 64 or 128, TMA-describable tensors: the main
+path), "wmma" (other bf16) and "fma" (fp32).  `flash_attention.launches` counts
+every launch and `flash_attention.launches_by_route` splits them by route.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build, _launch
 
 HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
+
+
+def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
+          strides: Sequence[Sequence[int]]) -> str:
+    """The kernel `flash_attention_launch` runs, by shape: fp32 -> "fma";
+    bf16 with head dim 64 or 128 whose q, k, v bases (`ptrs`) are 16-byte
+    aligned and whose (batch, position, head) strides (elements) are
+    multiples of 8, i.e. of 16 bytes, as TMA needs -> "wgmma"; any other
+    bf16 -> "wmma"."""
+    if dtype == torch.float32:
+        return "fma"
+    tma = (dh in (64, 128) and all(p % 16 == 0 for p in ptrs)
+           and all(x % 8 == 0 for st in strides for x in st))
+    return "wgmma" if tma else "wmma"
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -50,7 +69,7 @@ def flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention: q, k, v must lie on one CUDA "
                          "device")
-    if q.dtype not in _launch.DTYPE_CODE or k.dtype != q.dtype \
+    if q.dtype not in _launch.DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share float32 or "
                          "bfloat16")
@@ -65,18 +84,17 @@ def flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if o.numel() == 0:
         return o
     lib = _build.load()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    strides = (q.stride()[:3], k.stride()[:3], v.stride()[:3])
+    r = route(q.dtype, dh, ptrs, strides)
     code = lib.flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        _launch.DTYPE_CODE[q.dtype], B, H, KVH, S, dh,
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2),
-        o.stride(0), o.stride(1), o.stride(2),
+        *ptrs, o.data_ptr(), _launch.ROUTES.index(r), B, H, KVH, S, dh,
+        *strides[0], *strides[1], *strides[2], *o.stride()[:3],
         int(bool(causal)), int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
         1.0 / math.sqrt(dh), _launch.stream_ptr(q.device))
     _launch.check(code, "flash_attention")
-    _launch.count_launch(flash_attention)
+    _launch.count_launch(flash_attention, r)
     return o
 
 
@@ -93,3 +111,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)

@@ -18,14 +18,37 @@ the device only.
 `super_gmm_ref` is the plain PyTorch version of the same function.  The
 wrapper takes it only for tensors that lie on the CPU; for CUDA tensors it
 launches the kernel or raises.
+
+`route` picks one of three kernels by shape and the launch function runs
+it: "wgmma" (bf16 that TMA can describe: the main path), "wmma" (other
+bf16) and "fma" (fp32).  `super_gmm.launches` counts every launch and
+`super_gmm.launches_by_route` splits them by route.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build, _launch
+
+# The most experts the wgmma kernel's shared-memory prefix sums hold.
+MAX_EXPERTS = 1024
+
+
+def route(dtype: torch.dtype, E: int, K: int, N: int, ptrs: Sequence[int],
+          w_strides: Sequence[int]) -> str:
+    """The kernel `super_gmm_launch` runs, by shape: fp32 -> "fma"; bf16
+    with K (> 0) and N multiples of 8, the bases of w and x (`ptrs`) 16-byte
+    aligned, the weight stack's layer and expert strides (elements)
+    multiples of 8 -- all as TMA needs -- and at most MAX_EXPERTS experts
+    -> "wgmma"; any other bf16 -> "wmma"."""
+    if dtype == torch.float32:
+        return "fma"
+    tma = (K > 0 and K % 8 == 0 and N % 8 == 0
+           and all(p % 16 == 0 for p in ptrs)
+           and all(s % 8 == 0 for s in w_strides) and E <= MAX_EXPERTS)
+    return "wgmma" if tma else "wmma"
 
 
 def super_gmm_ref(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
@@ -63,7 +86,7 @@ def super_gmm(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                          "device")
     if layer_id.dtype != torch.int32 or layer_id.numel() != 1:
         raise ValueError("super_gmm: layer_id must be a [1] int32 tensor")
-    if x.dtype != w.dtype or x.dtype not in _launch.DTYPE_CODE:
+    if x.dtype != w.dtype or x.dtype not in _launch.DTYPES:
         raise ValueError(f"super_gmm: x {x.dtype} / w {w.dtype} must both be "
                          f"float32 or bfloat16")
     if w.stride(3) != 1 or w.stride(2) != N:
@@ -74,15 +97,17 @@ def super_gmm(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     if out.numel() == 0:
         return out  # no expert or no row: nothing to launch
     lib = _build.load()
+    r = route(x.dtype, E, K, N, (w.data_ptr(), x.data_ptr()),
+              (w.stride(0), w.stride(1)))
     code = lib.super_gmm_launch(
         layer_id.data_ptr(),
         counts.data_ptr() if counts is not None else None,
-        w.data_ptr(), x.data_ptr(), out.data_ptr(),
-        _launch.DTYPE_CODE[x.dtype], E, C, K, N, w.stride(0), w.stride(1),
-        _launch.stream_ptr(x.device))
+        w.data_ptr(), x.data_ptr(), out.data_ptr(), _launch.ROUTES.index(r),
+        L, E, C, K, N, w.stride(0), w.stride(1), _launch.stream_ptr(x.device))
     _launch.check(code, "super_gmm")
-    _launch.count_launch(super_gmm)
+    _launch.count_launch(super_gmm, r)
     return out
 
 
 super_gmm.launches = 0
+super_gmm.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)

@@ -1,0 +1,269 @@
+"""Host-side logic of the port's Hopper kernels, on the CPU: the route rules
+by which the wrappers pick a kernel, a plain mirror of the super_gmm
+kernel's persistent tile walk, the per-route launch counts, and the kernel
+build's digest.  Nothing here needs nvcc or a card."""
+import itertools
+import shutil
+from typing import List, Optional, Sequence, Tuple
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import _build, _launch
+from repro_torch.kernels.flash_attention import flash_attention as fa
+from repro_torch.kernels.super_gmm import super_gmm as sg
+
+# The wgmma kernel's tile (rows of C, columns of N), fixed by dtype
+# (csrc/super_gmm.cu).
+BM, BN = 128, 256
+
+
+# ------------------------------------------------------ persistent walk --
+
+def persistent_walk(counts: Optional[Sequence[int]], E: int, C: int, N: int,
+                    grid: int
+                    ) -> Tuple[List[List[Tuple[int, int, int]]],
+                               List[List[Tuple[int, int, int]]]]:
+    """Plain mirror of the wgmma kernel's persistent walk, per block of a
+    `grid`-block launch: (its real tiles as (expert, m0, n0) in the order it
+    takes them, its padding runs as (expert, first element, elements) of
+    the expert's [C, N] output that it zeroes).
+
+    Real rows of expert e: min(counts[e], C) (C for every expert with
+    `counts` None).  Its real tiles are the BM-row tiles that hold a real
+    row, times the BN-column tiles of N, walked experts outermost, then
+    n-tiles, then m-tiles; block b takes tiles b, b + grid, ....  The rows
+    from the end of an expert's last real tile to C are padding; the
+    padding of all experts, laid end to end, is split evenly over the blocks
+    in whole 4-element units."""
+    rows = [C if counts is None else min(max(int(counts[e]), 0), C)
+            for e in range(E)]
+    nt = -(-N // BN)
+    tiles, pad_pre, firsts = [], [0], []
+    for e, r in enumerate(rows):
+        mt = -(-r // BM)
+        tiles += [(e, m * BM, n * BN) for n in range(nt) for m in range(mt)]
+        firsts.append(mt * BM * N)
+        pad_pre.append(pad_pre[-1] + max(C - mt * BM, 0) * N)
+    walk_tiles = [tiles[b::grid] for b in range(grid)]
+    walk_pads: List[List[Tuple[int, int, int]]] = []
+    for b in range(grid):
+        z0 = pad_pre[-1] // 4 * b // grid * 4
+        z1 = pad_pre[-1] // 4 * (b + 1) // grid * 4
+        runs = []
+        for e in range(E):
+            lo, hi = max(z0, pad_pre[e]), min(z1, pad_pre[e + 1])
+            if lo < hi:
+                runs.append((e, firsts[e] + lo - pad_pre[e], hi - lo))
+        walk_pads.append(runs)
+    return walk_tiles, walk_pads
+
+
+def _brute_force(counts, E, C, N):
+    """Every real (expert, m0, n0) tile, and every padding element
+    (expert, flat offset in its [C, N] output), by enumeration."""
+    tiles, pad = set(), set()
+    for e in range(E):
+        real = C if counts is None else min(max(counts[e], 0), C)
+        for m0 in range(0, C, BM):
+            if m0 < real:
+                tiles |= {(e, m0, n0) for n0 in range(0, N, BN)}
+            else:
+                pad |= {(e, r * N + c) for r in range(m0, C)
+                        for c in range(N)}
+    return tiles, pad
+
+
+_WALKS = [
+    # counts 0, 1, BM, BM + 1, C and > C, E = 1 and E = 128, ragged N
+    ([0], 1, 200, 64), ([1], 1, 200, 64), ([BM], 1, 300, 264),
+    ([BM + 1], 1, 300, 264), ([300], 1, 300, 264), ([999], 1, 300, 8),
+    ([0, 1, BM, BM + 1, 260, 999], 6, 260, 520),
+    (None, 3, 130, 256),
+    ([(7 * e) % 300 for e in range(128)], 128, 256, 16),
+    ([0] * 127 + [1], 128, 8, 24),
+]
+
+
+@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("counts,E,C,N", _WALKS)
+def test_persistent_walk_equals_brute_force(counts, E, C, N, grid):
+    walk_tiles, walk_pads = persistent_walk(counts, E, C, N, grid)
+    want_tiles, want_pad = _brute_force(counts, E, C, N)
+    got_tiles = [t for block in walk_tiles for t in block]
+    assert sorted(got_tiles) == sorted(want_tiles)  # each tile exactly once
+    got_pad = [(e, first + i) for block in walk_pads
+               for (e, first, n) in block for i in range(n)]
+    assert len(got_pad) == len(want_pad) and set(got_pad) == want_pad
+    # real tiles and padding together cover every output element once
+    covered = {(e, r * N + c) for (e, m0, n0) in want_tiles
+               for r in range(m0, min(m0 + BM, C))
+               for c in range(n0, min(n0 + BN, N))}
+    assert not covered & want_pad
+    assert len(covered) + len(want_pad) == E * C * N
+    # the walk: block b takes tiles b, b + grid, ... of the order experts,
+    # n-tiles, m-tiles; padding shares differ by at most one 4-element unit
+    order = sorted(want_tiles, key=lambda t: (t[0], t[2], t[1]))
+    assert walk_tiles == [order[b::grid] for b in range(grid)]
+    shares = [sum(n for _, _, n in block) for block in walk_pads]
+    assert max(shares) - min(shares) <= 4
+
+
+# ------------------------------------------------------------ route rules --
+
+def _model_qkv(B, S, H, KVH, dh):
+    """q, k, v as the model hands them to the kernel: projections reshaped
+    to [B, S, heads, dh]."""
+    q = torch.empty((B, S, H * dh), device="meta").reshape(B, S, H, dh)
+    k = torch.empty((B, S, KVH * dh), device="meta").reshape(B, S, KVH, dh)
+    return q, k, k
+
+
+def _fa_route(q, k, v, dtype=torch.bfloat16, ptrs=(0, 0, 0)):
+    return fa.route(dtype, q.shape[-1], ptrs,
+                    [t.stride()[:3] for t in (q, k, v)])
+
+
+@pytest.mark.parametrize("B,S", [(1, 256), (1, 512), (2, 1024), (2, 2048),
+                                 (4, 300)])
+def test_flash_route_main_path_takes_wgmma(B, S):
+    cfg = get_config("qwen3_moe_235b_a22b")
+    q, k, v = _model_qkv(B, S, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+    assert _fa_route(q, k, v) == "wgmma"
+    # the [BH, S, dh] entry point views its inputs as H = 1
+    x = torch.empty((B * 8, S, 64), device="meta").unsqueeze(2)
+    assert _fa_route(x, x, x) == "wgmma"
+
+
+_ODD_STRIDES = {  # (batch, position, head) strides, one not 16-byte aligned
+    "odd_head_stride": (100 * 8 * 132, 8 * 132, 132),
+    "odd_pos_stride": (100 * 8 * 132, 8 * 128 + 4, 128),
+    "odd_batch_stride": (100 * 8 * 128 + 4, 8 * 128, 128)}
+
+
+@pytest.mark.parametrize("case,want", [
+    ("fp32", "fma"), ("dh32", "wmma"), ("dh64", "wgmma"),
+    ("unaligned_q", "wmma"), ("unaligned_v", "wmma"),
+    ("odd_head_stride", "wmma"), ("odd_pos_stride", "wmma"),
+    ("odd_batch_stride", "wmma")])
+def test_flash_route_edges(case, want):
+    dh = {"dh32": 32, "dh64": 64}.get(case, 128)
+    q, k, v = _model_qkv(2, 100, 8, 2, dh)
+    if case in _ODD_STRIDES:
+        q = torch.as_strided(torch.empty(10 ** 6, device="meta"),
+                             (2, 100, 8, dh), (*_ODD_STRIDES[case], 1))
+    ptrs = {"unaligned_q": (2, 0, 0), "unaligned_v": (0, 0, 18)}.get(
+        case, (0, 0, 0))
+    dtype = torch.float32 if case == "fp32" else torch.bfloat16
+    assert _fa_route(q, k, v, dtype, ptrs) == want
+
+
+def _resident_views(L, n_experts, K, N, D):
+    """The MoE devices' resident [L, n_e, K, N] stacks under round-robin
+    placement: strided views of the model's stack."""
+    full = torch.empty((L, n_experts, K, N), device="meta")
+    return [full[:, d::D] for d in range(D)]
+
+
+def test_super_gmm_route_main_path_takes_wgmma():
+    cfg = get_config("qwen3_moe_235b_a22b")
+    d, f = cfg.d_model, cfg.expert_d_ff
+    for K, N in ((d, f), (f, d)):
+        for D in (1, 2, 4):
+            for w in _resident_views(4, cfg.num_experts, K, N, D):
+                assert sg.route(torch.bfloat16, w.shape[1], K, N, (0, 0),
+                                (w.stride(0), w.stride(1))) == "wgmma"
+
+
+@pytest.mark.parametrize("dtype,E,K,N,ptrs,strides,want", [
+    (torch.float32, 4, 128, 64, (0, 0), (512, 128), "fma"),
+    (torch.bfloat16, 4, 128, 64, (0, 0), (8192, 8192), "wgmma"),
+    (torch.bfloat16, 3, 72, 40, (0, 0), (8640, 2880), "wgmma"),
+    (torch.bfloat16, 2, 68, 36, (0, 0), (4896, 2448), "wmma"),   # K % 8
+    (torch.bfloat16, 2, 100, 200, (0, 0), (40000, 20000), "wmma"),
+    (torch.bfloat16, 2, 64, 36, (0, 0), (4608, 2304), "wmma"),   # N % 8
+    (torch.bfloat16, 2, 0, 64, (0, 0), (0, 0), "wmma"),          # K = 0
+    (torch.bfloat16, 2, 64, 64, (2, 0), (8192, 4096), "wmma"),   # w base
+    (torch.bfloat16, 2, 64, 64, (0, 8), (8192, 4096), "wmma"),   # x base
+    (torch.bfloat16, 2, 64, 64, (0, 0), (8196, 4096), "wmma"),   # layer
+    (torch.bfloat16, 2, 64, 64, (0, 0), (8192, 4100), "wmma"),   # expert
+    (torch.bfloat16, sg.MAX_EXPERTS, 64, 64, (0, 0), (2 ** 22, 4096),
+     "wgmma"),
+    (torch.bfloat16, sg.MAX_EXPERTS + 1, 64, 64, (0, 0), (2 ** 22, 4096),
+     "wmma"),
+])
+def test_super_gmm_route_edges(dtype, E, K, N, ptrs, strides, want):
+    assert sg.route(dtype, E, K, N, ptrs, strides) == want
+
+
+# ------------------------------------------------- per-route launch counts --
+
+def test_count_launch_by_route_and_disagreement_raises():
+    """Each launch counts once overall and once under its route; a route
+    the wrapper does not have raises and counts nothing."""
+    def kern():
+        pass
+    kern.launches = 0
+    kern.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)
+    _launch.count_launch(kern, "wgmma")
+    _launch.count_launch(kern, "wmma")
+    assert kern.launches == 2
+    assert kern.launches_by_route == {"fma": 0, "wmma": 1, "wgmma": 1}
+    for bad in ("tma", "", "WGMMA"):
+        with pytest.raises(KeyError):
+            _launch.count_launch(kern, bad)
+    assert kern.launches == 2  # a refused count changes nothing
+    _launch.reset_launches(kern)
+    assert kern.launches == 0 and set(kern.launches_by_route.values()) == {0}
+
+
+@pytest.mark.parametrize("wrapper", [sg.super_gmm, fa.flash_attention],
+                         ids=["super_gmm", "flash_attention"])
+def test_wrappers_carry_route_counts(wrapper):
+    assert set(wrapper.launches_by_route) == {"fma", "wmma", "wgmma"}
+
+
+# ------------------------------------------------------------ build digest --
+
+def test_build_sources_cover_headers():
+    names = {p.name for p in _build.sources()}
+    assert {"super_gmm.cu", "flash_attention.cu", "dispatch_combine.cu",
+            "hopper.cuh"} <= names
+
+
+@pytest.mark.parametrize("target", ["hopper.cuh", "super_gmm.cu"])
+def test_digest_changes_with_any_source_byte(tmp_path, target):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    before = _build._digest(_build.sources(csrc))
+    assert before == _build._digest(_build.sources(csrc))  # deterministic
+    path = csrc / target
+    path.write_bytes(path.read_bytes() + b"\n// edited\n")
+    assert _build._digest(_build.sources(csrc)) != before
+
+
+@pytest.mark.parametrize("flags", ["NVCC_FLAGS", "LINK_FLAGS"])
+def test_digest_changes_with_build_flags(monkeypatch, flags):
+    srcs = _build.sources()
+    before = _build._digest(srcs)
+    monkeypatch.setattr(_build, flags, [*getattr(_build, flags), "-DX=1"])
+    assert _build._digest(srcs) != before
+
+
+def test_library_name_follows_the_digest(tmp_path, monkeypatch):
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    path = _build.library_path()
+    assert path.parent == tmp_path
+    assert _build._digest(_build.sources()) in path.name
+    assert _build.ptxas_report() == ""  # nothing built here
+
+
+def test_walk_and_routes_agree_on_tile_constants():
+    """The mirror walks the tile the route's kernel uses; every
+    combination of the edge counts lands each tile in exactly one block."""
+    for counts in itertools.product((0, 1, BM, BM + 1), repeat=2):
+        tiles, _ = persistent_walk(list(counts), 2, 2 * BM, BN, 3)
+        flat = [t for block in tiles for t in block]
+        assert len(flat) == len(set(flat))
