@@ -12,8 +12,13 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             card: main-path shapes (bf16) and edge shapes (fp32, C=192,
             S=192, window, softcap, every layer id from one launch signature
             with no host sync between launches; d=16/4100, N=0/1, every
-            pair dropped, unaligned bases), and kernel_moe_dispatch/combine
-            against the plain oracles with no host sync
+            pair dropped, unaligned bases); the decode MoE layer's routes:
+            dispatch_scatter "whole" torch.equal to moe_dispatch on every
+            output (decode shape, T=1, one hot expert, the rank chunk's
+            edges, N > 4096, E=256, strided x), combine_gather "weighted"
+            bitwise equal to its plain version and within 1 bf16 ulp / 1e-6
+            of moe_combine, and kernel_moe_dispatch/combine with no host
+            sync
   executor  DisaggregatedExecutor output against the port's own
             lm_backbone(moe_mode="dense") on the card, one small batch at the
             full width of qwen3_moe_235b_a22b
@@ -32,19 +37,26 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             yardstick timed here and used nowhere in the port): super_gmm
             gate/up and down at the serve wave's median launch (counts) and
             dense, flash_attention at the wave's modal (B, S) and at the one
-            with the largest share of launches * B * S^2
+            with the largest share of launches * B * S^2, dispatch_scatter
+            and combine_gather at the decode shape on the decode path's
+            route and on the TPU signature; the host's cost of each step of
+            a wrapper call
   profile   (only with --phases ...,profile) the served requests once more
             under torch.profiler: device time by kernel, busy share
 
 Every super_gmm and flash_attention launch of the serve wave must take the
-wgmma route (the per-route launch counts say so).
+wgmma route, and every dispatch_scatter / combine_gather launch of the pd
+wave's decode steps the "whole" / "weighted" route (the per-route launch
+counts say so).
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
 into the other tree's root and run it there as
     python3 chip_smoke.py --phases device,build,timing --shapes-from F
-which times super_gmm and flash_attention alone at that line's shapes, with
-the repro_torch beside the script, and prints one {"timing": ...} line.
+which times super_gmm and flash_attention alone at that line's shapes, the
+decode MoE layer's kernel_moe_dispatch / kernel_moe_combine calls, and a
+decode step alone, with the repro_torch beside the script, and prints one
+{"timing": ...} line.
 
 Without a CUDA device the script exits non-zero and prints no result.
 """
@@ -424,16 +436,13 @@ def _unaligned(shape, dtype, gen):
 
 
 def check_dispatch_combine(gen) -> float:
-    """dispatch_scatter / combine_gather against their plain versions,
-    bit for bit: the decode MoE layer's shape in bf16, then fp32 and bf16
-    edges.  Returns 0.0, the max abs error of an exact copy."""
+    """dispatch_scatter / combine_gather's TPU-signature routes against their
+    plain versions, bit for bit: the decode MoE layer's shape in bf16, then
+    fp32 and bf16 edges.  Returns 0.0, the max abs error of an exact copy."""
     from repro_torch.kernels.dispatch_combine.dispatch_combine import (
         combine_gather, dispatch_scatter)
-    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
-                                                          kernel_moe_dispatch)
     from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
                                                           dispatch_scatter_ref)
-    from repro_torch.models.moe import moe_combine, moe_dispatch
 
     def both(token_of, slot, x, rows_out, what):
         got = dispatch_scatter(token_of, slot, x, rows_out=rows_out)
@@ -446,6 +455,7 @@ def check_dispatch_combine(gen) -> float:
         expect(torch.equal(got, combine_gather_ref(slot, yb)),
                f"combine_gather {what}")
 
+    routes = (_routes(dispatch_scatter), _routes(combine_gather))
     full = get_config(ARCH)
     T, E, K, d = 8, full.num_experts, full.top_k, full.d_model
     C = 8  # expert_capacity(8) at these widths: every decode step dropless
@@ -474,13 +484,181 @@ def check_dispatch_combine(gen) -> float:
             both(tok, trash, x, 17, f"{dtype} d={dd} every pair dropped")
             expect(float(dispatch_scatter(tok, trash, x, rows_out=17)
                          .abs().max()) == 0.0, "trash row written")
+    _took(dispatch_scatter, routes[0], "scatter", "dispatch_scatter edges")
+    _took(combine_gather, routes[1], "gather", "combine_gather edges")
     print("[kernels] dispatch_scatter/combine_gather fp32 and bf16 edges (d "
           "16/4100, unaligned bases, N=0, N=1 at row E*C-1, every pair "
           "dropped): array_equal ok")
-    # the wired-up dispatch/combine on CUDA tensors: equal to the plain
-    # oracles, and not one host sync (the sync debug mode raises on one)
+    return 0.0
+
+
+def _moe_cfg(E: int, K: int):
+    return get_config(ARCH).smoke().replace(num_experts=E, top_k=K)
+
+
+def _whole_cases(gen):
+    """(what, x of a dtype -> [T, d], idx [T, K] int32, E, C) of the whole
+    dispatch's checks; x keeps its strides in either dtype."""
+    from repro_torch.kernels.dispatch_combine.ref import RANK_CHUNK
+    from repro_torch.models.moe import expert_capacity
+    full = get_config(ARCH)
+    d, E, K = full.d_model, full.num_experts, full.top_k
+
+    def routed(T, E, K, d):
+        _, _, idx = _pairs(gen, T, E, K, 8)
+        x = torch.randn((T, d), generator=gen, device=DEV)
+        return (lambda dtype: x.to(dtype)), idx
+
+    x, idx = routed(8, E, K, d)
+    yield "decode shape T=8 K=8 E=128 C=8", x, idx, E, 8
+    x, idx = routed(1, E, K, d)
+    yield "T=1", x, idx, E, 8
+    x, _ = routed(64, E, K, d)
+    one = torch.full((64, K), 5, dtype=torch.int32, device=DEV)
+    yield "all 512 pairs to one expert, C=8 (504 dropped)", x, one, E, 8
+    for n in (RANK_CHUNK - 1, RANK_CHUNK, RANK_CHUNK + 1):
+        x, idx = routed(n, 16, 1, 64)
+        yield f"N={n} at the rank chunk's edge (E=16 K=1)", x, idx, 16, \
+            expert_capacity(n, _moe_cfg(16, 1))
+    x, idx = routed(640, E, K, 256)
+    yield "N=5120 > 4096 (T=640 K=8)", x, idx, E, \
+        expert_capacity(640, _moe_cfg(E, K))
+    # two experts of 2560 pairs each at C = 2000: the rows blocks fill
+    # capacity rows 1024 at a time, so the second pass resumes mid-chunk
+    x, _ = routed(640, 16, K, 64)
+    two = torch.tensor([3, 11], dtype=torch.int32,
+                       device=DEV)[torch.arange(K, device=DEV) % 2]
+    yield "C=2000 > the kernel's 1024-row window (2 x 2560 pairs, E=16)", x, \
+        two.expand(640, K).contiguous(), 16, 2000
+    x, idx = routed(64, 256, K, d)
+    yield "E=256 K=8 (deepseek_v32's experts)", x, idx, 256, \
+        expert_capacity(64, _moe_cfg(256, K))
+    big, idx = routed(8, E, K, d + 64)
+    yield "non-contiguous x (row stride d+64)", \
+        (lambda dtype: big(dtype)[:, 64:]), idx, E, 8
+    yield "x one element off 16 bytes (scalar copy)", \
+        (lambda dtype: big(dtype)[:, 1:d + 1]), idx, E, 8
+
+
+def check_whole_dispatch(gen):
+    """The "whole" route of dispatch_scatter (one launch) torch.equal to
+    moe_dispatch on every output (xb, perm, slot, valid, group_sizes; and
+    pair_slot to moe_dispatch's slots in pair order) and to its plain
+    version, fp32 and bf16, xb written into a NaN-filled block."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        dispatch_scatter, dispatch_whole)
+    from repro_torch.kernels.dispatch_combine.ref import dispatch_whole_ref
+    from repro_torch.models.moe import moe_dispatch
+    routes = _routes(dispatch_scatter)
+    names = ("xb", "perm", "slot", "valid", "group_sizes", "pair_slot")
+    cases = []
+    for what, x, idx, E, C in _whole_cases(gen):
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = x(dtype)
+            # the allocator hands xb the block just freed, full of NaN
+            torch.full((E * C, xt.shape[1]), float("nan"), dtype=dtype,
+                       device=DEV)
+            got = dispatch_whole(xt, idx, E, C)
+            xb, info = moe_dispatch(xt, idx, _moe_cfg(E, idx.shape[1]), C)
+            pair_slot = torch.empty_like(info["slot"]).scatter_(
+                0, info["perm"], info["slot"])
+            want = (xb.reshape(E * C, -1), info["perm"], info["slot"],
+                    info["valid"], info["group_sizes"], pair_slot)
+            plain = dispatch_whole_ref(xt, idx, E, C)
+            for name, g, w, p in zip(names, got, want, plain):
+                expect(g.dtype == w.dtype and torch.equal(g, w),
+                       f"dispatch whole {what} {dtype}: {name} != "
+                       f"moe_dispatch's")
+                expect(torch.equal(g, p), f"dispatch whole {what} {dtype}: "
+                       f"{name} != its plain version")
+        cases.append(what)
+    _took(dispatch_scatter, routes, "whole", "dispatch whole checks")
+    print(f"[kernels] dispatch_scatter 'whole' route == moe_dispatch and == "
+          f"its plain version (torch.equal on xb, perm, slot, valid, "
+          f"group_sizes, pair_slot), fp32 and bf16, xb into a NaN-filled "
+          f"block: {'; '.join(cases)}")
+
+
+def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The worst |got - want| in bf16 ulps of the larger magnitude."""
+    big = torch.maximum(got.double().abs(), want.double().abs())
+    _, e = torch.frexp(big)
+    ulp = torch.ldexp(torch.ones_like(big), e - 8)
+    return float(((got.double() - want.double()).abs() / ulp).max())
+
+
+def check_weighted_combine(gen):
+    """The "weighted" route of combine_gather (one launch) bitwise equal to
+    its plain version, and against moe_combine within 1 bf16 ulp / 1e-6 in
+    fp32, for both via_gather values and an info from either dispatch; then
+    the order of the sum over k."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, combine_weighted)
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    from repro_torch.kernels.dispatch_combine.ref import combine_weighted_ref
+    from repro_torch.models.moe import moe_combine, moe_dispatch
+    full = get_config(ARCH)
+    d = full.d_model
+    routes = _routes(combine_gather)
+    worst_ulp = worst_f32 = 0.0
+    for what, T, E, K, C in (("decode shape", 8, 128, 8, 8),
+                             ("T=1", 1, 128, 8, 8),
+                             ("C=2, pairs dropped", 64, 128, 8, 2),
+                             ("E=256", 64, 256, 8, 8)):
+        cfg = _moe_cfg(E, K)
+        _, _, idx = _pairs(gen, T, E, K, C)
+        w = torch.rand((T, K), generator=gen, device=DEV)
+        w = w / w.sum(-1, keepdim=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((T, d), generator=gen, device=DEV).to(dtype)
+            yb = torch.randn((E, C, d), generator=gen, device=DEV).to(dtype)
+            _, info = kernel_moe_dispatch(x, idx, cfg, C)
+            _, info_p = moe_dispatch(x, idx, cfg, C)
+            plain = combine_weighted_ref(yb.reshape(E * C, d),
+                                         info["pair_slot"], w)
+            for inf in (info, info_p):
+                for via_gather in (False, True):
+                    got = kernel_moe_combine(yb, inf, w, T,
+                                             via_gather=via_gather)
+                    expect(torch.equal(got, plain),
+                           f"combine weighted {what} {dtype}: != plain")
+                    want = moe_combine(yb, info_p, w, T,
+                                       via_gather=via_gather)
+                    if dtype == torch.bfloat16:
+                        u = _bf16_ulps(got, want)
+                        worst_ulp = max(worst_ulp, u)
+                        expect(u <= 1.0, f"combine weighted {what}: {u} "
+                               f"bf16 ulps from moe_combine")
+                    else:
+                        err = float(((got - want).abs()
+                                     - 1e-6 * want.abs()).max())
+                        worst_f32 = max(worst_f32, max_err(got, want))
+                        expect(err <= 1e-6, f"combine weighted {what}: fp32 "
+                               f"err {max_err(got, want)} vs moe_combine")
+    # the sum runs over k in order: (1 + 1e8) - 1e8 is 0 in fp32
+    yb = torch.tensor([[1.0] * 8, [1e8] * 8, [-1e8] * 8], device=DEV)
+    ps = torch.tensor([0, 1, 2], dtype=torch.long, device=DEV)
+    got = combine_weighted(yb, ps, torch.ones((1, 3), device=DEV))
+    expect(float(got.abs().max()) == 0.0,
+           f"combine weighted: k order, 1 + 1e8 - 1e8 gave {got[0, 0]}")
+    _took(combine_gather, routes, "weighted", "combine weighted checks")
+    print(f"[kernels] combine_gather 'weighted' route == its plain version "
+          f"(torch.equal) for an info from either dispatch and both "
+          f"via_gather values, fp32 and bf16 (decode shape, T=1, C=2 with "
+          f"drops, E=256); vs moe_combine: bf16 worst {worst_ulp:.2f} ulp "
+          f"(tol 1), fp32 worst {worst_f32:.2e} (tol 1e-6 + 1e-6 rel); "
+          f"k order: 1 + 1e8 - 1e8 = 0 ok")
+
+
+def check_moe_path_no_sync(gen):
+    """The wired-up dispatch/combine on CUDA tensors: equal to the plain
+    oracles, and not one host sync (the sync debug mode raises on one)."""
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    from repro_torch.models.moe import moe_combine, moe_dispatch
     T, E, K = 64, 8, 2
-    cfg = get_config(ARCH).smoke().replace(num_experts=E, top_k=K)
+    cfg = _moe_cfg(E, K)
     _, _, idx = _pairs(gen, T, E, K, 8)
     x = torch.randn((T, cfg.d_model), generator=gen, device=DEV)
     w = torch.rand((T, K), generator=gen, device=DEV)
@@ -503,13 +681,16 @@ def check_dispatch_combine(gen) -> float:
     print("[kernels] kernel_moe_dispatch == moe_dispatch (xb, perm, slot, "
           "valid, group_sizes) and kernel_moe_combine vs moe_combine (tol "
           "1e-6) on CUDA tensors, dropless and dropping, no host sync")
-    return 0.0
 
 
 def phase_kernels(gen) -> dict:
     errs = {"super_gmm": check_super_gmm(gen),
             "flash_attention": check_flash_attention(gen),
-            "dispatch_combine": check_dispatch_combine(gen)}
+            "dispatch_scatter": check_dispatch_combine(gen)}
+    errs["combine_gather"] = errs["dispatch_scatter"]
+    check_whole_dispatch(gen)
+    check_weighted_combine(gen)
+    check_moe_path_no_sync(gen)
     torch.cuda.synchronize()
     return errs
 
@@ -768,6 +949,8 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
                    verbose=True)
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in kernels.items()}
+    by_route = {n: _routes(kernels[n])
+                for n in ("dispatch_scatter", "combine_gather")}
     results, rt, kv_log = out["results"], out["runtime"], out["kv_log"]
     by_rid = {r.rid: r for r in results}
     expect(len(results) == 8 and all(r.ok for r in results),
@@ -778,10 +961,14 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
     expect(kv_log.count == handoffs,
            f"pd: {kv_log.count} KV handoffs, expected {handoffs}")
     L, steps = cfg.num_layers, rt.steps
-    for name in ("dispatch_scatter", "combine_gather"):
+    for name, route in (("dispatch_scatter", "whole"),
+                        ("combine_gather", "weighted")):
         expect(launches[name] == L * steps,
                f"pd: {name} launched {launches[name]} times, expected "
                f"{L} layers x {steps} steps")
+        expect(by_route[name][route] == launches[name],
+               f"pd: {name} launches by route {by_route[name]}, expected "
+               f"all {route}")
     expect(launches["super_gmm"] > 0 and launches["flash_attention"] > 0,
            f"pd: a prefill kernel was never launched: {launches}")
     expect(rt.host_syncs == steps, f"pd: {rt.host_syncs} host syncs over "
@@ -802,7 +989,8 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
           f"ms max {1e3 * np.max(tpot):.1f} ms")
     print(f"[pd] decode steps {steps} (width 8), host syncs {rt.host_syncs} "
           f"= {rt.host_syncs / max(steps, 1):.2f} per step, step signatures "
-          f"{rt.trace_counts['decode_step']}; launches {launches}")
+          f"{rt.trace_counts['decode_step']}; launches {launches}; "
+          f"decode launches by route {by_route} (all whole / weighted)")
     print(f"[pd] KV handoffs {kv_log.count}, {kv_log.bytes / 1e6:.1f} MB, "
           f"priced {1e3 * kv_log.seconds:.3f} ms on the H100 link "
           f"(datasheet NVLink rate); enrollment copies measured on the card "
@@ -820,9 +1008,10 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     print("[pd] the decode step body runs with the CUDA sync debug mode "
           "raising: no hidden host sync besides the token read")
-    _decode_breakdown(rt)
-    return {"launches": launches, "steps": steps, "hop_us": hop_us,
-            "T": rt.slots}
+    step = _decode_breakdown(rt)
+    print(f"[pd] launches per decode step: {step['launches']:.0f}")
+    return {"launches": launches, "by_route": by_route, "steps": steps,
+            "hop_us": hop_us, "T": rt.slots, "decode_step": step}
 
 
 def _device_ms(fn, reps: int, match=None):
@@ -847,25 +1036,29 @@ def _device_ms(fn, reps: int, match=None):
     return sum(r[1] for r in rows), rows
 
 
-def _decode_breakdown(rt):
+def _decode_breakdown(rt) -> dict:
     """Decode steps with all 8 slots active and no prefill on the card
     (after the counted wave): wall time per step against the device time
     the profiler sums over its kernels, and where that device time goes."""
     with torch.inference_mode():
         rt._active_dev.fill_(True)
     rt.step_once()
-    t0 = time.perf_counter()
-    for _ in range(10):
+    walls = []
+    for _ in range(20):  # each step ends in its token read: a host sync
+        t0 = time.perf_counter()
         rt.step_once()
-    wall = 1e3 * (time.perf_counter() - t0) / 10
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall = float(np.median(walls))
     dev, rows = _device_ms(rt.step_once, 5)
     launches = sum(r[2] for r in rows)
     print(f"[pd] decode step alone (8 slots active, no prefill): wall "
-          f"{wall:.2f} ms per step, device time summed over its kernels and "
-          f"copies {dev:.2f} ms ({dev / wall:.0%} of the wall), "
-          f"{launches:.0f} of them per step")
+          f"{wall:.2f} ms per step (median of 20; min {min(walls):.2f}), "
+          f"device time summed over its kernels and copies {dev:.2f} ms "
+          f"({dev / wall:.0%} of the wall), {launches:.0f} of them per step")
     for name, ms, n in rows[:8]:
         print(f"[pd]   {ms:8.3f} ms {n:6.1f}x  {name[:80]}")
+    return {"wall_ms": wall, "wall_min_ms": min(walls), "device_ms": dev,
+            "launches": launches}
 
 
 def phase_profile(cfg, params, serve: dict, trace_out):
@@ -900,65 +1093,259 @@ def phase_profile(cfg, params, serve: dict, trace_out):
         prof.export_chrome_trace(trace_out)
 
 
-def _copy_rows(gen, pd: dict, errs: dict) -> list:
-    """dispatch_scatter and combine_gather at the shape of every decode step
-    of the pd wave (T slots x top-8 pairs, 128 experts, C = 8, d = 4096,
-    bf16) on a real routing.  Bound by bytes: the scatter reads N rows and
-    writes N rows plus the (E*C+1)-row zero fill; the gather reads N rows
-    and writes N rows."""
-    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
-        combine_gather, dispatch_scatter)
-    from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
-                                                          dispatch_scatter_ref)
+def _host_us(fn, reps: int = 200) -> float:
+    """The host's time to issue one call, in us (perf_counter around `reps`
+    calls issued back to back, the device drained after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    return 1e6 * t
+
+
+def _call_case(name, match, kern, nbytes, shape, plain=None, lib=None,
+               lib_name=None, err=None) -> dict:
+    """One timed wrapper call at the decode shape: `ms` as the host issues
+    calls back to back (CUDA events), `device_ms` every kernel of one call
+    and `kernel_device_ms` those whose name holds `match` (profiler),
+    `host_us` the host's issue time; the bound from this run's bytes."""
+    call_dev, rows = _device_ms(kern, 50)
+    return {"case": name, "ms": cuda_ms(kern, iters=200, warmup=10),
+            "device_ms": call_dev,
+            "kernel_device_ms": sum(r[1] for r in rows if match in r[0]),
+            "launches_per_call": sum(r[2] for r in rows),
+            "host_us": _host_us(kern),
+            "plain_ms": None if plain is None
+            else cuda_ms(plain, iters=20, warmup=2),
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "library_ms": None if lib is None
+            else cuda_ms(lib, iters=200, warmup=10),
+            "library_device_ms": None if lib is None else _device_ms(lib,
+                                                                     50)[0],
+            "library_call": lib_name, "max_abs_err": err, "shape": shape,
+            "kernels": [[r[0][:60], r[1], r[2]] for r in rows]}
+
+
+def _decode_inputs(gen, T: int):
+    """The decode MoE layer's inputs at width T: a dropless routing of T
+    tokens (top-8 of 128 experts, C = 8), x, expert outputs yb and router
+    weights, bf16 payloads."""
     from repro_torch.models.moe import expert_capacity
     full = get_config(ARCH)
-    T, E, K, d = pd["T"], full.num_experts, full.top_k, full.d_model
+    E, K, d = full.num_experts, full.top_k, full.d_model
     C = expert_capacity(T, full)
-    token_of, slot, _ = _pairs(gen, T, E, K, C)
-    rows = E * C + 1
-    N = T * K
-    kept = int((slot < E * C).sum())
+    _, _, idx = _pairs(gen, T, E, K, C)
     x = torch.randn((T, d), generator=gen, device=DEV).bfloat16()
-    yb = torch.randn((rows, d), generator=gen, device=DEV).bfloat16()
-    yb[-1] = 0
-    out = torch.zeros((rows, d), dtype=x.dtype, device=DEV)
-    slot64, tok64 = slot.long(), token_of.long()
+    yb = torch.randn((E, C, d), generator=gen, device=DEV).bfloat16()
+    w = torch.rand((T, K), generator=gen, device=DEV)
+    w = w / w.sum(-1, keepdim=True)
+    return full, idx, x, yb, w, C
+
+
+def time_moe_path(gen, T: int) -> dict:
+    """kernel_moe_dispatch and kernel_moe_combine, each one whole call as
+    the decode MoE layer makes it: device time over all its kernels, the
+    launches of one call, host-issued ms and the host's us.  Only the ops
+    API, so that it runs in any tree of the port (the --shapes-from
+    turns)."""
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    full, idx, x, yb, w, C = _decode_inputs(gen, T)
+    _, info = kernel_moe_dispatch(x, idx, full, C)
+    out = {}
+    for name, fn in (("kernel_moe_dispatch",
+                      lambda: kernel_moe_dispatch(x, idx, full, C)),
+                     ("kernel_moe_combine",
+                      lambda: kernel_moe_combine(yb, info, w, T))):
+        dev, rows = _device_ms(fn, 50)
+        out[name] = {"device_ms": dev,
+                     "launches": sum(r[2] for r in rows),
+                     "ms": cuda_ms(fn, iters=200, warmup=10),
+                     "host_us": _host_us(fn),
+                     "kernels": [[r[0][:60], r[1], r[2]] for r in rows]}
+    return out
+
+
+def _moe_rows(gen, pd: dict, errs: dict) -> list:
+    """Rows 3-4 at the shape of every decode step of the pd wave (T slots
+    x top-8 pairs, 128 experts, C = 8, d = 4096, bf16) on a dropless
+    routing, two cases each.  "path": the route the decode MoE layer takes
+    (kernel_moe_dispatch / kernel_moe_combine, whole calls; bound: xb
+    written once, x and the index vectors read once / the kept rows, weights
+    and slots read once, out written once; library: embedding_bag for the
+    combine, none for the dispatch, whose yardstick is the parent's path in
+    the --shapes-from turns).  "tpu_signature": dispatch_scatter /
+    combine_gather as the TPU kernels' signatures call them (bound: 2N rows
+    + the (E*C+1)-row zero fill / 2N rows; the scatter's yardstick does the
+    zero fill its wrapper does)."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, dispatch_scatter)
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
+                                                          combine_weighted_ref,
+                                                          dispatch_scatter_ref,
+                                                          dispatch_whole_ref)
+    from repro_torch.models.moe import dispatch_slots
+    T = pd["T"]
+    full, idx, x, yb, w, C = _decode_inputs(gen, T)
+    E, K, d = full.num_experts, full.top_k, full.d_model
+    N, rows, el = T * K, E * C + 1, 2
+    perm, slot64, _, _ = dispatch_slots(idx, E, C)
+    kept = int((slot64 < E * C).sum())
+    slot, tok64 = slot64.to(torch.int32), perm // K
+    token_of = tok64.to(torch.int32)
     shape = {"T": T, "K": K, "N": N, "E": E, "C": C, "rows_out": rows,
              "d": d, "dtype": "bf16", "pairs_kept": kept}
-    el = 2
-    timings = [
-        ("dispatch_scatter", 46, lambda: dispatch_scatter(
-            token_of, slot, x, rows_out=rows),
-         lambda: dispatch_scatter_ref(token_of, slot, x, rows),
-         lambda: out.index_copy_(0, slot64, x.index_select(0, tok64)),
-         "out.index_copy_(0, slot, x.index_select(0, token_of))",
-         el * d * (2 * kept + rows)),
-        ("combine_gather", 75, lambda: combine_gather(slot, yb),
-         lambda: combine_gather_ref(slot, yb),
-         lambda: torch.index_select(yb, 0, slot64),
-         "torch.index_select(yb, 0, slot)", el * d * 2 * N)]
-    out_rows = []
-    for name, line, kern, plain, lib, lib_name, nbytes in timings:
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        kernel_dev, _ = _device_ms(kern, 50, match=f"{name}_kernel")
-        call_dev, _ = _device_ms(kern, 50)
-        out_rows.append({
+    xb, info = kernel_moe_dispatch(x, idx, full, C)
+    yb_flat = yb.reshape(E * C, d)
+    yb_trash = torch.cat([yb_flat, yb_flat.new_zeros((1, d))])
+    w_bf = w.bfloat16()
+    ps2 = info["pair_slot"].reshape(T, K)
+    dispatch = [
+        _call_case(
+            "path", "dispatch_whole",
+            lambda: kernel_moe_dispatch(x, idx, full, C),
+            el * d * (E * C + T) + 4 * N + 8 * (3 * N + E) + N,
+            {**shape, "route": "whole"},
+            plain=lambda: dispatch_whole_ref(x, idx, E, C),
+            err=max_err(xb.reshape(E * C, d),
+                        dispatch_whole_ref(x, idx, E, C)[0])),
+        _call_case(
+            "tpu_signature", "dispatch_scatter_kernel",
+            lambda: dispatch_scatter(token_of, slot, x, rows_out=rows),
+            el * d * (2 * kept + rows), {**shape, "route": "scatter"},
+            plain=lambda: dispatch_scatter_ref(token_of, slot, x, rows),
+            lib=lambda: torch.zeros((rows, d), dtype=x.dtype, device=DEV)
+            .index_copy_(0, slot64, x.index_select(0, tok64)),
+            lib_name="torch.zeros((E*C+1, d)).index_copy_(0, slot, "
+                     "x.index_select(0, token_of))",
+            err=errs["dispatch_scatter"])]
+    combine = [
+        _call_case(
+            "path", "combine_weighted",
+            lambda: kernel_moe_combine(yb, info, w, T),
+            el * d * (kept + T) + 8 * N + 4 * N,
+            {**shape, "route": "weighted"},
+            plain=lambda: combine_weighted_ref(yb_flat, info["pair_slot"], w),
+            lib=lambda: torch.nn.functional.embedding_bag(
+                ps2, yb_flat, per_sample_weights=w_bf, mode="sum"),
+            lib_name="embedding_bag(pair_slot [T, K], yb, "
+                     "per_sample_weights=w, mode='sum')",
+            err=max_err(kernel_moe_combine(yb, info, w, T),
+                        combine_weighted_ref(yb_flat, info["pair_slot"], w))),
+        _call_case(
+            "tpu_signature", "combine_gather_kernel",
+            lambda: combine_gather(slot, yb_trash), el * d * 2 * N,
+            {**shape, "route": "gather"},
+            plain=lambda: combine_gather_ref(slot, yb_trash),
+            lib=lambda: torch.index_select(yb_trash, 0, slot64),
+            lib_name="torch.index_select(yb, 0, slot)",
+            err=errs["combine_gather"])]
+    out = []
+    for name, line, cases in (("dispatch_scatter", 46, dispatch),
+                              ("combine_gather", 75, combine)):
+        first = cases[0]
+        out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/dispatch_combine.cu",
             "replaces": "src/repro/kernels/dispatch_combine/"
                         f"dispatch_combine.py:{line}",
             "launches": pd["launches"][name],
-            "max_abs_err": errs["dispatch_combine"],
-            "ms": cuda_ms(kern, iters=200, warmup=10),
-            "plain_ms": cuda_ms(plain, iters=200, warmup=10),
-            "bound_ms": 1e3 * t_bytes, "bound_by": "bytes",
-            "library_ms": cuda_ms(lib, iters=200, warmup=10),
-            "library_call": lib_name, "shape": shape,
-            # the device alone, by the profiler: the kernel, and every
-            # kernel of one wrapper call (the scatter's zero fill included);
-            # "ms" above is the call as the host issues it back to back
-            "kernel_device_ms": kernel_dev, "call_device_ms": call_dev})
-    return out_rows
+            "launches_by_route": pd["by_route"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **{k: first[k] for k in ("ms", "device_ms", "kernel_device_ms",
+                                     "host_us", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "library_device_ms", "shape")},
+            "cases": cases})
+    g, p = combine[0]["device_ms"], combine[1]["kernel_device_ms"]
+    print(f"[timing] combine 'weighted' {1e3 * g:.2f} us device vs the "
+          f"TPU-signature gather kernel {1e3 * p:.2f} us ({g / p:.2f}x, "
+          f"target <= 1.5x) and embedding_bag "
+          f"{1e3 * combine[0]['library_device_ms']:.2f} us")
+    d_path, d_sig = dispatch[0]["device_ms"], dispatch[1]["device_ms"]
+    print(f"[timing] dispatch 'whole' {1e3 * d_path:.2f} us device over "
+          f"{dispatch[0]['launches_per_call']:.0f} launches vs the "
+          f"TPU-signature scatter + its zero fill {1e3 * d_sig:.2f} us; "
+          f"{dispatch[0]['bound_ms'] / d_path:.0%} of the bound")
+    return out
+
+
+def wrapper_host_costs(gen, T: int):
+    """The host's cost of each step of a dispatch_whole call at the decode
+    shape, in us per call (perf_counter over many calls): the checks, the
+    allocations, the stream handle (new and old way), the ctypes call
+    refused before launching and launching, the launch count, the views;
+    then the whole calls of both routes and of the ops above them."""
+    from repro_torch.kernels.dispatch_combine import dispatch_combine as dc
+    from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
+                                                          kernel_moe_dispatch)
+    full, idx, x, yb, w, C = _decode_inputs(gen, T)
+    E, K, d = full.num_experts, full.top_k, full.d_model
+    N = T * K
+    lib = _build.load()
+    dev = x.device
+    xb = torch.empty((E * C, d), dtype=x.dtype, device=DEV)
+    meta = torch.empty(3 * N + E, dtype=torch.long, device=DEV)
+    valid = torch.empty(N, dtype=torch.bool, device=DEV)
+    stream = _launch.stream_ptr(dev)
+    _, info = kernel_moe_dispatch(x, idx, full, C)
+
+    def launch(elem):
+        return lib.dispatch_whole_launch(
+            idx.data_ptr(), x.data_ptr(), xb.data_ptr(), meta.data_ptr(),
+            valid.data_ptr(), N, K, E, C, d, x.stride(0), elem, stream)
+
+    expect(launch(3) == -1, "dispatch_whole_launch took an element size 3")
+    steps = {
+        "dispatch_whole's checks on CUDA tensors (_whole_args)":
+            lambda: dc._whole_args(x, idx),
+        "three torch.empty (xb, meta, valid)": lambda: (
+            torch.empty((E * C, d), dtype=x.dtype, device=dev),
+            torch.empty(3 * N + E, dtype=torch.long, device=dev),
+            torch.empty(N, dtype=torch.bool, device=dev)),
+        "torch.cuda.current_stream(dev).cuda_stream (before)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_launch.stream_ptr(dev)": lambda: _launch.stream_ptr(dev),
+        "_build.load()": _build.load,
+        "ctypes dispatch_whole_launch, refused before launching":
+            lambda: launch(3),
+        "ctypes dispatch_whole_launch, launching": lambda: launch(2),
+        "_launch.count_launch": lambda: _launch.count_launch(
+            dc.dispatch_scatter, "whole"),
+        "meta.split into four views": lambda: meta.split((N, N, N, E)),
+        "dispatch_whole, whole call": lambda: dc.dispatch_whole(x, idx, E, C),
+        "kernel_moe_dispatch, whole call":
+            lambda: kernel_moe_dispatch(x, idx, full, C),
+        "combine_weighted, whole call": lambda: dc.combine_weighted(
+            yb.reshape(E * C, d), info["pair_slot"], w),
+        "kernel_moe_combine, whole call":
+            lambda: kernel_moe_combine(yb, info, w, T)}
+    costs = {k: _host_us(f, reps=500) for k, f in steps.items()}
+    for k, us in costs.items():
+        print(f"[timing] host {us:8.2f} us  {k}")
+    return costs
+
+
+def decode_step_alone(seed: int, lengths) -> dict:
+    """A DecodeExecutor of width len(lengths) over a 2112-token cache at
+    full width (the serve phase's model), every slot active at the given
+    lengths, no prefill: `_decode_breakdown`'s readings.  Only the API the
+    port has had since its decode slice, so that it runs in any tree."""
+    from repro_torch.core.decode import DecodeExecutor
+    cfg, params = build_model(SERVE_LAYERS, seed)
+    rt = DecodeExecutor(params, cfg, slots=len(lengths), max_len=2112)
+    with torch.inference_mode():
+        rt._lengths.copy_(torch.tensor(lengths, dtype=torch.int32))
+    out = _decode_breakdown(rt)
+    del rt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def wave_shapes(serve: dict) -> dict:
@@ -1087,7 +1474,8 @@ def shapes_from(kernels_line: dict) -> dict:
     g = rows["super_gmm"]["cases"][0]["shape"]
     return {"super_gmm": {k: g[k] for k in ("n_e", "C", "counts")},
             "flash_attention": [[c["shape"]["B"], c["shape"]["S"]]
-                                for c in rows["flash_attention"]["cases"]]}
+                                for c in rows["flash_attention"]["cases"]],
+            "decode_T": rows["dispatch_scatter"]["shape"]["T"]}
 
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
@@ -1095,12 +1483,13 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase."""
     shapes = wave_shapes(serve)
+    wrapper_host_costs(gen, pd["T"])
     return {"kernels": [
         _row("super_gmm", 68, time_super_gmm(shapes["super_gmm"], gen),
              serve, errs),
         _row("flash_attention", 97,
              time_flash_attention(shapes["flash_attention"], gen), serve,
-             errs)] + _copy_rows(gen, pd, errs)}
+             errs)] + _moe_rows(gen, pd, errs)}
 
 
 def main() -> int:
@@ -1116,7 +1505,9 @@ def main() -> int:
     ap.add_argument("--shapes-from", default=None, metavar="PATH",
                     help="a file holding the {\"kernels\": ...} line of a "
                     "full run: time super_gmm and flash_attention alone at "
-                    "its shapes (--phases device,build,timing)")
+                    "its shapes, the decode MoE layer's dispatch and "
+                    "combine calls, and a decode step alone (--phases "
+                    "device,build,timing)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device -- this script measures on the "
@@ -1135,11 +1526,18 @@ def main() -> int:
                "device,build,timing")
         with open(args.shapes_from) as f:
             shapes = shapes_from(json.loads(f.read()))
+        T = shapes["decode_T"]
+        # the serve phase's prompt lengths, as decode contexts
+        lengths = np.random.default_rng(args.seed).integers(256, 2049,
+                                                            size=T)
         print(json.dumps({"timing": {
             "src": os.path.dirname(os.path.abspath(__file__)),
             "super_gmm": time_super_gmm(shapes["super_gmm"], gen),
             "flash_attention": time_flash_attention(
-                shapes["flash_attention"], gen)}}))
+                shapes["flash_attention"], gen),
+            "moe_path": time_moe_path(gen, T),
+            "decode_step": decode_step_alone(args.seed,
+                                             [int(v) for v in lengths])}}))
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None

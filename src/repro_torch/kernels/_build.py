@@ -124,6 +124,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.dispatch_scatter_launch.argtypes = [_VP] * 4 + [_I] * 5 + [_VP]
     lib.combine_gather_launch.restype = _I
     lib.combine_gather_launch.argtypes = [_VP] * 3 + [_I] * 4 + [_VP]
+    lib.dispatch_whole_launch.restype = _I
+    lib.dispatch_whole_launch.argtypes = [_VP] * 5 + [_I] * 5 + [_LL, _I,
+                                                                 _VP]
+    lib.combine_weighted_launch.restype = _I
+    lib.combine_weighted_launch.argtypes = [_VP] * 4 + [_I, _I, _LL, _I, _I,
+                                                        _VP]
 
 
 def library_path() -> pathlib.Path:

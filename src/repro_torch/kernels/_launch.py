@@ -63,4 +63,9 @@ def check(code: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw handle of the calling thread's current stream on `device` (a
+    CUDA tensor's device, which always has an index).  The same handle as
+    `torch.cuda.current_stream(device).cuda_stream`, without building a
+    Stream object: 0.16 against 3.30 us a call on an H100 machine's host
+    (`chip_smoke.py`'s timing phase prints both)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -1,14 +1,25 @@
 """Token dispatch/combine -- the capacity-mode MoE layer's payload movement.
 
-    dispatch_scatter:  out[slot[i]] = x[token_of[i]]   (out starts as zeros)
-    combine_gather:    out[i]       = yb[slot[i]]
+Two wrappers of the CUDA kernels in `csrc/dispatch_combine.cu`, each with
+two routes, counted in `launches_by_route`:
 
-`dispatch_scatter` and `combine_gather` are the wrappers of the CUDA kernels
-in `csrc/dispatch_combine.cu`; they replace the TPU kernels of the same names
+    dispatch_scatter   "scatter": out[slot[i]] = x[token_of[i]] (out starts
+                       as zeros) -- the TPU kernel's signature
+                       "whole":   the whole dispatch of `moe_dispatch` from the
+                       router's ids (`dispatch_whole`), one launch
+    combine_gather     "gather":  out[i] = yb[slot[i]] -- the TPU kernel's
+                       signature
+                       "weighted": out[t] = sum_k w[t, k] yb[pair_slot[t*K+k]]
+                       (`combine_weighted`), one launch
+
+The "scatter" and "gather" routes replace the TPU kernels of the same names
 in `repro.kernels.dispatch_combine.dispatch_combine`, with the same
-signatures.  The index vectors are device data read by the kernel; the
-wrappers never read them back.  Row `rows_out - 1` of the scatter's output is
-the trash row that dropped pairs point at: it stays zero.
+signatures; the decode MoE layer runs the "whole" and "weighted" routes
+(`ops.py`).  `launches` counts wrapper calls that launched their kernels,
+one per call on every route.  The index vectors are device data read by the
+kernels; the wrappers never read them back.  Row `rows_out - 1` of the
+scatter's output is the trash row that dropped pairs point at: it stays
+zero.
 
 On a CPU tensor each wrapper takes its plain version (`ref.py`); on a CUDA
 tensor it launches its kernel or raises.
@@ -19,7 +30,9 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
-                                                      dispatch_scatter_ref)
+                                                      combine_weighted_ref,
+                                                      dispatch_scatter_ref,
+                                                      dispatch_whole_ref)
 
 _ELEM_SIZE = {torch.float32: 4, torch.bfloat16: 2}
 
@@ -28,6 +41,12 @@ def _check_index(name: str, idx: torch.Tensor, n: int, device):
     if idx.dtype != torch.int32 or idx.shape != (n,) \
             or idx.device != device:
         raise ValueError(f"{name} must be a [{n}] int32 tensor on {device}")
+
+
+def _check_payload(name: str, t: torch.Tensor):
+    if not t.is_cuda or t.dtype not in _ELEM_SIZE:
+        raise ValueError(f"{name} must be a float32 or bfloat16 CUDA tensor, "
+                         f"got {t.dtype} on {t.device}")
 
 
 def dispatch_scatter(token_of: torch.Tensor, slot: torch.Tensor,
@@ -43,9 +62,7 @@ def dispatch_scatter(token_of: torch.Tensor, slot: torch.Tensor,
         raise ValueError("dispatch_scatter: rows_out must be >= 1")
     if x.device.type == "cpu":
         return dispatch_scatter_ref(token_of, slot, x, rows_out)
-    if not x.is_cuda or x.dtype not in _ELEM_SIZE:
-        raise ValueError(f"dispatch_scatter: x must be a float32 or bfloat16 "
-                         f"CUDA tensor, got {x.dtype} on {x.device}")
+    _check_payload("dispatch_scatter: x", x)
     x, token_of, slot = x.contiguous(), token_of.contiguous(), \
         slot.contiguous()
     T, d = x.shape
@@ -57,8 +74,50 @@ def dispatch_scatter(token_of: torch.Tensor, slot: torch.Tensor,
         token_of.data_ptr(), slot.data_ptr(), x.data_ptr(), out.data_ptr(),
         N, d, _ELEM_SIZE[x.dtype], T, rows_out, _launch.stream_ptr(x.device))
     _launch.check(code, "dispatch_scatter")
-    _launch.count_launch(dispatch_scatter)
+    _launch.count_launch(dispatch_scatter, "scatter")
     return out
+
+
+def _whole_args(x: torch.Tensor, idx: torch.Tensor):
+    """x and idx as `dispatch_whole_launch` takes them: x a float32 or
+    bfloat16 CUDA tensor with unit column stride, idx contiguous int32."""
+    _check_payload("dispatch_whole: x", x)
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    if idx.dtype != torch.int32 or not idx.is_contiguous():
+        idx = idx.to(torch.int32).contiguous()
+    return x, idx
+
+
+def dispatch_whole(x: torch.Tensor, idx: torch.Tensor, num_experts: int,
+                   capacity: int):
+    """The "whole" route of `dispatch_scatter`: x [T, d]; idx [T, K] int32
+    expert ids -> (xb [E*C, d] x's type, perm, slot, valid, group_sizes,
+    pair_slot) -- `moe_dispatch`'s outputs bit for bit (perm, slot: [T*K]
+    int64 in sorted pair order; valid [T*K] bool; group_sizes [E] int64),
+    and pair_slot [T*K] int64, each pair's capacity row in pair order (E*C
+    when dropped).  x may have any row stride."""
+    if x.dim() != 2 or idx.dim() != 2 or idx.shape[0] != x.shape[0]:
+        raise ValueError(f"dispatch_whole: x [T, d] and idx [T, K] expected, "
+                         f"got {tuple(x.shape)} and {tuple(idx.shape)}")
+    if idx.device != x.device:
+        raise ValueError("dispatch_whole: x and idx on different devices")
+    if x.device.type == "cpu":
+        return dispatch_whole_ref(x, idx, num_experts, capacity)
+    x, idx = _whole_args(x, idx)
+    (T, d), K = x.shape, idx.shape[1]
+    E, C, N = num_experts, capacity, T * K
+    xb = torch.empty((E * C, d), dtype=x.dtype, device=x.device)
+    meta = torch.empty(3 * N + E, dtype=torch.long, device=x.device)
+    valid = torch.empty(N, dtype=torch.bool, device=x.device)
+    code = _build.load().dispatch_whole_launch(
+        idx.data_ptr(), x.data_ptr(), xb.data_ptr(), meta.data_ptr(),
+        valid.data_ptr(), N, K, E, C, d, x.stride(0), _ELEM_SIZE[x.dtype],
+        _launch.stream_ptr(x.device))
+    _launch.check(code, "dispatch_scatter (whole)")
+    _launch.count_launch(dispatch_scatter, "whole")
+    perm, slot, pair_slot, group_sizes = meta.split((N, N, N, E))
+    return xb, perm, slot, valid, group_sizes, pair_slot
 
 
 def combine_gather(slot: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
@@ -71,9 +130,7 @@ def combine_gather(slot: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
     _check_index("combine_gather: slot", slot, N, yb.device)
     if yb.device.type == "cpu":
         return combine_gather_ref(slot, yb)
-    if not yb.is_cuda or yb.dtype not in _ELEM_SIZE:
-        raise ValueError(f"combine_gather: yb must be a float32 or bfloat16 "
-                         f"CUDA tensor, got {yb.dtype} on {yb.device}")
+    _check_payload("combine_gather: yb", yb)
     yb, slot = yb.contiguous(), slot.contiguous()
     R, d = yb.shape
     out = torch.empty((N, d), dtype=yb.dtype, device=yb.device)
@@ -84,9 +141,42 @@ def combine_gather(slot: torch.Tensor, yb: torch.Tensor) -> torch.Tensor:
         slot.data_ptr(), yb.data_ptr(), out.data_ptr(), N, d,
         _ELEM_SIZE[yb.dtype], R, _launch.stream_ptr(yb.device))
     _launch.check(code, "combine_gather")
-    _launch.count_launch(combine_gather)
+    _launch.count_launch(combine_gather, "gather")
+    return out
+
+
+def combine_weighted(yb: torch.Tensor, pair_slot: torch.Tensor,
+                     weights: torch.Tensor) -> torch.Tensor:
+    """The "weighted" route of `combine_gather`: yb [R, d]; pair_slot [T*K]
+    int64 (a row outside yb adds nothing); weights [T, K] -> out [T, d],
+    yb's type: sum over k = 0..K-1 in fp32 of the weight rounded to yb's
+    type times the row, rounded once."""
+    if yb.dim() != 2 or weights.dim() != 2:
+        raise ValueError(f"combine_weighted: yb [R, d] and weights [T, K] "
+                         f"expected, got {tuple(yb.shape)} and "
+                         f"{tuple(weights.shape)}")
+    T, K = weights.shape
+    if pair_slot.dtype != torch.long or pair_slot.shape != (T * K,) \
+            or pair_slot.device != yb.device or weights.device != yb.device:
+        raise ValueError(f"combine_weighted: pair_slot must be a [{T * K}] "
+                         f"int64 tensor and weights on {yb.device}")
+    if yb.device.type == "cpu":
+        return combine_weighted_ref(yb, pair_slot, weights)
+    _check_payload("combine_weighted: yb", yb)
+    yb, pair_slot = yb.contiguous(), pair_slot.contiguous()
+    weights = weights.float().contiguous()
+    R, d = yb.shape
+    out = torch.empty((T, d), dtype=yb.dtype, device=yb.device)
+    code = _build.load().combine_weighted_launch(
+        pair_slot.data_ptr(), weights.data_ptr(), yb.data_ptr(),
+        out.data_ptr(), T, K, R, d, _ELEM_SIZE[yb.dtype],
+        _launch.stream_ptr(yb.device))
+    _launch.check(code, "combine_gather (weighted)")
+    _launch.count_launch(combine_gather, "weighted")
     return out
 
 
 dispatch_scatter.launches = 0
+dispatch_scatter.launches_by_route = {"scatter": 0, "whole": 0}
 combine_gather.launches = 0
+combine_gather.launches_by_route = {"gather": 0, "weighted": 0}

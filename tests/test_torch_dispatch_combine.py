@@ -23,7 +23,9 @@ from repro.models.common import ModelConfig as JaxModelConfig
 from repro.models.lm import lm_forward as jax_lm_forward
 from repro_torch.kernels.dispatch_combine import ops
 from repro_torch.kernels.dispatch_combine.dispatch_combine import (
-    combine_gather, dispatch_scatter)
+    combine_gather, combine_weighted, dispatch_scatter, dispatch_whole)
+from repro_torch.kernels.dispatch_combine.ref import (RANK_CHUNK,
+                                                      combine_weighted_ref)
 from repro_torch.models import blocks, lm, moe
 from repro_torch.models.common import ModelConfig
 
@@ -129,6 +131,139 @@ def test_wrappers_on_cpu_launch_nothing_and_check_their_indices():
         dispatch_scatter(idx.long(), slot, x, rows_out=6)
     with pytest.raises(ValueError):
         combine_gather(slot[:1, None], out)
+
+
+def _pair_slot(info):
+    """moe_dispatch's slots in pair order: the combine's view of the info."""
+    return torch.empty_like(info["slot"]).scatter_(0, info["perm"],
+                                                   info["slot"])
+
+
+# (T, E, K, capacity, how the ids are made): the routing cases of the
+# whole dispatch beyond CASES -- one token, every pair to one expert (most
+# dropped), N at the rank chunk's edges, deepseek_v32's 256 experts
+WHOLE_CASES = [(1, 128, 8, None, "router"), (64, 16, 4, 8, "one expert"),
+               (RANK_CHUNK - 1, 16, 1, None, "router"),
+               (RANK_CHUNK, 16, 1, None, "router"),
+               (RANK_CHUNK + 1, 16, 1, None, "router"),
+               (64, 256, 8, None, "router")]
+
+
+def _whole_routing(T, E, K, how, seed):
+    jcfg, cfg, x, w, idx = _routing(T, E, K, seed=seed)
+    if how == "one expert":
+        idx = np.full_like(idx, 5)
+    return jcfg, cfg, x, w, idx
+
+
+@pytest.mark.parametrize("T,E,K,cap,how",
+                         [c + ("router",) for c in CASES] + WHOLE_CASES)
+def test_whole_dispatch_equals_jax_bit_for_bit(T, E, K, cap, how):
+    """dispatch_whole (its plain version, on the CPU) against the JAX
+    moe_dispatch and the JAX kernel_moe_dispatch with Pallas in interpret
+    mode: every output bit for bit, and pair_slot equal to the reference's
+    slots put back in pair order."""
+    jcfg, cfg, x, _, idx = _whole_routing(T, E, K, how, seed=T + E + K)
+    C = cap or moe.expert_capacity(T, cfg)
+    xb, perm, slot, valid, group_sizes, pair_slot = dispatch_whole(
+        t(x), t(idx), E, C)
+    got = dict(perm=perm, slot=slot, valid=valid, group_sizes=group_sizes)
+    jxb, jinfo = jmoe.moe_dispatch(jnp.asarray(x), jnp.asarray(idx), jcfg, C)
+    kxb, kinfo = jops.kernel_moe_dispatch(jnp.asarray(x), jnp.asarray(idx),
+                                          jcfg, C, interpret=True)
+    for want_xb, want in ((jxb, jinfo), (kxb, kinfo)):
+        np.testing.assert_array_equal(xb.reshape(E, C, -1).numpy(),
+                                      np.asarray(want_xb))
+        for k, v in got.items():
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]))
+    assert pair_slot.dtype == perm.dtype == slot.dtype == torch.long
+    assert valid.dtype == torch.bool
+    assert torch.equal(pair_slot, _pair_slot(
+        {k: torch.from_numpy(np.asarray(jinfo[k]).astype(np.int64))
+         for k in ("perm", "slot")}))
+    if how == "one expert":
+        assert int((~valid).sum()) == T * K - C
+
+
+@pytest.mark.parametrize("T,E,K,cap,hot", [(640, 128, 8, None, None),
+                                           (640, 16, 8, 2000, (3, 11))])
+def test_whole_dispatch_large_n_equals_jax_moe_dispatch(T, E, K, cap, hot):
+    """N = 5120 > 4096 pairs, one design for every N: against the JAX
+    moe_dispatch; the second case puts 2560 pairs on each of two experts at
+    C = 2000 (the kernel's rows blocks fill 1024 capacity rows a pass)."""
+    jcfg, cfg, x, _, idx = _routing(T, E, K, d=8, seed=3)
+    if hot is not None:
+        idx = np.asarray(hot, np.int32)[np.arange(T * K) % 2].reshape(T, K)
+    C = cap or moe.expert_capacity(T, cfg)
+    xb, perm, slot, valid, group_sizes, pair_slot = dispatch_whole(
+        t(x), t(idx), E, C)
+    jxb, jinfo = jmoe.moe_dispatch(jnp.asarray(x), jnp.asarray(idx), jcfg, C)
+    np.testing.assert_array_equal(xb.reshape(E, C, -1).numpy(),
+                                  np.asarray(jxb))
+    for k, v in dict(perm=perm, slot=slot, valid=valid,
+                     group_sizes=group_sizes).items():
+        np.testing.assert_array_equal(v.numpy(), np.asarray(jinfo[k]))
+
+
+@pytest.mark.parametrize("via_gather", [False, True])
+@pytest.mark.parametrize("source", ["kernel_moe_dispatch", "moe_dispatch"])
+@pytest.mark.parametrize("T,E,K,cap,how", [(64, 8, 2, 8, "router"),
+                                           (1, 128, 8, None, "router"),
+                                           (64, 16, 4, 8, "one expert"),
+                                           (64, 256, 8, None, "router")])
+def test_weighted_combine_matches_jax_moe_combine(T, E, K, cap, how,
+                                                  source, via_gather):
+    """kernel_moe_combine (the weighted route's plain version) against the
+    JAX moe_combine at 1e-6 in fp32, for both via_gather values, given an
+    info from either of the port's dispatches (moe_dispatch's has no
+    pair_slot: the wrapper derives it)."""
+    jcfg, cfg, x, w, idx = _whole_routing(T, E, K, how, seed=7 * T + E)
+    C = cap or moe.expert_capacity(T, cfg)
+    dispatch = ops.kernel_moe_dispatch if source == "kernel_moe_dispatch" \
+        else moe.moe_dispatch
+    _, info = dispatch(t(x), t(idx), cfg, C)
+    assert ("pair_slot" in info) == (source == "kernel_moe_dispatch")
+    _, jinfo = jmoe.moe_dispatch(jnp.asarray(x), jnp.asarray(idx), jcfg, C)
+    yb = np.random.RandomState(T + K).randn(E, C, x.shape[1]) \
+        .astype(np.float32)
+    got = ops.kernel_moe_combine(t(yb), info, t(w), T, via_gather=via_gather)
+    close(got, jmoe.moe_combine(jnp.asarray(yb), jinfo, jnp.asarray(w), T,
+                                via_gather=via_gather), 1e-6)
+
+
+def test_weighted_combine_sums_k_in_order_and_skips_dropped_pairs():
+    """(1 + 1e8) - 1e8 is 0 in fp32 only in the order k = 0, 1, 2; a
+    pair_slot outside yb adds nothing, even where the row it would name
+    holds NaN; each weight is rounded to the payload's type first."""
+    yb = torch.tensor([[1.0] * 4, [1e8] * 4, [-1e8] * 4, [np.nan] * 4])
+    got = combine_weighted(yb[:3], torch.tensor([0, 1, 2, 3, -1, 7]),
+                           torch.ones((2, 3)))
+    assert torch.equal(got, torch.tensor([[0.0] * 4, [0.0] * 4]))
+    ybf = torch.randn(3, 8).bfloat16()
+    w = torch.tensor([[0.3, 0.3001, 0.4]])
+    want = sum(w[0, k].bfloat16().float() * ybf[k].float()
+               for k in range(3)).bfloat16()
+    assert torch.equal(combine_weighted_ref(ybf, torch.arange(3), w)[0],
+                       want)
+
+
+def test_new_routes_on_cpu_launch_nothing_and_check_their_inputs():
+    counts = (dispatch_scatter.launches, combine_gather.launches,
+              dict(dispatch_scatter.launches_by_route),
+              dict(combine_gather.launches_by_route))
+    jcfg, cfg, x, w, idx = _routing(16, 8, 2)
+    xb, info = ops.kernel_moe_dispatch(t(x), t(idx), cfg)
+    ops.kernel_moe_combine(xb, info, t(w), 16)
+    dispatch_whole(t(x), t(idx).long(), 8, 8)
+    assert counts == (dispatch_scatter.launches, combine_gather.launches,
+                      dispatch_scatter.launches_by_route,
+                      combine_gather.launches_by_route)
+    with pytest.raises(ValueError):
+        dispatch_whole(t(x), t(idx)[:4], 8, 8)  # T differs
+    with pytest.raises(ValueError):
+        combine_weighted(xb.reshape(64, -1), info["pair_slot"].int(), t(w))
+    with pytest.raises(ValueError):
+        combine_weighted(xb.reshape(64, -1), info["pair_slot"][:-1], t(w))
 
 
 def _layer0(jparams, params):
