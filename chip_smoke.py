@@ -32,6 +32,24 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             out_len lognormal mean 16 cv 0.5 capped at 64, decode width 8
             over a 2112-token cache, KV handoff priced on the H100 link;
             counts of all four kernels set to 0 just before, read just after
+  batching  (after the serve and pd executors are released) continuous
+            MoE batching at full width: 8 pinned jobs of 256 tokens through
+            a per-region and a batched executor (D=4 E=4, window 10 ms),
+            torch.equal, regions/launch > 1, every super_gmm launch on
+            wgmma, 0 bucket misses after prewarm; the light-load arm (D=8
+            groups of 64-256-token prompts, E=2, window 2 ms) per-region vs
+            batched in interleaved turns, best of 3: tokens/s, host syncs per
+            batch-layer, launches, regions/launch, occupancy, peak reserved
+            memory (reported, not gated); the eager and host-combine
+            baselines vs the dense oracle in fp32 (tol 2e-4), host combine
+            torch.equal device combine, fused vs eager tokens/s at full width
+  gmm       lm_forward(gmm=make_super_kernel_gmm(...)): fp32 at the
+            reference's test config vs the einsum path (tol 2e-4); full
+            width on tokens [1, 2048] vs default_gmm (relative Frobenius
+            error of the logits, tol 1e-1) with super_gmm 3, dispatch
+            "whole" 1 and combine "weighted" 1 launch per layer; the "whole"
+            dispatch at that N (16384 pairs) timed against the TPU-signature
+            zero fill + "scatter"
   timing    each kernel timed at the shapes its path gave it, beside its
             bound, its plain version and one library call (library_ms is a
             yardstick timed here and used nowhere in the port): super_gmm
@@ -47,7 +65,8 @@ Phases (each prints its own lines; any failure is a non-zero exit):
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
-counts say so).
+counts say so).  Each path's launches (serve, pd, batching, gmm) stand in
+the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -579,6 +598,49 @@ def check_whole_dispatch(gen):
           f"block: {'; '.join(cases)}")
 
 
+def check_wide_dispatch(gen):
+    """kernel_moe_dispatch beyond the "whole" route's bound (E =
+    WHOLE_MAX_EXPERTS + 1): the "scatter" route, torch.equal to moe_dispatch
+    on every output (pair_slot to its slots in pair order), fp32 and bf16,
+    xb into a NaN-filled block, at the config's capacity and at C=1."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        WHOLE_MAX_EXPERTS, dispatch_scatter)
+    from repro_torch.kernels.dispatch_combine.ops import (dispatch_route,
+                                                          kernel_moe_dispatch,
+                                                          pair_slots)
+    from repro_torch.models.moe import expert_capacity, moe_dispatch
+    E, K, T, d = WHOLE_MAX_EXPERTS + 1, 8, 64, get_config(ARCH).d_model
+    expect(dispatch_route(E) == "scatter"
+           and dispatch_route(WHOLE_MAX_EXPERTS) == "whole",
+           f"dispatch route rule at E={E}")
+    cfg = _moe_cfg(E, K)
+    _, _, idx = _pairs(gen, T, E, K, 8)
+    x = torch.randn((T, d), generator=gen, device=DEV)
+    routes = _routes(dispatch_scatter)
+    for C in (None, 1):
+        for dtype in (torch.float32, torch.bfloat16):
+            xt = x.to(dtype)
+            # the allocator hands xb the block just freed, full of NaN
+            torch.full((E * (C or expert_capacity(T, cfg)) + 1, d),
+                       float("nan"), dtype=dtype, device=DEV)
+            xb, info = kernel_moe_dispatch(xt, idx, cfg, C)
+            wxb, winfo = moe_dispatch(xt, idx, cfg, C)
+            expect(torch.equal(xb, wxb), f"dispatch E={E} C={C} {dtype}: xb "
+                   f"!= moe_dispatch's")
+            for k in ("perm", "slot", "valid", "group_sizes"):
+                expect(torch.equal(info[k], winfo[k]), f"dispatch E={E} "
+                       f"C={C} {dtype}: {k} != moe_dispatch's")
+            expect(torch.equal(info["pair_slot"],
+                               pair_slots(winfo["perm"], winfo["slot"])),
+                   f"dispatch E={E} C={C} {dtype}: pair_slot")
+    _took(dispatch_scatter, routes, "scatter", f"dispatch at E={E}")
+    print(f"[kernels] kernel_moe_dispatch at E={E} (> WHOLE_MAX_EXPERTS = "
+          f"{WHOLE_MAX_EXPERTS}) T={T} K={K} d={d}: every launch on the "
+          f"'scatter' route, torch.equal to moe_dispatch (xb, perm, slot, "
+          f"valid, group_sizes, pair_slot), fp32 and bf16, xb into a "
+          f"NaN-filled block, at the config's capacity and at C=1")
+
+
 def _bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     """The worst |got - want| in bf16 ulps of the larger magnitude."""
     big = torch.maximum(got.double().abs(), want.double().abs())
@@ -689,6 +751,7 @@ def phase_kernels(gen) -> dict:
             "dispatch_scatter": check_dispatch_combine(gen)}
     errs["combine_gather"] = errs["dispatch_scatter"]
     check_whole_dispatch(gen)
+    check_wide_dispatch(gen)
     check_weighted_combine(gen)
     check_moe_path_no_sync(gen)
     torch.cuda.synchronize()
@@ -708,15 +771,16 @@ def build_model(layers: int, seed: int):
     return cfg, params
 
 
-def _executor_vs_oracle(cfg, params, B, S):
-    """Run 2 jobs through DisaggregatedExecutor(D=2, E=4) and the port's own
-    dense oracle; returns (max abs err, relative Frobenius err)."""
+def _executor_vs_oracle(cfg, params, B, S, **kw):
+    """Run 2 jobs through DisaggregatedExecutor(D=2, E=4, **kw) and the
+    port's own dense oracle; returns (max abs err, relative Frobenius err,
+    the executor's results)."""
     from repro_torch.core.executor import BatchJob, DisaggregatedExecutor
     from repro_torch.models.lm import lm_backbone
     rng = np.random.RandomState(0)
     jobs = [BatchJob(tokens=rng.randint(0, cfg.vocab_size, (B, S)), bid=i)
             for i in range(2)]
-    ex = DisaggregatedExecutor(params, cfg, D=2, E=4, device=DEV)
+    ex = DisaggregatedExecutor(params, cfg, D=2, E=4, device=DEV, **kw)
     done = ex.run([jobs[:1], jobs[1:]])
     torch.cuda.synchronize()
     worst, num, den = 0.0, 0.0, 0.0
@@ -732,7 +796,7 @@ def _executor_vs_oracle(cfg, params, B, S):
             worst = max(worst, float(diff.abs().max()))
             num += float(diff.square().sum())
             den += float(ref.float().square().sum())
-    return worst, (num / den) ** 0.5
+    return worst, (num / den) ** 0.5, [j.result for j in done]
 
 
 def phase_executor(cfg, params):
@@ -742,14 +806,14 @@ def phase_executor(cfg, params):
     from repro_torch.models.lm import init_lm_params
     small = get_config(ARCH).smoke().replace(num_layers=3)
     gen = torch.Generator(device=DEV).manual_seed(1)
-    worst, rel = _executor_vs_oracle(small, init_lm_params(gen, small, DEV),
-                                     2, 48)
+    worst, rel, _ = _executor_vs_oracle(small,
+                                        init_lm_params(gen, small, DEV), 2, 48)
     # fp32 end to end; the two paths sum the same terms in another order
     expect(worst <= 2e-4, f"executor vs dense oracle (fp32): err {worst}")
     print(f"[executor] fp32 {small.num_layers}L x {small.num_experts}e "
           f"d_model={small.d_model}: D=2 E=4 vs lm_backbone(moe_mode="
           f"'dense'): max err {worst:.2e} (tol 2e-4)")
-    worst, rel = _executor_vs_oracle(cfg, params, 2, 64)
+    worst, rel, _ = _executor_vs_oracle(cfg, params, 2, 64)
     # bf16 end to end: the two paths round at different places, and a token
     # whose top-k boundary is a near-tie may change experts in a later layer,
     # so the bound is on the relative Frobenius error, not the worst element
@@ -772,9 +836,10 @@ def phase_serve(cfg, params, seed: int) -> dict:
     ex = serve_requests(cfg, params, lengths=[1900, 1500, 700, 900, 300, 400],
                         **kw)["executor"]
     kw["executor"] = ex
+    kernels = _pd_kernels()
     torch.cuda.synchronize()
-    _launch.reset_launches(super_gmm)
-    _launch.reset_launches(flash_attention)
+    for k in kernels.values():
+        _launch.reset_launches(k)
     _launch.reset_host_syncs()
     torch.cuda.reset_peak_memory_stats()
     ms = torch.cuda.memory_stats()
@@ -782,8 +847,7 @@ def phase_serve(cfg, params, seed: int) -> dict:
               ms["num_alloc_retries"])
     out = serve_requests(cfg, params, lengths=lengths, verbose=True, **kw)
     torch.cuda.synchronize()
-    launches = {"super_gmm": super_gmm.launches,
-                "flash_attention": flash_attention.launches}
+    launches = {n: k.launches for n, k in kernels.items()}
     by_route = {"super_gmm": _routes(super_gmm),
                 "flash_attention": _routes(flash_attention)}
     syncs = _launch.reset_host_syncs()
@@ -795,7 +859,8 @@ def phase_serve(cfg, params, seed: int) -> dict:
            "serve: bad first token")
     expect(launches["super_gmm"] > 0 and launches["flash_attention"] > 0,
            f"serve: a kernel was never launched: {launches}")
-    for name, n in launches.items():  # the main path is the Hopper route
+    for name in by_route:  # the main path is the Hopper route
+        n = launches[name]
         expect(by_route[name]["wgmma"] == n,
                f"serve: {name} launches by route {by_route[name]}")
     tokens = sum(lengths)
@@ -1014,6 +1079,346 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
             "hop_us": hop_us, "T": rt.slots, "decode_step": step}
 
 
+# ------------------------------------------------ batching and lm gmm --
+
+
+def _pinned(tokens, D):
+    """Fresh jobs of `tokens`, job i pinned to attention group i % D."""
+    from repro_torch.core.executor import BatchJob
+    return [[BatchJob(tokens=tokens[i], bid=i)
+             for i in range(g, len(tokens), D)] for g in range(D)]
+
+
+def _wave(ex, tokens, D) -> tuple:
+    """One pinned wave through `ex` (workers started and stopped by
+    `run`), the launch and host-sync counts set to 0 just before it and read
+    just after.  Returns (results by bid, readings)."""
+    ex.reset_stats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _pd_kernels()
+    for k in kernels.values():
+        _launch.reset_launches(k)
+    _launch.reset_host_syncs()
+    t0 = time.perf_counter()
+    done = ex.run(_pinned(tokens, D))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = _launch.reset_host_syncs()
+    expect(not ex.errors and len(done) == len(tokens), "wave: a job failed")
+    with ex._log_lock:
+        batch_layers = sum(1 for ev in ex.log if ev[0] == "combine")
+    launches = float(ex.moe_launches.sum())
+    return {j.bid: j.result for j in done}, {
+        "wall_s": wall,
+        "tokens_per_s": sum(int(np.prod(t.shape)) for t in tokens) / wall,
+        "host_syncs": syncs, "batch_layers": batch_layers,
+        "host_syncs_per_batch_layer": syncs / max(batch_layers, 1),
+        "super_kernel_launches": int(launches),
+        "regions_per_launch": float(ex.moe_launch_regions.sum())
+        / max(launches, 1.0),
+        "occupancy": float(ex.moe_launch_rows.sum())
+        / max(float(ex.moe_launch_slots.sum()), 1.0),
+        "bucket_misses": int(ex.bucket_misses.sum()),
+        "launches": {n: k.launches for n, k in kernels.items()},
+        "super_gmm": super_gmm.launches,
+        "super_gmm_by_route": _routes(super_gmm),
+        "flash_attention": flash_attention.launches,
+        "flash_attention_by_route": _routes(flash_attention),
+        "peak_reserved_gb":
+            torch.cuda.memory_stats()["reserved_bytes.all.peak"] / 1e9}
+
+
+def _fmt_wave(r: dict) -> str:
+    return (f"{r['tokens_per_s']:.0f} tokens/s ({r['wall_s']:.3f}s wall), "
+            f"host syncs {r['host_syncs_per_batch_layer']:.2f} per "
+            f"batch-layer ({r['host_syncs']} / {r['batch_layers']}), Super "
+            f"Kernel launches {r['super_kernel_launches']}, "
+            f"{r['regions_per_launch']:.2f} regions/launch, occupancy "
+            f"{r['occupancy']:.3f}, bucket misses {r['bucket_misses']}, peak "
+            f"reserved {r['peak_reserved_gb']:.1f} GB")
+
+
+def _free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_batching(cfg, params, seed: int) -> dict:
+    """Cross-region continuous batching and the executor's baselines, at
+    the serve phase's full width (built after the serve and pd executors
+    were released): (1) the same pinned jobs through a per-region and a
+    batched executor, torch.equal; (2) the reference's light-load arm, D=8
+    groups of short prompts feeding E=2 MoE devices, per-region and batched
+    in interleaved turns, best of 3 each; (3) the eager and host-combine
+    arms against the dense oracle in fp32 at the small config, host
+    combine == device combine, and fused vs eager at full width."""
+    from repro_torch.core.executor import DisaggregatedExecutor
+    from repro_torch.models.lm import init_lm_params
+    rng = np.random.RandomState(seed)
+    out = {}
+    # (1) bitwise: 8 jobs of 256 tokens over D=4 groups, E=4 devices; a
+    # token picks an expert at most once, so rows per expert <= S per
+    # region and <= D*S merged
+    D, E, S = 4, 4, 256
+    tokens = [rng.randint(0, cfg.vocab_size, (1, S)) for _ in range(2 * D)]
+    ex0 = DisaggregatedExecutor(params, cfg, D=D, E=E, device=DEV)
+    ex0.prewarm_buckets(S)
+    ex1 = DisaggregatedExecutor(params, cfg, D=D, E=E, moe_batch_window=0.01,
+                                device=DEV)
+    ex1.prewarm_buckets(D * S)
+    res0, r0 = _wave(ex0, tokens, D)
+    res1, r1 = _wave(ex1, tokens, D)
+    for i in res0:
+        expect(torch.equal(res0[i], res1[i]),
+               f"batching: job {i} batched != per-region")
+        expect(bool(torch.isfinite(res1[i].float()).all()),
+               "batching: output not finite")
+    expect(r1["regions_per_launch"] > 1,
+           f"batching: nothing merged ({r1['regions_per_launch']:.2f} "
+           f"regions/launch)")
+    for name, r in (("per-region", r0), ("batched", r1)):
+        expect(r["super_gmm"] > 0 and r["super_gmm_by_route"]["wgmma"]
+               == r["super_gmm"], f"batching {name}: super_gmm launches by "
+               f"route {r['super_gmm_by_route']}")
+        expect(r["bucket_misses"] == 0,
+               f"batching {name}: {r['bucket_misses']} new buckets after "
+               f"prewarm")
+    print(f"[batching] D={D} E={E}, {2 * D} jobs of [1, {S}], window 10 ms: "
+          f"batched torch.equal per-region on every job; every super_gmm "
+          f"launch on wgmma, 0 bucket misses after prewarm")
+    print(f"[batching] per-region: {_fmt_wave(r0)}")
+    print(f"[batching] batched:    {_fmt_wave(r1)}")
+    out["bitwise"] = {"per_region": r0, "batched": r1, "D": D, "E": E,
+                      "S": S, "window_s": 0.01}
+    del ex0, ex1, res0, res1
+    _free()
+    # (2) light load: short prompts, many groups, few MoE devices
+    D, E, window = 8, 2, 0.002
+    lengths = [int(n) for n in rng.choice([64, 128, 256], size=2 * D)]
+    tokens = [rng.randint(0, cfg.vocab_size, (1, n)) for n in lengths]
+    arms = {"per_region": DisaggregatedExecutor(params, cfg, D=D, E=E,
+                                                device=DEV),
+            "batched": DisaggregatedExecutor(params, cfg, D=D, E=E,
+                                             moe_batch_window=window,
+                                             device=DEV)}
+    arms["per_region"].prewarm_buckets(max(lengths))
+    arms["batched"].prewarm_buckets(D * max(lengths))
+    for ex in arms.values():
+        _wave(ex, tokens, D)  # warm-up, not counted
+    best, turns = {}, []
+    for turn in range(3):  # interleaved: jitter hits both arms alike
+        order = ("per_region", "batched") if turn % 2 == 0 \
+            else ("batched", "per_region")
+        for name in order:
+            _, r = _wave(arms[name], tokens, D)
+            turns.append((name, r["tokens_per_s"]))
+            if name not in best \
+                    or r["tokens_per_s"] > best[name]["tokens_per_s"]:
+                best[name] = r
+    ratio = best["batched"]["tokens_per_s"] \
+        / best["per_region"]["tokens_per_s"]
+    print(f"[batching] light load: D={D} groups, E={E} MoE devices, "
+          f"{len(lengths)} prompts of {lengths} tokens, window "
+          f"{window * 1e3:g} ms, best of 3 interleaved turns "
+          f"({', '.join(f'{n} {v:.0f}' for n, v in turns)} tokens/s)")
+    for name in ("per_region", "batched"):
+        print(f"[batching]   {name}: {_fmt_wave(best[name])}")
+    print(f"[batching]   batched / per-region tokens/s = {ratio:.3f} "
+          f"(the reference's floor 0.95: "
+          f"{'met' if ratio >= 0.95 else 'NOT met'}; reported, not gated)")
+    out["light_load"] = {"best": best, "turns": turns, "ratio": ratio,
+                         "D": D, "E": E, "lengths": lengths,
+                         "window_s": window}
+    del arms
+    _free()
+    # (3) the baselines.  fp32 at the small config: every arm against the
+    # dense oracle, and the host combine == the device combine
+    small = get_config(ARCH).smoke().replace(num_layers=3)
+    sp = init_lm_params(torch.Generator(device=DEV).manual_seed(1), small,
+                        DEV)
+    errs, res = {}, {}
+    for name, kw in (("fused", {}), ("fused+host", {"combine_path": "host"}),
+                     ("eager", {"moe_path": "eager"}),
+                     ("eager+host", {"moe_path": "eager",
+                                     "combine_path": "host"})):
+        errs[name], _, res[name] = _executor_vs_oracle(small, sp, 2, 48, **kw)
+        expect(errs[name] <= 2e-4, f"{name} vs dense oracle (fp32): err "
+               f"{errs[name]}")
+    for a, b in (("fused", "fused+host"), ("eager", "eager+host")):
+        expect(all(torch.equal(x, y) for x, y in zip(res[a], res[b])),
+               f"{b}: host combine != device combine")
+    print(f"[batching] baselines fp32 {small.num_layers}L x "
+          f"{small.num_experts}e vs lm_backbone(moe_mode='dense'): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + " (tol 2e-4); host combine torch.equal device combine, fused "
+          "and eager")
+    out["baselines_fp32_err"] = errs
+    del sp, res
+    # full width: host == device combine, then fused vs eager tokens/s
+    D, E = 2, 4
+    tokens = [rng.randint(0, cfg.vocab_size, (1, 512)) for _ in range(2)]
+    exs = {"fused": DisaggregatedExecutor(params, cfg, D=D, E=E, device=DEV),
+           "host": DisaggregatedExecutor(params, cfg, D=D, E=E,
+                                         combine_path="host", device=DEV),
+           "eager": DisaggregatedExecutor(params, cfg, D=D, E=E,
+                                          moe_path="eager", device=DEV)}
+    exs["fused"].prewarm_buckets(512)
+    exs["host"].prewarm_buckets(512)
+    got = {n: _wave(ex, tokens, D) for n, ex in exs.items()}  # warm-up too
+    expect(all(torch.equal(got["fused"][0][i], got["host"][0][i])
+               for i in range(2)), "full width: host combine != device")
+    expect(got["eager"][1]["super_gmm"] == 0
+           and got["eager"][1]["flash_attention"] == 0,
+           "the eager arm launched a kernel of the port")
+    rel = float(max((got["eager"][0][i].float() - got["fused"][0][i].float())
+                    .norm() / got["fused"][0][i].float().norm()
+                    for i in range(2)))
+    expect(rel <= 0.1, f"full width: eager vs fused rel err {rel}")
+    best = {}
+    for name in ("fused", "eager", "eager", "fused"):
+        _, r = _wave(exs[name], tokens, D)
+        if name not in best or r["tokens_per_s"] > best[name]["tokens_per_s"]:
+            best[name] = r
+    fe = best["fused"]["tokens_per_s"] / best["eager"]["tokens_per_s"]
+    print(f"[batching] full width, 2 jobs of [1, 512], D={D} E={E}: host "
+          f"combine torch.equal device combine; eager vs fused relative "
+          f"Frobenius err {rel:.3e} (tol 1e-1); best of 2 in turns fused, "
+          f"eager, eager, fused:")
+    for name in ("fused", "eager"):
+        print(f"[batching]   {name}: {_fmt_wave(best[name])}")
+    print(f"[batching]   fused / eager tokens/s = {fe:.2f} (the reference's "
+          f"target >= 3)")
+    out["fused_vs_eager"] = {"best": best, "ratio": fe, "rel_err": rel}
+    del exs, got
+    _free()
+    return out
+
+
+def phase_gmm(cfg, params, seed: int, gen) -> dict:
+    """lm_forward with the Super Kernel as its gmm (make_super_kernel_gmm):
+    in fp32 at the reference's test config against the einsum path (tol
+    2e-4), then at full width on one prefill batch of [1, 2048] (N = 16384
+    pairs) against lm_forward on default_gmm (relative Frobenius error of
+    the logits, tol 1e-1), the launch counts of all four kernels set to 0
+    just before and read just after; then the "whole" dispatch at this N
+    against the TPU-signature zero fill + "scatter"."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import \
+        dispatch_scatter
+    from repro_torch.kernels.dispatch_combine.ops import kernel_moe_dispatch
+    from repro_torch.kernels.dispatch_combine.ref import (
+        dispatch_scatter_ref, dispatch_whole_ref)
+    from repro_torch.kernels.super_gmm.ops import make_super_kernel_gmm
+    from repro_torch.models.lm import init_lm_params, lm_forward
+    from repro_torch.models.moe import expert_capacity
+    small = get_config(ARCH).smoke().replace(num_layers=3, num_experts=4,
+                                             top_k=2, capacity_factor=8.0)
+    sp = init_lm_params(torch.Generator(device=DEV).manual_seed(seed + 3),
+                        small, DEV)
+    tok = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, small.vocab_size, (2, 16)), device=DEV)
+    with torch.inference_mode():
+        got, _ = lm_forward(sp, small, tok, gmm=make_super_kernel_gmm(
+            sp["stages"][0]["ffn"]["experts"], small))
+        want, _ = lm_forward(sp, small, tok)
+    err32 = max_err(got, want)
+    expect(err32 <= 2e-4, f"gmm fp32: lm_forward on the Super Kernel vs "
+           f"einsum: err {err32}")
+    print(f"[gmm] fp32 {small.num_layers}L x {small.num_experts}e top-2: "
+          f"lm_forward(gmm=make_super_kernel_gmm(...)) vs the einsum path: "
+          f"max err {err32:.2e} (tol 2e-4)")
+    del sp
+    kernels = _pd_kernels()
+    B, S, L = 1, 2048, cfg.num_layers
+    tok = torch.as_tensor(np.random.RandomState(seed + 1).randint(
+        0, cfg.vocab_size, (B, S)), device=DEV)
+    gmm = make_super_kernel_gmm(params["stages"][0]["ffn"]["experts"], cfg)
+    with torch.inference_mode():
+        lm_forward(params, cfg, tok, gmm=gmm)  # warm-up, not counted
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            _launch.reset_launches(k)
+        _launch.reset_host_syncs()
+        t0 = time.perf_counter()
+        got, aux = lm_forward(params, cfg, tok, gmm=gmm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        by_route = {n: _routes(k) for n, k in kernels.items()}
+        syncs = _launch.reset_host_syncs()
+        t0 = time.perf_counter()
+        want, aux_e = lm_forward(params, cfg, tok)
+        torch.cuda.synchronize()
+        wall_e = time.perf_counter() - t0
+    expect(tuple(got.shape) == (B, S, cfg.vocab_size)
+           and bool(torch.isfinite(got.float()).all()),
+           "gmm: logits of the wrong shape or not finite")
+    for name, route, n in (("super_gmm", "wgmma", 3 * L),
+                           ("dispatch_scatter", "whole", L),
+                           ("combine_gather", "weighted", L)):
+        expect(launches[name] == n and by_route[name][route] == n,
+               f"gmm: {name} launched {launches[name]} times, by route "
+               f"{by_route[name]}; expected {n} on {route}")
+    diff = (got.float() - want.float()).norm()
+    rel = float(diff / want.float().norm())
+    del diff
+    expect(rel <= 0.1, f"gmm bf16: rel err {rel}")
+    drop, drop_e = float(aux.dropped_fraction), float(aux_e.dropped_fraction)
+    print(f"[gmm] full width {L}L bf16, tokens [{B}, {S}] (N = "
+          f"{B * S * cfg.top_k} pairs per layer): lm_forward on the Super "
+          f"Kernel vs on default_gmm: relative Frobenius err {rel:.3e} (tol "
+          f"1e-1), max abs err {max_err(got, want):.3e}; dropped pairs "
+          f"{drop:.4f} / {drop_e:.4f}; launches {launches} (super_gmm 3 per "
+          f"layer on wgmma, dispatch 'whole' and combine 'weighted' 1 per "
+          f"layer), host syncs {syncs}; wall {wall * 1e3:.1f} ms (default_gmm "
+          f"{wall_e * 1e3:.1f} ms)")
+    del got, want
+    _free()
+    # the "whole" dispatch at this N against the TPU-signature pair
+    T, E, K, d = B * S, cfg.num_experts, cfg.top_k, cfg.d_model
+    C = expert_capacity(T, cfg)
+    token_of, slot, idx = _pairs(gen, T, E, K, C)
+    x = torch.randn((T, d), generator=gen, device=DEV).bfloat16()
+    N, rows, el = T * K, E * C + 1, 2
+    kept = int((slot < E * C).sum())
+    slot64, tok64 = slot.long(), token_of.long()
+    shape = {"T": T, "K": K, "N": N, "E": E, "C": C, "rows_out": rows,
+             "d": d, "dtype": "bf16", "pairs_kept": kept}
+    cases = [
+        _call_case(
+            "prefill_path", "dispatch_whole",
+            lambda: kernel_moe_dispatch(x, idx, cfg, C),
+            el * d * (E * C + T) + 4 * N + 8 * (3 * N + E) + N,
+            {**shape, "route": "whole"},
+            plain=lambda: dispatch_whole_ref(x, idx, E, C),
+            err=max_err(kernel_moe_dispatch(x, idx, cfg, C)[0].reshape(
+                E * C, d), dispatch_whole_ref(x, idx, E, C)[0])),
+        _call_case(
+            "prefill_tpu_signature", "dispatch_scatter_kernel",
+            lambda: dispatch_scatter(token_of, slot, x, rows_out=rows),
+            el * d * (2 * kept + rows), {**shape, "route": "scatter"},
+            plain=lambda: dispatch_scatter_ref(token_of, slot, x, rows),
+            lib=lambda: torch.zeros((rows, d), dtype=x.dtype, device=DEV)
+            .index_copy_(0, slot64, x.index_select(0, tok64)),
+            lib_name="torch.zeros((E*C+1, d)).index_copy_(0, slot, "
+                     "x.index_select(0, token_of))",
+            err=max_err(dispatch_scatter(token_of, slot, x, rows_out=rows),
+                        dispatch_scatter_ref(token_of, slot, x, rows)))]
+    w, p = cases[0]["device_ms"], cases[1]["device_ms"]
+    print(f"[gmm] dispatch at prefill N={N} (E={E} C={C} d={d}, {kept} pairs "
+          f"kept): 'whole' {1e3 * w:.2f} us device in "
+          f"{cases[0]['launches_per_call']:.0f} launch(es), bound "
+          f"{1e3 * cases[0]['bound_ms']:.2f} us; TPU-signature zero fill + "
+          f"scatter {1e3 * p:.2f} us (bound {1e3 * cases[1]['bound_ms']:.2f} "
+          f"us; library {1e3 * cases[1]['library_device_ms']:.2f} us): whole "
+          f"/ scatter = {w / p:.2f} "
+          f"({'whole wins' if w < p else 'whole LOSES'}); max abs err {cases[0]['max_abs_err']} / "
+          f"{cases[1]['max_abs_err']}")
+    return {"launches": launches, "by_route": by_route, "rel_err": rel,
+            "fp32_err": err32, "wall_ms": 1e3 * wall,
+            "default_gmm_wall_ms": 1e3 * wall_e, "dispatch_cases": cases}
+
+
 def _device_ms(fn, reps: int, match=None):
     """Device time per call by torch.profiler over `reps` calls: summed over
     every kernel, or over the kernels whose name contains `match`.  Returns
@@ -1169,7 +1574,7 @@ def time_moe_path(gen, T: int) -> dict:
     return out
 
 
-def _moe_rows(gen, pd: dict, errs: dict) -> list:
+def _moe_rows(gen, pd: dict, errs: dict, extra_dispatch=()) -> list:
     """Rows 3-4 at the shape of every decode step of the pd wave (T slots
     x top-8 pairs, 128 experts, C = 8, d = 4096, bf16) on a dropless
     routing, two cases each.  "path": the route the decode MoE layer takes
@@ -1180,7 +1585,8 @@ def _moe_rows(gen, pd: dict, errs: dict) -> list:
     the --shapes-from turns).  "tpu_signature": dispatch_scatter /
     combine_gather as the TPU kernels' signatures call them (bound: 2N rows
     + the (E*C+1)-row zero fill / 2N rows; the scatter's yardstick does the
-    zero fill its wrapper does)."""
+    zero fill its wrapper does).  `extra_dispatch`: more timed cases of the
+    dispatch (the gmm phase's, at prefill-size N)."""
     from repro_torch.kernels.dispatch_combine.dispatch_combine import (
         combine_gather, dispatch_scatter)
     from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
@@ -1246,9 +1652,13 @@ def _moe_rows(gen, pd: dict, errs: dict) -> list:
             lib_name="torch.index_select(yb, 0, slot)",
             err=errs["combine_gather"])]
     out = []
-    for name, line, cases in (("dispatch_scatter", 46, dispatch),
+    for name, line, cases in (("dispatch_scatter", 46,
+                               dispatch + list(extra_dispatch)),
                               ("combine_gather", 75, combine)):
         first = cases[0]
+        # the first case with a library call: for the dispatch, whose path
+        # has none, the TPU-signature case's zero fill + index_copy_
+        lib = next(c for c in cases if c["library_ms"] is not None)
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/dispatch_combine.cu",
@@ -1259,8 +1669,9 @@ def _moe_rows(gen, pd: dict, errs: dict) -> list:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **{k: first[k] for k in ("ms", "device_ms", "kernel_device_ms",
                                      "host_us", "plain_ms", "bound_ms",
-                                     "bound_by", "library_ms",
-                                     "library_device_ms", "shape")},
+                                     "bound_by", "shape")},
+            **{k: lib[k] for k in ("library_ms", "library_device_ms",
+                                   "library_call")},
             "cases": cases})
     g, p = combine[0]["device_ms"], combine[1]["kernel_device_ms"]
     print(f"[timing] combine 'weighted' {1e3 * g:.2f} us device vs the "
@@ -1478,24 +1889,37 @@ def shapes_from(kernels_line: dict) -> dict:
             "decode_T": rows["dispatch_scatter"]["shape"]["T"]}
 
 
-def phase_timing(serve: dict, pd: dict, errs: dict, gen) -> dict:
+def phase_timing(serve: dict, pd: dict, errs: dict, gen,
+                 batching=None, gmm=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
-    combine_gather from the pd phase."""
+    combine_gather from the pd phase (and the dispatch at the gmm phase's
+    prefill N).  `launches_by_path`: each path's launches, read just after
+    it ran with the counts set to 0 just before."""
     shapes = wave_shapes(serve)
     wrapper_host_costs(gen, pd["T"])
-    return {"kernels": [
+    rows = [
         _row("super_gmm", 68, time_super_gmm(shapes["super_gmm"], gen),
              serve, errs),
         _row("flash_attention", 97,
              time_flash_attention(shapes["flash_attention"], gen), serve,
-             errs)] + _moe_rows(gen, pd, errs)}
+             errs)] + _moe_rows(gen, pd, errs,
+                                gmm["dispatch_cases"] if gmm else ())
+    by_path = {"serve": serve["launches"], "pd": pd["launches"]}
+    if batching:
+        by_path["batching"] = batching["bitwise"]["batched"]["launches"]
+    if gmm:
+        by_path["gmm"] = gmm["launches"]
+    for row in rows:
+        row["launches_by_path"] = {p: n[row["name"]]
+                                   for p, n in by_path.items()}
+    return {"kernels": rows}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,timing")
+                    "serve,pd,batching,gmm,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -1541,13 +1965,12 @@ def main() -> int:
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
-    serve = pd = None
-    if "executor" in phases or "serve" in phases:
+    serve = pd = batching = gmm = None
+    if {"executor", "serve", "batching", "gmm"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
             phase_executor(cfg, params)
-            gc.collect()  # the executors' resident stacks go before serving
-            torch.cuda.empty_cache()
+            _free()  # the executors' resident stacks go before serving
         if "serve" in phases:
             serve = phase_serve(cfg, params, args.seed)
         if "profile" in phases:
@@ -1556,12 +1979,22 @@ def main() -> int:
         if "pd" in phases:
             expect(serve is not None, "pd needs the serve phase")
             pd = phase_pd(cfg, params, serve, args.seed)
+        if serve is not None:
+            # the long-lived executor and its streams' pools go: memory is
+            # near the card's limit
+            serve["kw"].pop("executor")
+            _free()
+        if "batching" in phases:
+            batching = phase_batching(cfg, params, args.seed)
+            print(json.dumps({"batching": batching}))
+        if "gmm" in phases:
+            gmm = phase_gmm(cfg, params, args.seed, gen)
         del params
-        torch.cuda.empty_cache()
+        _free()
     if "timing" in phases:
         expect(serve is not None and pd is not None and errs is not None,
                "timing needs the kernels, serve and pd phases")
-        print(json.dumps(phase_timing(serve, pd, errs, gen)))
+        print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,7 @@ e as the threads do.  The mechanisms of the paper that this slice carries:
     `core.cost_model.Placement`; a replicated hot expert's traffic goes to
     its least-loaded replica.
 
-Hot path (fused, per region):
+Hot path (`moe_path="fused"`, the default):
 
   * Attention side: one step computes norm + QKV/RoPE + flash attention +
     wo + norm + router (+ shared expert); the layer id indexes the stacked
@@ -31,20 +31,34 @@ Hot path (fused, per region):
   * Resident weights: with round-robin placement each device's [L, n_e, ...]
     stack is a strided view of the model's expert stacks (the kernel takes
     the strides); other placements gather a copy.
-  * MoE side: each drained region is packed into dropless per-expert
-    capacity buffers ([n_e, C, d]; C bucketed to powers of two) from host
-    counts, then ONE `super_moe_ffn` call runs the three expert projections
-    against the device's resident [L, n_e, ...] stack with the layer id as a
-    one-element device tensor and the per-expert row counts (the dispatch
-    metadata) as device data, so the kernel skips the buffers' padding.
+  * MoE side: each drain is packed into dropless per-expert capacity buffers
+    ([n_e, C, d]; C bucketed to powers of two) from host counts, then ONE
+    `super_moe_ffn` call per distinct layer runs the three expert
+    projections against the device's resident [L, n_e, ...] stack with the
+    layer id as a one-element device tensor and the per-expert row counts
+    (the dispatch metadata, summed over the regions a launch merges) as
+    device data, so the kernel skips the buffers' padding.  With
+    `moe_batch_window == 0` a drain is one region; with a window > 0 the
+    worker is a continuous batcher: a drain takes every pending region and
+    keeps accumulating arrivals for up to `moe_batch_window` WALL seconds
+    (bounded by `moe_batch_max_tokens` merged rows), so regions of many
+    groups share one launch and one stream sync.
   * Combine: expert outputs are written by (token, k) into a [Tn, top_k, d]
     buffer (every pair is unique: no atomics) and reduced over k in order
-    0..K-1 -- deterministic.
+    0..K-1 -- deterministic.  `combine_path="host"` does the same write and
+    the same in-order multiply-then-add in numpy fp32 (the baseline; equal
+    to the device combine bit for bit).
   * KV export (`emit_kv=True`): the attention step also returns the layer's
     post-RoPE (k, v).  They stay on the card; at the end of a job each
     request's [L, len, kvh, hd] K and V are gathered into contiguous tensors
     (a view would pin the whole padded batch) and travel with a CUDA event,
     for the prefill->decode handoff (`ExecutorEngine(keep_kv=True)`).
+
+Pre-fusion baseline (`moe_path="eager"`, as the reference keeps it for the
+hot-path benchmark): a per-layer Python-int param slice and the dense
+attention oracle op by op, E boolean dispatch scans with token rows crossing
+to the host, and per local expert three matmuls and one device-to-host copy.
+It runs none of the port's kernels.
 
 Numerical contract (tested against the JAX reference): pipeline output ==
 lm_backbone(..., moe_mode="dense") for the same params -- asynchrony,
@@ -80,9 +94,10 @@ from repro_torch.core.async_primitives import (AbortedError, AttnDeviceBuffer,
                                                MoEDeviceBuffer)
 from repro_torch.core.cost_model import Placement
 from repro_torch.kernels import _launch
-from repro_torch.kernels.super_gmm.ops import (pack_capacity, round_capacity,
-                                               super_moe_ffn, unpack_capacity)
-from repro_torch.models.attention import attention_prefill
+from repro_torch.kernels.super_gmm.ops import (pack_capacity_multi,
+                                               round_capacity, super_moe_ffn,
+                                               unpack_capacity_multi)
+from repro_torch.models.attention import attention_forward, attention_prefill
 from repro_torch.models.common import ModelConfig, act_fn, apply_norm
 from repro_torch.models.lm import embed_tokens, layer_slice, lm_stages
 from repro_torch.models.moe import gated_ffn, router_topk
@@ -120,9 +135,28 @@ class DisaggregatedExecutor:
                  idle_backoff: Optional[float] = 0.05,
                  region_timeout: float = 240.0,
                  emit_kv: bool = False,
+                 moe_path: str = "fused", combine_path: str = "device",
+                 moe_batch_window: float = 0.0,
+                 moe_batch_max_tokens: Optional[int] = None,
                  device: Any = "cuda"):
         if cfg.family != "moe":
             raise ValueError("executor drives MoE models")
+        if moe_path not in ("fused", "eager"):
+            raise ValueError(f"moe_path {moe_path!r}: 'fused' or 'eager'")
+        if combine_path not in ("device", "host"):
+            raise ValueError(f"combine_path {combine_path!r}: 'device' or "
+                             f"'host'")
+        if moe_batch_window < 0:
+            raise ValueError(f"moe_batch_window {moe_batch_window} < 0")
+        if moe_batch_max_tokens is not None and moe_batch_max_tokens < 1:
+            raise ValueError(f"moe_batch_max_tokens {moe_batch_max_tokens} "
+                             f"< 1")
+        if moe_path == "eager" and moe_batch_window > 0:
+            raise ValueError("cross-region batching merges regions into ONE "
+                             "capacity buffer: it requires the fused path")
+        if moe_path == "eager" and emit_kv:
+            raise ValueError("emit_kv requires the fused attention step (the "
+                             "eager step exports no KV cache)")
         (kind, n, opts), = lm_stages(cfg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -140,6 +174,11 @@ class DisaggregatedExecutor:
         self.idle_backoff = idle_backoff  # max CV wait in the MoE workers
         self.region_timeout = region_timeout  # wall s: combine_recv bound
         self.emit_kv = emit_kv  # attention step also returns the layer's KV
+        self.moe_path, self.combine_path = moe_path, combine_path
+        # cross-region continuous batching: window 0 serves one region per
+        # drain (the per-region path)
+        self.moe_batch_window = float(moe_batch_window)
+        self.moe_batch_max_tokens = moe_batch_max_tokens
         self.stage = params["stages"][0]
         self._window = opts.get("window")
         # --- replica-aware expert placement -------------------------------
@@ -308,10 +347,14 @@ class DisaggregatedExecutor:
             torch.cuda.current_stream(self.device).synchronize()
             _launch.note_host_sync()
 
-    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+    def _to_cpu(self, t: torch.Tensor) -> torch.Tensor:
+        """Device-to-host read (counted as a host sync on a card)."""
         if t.is_cuda:
             _launch.note_host_sync()
-        return t.cpu().numpy()
+        return t.cpu()
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        return self._to_cpu(t).numpy()
 
     # ------------------------------------------------------------ attention
     def _attn_step(self, layer: int, h: torch.Tensor):
@@ -336,6 +379,27 @@ class DisaggregatedExecutor:
             shared = gated_ffn(xf, s["w_gate"], s["w_up"], s["w_down"],
                                act_fn(cfg.act))
         return h, xf, weights, idx, shared, (cache.k, cache.v)
+
+    def _attn_part(self, layer: int, h: torch.Tensor):
+        """Eager (pre-fusion) attention step, the `moe_path="eager"`
+        baseline as the reference keeps it: the layer's params sliced by a
+        Python int, the dense attention oracle (not the flash kernel), then
+        norm, router and shared expert op by op.  Exports no KV."""
+        cfg = self.cfg
+        lp = layer_slice(self.stage, layer)
+        h = h + attention_forward(lp["attn"],
+                                  apply_norm(h, lp["ln_attn"], cfg), cfg,
+                                  window=self._window, use_dense=True)
+        x = apply_norm(h, lp["ln_ffn"], cfg)
+        B, S, d = x.shape
+        xf = x.reshape(B * S, d)
+        weights, idx, _ = router_topk(lp["ffn"]["router"], xf, cfg)
+        shared = None
+        if "shared" in lp["ffn"] and self.shared_on_attention:
+            sp = lp["ffn"]["shared"]
+            shared = gated_ffn(xf, sp["w_gate"], sp["w_up"], sp["w_down"],
+                               act_fn(cfg.act))
+        return h, xf, weights, idx, shared, None
 
     # ------------------------------------------------------------- dispatch
     def _route(self, flat_e: np.ndarray) -> np.ndarray:
@@ -412,6 +476,23 @@ class DisaggregatedExecutor:
             self._send_device(g, slot, layer, e, rows[sl], t_s[sl], k_s[sl],
                               self._g2l[e, e_s[sl]], ready)
 
+    def _dispatch_eager(self, g: int, slot: int, layer: int,
+                        xf: torch.Tensor, idx: np.ndarray,
+                        valid: Optional[np.ndarray] = None):
+        """Pre-fusion dispatch (the baseline): the token rows are read back
+        to the host, then E boolean scans over the flat assignment arrays
+        pick each device's rows there (still placement-routed, so the
+        numerical contract holds on every policy)."""
+        xf_h = self._to_cpu(xf)
+        flat_e, flat_t, flat_k, dev = self._flat_routing(idx, layer, valid)
+        for e in range(self.E):
+            m = dev == e
+            self._send_device(g, slot, layer, e,
+                              xf_h.index_select(0, torch.from_numpy(
+                                  flat_t[m])),
+                              flat_t[m], flat_k[m], self._g2l[e, flat_e[m]],
+                              None)
+
     def _combine(self, g: int, slot: int, h, xf, weights, shared):
         """async-combine-recv + weighted accumulation (token-order restore).
 
@@ -421,6 +502,9 @@ class DisaggregatedExecutor:
         whatever order the devices answered in, and no atomics.  Against the
         reference, which adds in payload order, this reassociates an fp32
         sum of top_k terms (differences of a few ulp).
+        `combine_path="host"` copies the outputs, weights and shared expert
+        to the host and does the same write and the same multiply-then-add
+        in numpy fp32: bit for bit the device combine.
 
         The wait is bounded by `region_timeout` (wall seconds); a lost region
         surfaces as TimeoutError and stops the executor."""
@@ -428,22 +512,34 @@ class DisaggregatedExecutor:
             timeout=self.region_timeout, stop=self.stop)
         Tn, d = xf.shape
         K = self.cfg.top_k
+        host = self.combine_path == "host"
         layer = None
-        buf = torch.zeros((Tn * K, d), dtype=torch.float32,
-                          device=self.device)
+        buf = np.zeros((Tn * K, d), np.float32) if host else \
+            torch.zeros((Tn * K, d), dtype=torch.float32, device=self.device)
         for p in payloads:
             if p.outputs is None or len(p.token_ids) == 0:
                 continue
             layer = p.layer
             self._await(p.ready, p.outputs)
             pair = p.token_ids[:, 0] * K + p.token_ids[:, 1]
-            buf.index_copy_(0, self._index(pair), p.outputs.float())
-        buf = buf.view(Tn, K, d)
-        acc = buf[:, 0] * weights[:, 0:1]
-        for k in range(1, K):
-            acc = acc + buf[:, k] * weights[:, k:k + 1]
+            if host:
+                buf[pair] = self._to_host(p.outputs.float())
+            else:
+                buf.index_copy_(0, self._index(pair),
+                                p.outputs.to(self.device).float())
+        buf = buf.reshape(Tn, K, d)
+        w = self._to_host(weights.float()) if host else weights
         if shared is not None:
-            acc = acc + shared.float()
+            shared = self._to_host(shared.float()) if host else shared.float()
+        # one expression for numpy and torch: the same products and sums in
+        # the same order, each rounded on its own
+        acc = buf[:, 0] * w[:, 0:1]
+        for k in range(1, K):
+            acc = acc + buf[:, k] * w[:, k:k + 1]
+        if shared is not None:
+            acc = acc + shared
+        if host:
+            acc = torch.from_numpy(acc).to(self.device)
         B, S, _ = h.shape
         self._logev("combine", g, slot, layer)
         return h + acc.to(h.dtype).reshape(B, S, d)
@@ -455,9 +551,13 @@ class DisaggregatedExecutor:
         (single-threaded: the caller owns all cells until workers start).
         The first launch builds and loads the kernel library, and each new
         bucket is a new buffer shape for the caching allocator; after this,
-        every launch whose rows stay under `max_rows` lands in an
+        every launch whose rows per expert stay under `max_rows` lands in an
         already-seen bucket -- visible as bucket_hits == launches in
-        EngineStats."""
+        EngineStats.  A continuous batcher's merged drains reach larger
+        buckets than one region: prewarm to the merged bound."""
+        if self.moe_path != "fused":
+            raise ValueError("prewarm_buckets runs the fused super-kernel "
+                             "FFN; the eager path has none")
         top = round_capacity(max(int(max_rows), 1))
         for e in range(self.E):
             if self.resident[e] is None:
@@ -492,69 +592,186 @@ class DisaggregatedExecutor:
         else:
             seen.add(C)
             self.bucket_misses[e] += 1  # race-ok: single-writer
-        self._logev("launch", e, n_e, C, tuple(int(c) for c in counts))
+        self._logev("launch", e, n_e, C, tuple(int(c) for c in counts),
+                    n_regions)
 
-    def _expert_ffn_fused(self, e: int, layer: int, tokens: torch.Tensor,
-                          eids: np.ndarray, counts: np.ndarray
-                          ) -> torch.Tensor:
-        """Capacity-buffer pack -> one super-kernel FFN -> unpack, all on the
-        device.  The expert ids are a host array, so the capacity bucket
-        comes from host counts and the pack costs no host sync.  `counts`
-        (rows per local expert, the dispatch metadata) goes to the kernel as
-        device data: every expert's buffer is as long as the hottest
-        expert's, and the kernel skips the padding."""
+    @staticmethod
+    def _region_tokens(rows) -> torch.Tensor:
+        """One region's token rows (its T payload rows, concatenated)."""
+        return rows[0].tokens if len(rows) == 1 \
+            else torch.cat([r.tokens for r in rows], 0)
+
+    def _expert_ffn_fused_multi(self, e: int, layer: int, row_lists,
+                                eid_list) -> List[torch.Tensor]:
+        """ONE super-kernel FFN over one or more regions' rows of the same
+        layer, merged into a shared capacity buffer: capacity-buffer pack ->
+        `super_moe_ffn` -> unpack, all on the device.  The expert ids are
+        host arrays, so the capacity bucket comes from host counts and the
+        pack costs no host sync.  The per-expert row counts the kernel gets
+        as device data are the SUM of the merged regions' dispatch counts:
+        every expert's buffer is as long as the hottest expert's, and the
+        kernel skips the padding beyond each count.  Returns one [n_r, d]
+        output block per region, in input order."""
         n_e = len(self.dev_experts[e])
-        xb, order, slots, C = pack_capacity(
-            tokens, torch.from_numpy(np.ascontiguousarray(eids, np.int64)),
-            n_e)
-        self._record_launch(e, C, 1, len(tokens), counts)
+        for rows in row_lists:
+            for r in rows:
+                self._await(r.ready, r.tokens)
+        xb, order, slots, C, bounds = pack_capacity_multi(
+            [self._region_tokens(rows) for rows in row_lists], eid_list, n_e)
+        counts = np.sum([rows[0].counts for rows in row_lists], 0)
+        self._record_launch(e, C, len(row_lists), int(bounds[-1]), counts)
         # layer-oblivious: `layer` selects a one-element DEVICE tensor; the
         # kernel reads it and indexes the resident all-layer stack itself
         yb = super_moe_ffn(
             self._lid[layer:layer + 1], self.resident[e], xb, self.cfg,
             torch.as_tensor(counts.astype(np.int32), device=self.device))
-        return unpack_capacity(yb, order, slots, len(tokens))
+        return unpack_capacity_multi(yb, order, slots, bounds)
+
+    def _expert_ffn_eager(self, e: int, layer: int, tokens: torch.Tensor,
+                          eids: np.ndarray) -> torch.Tensor:
+        """Pre-fusion per-expert loop (the baseline): the region's rows go
+        to the device once, then for each local expert with rows three
+        matmuls against that layer's weights and one device-to-host copy of
+        its outputs.  tokens: [n, d] on the host -> [n, d] fp32 on the
+        host."""
+        res = self.resident[e]
+        wg, wu, wd = (res[k][layer] for k in ("w_gate", "w_up", "w_down"))
+        act = act_fn(self.cfg.act)
+        xd = tokens.to(self.device)
+        out = torch.zeros((len(tokens), tokens.shape[1]), dtype=torch.float32)
+        for le in np.unique(eids):
+            rows = np.nonzero(eids == le)[0]
+            y = gated_ffn(xd.index_select(0, self._index(rows)), wg[le],
+                          wu[le], wd[le], act)
+            out[torch.from_numpy(rows)] = self._to_cpu(y.float())
+        return out
+
+    @staticmethod
+    def _rows(entries) -> int:
+        return sum(sum(len(r.tokens) for r in rows) for _, rows in entries)
+
+    def _drain_window(self, buf: MoEDeviceBuffer):
+        """Continuous-batching drain: block until the first complete
+        region(s) arrive -- ONE atomic multi-take -- then keep accumulating
+        arrivals until the window closes, all D regions are on board, or
+        the merged row count reaches `moe_batch_max_tokens`.  The window is
+        WALL seconds (`time.monotonic`, never `clock`, which may be a
+        TraceClock): it bounds the queueing it adds.
+
+        Accumulation is gap-based inside the window: each extra wait is at
+        most a quarter of the window, and the first empty gap closes the
+        batch.  A device's pending combines are what release the lagging
+        groups' next regions, so waiting out the whole window for
+        stragglers can stall the very arrivals it waits for.
+
+        Returns the ordered (region, rows) list, or None on timeout
+        (nothing pending) or stop."""
+        got = buf.recv_many(timeout=self.idle_backoff, stop=self.stop)
+        if got is None:
+            return None
+        entries = list(got)
+        cap = self.moe_batch_max_tokens
+        total = self._rows(entries)
+        gap = self.moe_batch_window / 4.0
+        deadline = time.monotonic() + self.moe_batch_window
+        while len(entries) < self.D and (cap is None or total < cap):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                break
+            more = buf.recv_many(max_regions=self.D - len(entries),
+                                 timeout=min(remaining, gap), stop=self.stop)
+            if more is None:
+                if self.stop.is_set():
+                    return None
+                break  # an empty gap: no region is imminent -- launch now
+            entries.extend(more)
+            total += self._rows(more)
+        return entries
+
+    def _chunk_by_row_cap(self, entries):
+        """Split a drain into chunks of <= `moe_batch_max_tokens` merged rows
+        (>= 1 region per chunk, so an oversized region still serves).  The
+        first atomic multi-take can exceed the cap when several regions were
+        already pending; taken regions must be served, so the bound is
+        enforced here rather than by refusing the take."""
+        cap = self.moe_batch_max_tokens
+        if cap is None:
+            return [entries]
+        chunks, chunk, rows = [], [], 0
+        for ent in entries:
+            n = self._rows([ent])
+            if chunk and rows + n > cap:
+                chunks.append(chunk)
+                chunk, rows = [], 0
+            chunk.append(ent)
+            rows += n
+        if chunk:
+            chunks.append(chunk)
+        return chunks
+
+    def _serve_batch(self, e: int, entries):
+        """Serve one chunk of a drain: group its regions by layer id and
+        launch the super kernel ONCE per distinct layer over their merged
+        capacity buffer (layer-major), synchronise this worker's stream
+        ONCE, then send every region's output block through its own
+        combine.  A device with no experts only ever sees empty regions:
+        nothing is launched, an empty marker is combined."""
+        prep = []  # (region, layer, slot, rows, token_ids, eids)
+        for i, rows in entries:
+            prep.append((i, rows[0].layer, rows[0].slot, rows,
+                         np.concatenate([r.token_ids for r in rows], 0),
+                         np.concatenate([r.expert_ids for r in rows], 0)))
+        outs: Dict[int, Optional[torch.Tensor]] = {}
+        by_layer: Dict[int, List[int]] = {}
+        for j, p in enumerate(prep):
+            if len(p[4]):
+                by_layer.setdefault(p[1], []).append(j)
+            else:
+                outs[j] = None  # empty region: combine an empty marker
+        if by_layer:
+            t0 = self.clock()
+            for layer in sorted(by_layer):
+                js = by_layer[layer]
+                if self.moe_path == "fused":
+                    blocks = self._expert_ffn_fused_multi(
+                        e, layer, [prep[j][3] for j in js],
+                        [prep[j][5] for j in js])
+                else:  # never batched: one region per drain
+                    blocks = [self._expert_ffn_eager(
+                        e, layer, self._region_tokens(prep[j][3]),
+                        prep[j][5]) for j in js]
+                outs.update(zip(js, blocks))
+            # producer-side sync, one per chunk: the outputs are complete
+            # when the combine flags go up, and the host-clocked busy time
+            # below is device time
+            self._sync_stream()
+            self.moe_busy[e] += self.clock() - t0  # race-ok: single-writer (worker e accumulates its own cell)
+        for j, (i, layer, slot, _, token_ids, eids) in enumerate(prep):
+            self._logev("moe", e, i, slot, layer, len(token_ids))
+            self.attn_bufs[i][slot].combine_send(
+                e, CombinePayload(layer=layer, token_ids=token_ids,
+                                  expert_ids=eids, outputs=outs[j]),
+                stop=self.stop)
 
     def _moe_worker(self, e: int):
         buf = self.moe_bufs[e]
         try:
             with self._worker_context(self._moe_streams[e]):
                 while True:
-                    # block on "any region complete" + take it in ONE atomic
-                    # step
-                    got = buf.recv_any(timeout=self.idle_backoff,
-                                       stop=self.stop)
-                    if got is None:
+                    if self.moe_batch_window > 0:
+                        entries = self._drain_window(buf)
+                    else:
+                        # block on "any region complete" + take it in ONE
+                        # atomic step
+                        got = buf.recv_any(timeout=self.idle_backoff,
+                                           stop=self.stop)
+                        entries = None if got is None else [got]
+                    if entries is None:
                         if self.stop.is_set():
                             return
                         continue
-                    i, rows = got
-                    layer = rows[0].layer
-                    slot = rows[0].slot
-                    token_ids = np.concatenate([r.token_ids for r in rows], 0)
-                    eids = np.concatenate([r.expert_ids for r in rows], 0)
-                    if len(token_ids):
-                        # a device with no experts only ever sees empty
-                        # regions, so nothing is launched on a zero-size grid
-                        t0 = self.clock()
-                        for r in rows:
-                            self._await(r.ready, r.tokens)
-                        tokens = rows[0].tokens if len(rows) == 1 \
-                            else torch.cat([r.tokens for r in rows], 0)
-                        out = self._expert_ffn_fused(e, layer, tokens, eids,
-                                                     rows[0].counts)
-                        # producer-side sync: the outputs are complete when
-                        # the combine flag goes up, and the host-clocked busy
-                        # time below is device time
-                        self._sync_stream()
-                        self.moe_busy[e] += self.clock() - t0  # race-ok: single-writer (worker e accumulates its own cell)
-                    else:
-                        out = None
-                    self._logev("moe", e, i, slot, layer, len(token_ids))
-                    self.attn_bufs[i][slot].combine_send(
-                        e, CombinePayload(layer=layer, token_ids=token_ids,
-                                          expert_ids=eids, outputs=out),
-                        stop=self.stop)
+                    for chunk in self._chunk_by_row_cap(entries):
+                        self._serve_batch(e, chunk)
         except AbortedError:
             return  # stop observed inside a buffer wait (shutdown/panic)
         except BaseException as ex:  # surface thread failures to the caller
@@ -613,6 +830,9 @@ class DisaggregatedExecutor:
             self._panic(ex)
 
     def _group_loop(self, g: int):
+        fused = self.moe_path == "fused"
+        step = self._attn_step if fused else self._attn_part
+        dispatch = self._dispatch if fused else self._dispatch_eager
         active: List[Dict[str, Any]] = []
         free_slots = [0, 1] if self.interleave else [0]
         seq = 0
@@ -646,8 +866,7 @@ class DisaggregatedExecutor:
                 if st["phase"] != "attn":
                     continue
                 t0 = self.clock()
-                h, xf, w, idx, shared, kv = self._attn_step(st["layer"],
-                                                            st["h"])
+                h, xf, w, idx, shared, kv = step(st["layer"], st["h"])
                 if self.emit_kv:
                     st["kv"].append(kv)
                 # the one device-to-host read of the batch-layer: the router's
@@ -661,8 +880,7 @@ class DisaggregatedExecutor:
                 st["ctx"] = (xf, w, shared)
                 self._logev("attn", g, st["slot"], st["layer"],
                             tuple(h.shape[:2]))
-                self._dispatch(g, st["slot"], st["layer"], xf, idx_np,
-                               st["valid"])
+                dispatch(g, st["slot"], st["layer"], xf, idx_np, st["valid"])
                 st["phase"] = "wait"
                 st["seq"] = seq = seq + 1
             # block on the oldest outstanding combine

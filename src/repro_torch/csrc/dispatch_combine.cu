@@ -145,7 +145,8 @@ int rank_smem_bytes(int E) {
 }
 
 // The most experts whose buckets fit the 48 KB a block gets without opting
-// in to more (1115); the port's configs have at most 256.
+// in to more (1116); the port's configs have at most 256.  Mirrored by
+// WHOLE_MAX_EXPERTS in kernels/dispatch_combine/dispatch_combine.py.
 constexpr int WHOLE_MAX_EXPERTS =
     48 * 1024 / (static_cast<int>(sizeof(int)) * (3 + WHOLE_WARPS)) - 1;
 

@@ -36,6 +36,11 @@ from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
 
 _ELEM_SIZE = {torch.float32: 4, torch.bfloat16: 2}
 
+# The most experts the "whole" route takes: its rank block keeps E + 1
+# buckets in 48 KB of shared memory (WHOLE_MAX_EXPERTS in
+# csrc/dispatch_combine.cu, which refuses more).
+WHOLE_MAX_EXPERTS = 1116
+
 
 def _check_index(name: str, idx: torch.Tensor, n: int, device):
     if idx.dtype != torch.int32 or idx.shape != (n,) \

@@ -4,10 +4,16 @@
 `models.moe.moe_dispatch` / `moe_combine` (tested bit for bit, and at 1e-6 in
 fp32).  Each is one call of a whole-operation route: the dispatch's index
 arithmetic (stable ranks by expert, offsets, the capacity cut) and its row
-writes run in `dispatch_whole`'s two launches, the combine's gather,
+writes run in `dispatch_whole`'s one launch, the combine's gather,
 un-permute and weighted sum in `combine_weighted`'s one.  Nothing is read
 back to the host: the capacity `C` comes from the token count, which the
 host knows.
+
+The dispatch's route is a function of the expert count alone
+(`dispatch_route`): "whole" holds at most `WHOLE_MAX_EXPERTS` experts in its
+rank block's shared memory; beyond that the index arithmetic runs in torch
+ops (`dispatch_slots`) and the rows move through the "scatter" kernel, which
+has no bound on E.
 
 `info` carries one field beyond the reference's: `pair_slot`, each (token,
 k) pair's capacity row in pair order, which the combine reads in place of
@@ -18,20 +24,38 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.dispatch_combine.dispatch_combine import (
-    combine_weighted, dispatch_whole)
+    WHOLE_MAX_EXPERTS, combine_weighted, dispatch_scatter, dispatch_whole)
 from repro_torch.models.common import ModelConfig
+
+
+def dispatch_route(num_experts: int) -> str:
+    """The route `kernel_moe_dispatch` takes for `num_experts` experts."""
+    return "whole" if num_experts <= WHOLE_MAX_EXPERTS else "scatter"
+
+
+def pair_slots(perm: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Each (token, k) pair's capacity row in pair order: `slot` (in
+    expert-sorted order) put back through `perm`."""
+    return torch.empty_like(slot).scatter_(0, perm, slot)
 
 
 def kernel_moe_dispatch(x: torch.Tensor, idx: torch.Tensor, cfg: ModelConfig,
                         capacity=None):
     """x: [T, d]; idx: [T, K] -> ([E, C, d], info) -- same contract as
     models.moe.moe_dispatch, plus info["pair_slot"]."""
-    from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.moe import dispatch_slots, expert_capacity
     T, d = x.shape
     E = cfg.num_experts
     C = capacity or expert_capacity(T, cfg)
-    xb, perm, slot, valid, group_sizes, pair_slot = dispatch_whole(
-        x, idx, E, C)
+    if dispatch_route(E) == "whole":
+        xb, perm, slot, valid, group_sizes, pair_slot = dispatch_whole(
+            x, idx, E, C)
+    else:
+        perm, slot, valid, group_sizes = dispatch_slots(idx, E, C)
+        xb = dispatch_scatter((perm // idx.shape[1]).to(torch.int32),
+                              slot.to(torch.int32), x,
+                              rows_out=E * C + 1)[:E * C]
+        pair_slot = pair_slots(perm, slot)
     info = dict(perm=perm, slot=slot, valid=valid, group_sizes=group_sizes,
                 capacity=C, pair_slot=pair_slot)
     return xb.reshape(E, C, d), info
@@ -48,6 +72,5 @@ def kernel_moe_combine(yb: torch.Tensor, info, weights: torch.Tensor,
     E, C, d = yb.shape
     pair_slot = info.get("pair_slot")
     if pair_slot is None:
-        pair_slot = torch.empty_like(info["slot"]).scatter_(
-            0, info["perm"], info["slot"])
+        pair_slot = pair_slots(info["perm"], info["slot"])
     return combine_weighted(yb.reshape(E * C, d), pair_slot, weights)

@@ -1,16 +1,18 @@
 """Model integration of the MoE Super Kernel: the gated expert FFN on
-capacity buffers, and the capacity-buffer packing around it.
+capacity buffers, the `gmm` adapter that runs `lm_forward`'s MoE layers on
+it, and the capacity-buffer packing around it.
 
 The packing functions run on the device of the tensors they are given.  The
 index arithmetic (stable sort by expert, slot = expert * C + position) runs
 where `eids` lies and the row scatter/gather where `tokens` lies, so a caller
-that keeps the small id arrays on the host (the threaded executor does) pays
-no host sync: the capacity bucket comes from host counts.  With `eids` on a
-CUDA device, reading `counts.max()` for the bucket is the one host sync.
+that keeps the small id arrays on the host (the threaded executor hands in
+numpy arrays) pays no host sync: the capacity bucket comes from host counts.
+With `eids` on a CUDA device, reading `counts.max()` for the bucket is the
+one host sync.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +37,24 @@ def super_moe_ffn(layer_id: torch.Tensor, experts: dict, xb: torch.Tensor,
     return super_gmm(layer_id, experts["w_down"], h, counts)
 
 
+def make_super_kernel_gmm(stacked_experts: dict, cfg: ModelConfig
+                          ) -> Callable:
+    """Adapter for `lm_forward(gmm=...)`: signature (xb, experts_layer, cfg,
+    layer_id) -> yb.  `experts_layer` (the layer's slice of the weights) is
+    not used: the kernel reads the FULL [L, E, ...] stack and resolves the
+    layer from `layer_id`, a [1] int32 tensor on xb's device (one view per
+    layer into a `torch.arange(L)` the caller makes once).  Dense, as the
+    reference's adapter: no per-expert counts."""
+    del cfg  # the layer's cfg arrives with each call
+
+    def gmm(xb, experts_layer, cfg_inner, layer_id):
+        del experts_layer
+        return super_moe_ffn(layer_id, stacked_experts, xb,
+                             cfg_inner).to(xb.dtype)
+
+    return gmm
+
+
 # ---------------------------------------------------------------------------
 # Capacity-buffer packing
 # ---------------------------------------------------------------------------
@@ -47,7 +67,7 @@ def round_capacity(n: int, minimum: int = 8) -> int:
     return max(minimum, 1 << max(int(n) - 1, 0).bit_length())
 
 
-def pack_capacity(tokens: torch.Tensor, eids: torch.Tensor, n_experts: int,
+def pack_capacity(tokens: torch.Tensor, eids, n_experts: int,
                   capacity: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
     """Scatter N token rows into dropless [n_experts, C, d] capacity buffers.
@@ -56,11 +76,12 @@ def pack_capacity(tokens: torch.Tensor, eids: torch.Tensor, n_experts: int,
     at slot ``expert * C + position_within_expert``; padding rows are zero.
     C defaults to the bucketed max per-expert count so nothing is dropped.
 
-    Returns (xb [n_experts, C, d], order, slots, C); `order`/`slots` (int64,
-    on eids' device) invert the packing in `unpack_capacity`.
+    `eids` is an integer tensor or a host (numpy) array.  Returns (xb
+    [n_experts, C, d], order, slots, C); `order`/`slots` (int64, on eids'
+    device) invert the packing in `unpack_capacity`.
     """
     n, d = tokens.shape
-    eids = eids.reshape(-1).long()
+    eids = torch.as_tensor(eids).reshape(-1).long()
     counts = torch.bincount(eids, minlength=n_experts)
     if n:
         if counts.is_cuda:
@@ -94,7 +115,7 @@ def unpack_capacity(yb: torch.Tensor, order: torch.Tensor,
 
 
 def pack_capacity_multi(token_list: Sequence[torch.Tensor],
-                        eid_list: Sequence[torch.Tensor], n_experts: int,
+                        eid_list: Sequence, n_experts: int,
                         capacity: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                    int, torch.Tensor]:
@@ -117,7 +138,7 @@ def pack_capacity_multi(token_list: Sequence[torch.Tensor],
     tokens = token_list[0] if len(token_list) == 1 \
         else torch.cat(list(token_list), 0)
     eids = eid_list[0] if len(eid_list) == 1 \
-        else torch.cat([e.reshape(-1) for e in eid_list], 0)
+        else torch.cat([torch.as_tensor(e).reshape(-1) for e in eid_list], 0)
     xb, order, slots, C = pack_capacity(tokens, eids, n_experts, capacity)
     return xb, order, slots, C, bounds
 

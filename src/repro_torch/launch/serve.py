@@ -31,6 +31,15 @@ cost, no handoffs logged).  The run FAILS unless every request reaches a
 definite status, ok requests produced exactly out_len tokens, and
 (disaggregated) at least one KV handoff happened.
 
+The MoE stage: `--moe-batch-window W` (wall seconds) makes every MoE worker
+a continuous batcher that merges the regions of many attention groups into
+one Super Kernel launch per layer (`--moe-batch-max-tokens` caps the merged
+rows); 0, the default, serves one region per launch.  `--moe-path eager` runs
+the pre-fusion baseline (dense attention, per-expert matmuls, host
+round trips; prefill serving only).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --moe-batch-window 0.002 \
+      --moe-batch-max-tokens 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd --smoke \
       --device cpu --time-scale 20
@@ -72,12 +81,28 @@ def _print_result(r: RequestResult):
           f"  [{_fmt_decomp(r.decomposition)}]")
 
 
+def prewarm_rows(max_batch_tokens: int, D: int, moe_batch_window: float,
+                 moe_batch_max_tokens: Optional[int]) -> int:
+    """Rows per expert up to which the capacity buckets are prewarmed: half a
+    full batch for one region; under batching the merged bound, which is
+    `moe_batch_max_tokens` if set (a single region may still exceed it),
+    else D regions' worth."""
+    one = max(max_batch_tokens // 2, 1)
+    if moe_batch_window <= 0:
+        return one
+    if moe_batch_max_tokens is not None:
+        return max(one, moe_batch_max_tokens)
+    return D * one
+
+
 def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
                    rps: float, time_scale: float = 1.0, seed: int = 0,
                    device="cuda", D: int = 2, E: int = 4,
                    placement: Optional[Placement] = None,
                    idle_backoff: Optional[float] = 0.05,
                    max_batch_tokens: int = 4096, verbose: bool = False,
+                   moe_path: str = "fused", moe_batch_window: float = 0.0,
+                   moe_batch_max_tokens: Optional[int] = None,
                    executor: Optional[DisaggregatedExecutor] = None
                    ) -> dict:
     """Serve `len(lengths)` requests with Poisson arrivals at `rps` through
@@ -94,12 +119,17 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
             for i in range(n)]
     ex = executor
     if ex is None:
-        ex = DisaggregatedExecutor(params, cfg, D=D, E=E,
-                                   placement=placement,
-                                   idle_backoff=idle_backoff, device=device)
-        # the kernel library is built and the capacity buckets up to half a
-        # full batch per expert are touched once before the clock starts
-        ex.prewarm_buckets(max(max_batch_tokens // 2, 1))
+        ex = DisaggregatedExecutor(
+            params, cfg, D=D, E=E, placement=placement,
+            idle_backoff=idle_backoff, moe_path=moe_path,
+            moe_batch_window=moe_batch_window,
+            moe_batch_max_tokens=moe_batch_max_tokens, device=device)
+        if moe_path == "fused":
+            # the kernel library is built and every capacity bucket a
+            # launch can reach is touched once before the clock starts
+            ex.prewarm_buckets(prewarm_rows(max_batch_tokens, D,
+                                            moe_batch_window,
+                                            moe_batch_max_tokens))
     else:
         ex.reset_stats()
     engine = ExecutorEngine(
@@ -137,6 +167,14 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
         "buckets": [(ev[2], ev[3]) for ev in log if ev[0] == "launch"],
         "counts": [ev[4] for ev in log if ev[0] == "launch"],
     }
+
+
+def _print_batching(args):
+    if args.moe_batch_window:
+        print(f"continuous MoE batching: window="
+              f"{args.moe_batch_window * 1e3:g}ms"
+              + (f" max_tokens={args.moe_batch_max_tokens}"
+                 if args.moe_batch_max_tokens else ""))
 
 
 def _setup(args):
@@ -181,7 +219,9 @@ def run_executor(args) -> int:
           f"{str(cfg.dtype).replace('torch.', '')}  "
           f"[placement={placement.policy}"
           + (f"(hot={placement.replicate_hot})" if placement.replicate_hot
-             else "") + f" time-scale={args.time_scale}x]")
+             else "") + f" moe-path={args.moe_path} "
+          f"time-scale={args.time_scale}x]")
+    _print_batching(args)
     lengths = np.clip(sample_lengths(args.requests, trace), lo, hi)
     print(f"{args.requests} requests, Poisson arrivals at {args.rps} req/s, "
           f"lengths {[int(x) for x in lengths]}")
@@ -190,7 +230,10 @@ def run_executor(args) -> int:
                          rps=args.rps, time_scale=args.time_scale,
                          seed=args.seed, device=device, D=D, E=E,
                          placement=placement, idle_backoff=args.idle_backoff,
-                         max_batch_tokens=max_tokens, verbose=True)
+                         max_batch_tokens=max_tokens, verbose=True,
+                         moe_path=args.moe_path,
+                         moe_batch_window=args.moe_batch_window,
+                         moe_batch_max_tokens=args.moe_batch_max_tokens)
     results, st = out["results"], out["stats"]
 
     # out-of-order completion evidence (the async-serving property)
@@ -233,6 +276,9 @@ def run_executor(args) -> int:
                 "mean_ttft": float(np.mean([r.ttft for r in results]))
                 if results else None,
                 "statuses": st.statuses,
+                "moe_path": args.moe_path,
+                "moe_batch_window": args.moe_batch_window,
+                "moe_batch_max_tokens": args.moe_batch_max_tokens,
                 "moe_launches": st.moe_launches,
                 "moe_batch_regions": st.moe_batch_regions,
                 "regions_per_launch": st.regions_per_launch(),
@@ -319,6 +365,8 @@ def serve_pd(cfg: ModelConfig, params, reqs: Sequence[Request], *,
              E: int = 4, slots: int = 8, max_len: int = 256, time_scale: float = 1.0,
              colocated: bool = False, max_batch_tokens: int = 4096,
              idle_backoff: Optional[float] = 0.05, verbose: bool = False,
+             moe_batch_window: float = 0.0,
+             moe_batch_max_tokens: Optional[int] = None,
              executor: Optional[DisaggregatedExecutor] = None) -> dict:
     """Serve `reqs` through prefill/decode disaggregation: ExecutorEngine
     (keep_kv) over an emit_kv DisaggregatedExecutor(D, E) -> KV handoff
@@ -332,9 +380,13 @@ def serve_pd(cfg: ModelConfig, params, reqs: Sequence[Request], *,
     reset."""
     ex = executor
     if ex is None:
-        ex = DisaggregatedExecutor(params, cfg, D=D, E=E, emit_kv=True,
-                                   idle_backoff=idle_backoff, device=device)
-        ex.prewarm_buckets(max(max_batch_tokens // 2, 1))
+        ex = DisaggregatedExecutor(
+            params, cfg, D=D, E=E, emit_kv=True, idle_backoff=idle_backoff,
+            moe_batch_window=moe_batch_window,
+            moe_batch_max_tokens=moe_batch_max_tokens, device=device)
+        ex.prewarm_buckets(prewarm_rows(max_batch_tokens, D,
+                                        moe_batch_window,
+                                        moe_batch_max_tokens))
     else:
         ex.emit_kv = True
         ex.reset_stats()
@@ -400,10 +452,13 @@ def run_pd(args) -> int:
           f"{str(cfg.dtype).replace('torch.', '')} -> decode runtime with "
           f"{slots} slots x {max_len} tokens; {args.requests} requests, "
           f"lengths {[int(x) for x in lengths]}, out_lens {out_lens}")
+    _print_batching(args)
     out = serve_pd(cfg, params, reqs, device=device, D=D, E=E, slots=slots,
                    max_len=max_len, time_scale=args.time_scale,
                    colocated=args.colocated, max_batch_tokens=max_tokens,
-                   idle_backoff=args.idle_backoff, verbose=True)
+                   idle_backoff=args.idle_backoff, verbose=True,
+                   moe_batch_window=args.moe_batch_window,
+                   moe_batch_max_tokens=args.moe_batch_max_tokens)
     results, rt, kv_log = out["results"], out["runtime"], out["kv_log"]
     _pd_summary(results, kv_log, args.colocated)
     print(f"decode runtime: {rt.steps} steps, {rt.trace_counts['decode_step']}"
@@ -427,6 +482,7 @@ def run_pd(args) -> int:
                 "kv_bytes": kv_log.bytes,
                 "decode_steps": rt.steps,
                 "decode_step_signatures": rt.trace_counts["decode_step"],
+                "moe_batch_window": args.moe_batch_window,
                 "statuses": {r.rid: r.status for r in results},
             }, f, indent=2)
         print(f"pd stats saved to {args.save_stats}")
@@ -456,6 +512,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--idle-backoff", type=float, default=0.05,
                     help="max seconds a MoE worker waits on its condition "
                          "variable before re-checking the stop flag")
+    ap.add_argument("--moe-path", default="fused", choices=["fused", "eager"],
+                    help="the MoE stage: the fused Super Kernel hot path, or "
+                         "the pre-fusion per-expert loop (baseline; prefill "
+                         "serving only)")
+    ap.add_argument("--moe-batch-window", type=float, default=0.0,
+                    help="cross-region continuous batching: after the first "
+                         "drained region each MoE worker keeps accumulating "
+                         "arrivals for up to this many WALL seconds and "
+                         "launches the Super Kernel once per layer over the "
+                         "merged capacity buffer; 0 (default) serves one "
+                         "region per launch")
+    ap.add_argument("--moe-batch-max-tokens", type=int, default=None,
+                    help="cap on the merged token rows of one batched launch; "
+                         "requires --moe-batch-window > 0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save-stats", default=None, metavar="PATH",
                     help="write EngineStats as JSON after the run")
@@ -491,6 +561,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--requests must be >= 1")
     if args.layers is not None and args.layers < 1:
         ap.error("--layers must be >= 1")
+    if args.moe_batch_window < 0:
+        ap.error("--moe-batch-window must be >= 0")
+    if args.moe_batch_window > 0 and args.moe_path == "eager":
+        ap.error("--moe-batch-window requires --moe-path fused (batching "
+                 "merges regions into ONE capacity buffer)")
+    if args.moe_batch_max_tokens is not None:
+        if args.moe_batch_max_tokens < 1:
+            ap.error("--moe-batch-max-tokens must be >= 1")
+        if args.moe_batch_window <= 0:
+            ap.error("--moe-batch-max-tokens bounds the accumulation window; "
+                     "it requires --moe-batch-window > 0")
     # decode knobs without the mode that consumes them are configuration
     # mistakes, not silent no-ops
     if args.mode != "pd":
@@ -513,6 +594,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--decode-width must be >= 1")
     if args.save_router_stats:
         ap.error("--save-router-stats is not supported with --mode pd")
+    if args.moe_path == "eager":
+        ap.error("--moe-path eager is not supported with --mode pd (the "
+                 "prefill executor exports KV from the fused attention step)")
     return run_pd(args)
 
 

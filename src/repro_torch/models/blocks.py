@@ -5,7 +5,7 @@ a block receives one layer's slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -53,15 +53,20 @@ def init_decoder_block_params(gen: torch.Generator, cfg: ModelConfig, *,
 def decoder_block_forward(p, h, cfg: ModelConfig, *,
                           window: Optional[int] = None, moe: bool = False,
                           moe_mode: str = "capacity",
-                          use_dense: Optional[bool] = None):
-    """h: [B, S, d] -> (h, MoEAux or None)."""
+                          use_dense: Optional[bool] = None,
+                          gmm: Optional[Callable] = None,
+                          layer_id: Optional[torch.Tensor] = None):
+    """h: [B, S, d] -> (h, MoEAux or None).  `gmm(xb, experts, cfg,
+    layer_id)` replaces the capacity mode's expert matmul; it is handed this
+    layer's `layer_id` (`make_super_kernel_gmm` resolves the layer from it)."""
     B, S, d = h.shape
     h = h + attention_forward(p["attn"], apply_norm(h, p["ln_attn"], cfg), cfg,
                               window=window, use_dense=use_dense)
     x = apply_norm(h, p["ln_ffn"], cfg)
     if moe:
+        gmm_l = (lambda xb, ex, c: gmm(xb, ex, c, layer_id)) if gmm else None
         y, aux = moe_forward(p["ffn"], x.reshape(B * S, d), cfg,
-                             mode=moe_mode)
+                             mode=moe_mode, gmm=gmm_l)
         return h + y.reshape(B, S, d), aux
     return h + ffn_forward(p["ffn"], x, cfg), None
 

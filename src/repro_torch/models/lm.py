@@ -8,7 +8,7 @@ other kinds of the reference arrive with their model families.
 from __future__ import annotations
 
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -97,18 +97,26 @@ def _mean_aux(auxs) -> MoEAux:
 
 
 def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
-                moe_mode: str = "capacity", use_dense: Optional[bool] = None):
+                moe_mode: str = "capacity", use_dense: Optional[bool] = None,
+                gmm: Optional[Callable] = None):
     """Embed + all stages + final norm. Returns (h [B,S,d], MoEAux): the
     aux is averaged over each stage's layers, then over the stages, as in
-    the reference (zeros for a stage without experts)."""
+    the reference (zeros for a stage without experts).
+
+    `gmm` replaces the capacity mode's expert matmul and gets each layer's
+    id as DEVICE data: a one-element view into one `torch.arange(L)` per
+    stage and call, so no layer costs a host-to-device copy."""
     h = embed_tokens(params, tokens, embeddings, cfg)
     auxs = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
+        lids = torch.arange(n, dtype=torch.int32, device=h.device) \
+            if gmm is not None else None
         layer_auxs = []
         for l in range(n):
             h, aux = B.decoder_block_forward(
                 layer_slice(sp, l), h, cfg, window=opts.get("window"),
-                moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense)
+                moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense,
+                gmm=gmm, layer_id=None if lids is None else lids[l:l + 1])
             layer_auxs.append(aux if aux is not None
                               else _zero_aux(cfg, h.device))
         auxs.append(_mean_aux(layer_auxs))
@@ -116,10 +124,11 @@ def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
-               moe_mode: str = "capacity", use_dense: Optional[bool] = None):
+               moe_mode: str = "capacity", use_dense: Optional[bool] = None,
+               gmm: Optional[Callable] = None):
     """Full logits (use for small scales / sampling)."""
     h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
-                         use_dense=use_dense)
+                         use_dense=use_dense, gmm=gmm)
     return lm_head(params, h, cfg), aux
 
 

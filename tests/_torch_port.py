@@ -10,11 +10,13 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 
 
-def smoke_setup(num_layers=3, num_experts=4, top_k=2, shared=0, seed=0):
+def smoke_setup(num_layers=3, num_experts=4, top_k=2, shared=0, seed=0,
+                **extra):
     """(jax cfg, jax params, port cfg, port params on the CPU) for the qwen3
-    smoke config cut to size; the port's params are the bridged JAX ones."""
+    smoke config cut to size (`extra`: more config fields to replace); the
+    port's params are the bridged JAX ones."""
     kw = dict(num_layers=num_layers, num_experts=num_experts, top_k=top_k,
-              num_shared_experts=shared)
+              num_shared_experts=shared, **extra)
     jcfg = jax_get_config("qwen3_moe_235b_a22b").smoke().replace(**kw)
     cfg = get_config("qwen3_moe_235b_a22b").smoke().replace(**kw)
     jparams = jax_init_lm_params(jax.random.PRNGKey(seed), jcfg)

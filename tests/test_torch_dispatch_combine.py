@@ -332,3 +332,72 @@ def test_moe_shard_constraints_not_ported():
         moe.moe_forward(lm.layer_slice(params["stages"][0], 0)["ffn"],
                         torch.zeros(4, cfg.d_model),
                         cfg.replace(moe_shard_constraints=True))
+
+
+def _cu_whole_max_experts() -> int:
+    """WHOLE_MAX_EXPERTS as csrc/dispatch_combine.cu computes it."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(__file__), "..", "src",
+                        "repro_torch", "csrc", "dispatch_combine.cu")
+    src = open(path).read()
+    threads = int(re.search(r"constexpr int WHOLE_THREADS = (\d+);",
+                            src).group(1))
+    assert re.search(r"constexpr int WHOLE_WARPS = WHOLE_THREADS / 32;", src)
+    kb, extra = re.search(
+        r"constexpr int WHOLE_MAX_EXPERTS =\s*(\d+) \* 1024 / "
+        r"\(static_cast<int>\(sizeof\(int\)\) \* \((\d+) \+ WHOLE_WARPS\)\) "
+        r"- 1;", src).groups()
+    return int(kb) * 1024 // (4 * (int(extra) + threads // 32)) - 1
+
+
+def test_dispatch_route_is_a_function_of_the_expert_count():
+    """kernel_moe_dispatch takes "whole" up to the kernel's own bound (read
+    out of the .cu, so the two cannot drift) and the unbounded "scatter"
+    route beyond it."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import \
+        WHOLE_MAX_EXPERTS
+    bound = _cu_whole_max_experts()
+    assert WHOLE_MAX_EXPERTS == bound == 1116
+    assert ops.dispatch_route(1) == ops.dispatch_route(bound) == "whole"
+    assert ops.dispatch_route(bound + 1) == ops.dispatch_route(4096) \
+        == "scatter"
+
+
+@pytest.mark.parametrize("E", [1116, 1117])
+def test_kernel_moe_dispatch_serves_any_expert_count(E):
+    """On either side of the bound ("whole" at 1116, "scatter" at 1117)
+    kernel_moe_dispatch gives the JAX moe_dispatch's and the JAX
+    kernel_moe_dispatch's (Pallas in interpret mode) outputs bit for bit
+    (the reference has no bound on E), its pair_slot is the reference's
+    slots in pair order, and the combine over its info matches the JAX
+    kernel_moe_combine and moe_combine at 1e-6."""
+    T, K, d = 40, 2, 8
+    jcfg, cfg = _cfgs(E, K, d)
+    rng = np.random.RandomState(E)
+    x = rng.randn(T, d).astype(np.float32)
+    idx = np.stack([rng.choice(8, K, replace=False) * 139 % E
+                    for _ in range(T)]).astype(np.int32)
+    w = rng.rand(T, K).astype(np.float32)
+    jx, jidx, jw = jnp.asarray(x), jnp.asarray(idx), jnp.asarray(w)
+    for cap in (None, T, 2):  # the config's, dropless, most pairs dropped
+        xb, info = ops.kernel_moe_dispatch(t(x), t(idx), cfg, cap)
+        pxb, pinfo = jmoe.moe_dispatch(jx, jidx, jcfg, cap)
+        kxb, kinfo = jops.kernel_moe_dispatch(jx, jidx, jcfg, cap,
+                                              interpret=True)
+        assert info["capacity"] == pinfo["capacity"] == kinfo["capacity"]
+        for want_xb, want in ((pxb, pinfo), (kxb, kinfo)):
+            np.testing.assert_array_equal(xb.numpy(), np.asarray(want_xb))
+            for k in ("perm", "slot", "valid", "group_sizes"):
+                np.testing.assert_array_equal(info[k].numpy(),
+                                              np.asarray(want[k]))
+        assert torch.equal(info["pair_slot"], _pair_slot(
+            {k: torch.from_numpy(np.asarray(pinfo[k]).astype(np.int64))
+             for k in ("perm", "slot")}))
+        if cap is not None:
+            assert bool((~info["valid"]).any()) == (cap == 2)
+        yb = np.asarray(pxb) * 3.0
+        got = ops.kernel_moe_combine(t(yb), info, t(w), T)
+        close(got, jops.kernel_moe_combine(jnp.asarray(yb), kinfo, jw, T,
+                                           interpret=True), 1e-6)
+        close(got, jmoe.moe_combine(jnp.asarray(yb), pinfo, jw, T), 1e-6)
