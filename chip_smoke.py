@@ -50,6 +50,20 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             "whole" 1 and combine "weighted" 1 launch per layer; the "whole"
             dispatch at that N (16384 pairs) timed against the TPU-signature
             zero fill + "scatter"
+  faults    supervised failover at the serve phase's full width, each arm
+            on a fresh DisaggregatedExecutor(D=2, E=4) released after it:
+            8 pinned jobs of [1, 512] fault-free (wall W), then MoE device 1
+            crashed at 0.3 W (per-region, and batched with a 2 ms window),
+            device 0 dropping a combine (region_timeout 2 s) and device 0
+            stalled (stall_timeout 0.5 s) -- every output torch.equal to the
+            fault-free wave, one failover where a device died, every
+            super_gmm / flash_attention launch on wgmma, the kernel library
+            not rebuilt; the failover's wall time, the swap's seconds, the
+            bytes its gathers moved against the HBM bound, new bucket misses
+            and memory before and after; then the serve wave through
+            ExecutorEngine with device 1 crashed at 0.5 s of trace: 8/8 ok,
+            one failover, TTFT beside the fault-free serve phase's.
+            `--phases device,build,faults` runs it alone
   timing    each kernel timed at the shapes its path gave it, beside its
             bound, its plain version and one library call (library_ms is a
             yardstick timed here and used nowhere in the port): super_gmm
@@ -65,8 +79,8 @@ Phases (each prints its own lines; any failure is a non-zero exit):
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
-counts say so).  Each path's launches (serve, pd, batching, gmm) stand in
-the {"kernels": ...} line under "launches_by_path".
+counts say so).  Each path's launches (serve, pd, batching, gmm, faults)
+stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -906,7 +920,10 @@ def phase_serve(cfg, params, seed: int) -> dict:
           f"attention group util "
           f"{np.round(burst['stats'].group_util, 2).tolist()}")
     expect(not ex.errors, "executor worker failed")
+    ttft = [r.ttft for r in results]
     return {"launches": launches, "by_route": by_route,
+            "ttft_mean_s": float(np.mean(ttft)),
+            "ttft_max_s": float(np.max(ttft)),
             "shapes": out["shapes"], "buckets": out["buckets"],
             "counts": out["counts"], "lengths": lengths, "kw": kw}
 
@@ -1074,7 +1091,7 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
     print("[pd] the decode step body runs with the CUDA sync debug mode "
           "raising: no hidden host sync besides the token read")
     step = _decode_breakdown(rt)
-    print(f"[pd] launches per decode step: {step['launches']:.0f}")
+    print(f"[pd] launches per decode step: {step['launches']}")
     return {"launches": launches, "by_route": by_route, "steps": steps,
             "hop_us": hop_us, "T": rt.slots, "decode_step": step}
 
@@ -1295,6 +1312,219 @@ def phase_batching(cfg, params, seed: int) -> dict:
     return out
 
 
+def _fault_arm(name, ex, tokens, D, plan=None, ref=None) -> tuple:
+    """One pinned wave through a fresh executor (built and prewarmed by the
+    caller), `plan` armed just before `run`; the launch counts set to 0
+    just before the wave and read just after.  Results torch.equal to
+    `ref` where given.  Returns (results by bid, readings)."""
+    kernels = _pd_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_allocated()
+    ms0 = torch.cuda.memory_stats()
+    for k in kernels.values():
+        _launch.reset_launches(k)
+    if plan is not None:
+        ex.arm_faults(plan)
+    t0 = time.perf_counter()
+    done = ex.run(_pinned(tokens, D), timeout=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    expect(not ex.errors and len(done) == len(tokens)
+           and all(j.failed is None for j in done), f"faults {name}: a job "
+           f"failed")
+    res = {j.bid: j.result for j in done}
+    for i, r in res.items():
+        expect(bool(torch.isfinite(r.float()).all()),
+               f"faults {name}: output not finite")
+        if ref is not None:
+            expect(torch.equal(r, ref[i]),
+                   f"faults {name}: job {i} != the fault-free wave "
+                   f"(max abs err {max_err(r, ref[i]):.3e})")
+    launches = {n: k.launches for n, k in kernels.items()}
+    for kname in ("super_gmm", "flash_attention"):
+        n, by = launches[kname], _routes(kernels[kname])
+        expect(n > 0 and by["wgmma"] == n,
+               f"faults {name}: {kname} launches by route {by}")
+    with ex._log_lock:
+        log = list(ex.log)
+    ms = torch.cuda.memory_stats()
+    return res, {
+        "wall_s": wall, "launches": launches,
+        "failovers": ex.failovers, "dead": list(ex.placement.dead),
+        "retries": [j.retries for j in sorted(done, key=lambda j: j.bid)],
+        "bucket_misses": int(ex.bucket_misses.sum()),
+        "super_kernel_launches": int(ex.moe_launches.sum()),
+        "orphans_served": sum(1 for ev in log if ev[0] == "moe-failover"),
+        "supervisor_launches": sum(1 for ev in log
+                                   if ev[0] == "moe-failover" and ev[5]),
+        "failover_wall_s": [end[4] - begin[3] for begin, end in zip(
+            [ev for ev in log if ev[0] == "failover-begin"],
+            [ev for ev in log if ev[0] == "failover"])],
+        "migrations": [dict(r, devices=list(r["devices"]))
+                       for r in ex.migrations],
+        "fired": [ev.to_dict() for ev in ex.fault_injector.fired_events()]
+        if ex.fault_injector is not None else [],
+        "allocated_before_gb": alloc0 / 1e9,
+        "peak_allocated_gb": ms["allocated_bytes.all.peak"] / 1e9,
+        "peak_reserved_gb": ms["reserved_bytes.all.peak"] / 1e9,
+        "allocated_after_gb": torch.cuda.memory_allocated() / 1e9,
+        # the caching allocator during the wave: a swap's new stacks are
+        # fresh multi-GB blocks
+        "cuda_malloc": ms["num_device_alloc"] - ms0["num_device_alloc"],
+        "cuda_free": ms["num_device_free"] - ms0["num_device_free"],
+        "alloc_retries": ms["num_alloc_retries"] - ms0["num_alloc_retries"]}
+
+
+def _fmt_failover(r: dict) -> str:
+    m = [x for x in r["migrations"] if x["kind"] == "failover"]
+    out = (f"failovers {r['failovers']} (dead {r['dead']}), wall "
+           f"{r['wall_s']:.3f}s, orphans served by the supervisor "
+           f"{r['orphans_served']} in {r['supervisor_launches']} Super "
+           f"Kernel launches, failover "
+           f"{', '.join(f'{1e3 * s:.1f}' for s in r['failover_wall_s'])} ms "
+           f"(failover-begin to failover)")
+    for x in m:
+        rate = 2 * x["copy_bytes"] / max(x["copy_seconds"], 1e-12)
+        out += (f"; swap {1e3 * x['seconds']:.1f} ms, gained "
+                f"{x['bytes'] / 1e9:.3f} GB, gathers wrote "
+                f"{x['copy_bytes'] / 1e9:.2f} GB and read as much in "
+                f"{1e3 * x['copy_seconds']:.1f} ms = {rate / 1e12:.2f} TB/s "
+                f"({rate / HBM_BYTES_PER_S:.0%} of the HBM bound, bound "
+                f"{1e3 * 2 * x['copy_bytes'] / HBM_BYTES_PER_S:.1f} ms)")
+    return out + (f"; new bucket misses {r['bucket_misses']}; memory "
+                  f"allocated {r['allocated_before_gb']:.1f} GB before, "
+                  f"{r['allocated_after_gb']:.1f} GB after, peak allocated "
+                  f"{r['peak_allocated_gb']:.1f} GB, peak reserved "
+                  f"{r['peak_reserved_gb']:.1f} GB; cudaMalloc "
+                  f"{r['cuda_malloc']}, cudaFree {r['cuda_free']}, "
+                  f"allocation retries {r['alloc_retries']} in the wave")
+
+
+def phase_faults(cfg, params, seed: int, serve=None) -> dict:
+    """Supervised failover at the serve phase's full width (after the
+    serve executor is released): 8 pinned jobs of [1, 512] tokens through
+    DisaggregatedExecutor(D=2, E=4), round-robin, each arm on a fresh
+    executor released after it ran.  (1) fault-free, its wall W; (2) MoE
+    device 1 crashed at 0.3 W; (3) the same, continuous batching (window
+    2 ms, 4096 rows); (4) device 0 drops a combine (region_timeout 2 s);
+    (5) device 0 stalls (stall_timeout 0.5 s).  Arms 2-5 torch.equal to
+    arm 1, every Super Kernel and flash launch on wgmma, the kernel
+    library not rebuilt.  (6) the serve phase's 8-request wave through
+    ExecutorEngine with device 1 crashed at 0.5 s of trace: 8/8 ok, one
+    failover."""
+    from repro_torch.core.executor import DisaggregatedExecutor
+    from repro_torch.core.faults import FaultEvent, FaultPlan
+    from repro_torch.launch.serve import prewarm_rows, serve_requests
+    D, E, S = 2, 4, 512
+    rng = np.random.RandomState(seed + 17)
+    tokens = [rng.randint(0, cfg.vocab_size, (1, S)) for _ in range(8)]
+    lib, lib_path = _build.load(), _build.library_path()
+    lib_mtime = lib_path.stat().st_mtime_ns
+    # one expert's three projections, one layer (bf16 at full width)
+    copy_unit = 3 * cfg.d_model * cfg.expert_d_ff * torch.empty(
+        (), dtype=cfg.dtype).element_size()
+    launches = collections.Counter()
+    out = {}
+
+    def arm(name, plan=None, ref=None, prewarm=S, **kw):
+        ex = DisaggregatedExecutor(params, cfg, D=D, E=E, device=DEV, **kw)
+        # built and warmed before a plan arms: the buckets, then one wave
+        # (not counted) that makes every thread's first calls on its stream
+        ex.prewarm_buckets(prewarm)
+        ex.run(_pinned(tokens, D), timeout=300)
+        ex.reset_stats()
+        res, r = _fault_arm(name, ex, tokens, D, plan, ref)
+        launches.update(r["launches"])
+        out[name] = r
+        del ex
+        _free()
+        return res, r
+
+    ref, r1 = arm("fault_free")
+    W = r1["wall_s"]
+    print(f"[faults] fault-free: 8 jobs of [1, {S}] tokens, D={D} E={E} "
+          f"round-robin: {W:.3f}s wall, Super Kernel launches "
+          f"{r1['super_kernel_launches']}, peak allocated "
+          f"{r1['peak_allocated_gb']:.1f} GB")
+    crash = FaultPlan([FaultEvent(t=0.3 * W, kind="crash_moe", device=1)])
+    for name, kw in (("crash", {}),
+                     ("batched_crash", {"moe_batch_window": 0.002,
+                                        "moe_batch_max_tokens": 4096})):
+        _, r = arm(name, crash, ref, prewarm=D * S if kw else S, **kw)
+        fo = [m for m in r["migrations"] if m["kind"] == "failover"]
+        expect(r["failovers"] == 1 and r["dead"] == [1] and len(fo) == 1,
+               f"faults {name}: failovers {r['failovers']}, dead "
+               f"{r['dead']}, migrations {r['migrations']}")
+        expect(fo[0]["bytes"] == 32 * cfg.num_layers * copy_unit,
+               f"faults {name}: failover bytes {fo[0]['bytes']}")
+        print(f"[faults] {name} (device 1 at t={0.3 * W:.3f}s"
+              + (", window 2 ms, 4096 rows" if kw else "") + "): every job "
+              f"torch.equal to the fault-free wave; " + _fmt_failover(r))
+    _, r = arm("drop", FaultPlan([FaultEvent(t=0.0, kind="drop_combine",
+                                             device=0)]), ref,
+               region_timeout=2.0)
+    expect(max(r["retries"]) >= 1 and r["fired"] == [FaultEvent(
+        t=0.0, kind="drop_combine", device=0).to_dict()],
+        f"faults drop: retries {r['retries']}, fired {r['fired']}")
+    print(f"[faults] drop_combine on device 0 (region_timeout 2 s): every "
+          f"job torch.equal to the fault-free wave, retries {r['retries']}, "
+          f"wall {r['wall_s']:.3f}s")
+    _, r = arm("stall", FaultPlan([FaultEvent(t=0.0, kind="stall_moe",
+                                              device=0, duration=1e9)]),
+               ref, stall_timeout=0.5)
+    expect(r["failovers"] == 1 and 0 in r["dead"],
+           f"faults stall: failovers {r['failovers']}, dead {r['dead']}")
+    print(f"[faults] stall_moe on device 0 (stall_timeout 0.5 s): every job "
+          f"torch.equal to the fault-free wave; " + _fmt_failover(r))
+    # (6) the engine: the serve phase's wave with device 1 crashed
+    lengths = serve["lengths"] if serve is not None else [
+        int(x) for x in np.random.default_rng(seed).integers(256, 2049,
+                                                            size=8)]
+    ex = DisaggregatedExecutor(params, cfg, D=D, E=E, device=DEV)
+    ex.prewarm_buckets(prewarm_rows(4096, D, 0.0, None))
+    kernels = _pd_kernels()
+    for k in kernels.values():
+        _launch.reset_launches(k)
+    eng = serve_requests(cfg, params, lengths=lengths, rps=8.0,
+                         time_scale=1.0, seed=seed, device=DEV,
+                         max_batch_tokens=4096, executor=ex,
+                         fault_plan=FaultPlan(
+                             [FaultEvent(t=0.5, kind="crash_moe",
+                                         device=1)]))
+    torch.cuda.synchronize()
+    launches.update({n: k.launches for n, k in kernels.items()})
+    results, st = eng["results"], eng["stats"]
+    expect(len(results) == 8 and all(r.status == "ok" for r in results)
+           and st.failovers == 1, f"faults engine: statuses "
+           f"{st.statuses}, failovers {st.failovers}")
+    ttft = [r.ttft for r in results]
+    out["engine"] = {"lengths": lengths, "statuses": st.statuses,
+                     "failovers": st.failovers, "wall_s": eng["wall"],
+                     "ttft_mean_s": float(np.mean(ttft)),
+                     "ttft_max_s": float(np.max(ttft)),
+                     "bucket_misses": st.bucket_misses}
+    base = (f"serve phase (fault-free) mean {serve['ttft_mean_s']:.3f}s, max "
+            f"{serve['ttft_max_s']:.3f}s" if serve is not None
+            else "serve phase not run")
+    print(f"[faults] engine: the serve wave ({lengths} tokens, 8 req/s) "
+          f"with device 1 crashed at 0.5 s of trace: 8/8 ok, failovers "
+          f"{st.failovers}, TTFT mean {np.mean(ttft):.3f}s, max "
+          f"{np.max(ttft):.3f}s ({base}); new bucket misses "
+          f"{st.bucket_misses}")
+    del eng, ex
+    _free()
+    expect(_build.load() is lib and _build.library_path() == lib_path
+           and lib_path.stat().st_mtime_ns == lib_mtime,
+           "faults: the kernel library was rebuilt")
+    for name in ("dispatch_scatter", "combine_gather"):
+        expect(launches[name] == 0, f"faults: {name} launched "
+               f"{launches[name]} times on the prefill path")
+    out["launches"] = dict(launches)
+    out["library"] = lib_path.name
+    return out
+
+
 def phase_gmm(cfg, params, seed: int, gen) -> dict:
     """lm_forward with the Super Kernel as its gmm (make_super_kernel_gmm):
     in fp32 at the reference's test config against the einsum path (tol
@@ -1407,11 +1637,11 @@ def phase_gmm(cfg, params, seed: int, gen) -> dict:
     w, p = cases[0]["device_ms"], cases[1]["device_ms"]
     print(f"[gmm] dispatch at prefill N={N} (E={E} C={C} d={d}, {kept} pairs "
           f"kept): 'whole' {1e3 * w:.2f} us device in "
-          f"{cases[0]['launches_per_call']:.0f} launch(es), bound "
+          f"{cases[0]['launches_per_call']} launch(es), bound "
           f"{1e3 * cases[0]['bound_ms']:.2f} us; TPU-signature zero fill + "
           f"scatter {1e3 * p:.2f} us (bound {1e3 * cases[1]['bound_ms']:.2f} "
           f"us; library {1e3 * cases[1]['library_device_ms']:.2f} us): whole "
-          f"/ scatter = {w / p:.2f} "
+          f"/ scatter = {_ratio(w, p):.2f} "
           f"({'whole wins' if w < p else 'whole LOSES'}); max abs err {cases[0]['max_abs_err']} / "
           f"{cases[1]['max_abs_err']}")
     return {"launches": launches, "by_route": by_route, "rel_err": rel,
@@ -1419,26 +1649,54 @@ def phase_gmm(cfg, params, seed: int, gen) -> dict:
             "default_gmm_wall_ms": 1e3 * wall_e, "dispatch_cases": cases}
 
 
-def _device_ms(fn, reps: int, match=None):
+def _ratio(a: float, b: float) -> float:
+    """a / b for a printed comparison; nan where b is 0."""
+    return a / b if b else float("nan")
+
+
+def _device_ms(fn, reps: int, match=None, tries: int = 3):
     """Device time per call by torch.profiler over `reps` calls: summed over
     every kernel, or over the kernels whose name contains `match`.  Returns
-    (ms per call, [(name, ms per call, launches per call)] by device time)."""
-    from torch.profiler import ProfilerActivity, profile
+    (ms per call, [(name, ms per call, launches per call)] by device time).
+    One warm-up step turns the device tracing on before the recorded calls,
+    one cycle only (a second would clear the recorded one).  The profiler
+    still loses events (up to 18 % of a kernel's, and once every one of a
+    profile's), so a kernel's time per call is its mean per event seen
+    times its launches per call, which is a whole number: every call
+    launches the same kernels.  A profile that saw none of the kernels is
+    taken again; after `tries` such, the time is CUDA events around `reps`
+    calls and the rows are empty."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    # the device's own events (kernels, copies), not again the host ops
-    # that launched them
-    rows = [(e.key, e.device_time_total / 1e3 / reps, e.count / reps)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and (match is None or match in e.key)]
-    rows.sort(key=lambda r: -r[1])
-    return sum(r[1] for r in rows), rows
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        # the device's own events (kernels, copies), not again the host ops
+        # that launched them, nor the step's span the schedule draws over them
+        rows = [(e.key, e.device_time_total / 1e3 / e.count * n, n)
+                for e in prof.key_averages()
+                if e.count
+                for n in [max(1, round(e.count / reps))]
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith("ProfilerStep")
+                and (match is None or match in e.key)]
+        if sum(r[1] for r in rows) > 0:
+            rows.sort(key=lambda r: -r[1])
+            return sum(r[1] for r in rows), rows
+    print(f"[timing] the profiler saw no device time in {tries} profiles "
+          f"of {reps} calls{f' (kernels {match!r})' if match else ''}: "
+          f"CUDA events around the calls instead")
+    return cuda_ms(fn, iters=reps, warmup=1), []
 
 
 def _decode_breakdown(rt) -> dict:
@@ -1455,11 +1713,11 @@ def _decode_breakdown(rt) -> dict:
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = float(np.median(walls))
     dev, rows = _device_ms(rt.step_once, 5)
-    launches = sum(r[2] for r in rows)
+    launches = sum(r[2] for r in rows) if rows else None
     print(f"[pd] decode step alone (8 slots active, no prefill): wall "
           f"{wall:.2f} ms per step (median of 20; min {min(walls):.2f}), "
           f"device time summed over its kernels and copies {dev:.2f} ms "
-          f"({dev / wall:.0%} of the wall), {launches:.0f} of them per step")
+          f"({dev / wall:.0%} of the wall), {launches} of them per step")
     for name, ms, n in rows[:8]:
         print(f"[pd]   {ms:8.3f} ms {n:6.1f}x  {name[:80]}")
     return {"wall_ms": wall, "wall_min_ms": min(walls), "device_ms": dev,
@@ -1516,12 +1774,16 @@ def _call_case(name, match, kern, nbytes, shape, plain=None, lib=None,
     """One timed wrapper call at the decode shape: `ms` as the host issues
     calls back to back (CUDA events), `device_ms` every kernel of one call
     and `kernel_device_ms` those whose name holds `match` (profiler),
-    `host_us` the host's issue time; the bound from this run's bytes."""
+    `host_us` the host's issue time; the bound from this run's bytes.
+    Where the profiler saw nothing, both device times are the whole call's
+    by CUDA events and the launches are not known."""
     call_dev, rows = _device_ms(kern, 50)
     return {"case": name, "ms": cuda_ms(kern, iters=200, warmup=10),
             "device_ms": call_dev,
-            "kernel_device_ms": sum(r[1] for r in rows if match in r[0]),
-            "launches_per_call": sum(r[2] for r in rows),
+            "kernel_device_ms": sum(r[1] for r in rows if match in r[0])
+            if rows else call_dev,
+            "launches_per_call": sum(r[2] for r in rows) if rows else None,
+            "device_ms_by": "profiler" if rows else "cuda_events",
             "host_us": _host_us(kern),
             "plain_ms": None if plain is None
             else cuda_ms(plain, iters=20, warmup=2),
@@ -1567,7 +1829,7 @@ def time_moe_path(gen, T: int) -> dict:
                       lambda: kernel_moe_combine(yb, info, w, T))):
         dev, rows = _device_ms(fn, 50)
         out[name] = {"device_ms": dev,
-                     "launches": sum(r[2] for r in rows),
+                     "launches": sum(r[2] for r in rows) if rows else None,
                      "ms": cuda_ms(fn, iters=200, warmup=10),
                      "host_us": _host_us(fn),
                      "kernels": [[r[0][:60], r[1], r[2]] for r in rows]}
@@ -1675,14 +1937,14 @@ def _moe_rows(gen, pd: dict, errs: dict, extra_dispatch=()) -> list:
             "cases": cases})
     g, p = combine[0]["device_ms"], combine[1]["kernel_device_ms"]
     print(f"[timing] combine 'weighted' {1e3 * g:.2f} us device vs the "
-          f"TPU-signature gather kernel {1e3 * p:.2f} us ({g / p:.2f}x, "
+          f"TPU-signature gather kernel {1e3 * p:.2f} us ({_ratio(g, p):.2f}x, "
           f"target <= 1.5x) and embedding_bag "
           f"{1e3 * combine[0]['library_device_ms']:.2f} us")
     d_path, d_sig = dispatch[0]["device_ms"], dispatch[1]["device_ms"]
     print(f"[timing] dispatch 'whole' {1e3 * d_path:.2f} us device over "
-          f"{dispatch[0]['launches_per_call']:.0f} launches vs the "
+          f"{dispatch[0]['launches_per_call']} launches vs the "
           f"TPU-signature scatter + its zero fill {1e3 * d_sig:.2f} us; "
-          f"{dispatch[0]['bound_ms'] / d_path:.0%} of the bound")
+          f"{_ratio(dispatch[0]['bound_ms'], d_path):.0%} of the bound")
     return out
 
 
@@ -1789,7 +2051,7 @@ def _case(name, match, kern, plain, lib, lib_name, nbytes, ops, dtype,
     err = max_err(got, want)
     del got, want
     ms = cuda_ms(kern, iters=50, warmup=5)
-    dev, _ = _device_ms(kern, 20, match=match)
+    dev, rows = _device_ms(kern, 20, match=match)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
     return {"case": name, "ms": ms, "device_ms": dev,
             "plain_ms": cuda_ms(plain, iters=3, warmup=1),
@@ -1798,6 +2060,7 @@ def _case(name, match, kern, plain, lib, lib_name, nbytes, ops, dtype,
             "library_ms": cuda_ms(lib, iters=50, warmup=5),
             "library_device_ms": _device_ms(lib, 20)[0],
             "library_call": lib_name, "tflops": ops / dev / 1e9,
+            "device_ms_by": "profiler" if rows else "cuda_events",
             "max_abs_err": err, "shape": shape}
 
 
@@ -1890,7 +2153,7 @@ def shapes_from(kernels_line: dict) -> dict:
 
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
-                 batching=None, gmm=None) -> dict:
+                 batching=None, gmm=None, faults=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -1910,6 +2173,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["batching"] = batching["bitwise"]["batched"]["launches"]
     if gmm:
         by_path["gmm"] = gmm["launches"]
+    if faults:
+        by_path["faults"] = faults["launches"]
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -1919,7 +2184,7 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,batching,gmm,timing")
+                    "serve,pd,batching,gmm,faults,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -1965,8 +2230,8 @@ def main() -> int:
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
-    serve = pd = batching = gmm = None
-    if {"executor", "serve", "batching", "gmm"} & set(phases):
+    serve = pd = batching = gmm = faults = None
+    if {"executor", "serve", "batching", "gmm", "faults"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
             phase_executor(cfg, params)
@@ -1989,12 +2254,16 @@ def main() -> int:
             print(json.dumps({"batching": batching}))
         if "gmm" in phases:
             gmm = phase_gmm(cfg, params, args.seed, gen)
+        if "faults" in phases:
+            faults = phase_faults(cfg, params, args.seed, serve)
+            print(json.dumps({"faults": faults}))
         del params
         _free()
     if "timing" in phases:
         expect(serve is not None and pd is not None and errs is not None,
                "timing needs the kernels, serve and pd phases")
-        print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm)))
+        print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
+                                      faults)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,12 @@ Backend:
 
 `RouterStatsCollector` records MEASURED per-expert token fractions from the
 executor's real router assignments and feeds them back as
-`expert_fractions` / `Placement` popularity input.  With `keep_kv=True` the
+`expert_fractions` / `Placement` popularity input.  The request lifecycle
+survives faults: a `FaultPlan` is armed on the executor at start (its
+supervisor fails dead MoE devices over), `max_queue` sheds arrivals under
+overload, `request_deadline` expires aged requests, `hedge_factor` clones
+overdue batches (the first completion of each request wins), and drain()
+ends every request with a definite status.  With `keep_kv=True` the
 engine keeps each ok request's prompt KV (from an `emit_kv` executor) until
 the prefill/decode orchestrator claims it with `take_kv`.  (The simulator
 backend of the reference is not ported yet.)
@@ -44,6 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.executor import BatchJob, DisaggregatedExecutor
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.kv import KVHandle, KVSpec
 from repro_torch.core.scheduler import Batch, LengthAwareBatcher
 from repro_torch.core.trace import Request, TraceClock
@@ -74,10 +80,13 @@ class RequestResult:
     batch_id: Optional[int] = None
     group: Optional[int] = None  # attention group that served the batch
     first_token: Optional[int] = None  # sampled token id (executor engine)
-    # Terminal status: "ok" (served), "timeout" (a decode stage did not
-    # finish in time) or "failed" (the backend died).  Every submitted
-    # request ends in exactly one of these -- drain() never strands a handle.
+    # Terminal status: "ok" (served), "timeout" (served, or expired, past
+    # its deadline; or a decode stage did not finish in time), "shed"
+    # (rejected at admission under overload) or "failed" (retry budget
+    # exhausted or the backend died).  Every submitted request ends in
+    # exactly one of these -- drain() never strands a handle.
     status: str = "ok"
+    retries: int = 0  # fault-aborted region replays the batch survived
     # --- decode extension --------------------------------------------------
     # tokens_out counts EVERY emitted token (first token included), so a
     # prefill-only request has tokens_out == 1 and completion_time ==
@@ -152,7 +161,13 @@ class EngineStats:
     moe_device_util: Optional[np.ndarray] = None  # busy fraction per device
     group_util: Optional[np.ndarray] = None  # attention groups (if tracked)
     placement_policy: Optional[str] = None  # installed placement
+    migrations: int = 0  # live re-placements executed (failovers included)
+    migrated_bytes: float = 0.0  # expert weight bytes they gained
+    # fault tolerance
+    failovers: int = 0  # supervised MoE-device evacuations executed
     statuses: Optional[Dict[str, int]] = None  # terminal status histogram
+    hedges_issued: int = 0  # duplicate batches launched for overdue ones
+    hedge_wins: int = 0  # hedges that finished before their primary
     # super-kernel launch telemetry
     moe_launches: int = 0  # super-kernel FFN launches issued
     moe_batch_regions: float = 0.0  # regions served by those launches
@@ -352,6 +367,10 @@ class ExecutorEngine(ServingEngine):
                  batcher: Optional[LengthAwareBatcher] = None,
                  sample_first_token: bool = True,
                  token_seed: int = 0,
+                 fault_plan: Optional[FaultPlan] = None,
+                 request_deadline: Optional[float] = None,
+                 max_queue: Optional[int] = None,
+                 hedge_factor: Optional[float] = None,
                  keep_kv: bool = False):
         self.ex = executor
         self.cfg = executor.cfg
@@ -368,10 +387,19 @@ class ExecutorEngine(ServingEngine):
         self.router_stats = RouterStatsCollector(max(self.cfg.num_experts, 1))
         self.sample_first_token = sample_first_token
         self._token_seed = token_seed
+        # the placement controller that would follow a failover's degraded
+        # placement is not ported yet: `_on_failover` has nothing to sync
+        self.controller = None
+        # --- fault tolerance / request lifecycle --------------------------
+        self._fault_plan = fault_plan
+        self.request_deadline = request_deadline  # trace s; None = none
+        self.max_queue = max_queue  # batcher backlog at which arrivals shed
+        self.hedge_factor = hedge_factor  # x EWMA service time; None = off
         # wire the engine into the executor
         executor.clock = self.clock.now
         executor.router_stats = self.router_stats
         executor.on_complete = self._on_job_done
+        executor.on_failover = self._on_failover
         # admission state
         self._lock = threading.Lock()
         # _done_cv shares _lock: holding either means holding the same lock
@@ -384,8 +412,17 @@ class ExecutorEngine(ServingEngine):
         self._submitted = 0  # guarded_by: _lock
         self._finished = 0  # guarded_by: _lock
         self._draining = False  # guarded_by: _lock
+        # request-lifecycle state: rids with a terminal result (dedup -- a
+        # hedged twin's second completion is dropped), the terminal status
+        # histogram, live batches eligible for hedging, the batch
+        # service-time EWMA overdue-ness is judged against, and the hedge
+        # accounting for stats()
         self._completed_rids: set = set()  # guarded_by: _lock
         self._status_counts: Dict[str, int] = {}  # guarded_by: _lock
+        self._live_jobs: List[BatchJob] = []  # guarded_by: _lock
+        self._svc_ewma: Optional[float] = None  # guarded_by: _lock
+        self._hedges_issued = 0  # guarded_by: _lock
+        self._hedge_wins = 0  # guarded_by: _lock
         # rid -> (k, v, ready): [L, len, kvh, hd] each, on the device
         self._kv: Dict[int, tuple] = {}  # guarded_by: _lock
         self._stop = threading.Event()
@@ -399,6 +436,9 @@ class ExecutorEngine(ServingEngine):
         assert not self._stop.is_set(), "engine reused after close()"
         if self._admit_thread is None:
             self.clock.start()
+            if self._fault_plan is not None:
+                # the trace clock is zero-based: plan times are trace seconds
+                self.ex.arm_faults(self._fault_plan, t0=0.0)
             self.ex.ensure_started()
             self._admit_thread = threading.Thread(
                 target=self._admit_loop, name="admission", daemon=True)
@@ -439,7 +479,29 @@ class ExecutorEngine(ServingEngine):
                 with self._lock:
                     while self._arrivals and self._arrivals[0][0] <= now:
                         _, _, req = heapq.heappop(self._arrivals)
+                        if (self.max_queue is not None
+                                and self.batcher.pending_count
+                                >= self.max_queue):
+                            # overload shedding at admission: a full queue
+                            # rejects instead of queueing forever
+                            self._finalize_locked(req.rid, req.arrival,
+                                                  req.length, now, "shed")
+                            continue
+                        if (self.request_deadline is not None
+                                and now - req.arrival
+                                > self.request_deadline):
+                            self._finalize_locked(req.rid, req.arrival,
+                                                  req.length, now, "timeout")
+                            continue
                         emitted += self.batcher.add(req, now)
+                    if self.request_deadline is not None:
+                        # expire requests that aged out INSIDE the batcher
+                        # before any compute is spent on them
+                        for req in self.batcher.expel(
+                                lambda r: now - r.arrival
+                                > self.request_deadline):
+                            self._finalize_locked(req.rid, req.arrival,
+                                                  req.length, now, "timeout")
                     emitted += self.batcher.poll(now)
                     if self._draining and not self._arrivals:
                         emitted += self.batcher.flush(now)
@@ -463,7 +525,7 @@ class ExecutorEngine(ServingEngine):
     def _finalize_locked(self, rid: int, arrival: float, length: int,
                          now: float, status: str):
         """Mint a terminal non-ok result the engine decided on its own
-        (backend death).  Caller holds `_lock` -- which IS `_done_cv`'s
+        (shed at admission, deadline expiry, backend death).  Caller holds `_lock` -- which IS `_done_cv`'s
         lock, so the fulfill + notify happen inline without re-acquiring."""
         if rid in self._completed_rids:  # race-ok: caller holds _lock (documented contract)
             return
@@ -498,12 +560,17 @@ class ExecutorEngine(ServingEngine):
                        t_submitted=self.clock.now())
         for r in reqs:
             r.batch_id = batch.bid
+        with self._lock:
+            self._live_jobs.append(job)
         self.ex.submit_job(job)
 
     # ------------------------------------------------------- completions --
     def _on_job_done(self, job: BatchJob):
         """Runs in the completing group-worker thread (out of order), on
-        that worker's stream."""
+        that worker's stream.  Idempotent per request: with hedging both
+        twins of a batch eventually complete -- the first one here wins each
+        rid, the loser's copies are dropped, so handles fulfill exactly once
+        and `_finished` counts every request exactly once."""
         reqs: List[Request] = job.meta or []
         if not reqs:
             return
@@ -521,17 +588,37 @@ class ExecutorEngine(ServingEngine):
             first = first.cpu().numpy()
         t_done = job.t_finished
         with self._done_cv:
+            self._live_jobs = [j for j in self._live_jobs if j is not job]
+            if job.failed is None and job.t_submitted is not None \
+                    and t_done is not None:
+                svc = max(t_done - job.t_submitted, 0.0)
+                self._svc_ewma = svc if self._svc_ewma is None \
+                    else 0.8 * self._svc_ewma + 0.2 * svc
+            if job.failed is not None and any(j.bid == job.bid
+                                              for j in self._live_jobs):
+                # this copy exhausted its retries but its hedged twin is
+                # still running -- let the twin decide the terminal status
+                self._done_cv.notify_all()
+                return
+            won = False
             for i, r in enumerate(reqs):
                 if r.rid in self._completed_rids:
-                    continue
+                    continue  # the hedged twin already finished this rid
                 self._completed_rids.add(r.rid)
+                won = True
                 r.first_token_time = t_done
                 ttft = max(t_done - r.arrival, 0.0)
                 queue = min(max((job.t_started or t_done) - r.arrival, 0.0),
                             ttft)
                 kernel = min(max(job.kernel_time, 0.0), ttft - queue)
                 comm = min(max(job.comm_time, 0.0), ttft - queue - kernel)
-                status = "failed" if job.failed is not None else "ok"
+                if job.failed is not None:
+                    status = "failed"
+                elif (self.request_deadline is not None
+                      and ttft > self.request_deadline):
+                    status = "timeout"  # served, but past its deadline
+                else:
+                    status = "ok"
                 if self.keep_kv and job.kv is not None and status == "ok":
                     self._kv[r.rid] = job.kv[i]
                 res = RequestResult(
@@ -542,7 +629,7 @@ class ExecutorEngine(ServingEngine):
                         "other": max(ttft - queue - kernel - comm, 0.0)},
                     batch_id=job.bid, group=job.group,
                     first_token=int(first[i]) if first is not None else None,
-                    status=status)
+                    status=status, retries=job.retries)
                 self._outbox.append(res)
                 h = self._handles.get(res.rid)
                 if h is not None:
@@ -550,6 +637,8 @@ class ExecutorEngine(ServingEngine):
                 self._finished += 1
                 self._status_counts[status] = \
                     self._status_counts.get(status, 0) + 1
+            if job.is_hedge and won:
+                self._hedge_wins += 1
             self._done_cv.notify_all()
 
     def _check_errors(self):
@@ -558,6 +647,45 @@ class ExecutorEngine(ServingEngine):
                 from self._admit_error
         if self.ex.errors:
             raise RuntimeError("executor thread failed") from self.ex.errors[0]
+
+    # --------------------------------------------------- fault tolerance --
+    def _on_failover(self, device: int):
+        """Supervisor callback after a failover evacuated `device` (on the
+        supervisor thread, outside the executor's `_swap_lock`): where a
+        placement controller runs, its view follows the degraded placement
+        here.  None is ported yet, so there is nothing to sync."""
+        if self.controller is None:
+            return
+
+    def _maybe_hedge(self):
+        """Overdue-batch hedging: when a live batch has been out for more
+        than `hedge_factor` x the EWMA batch service time, clone it
+        un-pinned onto the shared queue.  Whichever copy completes first
+        wins each request (`_on_job_done` dedups per rid); the loser's
+        output is dropped, so hedging trades compute for tail latency
+        without ever duplicating a completion."""
+        if self.hedge_factor is None:
+            return
+        now = self.clock.now()
+        clones: List[BatchJob] = []
+        with self._lock:
+            if self._svc_ewma is None:
+                return  # no service-time baseline yet
+            cutoff = self.hedge_factor * self._svc_ewma
+            for j in self._live_jobs:
+                if j.hedged or j.is_hedge or j.t_submitted is None:
+                    continue
+                if now - j.t_submitted <= cutoff:
+                    continue
+                j.hedged = True
+                clone = BatchJob(tokens=j.tokens, bid=j.bid,
+                                 lengths=list(j.lengths), meta=j.meta,
+                                 t_submitted=now, is_hedge=True)
+                self._live_jobs.append(clone)
+                self._hedges_issued += 1
+                clones.append(clone)
+        for c in clones:
+            self.ex.submit_job(c)
 
     def _fail_pending_locked(self) -> List[RequestResult]:
         """The backend died mid-run (panic or admission failure) and the
@@ -591,6 +719,7 @@ class ExecutorEngine(ServingEngine):
 
     def poll(self) -> List[RequestResult]:
         self._check_errors()
+        self._maybe_hedge()
         with self._lock:
             out, self._outbox = self._outbox, []
         return out
@@ -604,6 +733,7 @@ class ExecutorEngine(ServingEngine):
             self._draining = True
         self._wake.set()
         while True:
+            self._maybe_hedge()  # outside the lock: it submits jobs
             with self._done_cv:
                 if self._admit_error is not None or self.ex.errors:
                     # mid-crash drain still terminates with every request
@@ -627,6 +757,7 @@ class ExecutorEngine(ServingEngine):
         # error instead of deadlocking a timeout=None caller
         while not handle._event.wait(0.1):
             self._check_errors()
+            self._maybe_hedge()
             if deadline is not None and time.monotonic() >= deadline:
                 raise TimeoutError(f"request {handle.rid} still in flight")
 
@@ -637,6 +768,7 @@ class ExecutorEngine(ServingEngine):
         with self._lock:
             submitted, finished = self._submitted, self._finished
             statuses = dict(self._status_counts)
+            hedges, wins = self._hedges_issued, self._hedge_wins
         return EngineStats(
             engine="executor", elapsed=elapsed,
             submitted=submitted, completed=finished,
@@ -645,7 +777,10 @@ class ExecutorEngine(ServingEngine):
             moe_device_util=self.ex.moe_busy / elapsed,
             group_util=self.ex.group_busy / elapsed,
             placement_policy=self.ex.placement.policy,
-            statuses=statuses,
+            migrations=len(self.ex.migrations),
+            migrated_bytes=self.ex.migrated_bytes,
+            failovers=self.ex.failovers,
+            statuses=statuses, hedges_issued=hedges, hedge_wins=wins,
             moe_launches=int(self.ex.moe_launches.sum()),
             moe_batch_regions=float(self.ex.moe_launch_regions.sum()),
             moe_batch_occupancy=float(

@@ -18,6 +18,22 @@ e as the threads do.  The mechanisms of the paper that this slice carries:
   * replica-aware dispatch: expert->device assignment comes from a
     `core.cost_model.Placement`; a replicated hot expert's traffic goes to
     its least-loaded replica.
+  * live expert re-placement: `apply_placement` swaps the resident weight
+    stacks and dispatch tables mid-serve -- freeze the dispatch gate, drain
+    the dispatchers, quiesce the affected MoE devices, build the new stacks,
+    swap atomically, release.
+  * supervised failover: a `core.faults.FaultPlan` injects crashes, stalls,
+    delays and dropped payloads at the worker and buffer seams.  A
+    supervisor thread detects a dead (or, with `stall_timeout`, a wedged)
+    MoE worker, fences it out through a worker generation bumped under its
+    buffer's lock, re-serves every region it took but never combined
+    exactly once, evacuates its experts onto the survivors through the
+    live re-placement swap (`Placement.fail`), and restarts it.  A group
+    whose region never completes (a dropped payload) times out after
+    `region_timeout`, scrubs the lane and replays the batch from layer 0,
+    up to `max_job_retries` times.  A CUDA error is not a device failure:
+    the E "devices" share one CUDA context, so it panics and is never
+    failed over.
 
 Hot path (`moe_path="fused"`, the default):
 
@@ -75,7 +91,10 @@ Cross-stream rule: a tensor produced on one worker's stream and consumed on
 another's travels with a CUDA event the consumer's stream waits on, and is
 `record_stream`-ed there so the caching allocator does not reuse its memory
 early.  MoE workers synchronise their own stream before `combine_send`, which
-also makes their host-clocked busy time real device time.
+also makes their host-clocked busy time real device time; so does the
+supervisor, which serves orphaned regions and builds a swap's new stacks on a
+stream of its own (never the fenced worker's: a stalled worker may still
+enqueue there), and synchronises it before it combines or swaps.
 """
 from __future__ import annotations
 
@@ -93,6 +112,7 @@ from repro_torch.core.async_primitives import (AbortedError, AttnDeviceBuffer,
                                                DispatchPayload,
                                                MoEDeviceBuffer)
 from repro_torch.core.cost_model import Placement
+from repro_torch.core.faults import FaultInjector, FaultPlan, InjectedFault
 from repro_torch.kernels import _launch
 from repro_torch.kernels.super_gmm.ops import (pack_capacity_multi,
                                                round_capacity, super_moe_ffn,
@@ -102,9 +122,22 @@ from repro_torch.models.common import ModelConfig, act_fn, apply_norm
 from repro_torch.models.lm import embed_tokens, layer_slice, lm_stages
 from repro_torch.models.moe import gated_ffn, router_topk
 
+# torch >= 2.8 raises device-side faults as AcceleratorError (a RuntimeError)
+_ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", ())
 
-@dataclasses.dataclass
+
+def _is_cuda_error(exc: BaseException) -> bool:
+    """A failure of the CUDA context, which every worker thread shares (an
+    illegal address, a launch failure), as opposed to a host-side one."""
+    return isinstance(exc, _ACCELERATOR_ERROR) or (
+        isinstance(exc, RuntimeError) and str(exc).startswith("CUDA error"))
+
+
+@dataclasses.dataclass(eq=False)
 class BatchJob:
+    """One batch through the pipeline.  Compared by identity: its fields
+    hold arrays, which have no single truth value, and a group worker finds
+    its finished slot (whose dict holds the job) by equality."""
     tokens: Any  # [B, S] integer array (numpy or tensor)
     result: Any = None  # final hidden states [B, S, d], on the device
     bid: int = 0
@@ -119,7 +152,11 @@ class BatchJob:
     t_finished: Optional[float] = None
     kernel_time: float = 0.0  # attention-side compute (this group's stream)
     comm_time: float = 0.0  # blocked in combine (MoE compute + wire + queue)
+    # --- fault tolerance ----------------------------------------------------
+    retries: int = 0  # region-timeout replays (capped backoff, from layer 0)
     failed: Optional[str] = None  # terminal failure reason (result stays None)
+    hedged: bool = False  # a hedge clone of this job was issued
+    is_hedge: bool = False  # this job IS the hedge clone
     # emit_kv: per batch row, (k, v, ready) -- k/v [L, lengths[i], kvh, hd]
     # contiguous device tensors, `ready` the CUDA event after their gather
     # (None on the CPU)
@@ -133,7 +170,11 @@ class DisaggregatedExecutor:
                  placement: Optional[Placement] = None,
                  expert_fractions: Optional[Sequence[float]] = None,
                  idle_backoff: Optional[float] = 0.05,
+                 supervise: bool = True,
+                 stall_timeout: Optional[float] = None,
+                 max_worker_restarts: int = 3,
                  region_timeout: float = 240.0,
+                 max_job_retries: int = 2,
                  emit_kv: bool = False,
                  moe_path: str = "fused", combine_path: str = "device",
                  moe_batch_window: float = 0.0,
@@ -172,7 +213,6 @@ class DisaggregatedExecutor:
         self.interleave = interleave
         self.shared_on_attention = shared_on_attention
         self.idle_backoff = idle_backoff  # max CV wait in the MoE workers
-        self.region_timeout = region_timeout  # wall s: combine_recv bound
         self.emit_kv = emit_kv  # attention step also returns the layer's KV
         self.moe_path, self.combine_path = moe_path, combine_path
         # cross-region continuous batching: window 0 serves one region per
@@ -211,6 +251,66 @@ class DisaggregatedExecutor:
         self.resident = [self._resident_stack(self.dev_experts[e])
                          if len(self.dev_experts[e]) else None
                          for e in range(E)]
+        # --- live re-placement state --------------------------------------
+        # dispatch gate: apply_placement freezes new dispatches (readers of
+        # the routing tables) and waits for in-flight ones to drain before
+        # swapping tables + resident stacks; `_moe_active[e]` marks a device
+        # mid-drain (set BEFORE recv_any/recv_many clear the flags, so "no
+        # flags set and not active" really means quiescent)
+        self._gate_cv = threading.Condition()
+        self._gate_frozen = False  # guarded_by: _gate_cv
+        self._dispatchers = 0  # guarded_by: _gate_cv
+        # guarded_by: protocol
+        # (single-writer per element: only MoE worker e flips _moe_active[e]
+        # -- the supervisor after fencing it out; the quiesce loop tolerates
+        # a stale read, it just polls again)
+        self._moe_active = [False] * E
+        self.migrations: List[Dict[str, Any]] = []  # live re-placement log
+        self.migrated_bytes = 0.0
+        # --- fault tolerance ----------------------------------------------
+        # One lock serializes EVERY placement swap: apply_placement and the
+        # supervisor's failover both funnel through
+        # _apply_placement_locked, whose freeze/quiesce/swap phases must
+        # never interleave.
+        self.supervise = supervise
+        self.stall_timeout = stall_timeout  # clock units; None = death-only
+        self.max_worker_restarts = max_worker_restarts
+        self.region_timeout = region_timeout  # wall s: combine_recv bound
+        self.max_job_retries = max_job_retries
+        self._swap_lock = threading.Lock()
+        self.fault_injector: Optional[FaultInjector] = None
+        self.on_failover: Optional[Any] = None  # callable(device), post-swap
+        self.failovers = 0  # guarded_by: protocol
+        # (single-writer: only the supervisor thread executes failovers)
+        # guarded_by: protocol
+        # (single-writer per element: worker e stamps its own heartbeat;
+        # the supervisor tolerates a stale read -- one scan of extra latency)
+        self._heartbeat = [0.0] * E
+        # guarded_by: protocol
+        # (worker-generation fence: bumped ONLY under the buffer's shared cv
+        # via MoEDeviceBuffer.fenced, read by recv_any/recv_many's admission
+        # check under the same cv; a worker's unlocked loop-top read may be
+        # stale one iteration -- the next take re-validates under the cv)
+        self._moe_gen = [0] * E
+        # guarded_by: protocol
+        # (the regions worker e took but has not combined yet -- a tuple of
+        # (region, rows) entries (the continuous batcher may hold several;
+        # per-region mode at most one), appended under the buffer cv by the
+        # recv_any/recv_many on_take and each entry removed by the worker,
+        # under the same cv and only while its generation is current,
+        # BEFORE that region's combine_send; after the generation fence the
+        # supervisor is the cell's only reader/writer -- "entry still
+        # present" proves its combine never happened, so the failover
+        # re-serve is exactly-once)
+        self._moe_current: List[Optional[tuple]] = [None] * E
+        # guarded_by: protocol
+        # (written once by dying worker e, read by the supervisor after it
+        # observed the thread dead -- the is_alive edge orders the two)
+        self._moe_fail_exc: List[Optional[BaseException]] = [None] * E
+        self._moe_restarts = [0] * E  # guarded_by: protocol
+        # (single-writer: only the supervisor restarts workers)
+        self._sup_thread: Optional[threading.Thread] = None
+        self._retired: List[threading.Thread] = []  # fenced-out old workers
         # the layer ids as DEVICE data: `_lid[l:l+1]` is a one-element int32
         # view the Super Kernel reads -- no per-launch host-to-device copy
         self._lid = torch.arange(self.L, dtype=torch.int32,
@@ -226,6 +326,10 @@ class DisaggregatedExecutor:
                                else None for _ in range(D)]
         self._moe_streams = [torch.cuda.Stream(self.device) if cuda
                              else None for _ in range(E)]
+        # the supervisor's own stream: orphan re-serves and a failover's new
+        # stacks (never a fenced worker's stream -- a stalled worker may
+        # still enqueue there)
+        self._sup_stream = torch.cuda.Stream(self.device) if cuda else None
         self.stop = threading.Event()
         self.errors: List[BaseException] = []
         # event log for protocol assertions in tests
@@ -255,7 +359,8 @@ class DisaggregatedExecutor:
         self.group_busy = np.zeros(D)  # guarded_by: protocol
         # --- super-kernel launch telemetry --------------------------------
         # All per-device cells below follow the moe_busy ownership rule:
-        # only worker e writes device e's cell; readers tolerate a stale sum.
+        # only worker e (or the supervisor, after fencing e out) writes
+        # device e's cell; readers tolerate a stale sum.
         self.moe_launches = np.zeros(E)  # guarded_by: protocol
         self.moe_launch_regions = np.zeros(E)  # guarded_by: protocol
         self.moe_launch_rows = np.zeros(E)  # guarded_by: protocol
@@ -300,6 +405,13 @@ class DisaggregatedExecutor:
                     for k, v in self._experts.items()}
         sel = torch.as_tensor(ids, device=self.device)
         return {k: v.index_select(1, sel) for k, v in self._experts.items()}
+
+    @property
+    def expert_copy_bytes(self) -> float:
+        """Bytes of ONE expert's weights for ONE layer, at the model's
+        element size -- the unit a migration record prices its copies in."""
+        return float(sum(v[0, 0].numel() * v.element_size()
+                         for v in self._experts.values()))
 
     # ------------------------------------------------------ device plumbing
     @contextlib.contextmanager
@@ -402,6 +514,22 @@ class DisaggregatedExecutor:
         return h, xf, weights, idx, shared, None
 
     # ------------------------------------------------------------- dispatch
+    def _gate_enter(self):
+        """Block while a live re-placement holds the dispatch gate.  Entered
+        for the whole of one batch-layer's dispatch (routing, the gather and
+        the E sends), so a placement swap never observes (or splits) a
+        half-dispatched layer.  A stop request falls through -- shutdown must
+        not deadlock on a frozen gate."""
+        with self._gate_cv:
+            while self._gate_frozen and not self.stop.is_set():
+                self._gate_cv.wait(0.1)
+            self._dispatchers += 1
+
+    def _gate_exit(self):
+        with self._gate_cv:
+            self._dispatchers -= 1
+            self._gate_cv.notify_all()
+
     def _route(self, flat_e: np.ndarray) -> np.ndarray:
         """Device id per (token, k) assignment under the placement table.
 
@@ -444,6 +572,14 @@ class DisaggregatedExecutor:
         """Write one device's T payload rows (empty payloads included so the
         T·D bitmap regions always complete).  `rows` are this device's token
         rows, already gathered on the executor's device."""
+        inj = self.fault_injector
+        if inj is not None and inj.should_drop_dispatch(e):
+            # injected network fault: drop the WHOLE region (all T rows) --
+            # never a partial region.  The region stays incomplete, the
+            # group's combine_recv times out, and the batch replays through
+            # the retry path (exactly-once: the injector fires per event).
+            self._logev("drop-dispatch", g, slot, layer, e)
+            return
         token_ids = np.stack([t_rows, k_rows], 1)  # (token, k)
         counts = np.bincount(local_ids,
                              minlength=max(len(self.dev_experts[e]), 1))
@@ -461,20 +597,27 @@ class DisaggregatedExecutor:
                   idx: np.ndarray, valid: Optional[np.ndarray] = None):
         """async-dispatch-send: ONE stable argsort over (device, expert)
         keys and ONE device gather build all E payloads -- no per-device
-        boolean scans, no token row crosses to the host."""
-        flat_e, flat_t, flat_k, dev = self._flat_routing(idx, layer, valid)
-        order = np.argsort(dev * max(self.cfg.num_experts, 1) + flat_e,
-                           kind="stable")
-        dev_s, e_s = dev[order], flat_e[order]
-        t_s, k_s = flat_t[order], flat_k[order]
-        bounds = np.concatenate(
-            ([0], np.cumsum(np.bincount(dev_s, minlength=self.E))))
-        rows = xf.index_select(0, self._index(t_s))
-        ready = self._record_ready()
-        for e in range(self.E):
-            sl = slice(bounds[e], bounds[e + 1])
-            self._send_device(g, slot, layer, e, rows[sl], t_s[sl], k_s[sl],
-                              self._g2l[e, e_s[sl]], ready)
+        boolean scans, no token row crosses to the host.  Inside the
+        dispatch gate: routing, the gather and every `_g2l` read see one
+        placement."""
+        self._gate_enter()
+        try:
+            flat_e, flat_t, flat_k, dev = self._flat_routing(idx, layer,
+                                                             valid)
+            order = np.argsort(dev * max(self.cfg.num_experts, 1) + flat_e,
+                               kind="stable")
+            dev_s, e_s = dev[order], flat_e[order]
+            t_s, k_s = flat_t[order], flat_k[order]
+            bounds = np.concatenate(
+                ([0], np.cumsum(np.bincount(dev_s, minlength=self.E))))
+            rows = xf.index_select(0, self._index(t_s))
+            ready = self._record_ready()
+            for e in range(self.E):
+                sl = slice(bounds[e], bounds[e + 1])
+                self._send_device(g, slot, layer, e, rows[sl], t_s[sl],
+                                  k_s[sl], self._g2l[e, e_s[sl]], ready)
+        finally:
+            self._gate_exit()
 
     def _dispatch_eager(self, g: int, slot: int, layer: int,
                         xf: torch.Tensor, idx: np.ndarray,
@@ -482,16 +625,22 @@ class DisaggregatedExecutor:
         """Pre-fusion dispatch (the baseline): the token rows are read back
         to the host, then E boolean scans over the flat assignment arrays
         pick each device's rows there (still placement-routed, so the
-        numerical contract holds on every policy)."""
-        xf_h = self._to_cpu(xf)
-        flat_e, flat_t, flat_k, dev = self._flat_routing(idx, layer, valid)
-        for e in range(self.E):
-            m = dev == e
-            self._send_device(g, slot, layer, e,
-                              xf_h.index_select(0, torch.from_numpy(
-                                  flat_t[m])),
-                              flat_t[m], flat_k[m], self._g2l[e, flat_e[m]],
-                              None)
+        numerical contract holds on every policy).  Inside the dispatch
+        gate, as `_dispatch` is."""
+        self._gate_enter()
+        try:
+            xf_h = self._to_cpu(xf)
+            flat_e, flat_t, flat_k, dev = self._flat_routing(idx, layer,
+                                                             valid)
+            for e in range(self.E):
+                m = dev == e
+                self._send_device(g, slot, layer, e,
+                                  xf_h.index_select(0, torch.from_numpy(
+                                      flat_t[m])),
+                                  flat_t[m], flat_k[m],
+                                  self._g2l[e, flat_e[m]], None)
+        finally:
+            self._gate_exit()
 
     def _combine(self, g: int, slot: int, h, xf, weights, shared):
         """async-combine-recv + weighted accumulation (token-order restore).
@@ -506,8 +655,10 @@ class DisaggregatedExecutor:
         to the host and does the same write and the same multiply-then-add
         in numpy fp32: bit for bit the device combine.
 
-        The wait is bounded by `region_timeout` (wall seconds); a lost region
-        surfaces as TimeoutError and stops the executor."""
+        The wait is bounded by `region_timeout` (wall seconds): a region
+        lost to a fault (a dropped dispatch or combine, a failover longer
+        than the bound) surfaces as TimeoutError, and the group worker
+        replays the batch through the retry path."""
         payloads = self.attn_bufs[g][slot].combine_recv(
             timeout=self.region_timeout, stop=self.stop)
         Tn, d = xf.shape
@@ -580,7 +731,8 @@ class DisaggregatedExecutor:
     def _record_launch(self, e: int, C: int, n_regions: int, n_rows: int,
                        counts: np.ndarray):
         """Super-kernel launch telemetry.  Same ownership rule as moe_busy:
-        the caller is worker e -- the cell's single writer."""
+        the caller is worker e or the post-fence supervisor -- the cell's
+        single writer at that moment."""
         n_e = len(self.dev_experts[e])
         self.moe_launches[e] += 1  # race-ok: single-writer (see _record_launch contract)
         self.moe_launch_regions[e] += n_regions  # race-ok: single-writer
@@ -650,7 +802,23 @@ class DisaggregatedExecutor:
     def _rows(entries) -> int:
         return sum(sum(len(r.tokens) for r in rows) for _, rows in entries)
 
-    def _drain_window(self, buf: MoEDeviceBuffer):
+    def _injected_sleep(self, e: int, gen: int, ev):
+        """Interpret a stall_moe / delay_wake fault event: dead to the world
+        for `duration` clock seconds.  A stall does NOT heartbeat (that is
+        what the supervisor's stall detector keys on); a delayed wake DOES
+        (benign latency -- no failover)."""
+        self._logev("fault", ev.kind, e, ev.duration)
+        t_end = self.clock() + ev.duration
+        while self.clock() < t_end and not self.stop.is_set():
+            # race-ok: fence read -- a failover mid-stall retired this
+            # worker; exactness doesn't matter, the next take re-validates
+            if self._moe_gen[e] != gen:
+                return
+            if ev.kind == "delay_wake":
+                self._heartbeat[e] = self.clock()  # race-ok: single-writer (worker e stamps its own cell)
+            time.sleep(0.001)
+
+    def _drain_window(self, buf: MoEDeviceBuffer, admit, on_take):
         """Continuous-batching drain: block until the first complete
         region(s) arrive -- ONE atomic multi-take -- then keep accumulating
         arrivals until the window closes, all D regions are on board, or
@@ -665,8 +833,11 @@ class DisaggregatedExecutor:
         stragglers can stall the very arrivals it waits for.
 
         Returns the ordered (region, rows) list, or None on timeout
-        (nothing pending) or stop."""
-        got = buf.recv_many(timeout=self.idle_backoff, stop=self.stop)
+        (nothing pending), stop or fence -- on a fence, every taken entry is
+        still published in `_moe_current`, so the supervisor's orphan
+        re-serve covers the partial drain exactly once."""
+        got = buf.recv_many(timeout=self.idle_backoff, stop=self.stop,
+                            admit=admit, on_take=on_take)
         if got is None:
             return None
         entries = list(got)
@@ -679,10 +850,11 @@ class DisaggregatedExecutor:
             if remaining <= 0:
                 break
             more = buf.recv_many(max_regions=self.D - len(entries),
-                                 timeout=min(remaining, gap), stop=self.stop)
+                                 timeout=min(remaining, gap), stop=self.stop,
+                                 admit=admit, on_take=on_take)
             if more is None:
-                if self.stop.is_set():
-                    return None
+                if self.stop.is_set() or not admit():
+                    return None  # the fence handed the taken entries over
                 break  # an empty gap: no region is imminent -- launch now
             entries.extend(more)
             total += self._rows(more)
@@ -709,13 +881,14 @@ class DisaggregatedExecutor:
             chunks.append(chunk)
         return chunks
 
-    def _serve_batch(self, e: int, entries):
-        """Serve one chunk of a drain: group its regions by layer id and
-        launch the super kernel ONCE per distinct layer over their merged
-        capacity buffer (layer-major), synchronise this worker's stream
-        ONCE, then send every region's output block through its own
-        combine.  A device with no experts only ever sees empty regions:
-        nothing is launched, an empty marker is combined."""
+    def _compute(self, e: int, entries):
+        """The expert FFN of one chunk of regions on this thread's stream:
+        group them by layer id and launch the super kernel ONCE per distinct
+        layer over their merged capacity buffer (layer-major), then
+        synchronise the stream ONCE.  A device with no experts only ever
+        sees empty regions: nothing is launched.  Returns, per region in
+        input order, (region, layer, slot, token_ids, eids, outputs), the
+        outputs None for an empty region (an empty combine marker)."""
         prep = []  # (region, layer, slot, rows, token_ids, eids)
         for i, rows in entries:
             prep.append((i, rows[0].layer, rows[0].slot, rows,
@@ -727,7 +900,7 @@ class DisaggregatedExecutor:
             if len(p[4]):
                 by_layer.setdefault(p[1], []).append(j)
             else:
-                outs[j] = None  # empty region: combine an empty marker
+                outs[j] = None
         if by_layer:
             t0 = self.clock()
             for layer in sorted(by_layer):
@@ -745,41 +918,115 @@ class DisaggregatedExecutor:
             # when the combine flags go up, and the host-clocked busy time
             # below is device time
             self._sync_stream()
-            self.moe_busy[e] += self.clock() - t0  # race-ok: single-writer (worker e accumulates its own cell)
-        for j, (i, layer, slot, _, token_ids, eids) in enumerate(prep):
+            self.moe_busy[e] += self.clock() - t0  # race-ok: single-writer (worker e, or the supervisor once e is fenced out)
+        return [(i, layer, slot, tids, eids, outs[j])
+                for j, (i, layer, slot, _, tids, eids) in enumerate(prep)]
+
+    def _release_region(self, e: int, gen: int, i: int) -> bool:
+        """Remove region i from `_moe_current[e]` before its combine, under
+        device e's buffer cv and only while generation `gen` still owns the
+        device.  False: the worker was fenced out and the supervisor owns
+        the cell (it re-serves every entry still present).  Checking and
+        clearing under the cv the fence is bumped under makes the two
+        atomic: either the entry goes and this worker's combine is the only
+        one, or it stays and the supervisor's is."""
+        def clear():
+            if self._moe_gen[e] != gen:  # race-ok: runs under the buffer cv (fenced), atomic w.r.t. the fence bump
+                return False
+            rest = tuple(c for c in self._moe_current[e] or () if c[0] != i)  # race-ok: under the buffer cv, owner generation checked above
+            self._moe_current[e] = rest or None  # race-ok: under the buffer cv, owner generation checked above
+            return True
+        return self.moe_bufs[e].fenced(clear)
+
+    def _serve_batch(self, e: int, gen: int, entries):
+        """Serve one chunk of a drain (`_compute`), then route every region's
+        output block through the per-region exactly-once combine protocol:
+        release ITS `_moe_current` entry BEFORE its combine_send with the
+        fence re-checked, so a mid-batch failover re-serves exactly the
+        regions whose combine never happened."""
+        for i, layer, slot, token_ids, eids, out in self._compute(e,
+                                                                  entries):
             self._logev("moe", e, i, slot, layer, len(token_ids))
+            if not self._release_region(e, gen, i):
+                continue  # fenced out: the failover re-serves this region
+            inj = self.fault_injector
+            if inj is not None and inj.should_drop_combine(e):
+                # injected drop: the group's combine times out and the batch
+                # replays -- the region is consumed exactly once
+                self._logev("drop-combine", e, i, slot, layer)
+                continue
             self.attn_bufs[i][slot].combine_send(
                 e, CombinePayload(layer=layer, token_ids=token_ids,
-                                  expert_ids=eids, outputs=outs[j]),
+                                  expert_ids=eids, outputs=out),
                 stop=self.stop)
 
-    def _moe_worker(self, e: int):
+    def _moe_worker(self, e: int, gen: int = 0):
         buf = self.moe_bufs[e]
+
+        def admit():
+            # evaluated by recv_any/recv_many under the buffer cv --
+            # atomic w.r.t. the fence bump
+            return self._moe_gen[e] == gen  # race-ok: read under the buffer cv
+
+        def on_take(i, rows):
+            # runs UNDER the buffer cv, after the rows migrated and before
+            # the flags clear: in-flight state is published with no gap the
+            # quiesce poll or the supervisor could observe.  APPENDS an
+            # entry: the continuous batcher holds several taken-but-not-
+            # combined regions at once (per-region mode never more than one)
+            self._moe_active[e] = True  # race-ok: single-writer (worker e); set before the flags clear
+            cur = self._moe_current[e]  # race-ok: single-writer until fenced (worker e)
+            self._moe_current[e] = (cur or ()) + ((i, rows),)  # race-ok: published under the buffer cv; the supervisor reads it only after fencing this worker out
+
         try:
             with self._worker_context(self._moe_streams[e]):
                 while True:
+                    # race-ok: fence read -- cheap exit for a retired worker;
+                    # the authoritative check is the take's admit under the cv
+                    if self._moe_gen[e] != gen:
+                        return
+                    self._heartbeat[e] = self.clock()  # race-ok: single-writer (worker e stamps its own cell)
+                    inj = self.fault_injector
+                    if inj is not None:
+                        ev = inj.poll_worker(e)
+                        if ev is not None:
+                            if ev.kind == "crash_moe":
+                                raise InjectedFault(
+                                    f"injected crash: moe device {e} "
+                                    f"(scheduled t={ev.t})")
+                            self._injected_sleep(e, gen, ev)
+                            continue
                     if self.moe_batch_window > 0:
-                        entries = self._drain_window(buf)
+                        entries = self._drain_window(buf, admit, on_take)
                     else:
                         # block on "any region complete" + take it in ONE
-                        # atomic step
+                        # atomic step (a split wait/take would race the
+                        # supervisor's failover evacuation)
                         got = buf.recv_any(timeout=self.idle_backoff,
-                                           stop=self.stop)
+                                           stop=self.stop, admit=admit,
+                                           on_take=on_take)
                         entries = None if got is None else [got]
                     if entries is None:
                         if self.stop.is_set():
                             return
-                        continue
+                        continue  # timeout or fence: the loop top decides
                     for chunk in self._chunk_by_row_cap(entries):
-                        self._serve_batch(e, chunk)
+                        self._serve_batch(e, gen, chunk)
+                    # after the WHOLE drain, not per chunk: a later chunk's
+                    # regions are taken (their flags clear) but not served,
+                    # and the quiesce must not read the device as idle
+                    if self._moe_gen[e] == gen:  # race-ok: fence read; after a fence the supervisor owns the flag
+                        self._moe_active[e] = False  # race-ok: single-writer (worker e); the drain's combines happened-before
         except AbortedError:
             return  # stop observed inside a buffer wait (shutdown/panic)
         except BaseException as ex:  # surface thread failures to the caller
-            self._panic(ex)
+            self._worker_failed(e, ex)
 
     # --------------------------------------------------------- group worker
     def _panic(self, ex: BaseException):
-        """Surface a worker-thread failure to every waiter."""
+        """Surface a worker-thread failure to every waiter -- the last
+        resort: under supervision a MoE worker that dies of a host-side
+        cause goes through `_worker_failed` -> failover instead."""
         self.errors.append(ex)
         self.stop.set()
         with self._jobq_cv:
@@ -795,6 +1042,21 @@ class DisaggregatedExecutor:
         for bufs in self.attn_bufs:
             for buf in bufs:
                 buf.wake()
+
+    def _worker_failed(self, e: int, exc: BaseException):
+        """A MoE worker thread is dying.  Supervised, of a host-side cause
+        (an injected crash, a Python error): record the cause and let the
+        thread exit -- the supervisor detects the death and fails the
+        device over.  A CUDA error is not a device failure: the E devices
+        are threads sharing ONE CUDA context, and a sticky error (illegal
+        address, launch failure) breaks every one of them, so failing over
+        onto the same context would hang or compute garbage -- it panics,
+        as does any failure when unsupervised."""
+        if not self.supervise or _is_cuda_error(exc):
+            self._panic(exc)
+            return
+        self._moe_fail_exc[e] = exc  # race-ok: written once by dying worker e; the supervisor reads it only after observing the thread dead
+        self._logev("worker-died", e, type(exc).__name__)
 
     def _take_job(self, g: int, timeout: float = 0.0) -> Optional[BatchJob]:
         """Pop the oldest admitted job this group may serve (un-pinned or
@@ -852,10 +1114,7 @@ class DisaggregatedExecutor:
                 if job.lengths is not None:
                     valid = (np.arange(tok.shape[1])[None, :]
                              < np.asarray(job.lengths)[:, None]).reshape(-1)
-                h = embed_tokens(self.params,
-                                 torch.as_tensor(tok, device=self.device),
-                                 None, self.cfg)
-                active.append({"job": job, "h": h, "layer": 0,
+                active.append({"job": job, "h": self._embed(job), "layer": 0,
                                "phase": "attn", "slot": free_slots.pop(0),
                                "ctx": None, "seq": 0, "valid": valid,
                                "kv": []})
@@ -890,7 +1149,13 @@ class DisaggregatedExecutor:
             st = min(waiting, key=lambda s: s["seq"])
             xf, w, shared = st["ctx"]
             t0 = self.clock()
-            st["h"] = self._combine(g, st["slot"], st["h"], xf, w, shared)
+            try:
+                st["h"] = self._combine(g, st["slot"], st["h"], xf, w,
+                                        shared)
+            except TimeoutError:
+                st["job"].comm_time += self.clock() - t0
+                self._retry_or_fail(g, st, active, free_slots)
+                continue
             st["job"].comm_time += self.clock() - t0
             st["layer"] += 1
             if st["layer"] >= self.L:
@@ -916,6 +1181,83 @@ class DisaggregatedExecutor:
                     self._done_cv.notify_all()
             else:
                 st["phase"] = "attn"
+
+    def _embed(self, job: BatchJob) -> torch.Tensor:
+        return embed_tokens(self.params,
+                            torch.as_tensor(np.asarray(job.tokens),
+                                            device=self.device),
+                            None, self.cfg)
+
+    # ------------------------------------------------------------ fault retry
+    def _scrub_group_slot(self, g: int, slot: int):
+        """Quiesce-then-scrub one (group, slot) protocol lane after a region
+        timeout.  Wait until no MoE buffer holds rows for region g AND no
+        device is mid-serve on region g (a take publishes `_moe_current`
+        under the buffer cv before the flags clear, so the two checks in
+        THIS order cannot miss an in-flight take); every combine_send for
+        the lane has then happened-before, and whatever partial combine
+        state is parked in the slot's buffer can be dropped without a late
+        stale segment corrupting the replay."""
+        deadline = time.monotonic() + 4 * (self.region_timeout or 60.0)
+        while True:
+            if self.stop.is_set():
+                raise AbortedError("scrub aborted: executor stopping")
+            busy = False
+            for e in range(self.E):
+                if self.moe_bufs[e].flags[g].any_set():
+                    busy = True
+                    break
+                # race-ok: checked AFTER the flags -- a take publishes
+                # _moe_current under the cv BEFORE clearing the flags, so a
+                # region-g take invisible here would still have shown set
+                # flags above; a stale non-None read just polls again
+                cur = self._moe_current[e]
+                if cur is not None and any(c[0] == g for c in cur):
+                    busy = True
+                    break
+            if not busy:
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"scrub: region {g} did not quiesce -- MoE device wedged "
+                    f"with supervision unable to evacuate it")
+            time.sleep(0.002)
+        self.attn_bufs[g][slot].scrub()
+        self._logev("scrub", g, slot)
+
+    def _retry_or_fail(self, g: int, st: Dict[str, Any], active, free_slots):
+        """A region timed out (a dropped dispatch/combine or a failover
+        longer than region_timeout): scrub the lane and replay the batch
+        from layer 0 with capped backoff -- re-embedded on this group's
+        stream, its KV list emptied.  Replays are idempotent: the scrub
+        guarantees no stale segment survives, and re-served regions resolve
+        first-combine-wins.  Past `max_job_retries` the job fails
+        TERMINALLY (job.failed set, result None), which the engine maps to
+        status "failed"."""
+        job = st["job"]
+        job.retries += 1
+        self._logev("region-timeout", g, st["slot"], st["layer"], job.retries)
+        self._scrub_group_slot(g, st["slot"])
+        if job.retries > self.max_job_retries:
+            job.failed = (f"region timeout at layer {st['layer']} after "
+                          f"{job.retries - 1} replays")
+            job.result = None
+            job.t_finished = self.clock()
+            free_slots.append(st["slot"])
+            active.remove(st)
+            if self.on_complete is not None:
+                self.on_complete(job)
+            with self._done_cv:
+                self._done_cv.notify_all()
+            return
+        # capped exponential backoff (wall seconds): give an in-progress
+        # failover time to land before redispatching into the same hole
+        time.sleep(min(0.05 * (2 ** (job.retries - 1)), 0.5))
+        st["h"] = self._embed(job)
+        st["layer"] = 0
+        st["phase"] = "attn"
+        st["ctx"] = None
+        st["kv"] = []  # the replay re-emits every layer's KV from scratch
 
     def _gather_kv(self, job: BatchJob, layers: List[tuple]) -> List[tuple]:
         """Per batch row, its [L, len, kvh, hd] K and V as contiguous tensors
@@ -945,6 +1287,315 @@ class DisaggregatedExecutor:
             self.log.clear()
         self._t_serving_start = None
 
+    # ------------------------------------------------- live re-placement
+    def apply_placement(self, placement: Placement,
+                        expert_fractions: Optional[Sequence[float]] = None,
+                        timeout: float = 60.0) -> Dict[str, Any]:
+        """Re-place experts LIVE, between polls, without restarting workers:
+
+          1. freeze the dispatch gate and wait for in-flight dispatches to
+             finish (a swap must never split a batch-layer's E sends across
+             two routing tables);
+          2. quiesce the AFFECTED MoE devices: with no new dispatches, each
+             drains its buffered regions -- their payloads carry local
+             expert ids of the old tables and must be served by the old
+             resident stacks.  Unaffected devices keep serving, and the
+             attention groups keep computing and combining: this is not a
+             global barrier;
+          3. build the affected devices' new resident stacks on this
+             thread's stream (views where the held experts form an
+             arithmetic progression, gathered copies otherwise) and
+             synchronise that stream: the survivors' workers read the new
+             stacks on their own streams;
+          4. swap `placement`/`table`/`dev_experts`/`resident` and the
+             dispatch lookups atomically, and release the gate.
+
+        Returns the migration record also appended to `self.migrations`:
+        its `bytes` count the gained expert copies, at the model's element
+        size.  Serialized by `_swap_lock` with the supervisor's failover."""
+        with self._swap_lock:
+            return self._apply_placement_locked(placement, expert_fractions,
+                                                timeout)
+
+    def _apply_placement_locked(self, placement: Placement,
+                                expert_fractions: Optional[Sequence[float]]
+                                = None,
+                                timeout: float = 60.0,
+                                drain_hook=None,
+                                kind: str = "rebalance") -> Dict[str, Any]:
+        """apply_placement's body; the caller holds `_swap_lock`.
+        `drain_hook` (the failover path) runs between drain polls OUTSIDE
+        the gate cv: it serves the dead device's buffered regions with the
+        OLD resident stack, which both empties them before the swap
+        invalidates their local expert ids AND un-wedges any dispatcher
+        blocked on the dead device's backpressure (that dispatcher holds
+        the gate open)."""
+        fr = tuple(float(x) for x in expert_fractions) \
+            if expert_fractions is not None else self.expert_fractions
+        if len(fr) != self.cfg.num_experts:
+            raise ValueError(f"expert_fractions has {len(fr)} entries for "
+                             f"{self.cfg.num_experts} experts")
+        new_table = placement.table(fr, self.E)
+        new_dev = placement.device_experts(fr, self.E)
+        moved = [(x, d) for x, hosts in enumerate(new_table)
+                 for d in hosts if d not in self.table[x]]
+        affected = [e for e in range(self.E)
+                    if new_dev[e] != self.dev_experts[e]]
+        t0 = self.clock()
+        if new_table == self.table:
+            # same layout (maybe refreshed popularity): nothing to quiesce,
+            # but the no-op still lands in the log
+            self.placement, self.expert_fractions = placement, fr
+            rec = {"t": t0, "seconds": 0.0, "moved_copies": 0, "bytes": 0.0,
+                   "devices": (), "policy": placement.policy, "kind": kind}
+            self.migrations.append(rec)
+            return rec
+
+        def _check_alive(deadline: float, phase: str):
+            if self.errors:
+                raise RuntimeError(
+                    f"apply_placement during {phase}: executor thread "
+                    f"failed") from self.errors[0]
+            if self.stop.is_set():
+                raise RuntimeError(f"apply_placement during {phase}: "
+                                   f"executor is stopping")
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"apply_placement: {phase} did not "
+                                   f"quiesce within {timeout}s")
+
+        deadline = time.monotonic() + timeout
+        with self._gate_cv:
+            self._gate_frozen = True
+        try:
+            while True:
+                with self._gate_cv:
+                    if self._dispatchers == 0:
+                        break
+                    if drain_hook is None:
+                        self._gate_cv.wait(0.05)
+                _check_alive(deadline, "dispatch drain")
+                if drain_hook is not None:
+                    # failover: a dispatcher may be wedged on the DEAD
+                    # device's backpressure -- serving its regions (outside
+                    # the gate cv) is what lets that dispatcher finish
+                    drain_hook()
+                    time.sleep(0.001)
+            for e in affected:
+                # race-ok: quiesce poll -- a stale read just polls again; the
+                # gate freeze guarantees no NEW dispatch can re-set either
+                while self.moe_bufs[e].any_pending() or self._moe_active[e]:
+                    _check_alive(deadline, f"moe device {e} drain")
+                    if drain_hook is not None:
+                        drain_hook()
+                    time.sleep(0.001)
+            nbytes = 0.0
+            resident = {}
+            t_copy = self.clock()
+            for e in affected:
+                gained = [x for x in new_dev[e]
+                          if x not in self.dev_experts[e]]
+                nbytes += self.expert_copy_bytes * self.L * len(gained)
+                resident[e] = self._resident_stack(new_dev[e]) \
+                    if len(new_dev[e]) else None
+            # the new stacks were written on this thread's stream; the
+            # survivors' workers read them on their own
+            self._sync_stream()
+            copy_seconds = self.clock() - t_copy
+            # atomic swap: the gate is frozen and the affected devices are
+            # idle, so no reader observes a mix of old and new tables
+            self.placement, self.expert_fractions = placement, fr
+            self.table, self.dev_experts = new_table, new_dev
+            self._primary, self._replicated, self._g2l = \
+                self._dispatch_lookups(new_table, new_dev)
+            for e in affected:
+                self.resident[e] = resident[e]
+                # n_e changed: every capacity buffer is a new shape, and its
+                # first launch counts as a bucket miss
+                self._seen_buckets[e] = set()  # race-ok: workers for `affected` are quiesced behind the frozen gate
+        finally:
+            with self._gate_cv:
+                self._gate_frozen = False
+                self._gate_cv.notify_all()
+        dt = self.clock() - t0
+        # what the device really copied: a gathered stack is a new tensor (a
+        # view of the model's stacks copies nothing); each of its bytes was
+        # read once and written once, in `copy_seconds`
+        model = {self._experts[k].untyped_storage().data_ptr()
+                 for k in self._experts}
+        copied = sum(v.numel() * v.element_size()
+                     for st in resident.values() if st is not None
+                     for v in st.values()
+                     if v.untyped_storage().data_ptr() not in model)
+        rec = {"t": self.clock(), "seconds": dt, "moved_copies": len(moved),
+               "bytes": nbytes, "devices": tuple(affected),
+               "policy": placement.policy, "kind": kind,
+               "copy_bytes": float(copied), "copy_seconds": copy_seconds}
+        self.migrations.append(rec)
+        self.migrated_bytes += nbytes
+        # the re-placement occupies the receiving devices (the weight
+        # copies); split the measured stall across them for the stats
+        self.moe_busy[affected] += dt / len(affected)  # race-ok: workers for `affected` are parked behind the frozen gate here
+        self._logev("migrate", tuple(affected), len(moved))
+        return rec
+
+    # ---------------------------------------------- supervision & failover
+    def arm_faults(self, plan: FaultPlan, t0: Optional[float] = None):
+        """Install and arm a deterministic fault plan against this
+        executor's clock.  The engine passes `t0=0.0` (its TraceClock is
+        already zero-based); a bare executor anchors the plan at the current
+        clock reading."""
+        inj = FaultInjector(plan, self.E)
+        inj.arm(self.clock, t0=t0)
+        self.fault_injector = inj
+        return inj
+
+    def _fence_worker(self, e: int) -> int:
+        """Bump device e's generation under its buffer cv and return the NEW
+        generation.  After the bump the old worker can neither take another
+        region (the take re-validates the fence under the same cv) nor
+        release one for its combine (`_release_region` checks under it
+        too); ownership of `_moe_current[e]` passes to the supervisor."""
+        def bump():
+            self._moe_gen[e] += 1  # race-ok: runs under the buffer cv (fenced) -- atomic w.r.t. the take's admission
+            return self._moe_gen[e]  # race-ok: same fenced scope as the bump above
+
+        return self.moe_bufs[e].fenced(bump)
+
+    def _serve_region(self, e: int, i: int, rows) -> None:
+        """Failover path: compute one orphaned region with device e's OLD
+        resident stack on the supervisor's stream (Super Kernel launches,
+        like a worker's; the stream is synchronised before the combine) and
+        combine it to its group -- unless the group already holds device
+        e's segment (first combine wins: the worker may have sent before
+        dying)."""
+        (_, layer, slot, token_ids, eids, out), = self._compute(e,
+                                                                [(i, rows)])
+        self._logev("moe-failover", e, i, slot, layer, len(token_ids))
+        abuf = self.attn_bufs[i][slot]
+        if abuf.has_segment(e):
+            return  # the dead worker's combine landed first -- keep it
+        try:
+            abuf.combine_send(
+                e, CombinePayload(layer=layer, token_ids=token_ids,
+                                  expert_ids=eids, outputs=out),
+                timeout=1.0, stop=self.stop)
+        except TimeoutError:
+            # segment held by a batch-layer the group has already timed out
+            # and moved past -- drop it; the group's replay re-covers it
+            self._logev("combine-skipped", e, i, slot, layer)
+
+    def _serve_orphans(self, e: int) -> int:
+        """Serve device e's in-flight regions (taken, never combined) plus
+        every complete region still buffered for it, each exactly once, on
+        the supervisor's thread.  The caller holds `_swap_lock` and has
+        fenced worker e out.  Publishes `_moe_current[e]` while serving, so
+        `_scrub_group_slot` sees the supervisor's in-flight work exactly
+        like a worker's."""
+        served = 0
+        # race-ok: worker e is fenced out -- the supervisor owns the cell.
+        # An entry still present proves the worker's combine for that region
+        # never happened (each entry is released BEFORE its combine_send),
+        # so re-serving every remaining entry is exactly-once; a fenced
+        # continuous batcher may leave several (its partial drain).
+        cur = self._moe_current[e]
+        if cur is not None:
+            for i, rows in cur:
+                self._serve_region(e, i, rows)
+                served += 1
+            self._moe_current[e] = None  # race-ok: supervisor-owned after the fence
+
+        def on_take(i, rows):
+            # race-ok: published under the buffer cv; supervisor-owned after
+            # the fence (scrub protocol: set before the flags clear)
+            self._moe_current[e] = ((i, rows),)
+
+        while True:
+            got = self.moe_bufs[e].recv_any(timeout=0, on_take=on_take)
+            if got is None:
+                return served
+            self._serve_region(e, *got)
+            self._moe_current[e] = None  # race-ok: supervisor-owned after the fence
+            served += 1
+
+    def _failover(self, e: int, reason: str):
+        """Supervised recovery of MoE device e: fence the old worker out,
+        serve its orphaned regions exactly once, evacuate its experts onto
+        the survivors through the live re-placement swap (`Placement.fail`,
+        replica-first), then restart the worker at the new generation.
+        Holds `_swap_lock` end to end so no other swap interleaves with the
+        evacuation."""
+        self._logev("failover-begin", e, reason, self.clock())
+        with self._swap_lock:
+            gen = self._fence_worker(e)
+            self._serve_orphans(e)
+            # the fenced worker can no longer flip this; in-flight ownership
+            # passed to the supervisor and its serving is done, so the
+            # quiesce poll below must not wait on it
+            self._moe_active[e] = False  # race-ok: worker e fenced out; the supervisor is the only writer until the restart below
+            self._apply_placement_locked(
+                self.placement.fail(e),
+                expert_fractions=self.expert_fractions, timeout=60.0,
+                drain_hook=lambda: self._serve_orphans(e), kind="failover")
+            old = self._moe_threads[e]
+            if old.is_alive():
+                # a stalled (not dead) worker: fenced out, it exits at its
+                # next fence check; joined at close()
+                self._retired.append(old)
+            self._moe_restarts[e] += 1  # race-ok: supervisor single-writer
+            self.failovers += 1  # race-ok: supervisor single-writer
+            self._logev("failover", e, reason, self._moe_restarts[e],  # race-ok: supervisor single-writer
+                        self.clock())
+        # restart OUTSIDE _swap_lock: Thread.start() blocks on the thread's
+        # internal started event (a condition wait the lockdep sanitizer
+        # rightly flags under a held lock).  Only the supervisor writes
+        # _moe_threads[e] after startup, so the gap is single-threaded.
+        nt = threading.Thread(
+            target=self._moe_worker, args=(e, gen),
+            name=f"moe-{e}-r{self._moe_restarts[e]}", daemon=True)  # race-ok: supervisor single-writer
+        self._moe_threads[e] = nt
+        nt.start()
+        cb = self.on_failover
+        if cb is not None:
+            cb(e)  # outside _swap_lock: a callback that re-places experts
+            # takes it again
+
+    def _supervisor_loop(self):
+        """Detect dead or stalled MoE workers and fail them over, on the
+        supervisor's own stream.  Panics only as a last resort: restart
+        budget exhausted, or the failover machinery itself failing."""
+        try:
+            with self._worker_context(self._sup_stream):
+                while not self.stop.is_set():
+                    for e in range(self.E):
+                        dead = not self._moe_threads[e].is_alive()
+                        # race-ok: heartbeat/_moe_active/any_pending reads
+                        # are a detection heuristic -- a stale read only
+                        # delays or re-confirms detection by one 20 ms tick
+                        stalled = (
+                            self.stall_timeout is not None
+                            and self.clock() - self._heartbeat[e]
+                            > self.stall_timeout
+                            and (self._moe_active[e]
+                                 or self.moe_bufs[e].any_pending()))
+                        if not (dead or stalled):
+                            continue
+                        if self.stop.is_set():
+                            return  # shutdown, not a fault
+                        if self._moe_restarts[e] >= self.max_worker_restarts:  # race-ok: supervisor single-writer
+                            raise RuntimeError(
+                                f"moe device {e} "
+                                f"{'died' if dead else 'stalled'} with "
+                                f"restart budget exhausted "
+                                f"({self._moe_restarts[e]}/"
+                                f"{self.max_worker_restarts})"
+                            ) from self._moe_fail_exc[e]
+                        self._failover(e, "died" if dead else "stalled")
+                    self.stop.wait(0.02)
+        except BaseException as ex:
+            if self.stop.is_set():
+                return  # racing a shutdown: close() owns the teardown
+            self._panic(ex)
+
     # ------------------------------------------------- engine lifecycle/run
     def ensure_started(self):
         """Spawn the persistent worker set once; raise instead of racing a
@@ -968,8 +1619,14 @@ class DisaggregatedExecutor:
             torch.cuda.synchronize(self.device)
         if self._t_serving_start is None:
             self._t_serving_start = self.clock()
+        now = self.clock()
+        for e in range(self.E):
+            self._heartbeat[e] = now  # race-ok: no worker threads are running yet
+        # race-ok: no worker threads are running yet -- each worker starts at
+        # the generation a prior run's failovers last left its device at
         self._moe_threads = [
-            threading.Thread(target=self._moe_worker, args=(e,),
+            threading.Thread(target=self._moe_worker,
+                             args=(e, self._moe_gen[e]),
                              name=f"moe-{e}", daemon=True)
             for e in range(self.E)]
         self._g_threads = [
@@ -978,6 +1635,12 @@ class DisaggregatedExecutor:
             for g in range(self.D)]
         for t in self._moe_threads + self._g_threads:
             t.start()
+        if self.supervise:
+            # spawned LAST: every thread it monitors is already alive
+            self._sup_thread = threading.Thread(
+                target=self._supervisor_loop, name="moe-supervisor",
+                daemon=True)
+            self._sup_thread.start()
         self._started = True
 
     def submit_job(self, job: BatchJob) -> BatchJob:
@@ -1017,13 +1680,19 @@ class DisaggregatedExecutor:
         for bufs in self.attn_bufs:
             for buf in bufs:
                 buf.wake()  # release combine_recv/combine_send blockers
-        threads = self._g_threads + self._moe_threads
         grace = time.monotonic() + timeout
+        sup = [self._sup_thread] if self._sup_thread is not None else []
+        # the supervisor first: a failover in progress writes _moe_threads
+        # and _retired, so the lists below are final only once it exited
+        for t in sup:
+            t.join(timeout=max(grace - time.monotonic(), 1e-3))
+        threads = self._g_threads + self._moe_threads + self._retired + sup
         for t in threads:
             t.join(timeout=max(grace - time.monotonic(), 1e-3))
         alive = [t for t in threads if t.is_alive()]
         self._hung += alive
         self._g_threads, self._moe_threads = [], []
+        self._retired, self._sup_thread = [], None
         self._started = False
         if not alive:
             self.stop.clear()  # a clean stop is restartable; with

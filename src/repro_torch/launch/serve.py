@@ -43,6 +43,19 @@ round trips; prefill serving only).
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd --smoke \
       --device cpu --time-scale 20
+
+Faults and the request lifecycle (prefill serving): `--fail-moe-device D
+--failure-at T` crashes MoE device D at trace second T (a `FaultPlan`); the
+executor's supervisor fences the dead worker, re-serves its orphaned
+regions, evacuates its experts onto the survivors and restarts it, and the
+summary prints the failover.  `--request-deadline S` ends requests past
+their TTFT deadline with status=timeout, `--max-queue N` sheds arrivals
+beyond a batcher backlog of N (status=shed), `--hedge-factor F` clones a
+batch overdue by F x the EWMA batch service time (the first completion of
+each request wins).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --fail-moe-device 1 \
+      --failure-at 0.5
 """
 from __future__ import annotations
 
@@ -60,6 +73,7 @@ from repro_torch.core.cost_model import H100, Placement
 from repro_torch.core.decode import DecodeExecutor, ExecDecodeEngine
 from repro_torch.core.engine import ExecutorEngine, RequestResult
 from repro_torch.core.executor import DisaggregatedExecutor
+from repro_torch.core.faults import FaultPlan
 from repro_torch.core.orchestrator import PDOrchestrator
 from repro_torch.core.scheduler import LengthAwareBatcher
 from repro_torch.core.trace import (Request, TraceClock, TraceConfig,
@@ -78,7 +92,8 @@ def _print_result(r: RequestResult):
     print(f"  done rid={r.rid:<3d} batch={r.batch_id} "
           f"group={r.group} ttft={r.ttft:.3f}s "
           f"first_token={r.first_token} status={r.status}"
-          f"  [{_fmt_decomp(r.decomposition)}]")
+          + (f" retries={r.retries}" if r.retries else "")
+          + f"  [{_fmt_decomp(r.decomposition)}]")
 
 
 def prewarm_rows(max_batch_tokens: int, D: int, moe_batch_window: float,
@@ -103,15 +118,20 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
                    max_batch_tokens: int = 4096, verbose: bool = False,
                    moe_path: str = "fused", moe_batch_window: float = 0.0,
                    moe_batch_max_tokens: Optional[int] = None,
-                   executor: Optional[DisaggregatedExecutor] = None
-                   ) -> dict:
+                   executor: Optional[DisaggregatedExecutor] = None,
+                   fault_plan: Optional[FaultPlan] = None,
+                   request_deadline: Optional[float] = None,
+                   max_queue: Optional[int] = None,
+                   hedge_factor: Optional[float] = None) -> dict:
     """Serve `len(lengths)` requests with Poisson arrivals at `rps` through
     `ExecutorEngine` over `DisaggregatedExecutor(D, E)`.  Returns the
     results, the engine stats and the executor's launch telemetry.
 
     `executor` hands in a long-lived executor from an earlier wave (its
     streams, and with them the allocator's pools, stay warm); its stats are
-    reset, and it is returned under "executor" for the next wave."""
+    reset, and it is returned under "executor" for the next wave.
+    `fault_plan`, `request_deadline`, `max_queue` and `hedge_factor` go to
+    the engine (its request lifecycle under faults and overload)."""
     rng = np.random.default_rng(seed + 1)
     n = len(lengths)
     arrivals = np.cumsum(rng.exponential(1.0 / max(rps, 1e-9), size=n))
@@ -137,7 +157,9 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
         batcher=LengthAwareBatcher(inflection=max(max_batch_tokens // 2, 1),
                                    max_tokens=max_batch_tokens,
                                    exclusive_cutoff=1 << 30, max_wait=0.05),
-        token_seed=seed)
+        token_seed=seed, fault_plan=fault_plan,
+        request_deadline=request_deadline, max_queue=max_queue,
+        hedge_factor=hedge_factor)
     t0 = time.time()
     handles = engine.submit_all(reqs)
     results: List[RequestResult] = []
@@ -225,6 +247,12 @@ def run_executor(args) -> int:
     lengths = np.clip(sample_lengths(args.requests, trace), lo, hi)
     print(f"{args.requests} requests, Poisson arrivals at {args.rps} req/s, "
           f"lengths {[int(x) for x in lengths]}")
+    # validated against E in main()
+    plan = FaultPlan.from_flags(args.failure_at, args.failure_duration,
+                                args.fail_moe_device)
+    if plan is not None:
+        print(f"fault plan armed (supervised failover): "
+              f"{[ev.to_dict() for ev in plan.events]}")
 
     out = serve_requests(cfg, params, lengths=[int(x) for x in lengths],
                          rps=args.rps, time_scale=args.time_scale,
@@ -233,7 +261,11 @@ def run_executor(args) -> int:
                          max_batch_tokens=max_tokens, verbose=True,
                          moe_path=args.moe_path,
                          moe_batch_window=args.moe_batch_window,
-                         moe_batch_max_tokens=args.moe_batch_max_tokens)
+                         moe_batch_max_tokens=args.moe_batch_max_tokens,
+                         fault_plan=plan,
+                         request_deadline=args.request_deadline,
+                         max_queue=args.max_queue,
+                         hedge_factor=args.hedge_factor)
     results, st = out["results"], out["stats"]
 
     # out-of-order completion evidence (the async-serving property)
@@ -259,6 +291,15 @@ def run_executor(args) -> int:
     if st.statuses:
         print("request statuses: "
               + " ".join(f"{k}={v}" for k, v in sorted(st.statuses.items())))
+    if st.failovers:
+        print(f"supervised failover: {st.failovers} MoE-device "
+              f"evacuation(s) executed live; dead device(s) "
+              f"{list(out['executor'].placement.dead)} evacuated onto "
+              f"survivors ({st.migrated_bytes / 1e6:.2f} MB of expert "
+              f"weights gained)")
+    if st.hedges_issued:
+        print(f"hedged dispatch: {st.hedges_issued} clone(s) issued, "
+              f"{st.hedge_wins} won")
     if args.save_router_stats:
         out["router_stats"].save(args.save_router_stats)
         print(f"router stats saved to {args.save_router_stats}")
@@ -276,6 +317,12 @@ def run_executor(args) -> int:
                 "mean_ttft": float(np.mean([r.ttft for r in results]))
                 if results else None,
                 "statuses": st.statuses,
+                "failovers": st.failovers,
+                "dead_devices": list(out["executor"].placement.dead),
+                "migrations": st.migrations,
+                "migrated_bytes": st.migrated_bytes,
+                "hedges_issued": st.hedges_issued,
+                "hedge_wins": st.hedge_wins,
                 "moe_path": args.moe_path,
                 "moe_batch_window": args.moe_batch_window,
                 "moe_batch_max_tokens": args.moe_batch_max_tokens,
@@ -526,6 +573,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--moe-batch-max-tokens", type=int, default=None,
                     help="cap on the merged token rows of one batched launch; "
                          "requires --moe-batch-window > 0")
+    ap.add_argument("--failure-at", type=float, default=None,
+                    help="crash the --fail-moe-device MoE device at this "
+                         "trace second")
+    ap.add_argument("--failure-duration", type=float, default=5.0,
+                    help="the fault event's duration (trace seconds; a "
+                         "crash's failover is permanent)")
+    ap.add_argument("--fail-moe-device", type=int, default=None,
+                    help="kill this MoE device at --failure-at: the "
+                         "supervisor re-serves its orphaned regions and "
+                         "evacuates its experts onto the survivors")
+    ap.add_argument("--request-deadline", type=float, default=None,
+                    help="TTFT deadline in trace seconds: requests that age "
+                         "past it expire in queue or end status=timeout")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="batcher backlog at which arrivals are shed "
+                         "(status=shed) instead of queueing")
+    ap.add_argument("--hedge-factor", type=float, default=None,
+                    help="clone a batch overdue by this factor x the EWMA "
+                         "batch service time onto the shared queue; the "
+                         "first completion of each request wins")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save-stats", default=None, metavar="PATH",
                     help="write EngineStats as JSON after the run")
@@ -572,6 +639,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.moe_batch_window <= 0:
             ap.error("--moe-batch-max-tokens bounds the accumulation window; "
                      "it requires --moe-batch-window > 0")
+    # fault / lifecycle flags: unsupported combinations fail loudly instead
+    # of silently dropping the fault
+    if args.fail_moe_device is not None and args.failure_at is None:
+        ap.error("--fail-moe-device requires --failure-at (when should the "
+                 "device die?)")
+    if args.failure_at is not None and args.fail_moe_device is None:
+        ap.error("--failure-at needs --fail-moe-device D: the executor has "
+                 "no DP-group failure path, it kills an MoE device")
+    if args.fail_moe_device is not None:
+        E = args.moe_devices if args.moe_devices is not None else 4
+        try:
+            FaultPlan.from_flags(args.failure_at, args.failure_duration,
+                                 args.fail_moe_device).validate(E)
+        except ValueError as ex:
+            ap.error(f"--fail-moe-device/--failure-at: {ex}")
+    for flag, val in (("--request-deadline", args.request_deadline),
+                      ("--max-queue", args.max_queue),
+                      ("--hedge-factor", args.hedge_factor)):
+        if val is not None and val <= 0:
+            ap.error(f"{flag} must be > 0")
     # decode knobs without the mode that consumes them are configuration
     # mistakes, not silent no-ops
     if args.mode != "pd":
@@ -594,6 +681,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--decode-width must be >= 1")
     if args.save_router_stats:
         ap.error("--save-router-stats is not supported with --mode pd")
+    for flag, val in (("--failure-at", args.failure_at),
+                      ("--request-deadline", args.request_deadline),
+                      ("--max-queue", args.max_queue),
+                      ("--hedge-factor", args.hedge_factor)):
+        if val is not None:
+            ap.error(f"{flag} is not supported with --mode pd (the "
+                     f"disaggregated path runs the plain prefill lifecycle; "
+                     f"run it without --mode pd)")
     if args.moe_path == "eager":
         ap.error("--moe-path eager is not supported with --mode pd (the "
                  "prefill executor exports KV from the fused attention step)")
