@@ -64,6 +64,22 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             ExecutorEngine with device 1 crashed at 0.5 s of trace: 8/8 ok,
             one failover, TTFT beside the fault-free serve phase's.
             `--phases device,build,faults` runs it alone
+  rebalance live re-placement under skewed routing at the same width: the
+            fields of cost_model.H100 measured on this card beside the
+            preset; the router of a shallow copy of the model zipf(2.0)-
+            skewed onto device 0's round-robin experts; two arms, each a
+            fresh DisaggregatedExecutor(D=2, E=4) released after it --
+            frozen round-robin, and live (ExecutorEngine with
+            rebalance_interval 0.25, threshold 1.02, target replicated(2),
+            TraceClock speed 1000): two warm waves of 4 x 512 tokens and a
+            measured wave of 10 x 512, all arriving at 0, then 8 pinned
+            jobs of [1, 512]; gated: >= 1 live migration to "replicated",
+            every request ok exactly once, the table ExpertLoadModel gives,
+            first tokens equal rid by rid and pinned jobs torch.equal
+            between the arms, wgmma only, no rebuild; tokens/s, the window
+            that fired, the swap's seconds and gather rate, bucket misses,
+            memory (a {"rebalance": ...} line).
+            `--phases device,build,rebalance` runs it alone
   timing    each kernel timed at the shapes its path gave it, beside its
             bound, its plain version and one library call (library_ms is a
             yardstick timed here and used nowhere in the port): super_gmm
@@ -79,8 +95,8 @@ Phases (each prints its own lines; any failure is a non-zero exit):
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
-counts say so).  Each path's launches (serve, pd, batching, gmm, faults)
-stand in the {"kernels": ...} line under "launches_by_path".
+counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
+rebalance) stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -1525,6 +1541,285 @@ def phase_faults(cfg, params, seed: int, serve=None) -> dict:
     return out
 
 
+# -------------------------------------------- placement control (live) --
+
+
+def _skew_router(params, alpha: float = 2.0, ep: int = 4):
+    """A shallow copy of `params` whose router leaf ([L, d, E] fp32) is a
+    copy with its logit columns scaled by zipf(`alpha`)-ranked factors, so
+    the REAL router concentrates traffic on a few hot experts.  The hottest
+    ranks go to the experts that share device 0 under round-robin (e % ep),
+    the straggler the control plane exists for (the reference's
+    `fig_rebalance._skew_router`).  `params` itself is left as it was."""
+    ffn = params["stages"][0]["ffn"]
+    r = ffn["router"]
+    n = r.shape[-1]
+    f = np.arange(1, n + 1, dtype=np.float64) ** (-alpha)
+    f = f / f.mean()
+    order = sorted(range(n), key=lambda e: (e % ep, e // ep))
+    scale = np.empty(n)
+    scale[order] = f
+    out = dict(params)
+    out["stages"] = [dict(st) for st in params["stages"]]
+    out["stages"][0]["ffn"] = dict(ffn, router=r * torch.as_tensor(
+        scale, dtype=r.dtype, device=r.device))
+    return out
+
+
+def measure_h100_fields(cfg) -> dict:
+    """The fields of `core.cost_model.H100` taken on this card: hop_latency
+    (a 4 KiB device-to-device copy issued back to back, CUDA events),
+    base_latency (its device time, profiler), host_dispatch (the host's
+    time to issue one `super_gmm` wrapper call at a decode-size shape:
+    8 experts, 8 rows each), p2p_handshake (an event recorded on one
+    stream, waited on by another, then a host sync), flop_efficiency (dense
+    `super_gmm` at the serve wave's gate/up shape, TFLOP/s over the 989
+    peak; device time by the profiler, as the timing phase reads it).
+    Seconds, except flop_efficiency."""
+    base_us, hop_us = _hop_latency_us()
+    bf = torch.bfloat16
+    d, f = cfg.d_model, cfg.expert_d_ff
+    layer = torch.zeros(1, dtype=torch.int32, device=DEV)
+    w = torch.randn((1, 8, d, f), dtype=bf, device=DEV) * 0.02
+    xb = torch.randn((8, 8, d), dtype=bf, device=DEV)
+    counts = torch.full((8,), 8, dtype=torch.int32, device=DEV)
+    host_us = _host_us(lambda: super_gmm(layer, w, xb, counts))
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    ev = torch.cuda.Event()
+
+    def rendezvous():
+        ev.record(s1)
+        s2.wait_event(ev)
+        s2.synchronize()
+    p2p_us = _host_us(rendezvous, reps=500)
+    n_e, C = 32, 512
+    w = torch.randn((1, n_e, d, f), dtype=bf, device=DEV) * 0.02
+    xb = torch.randn((n_e, C, d), dtype=bf, device=DEV)
+    ms, _ = _device_ms(lambda: super_gmm(layer, w, xb, None), 20)
+    tflops = 2.0 * n_e * C * d * f / (ms / 1e3) / 1e12
+    del w, xb
+    return {"hop_latency": hop_us * 1e-6, "base_latency": base_us * 1e-6,
+            "host_dispatch": host_us * 1e-6, "p2p_handshake": p2p_us * 1e-6,
+            "flop_efficiency": tflops / (PEAK_FLOPS[bf] / 1e12),
+            "dense_super_gmm_tflops": tflops}
+
+
+def _engine_wave(eng, rids, slen: int) -> tuple:
+    """Submit requests `rids` of `slen` tokens, all arriving at 0, and drain
+    them: (results by rid, wall seconds, whether any rid came back twice)."""
+    from repro_torch.core.trace import Request
+    t0 = time.perf_counter()
+    eng.submit_all([Request(rid=i, arrival=0.0, length=slen) for i in rids])
+    res = eng.drain(timeout=300)
+    wall = time.perf_counter() - t0
+    by_rid = {r.rid: r for r in res}
+    expect(len(by_rid) == len(res) == len(rids) and set(by_rid) == set(rids)
+           and all(r.status == "ok" for r in res),
+           f"rebalance: wave {rids[0]}.. statuses "
+           f"{[(r.rid, r.status) for r in res]}")
+    return by_rid, wall
+
+
+def phase_rebalance(cfg, params, seed: int) -> dict:
+    """Live re-placement under skewed routing at the serve phase's full
+    width (the reference's `fig_rebalance.executor_panel`): the router of a
+    shallow copy of the model is zipf(2.0)-skewed onto device 0's
+    round-robin experts; two arms, each on a fresh
+    DisaggregatedExecutor(D=2, E=4) released after it: frozen round-robin,
+    and live -- ExecutorEngine(rebalance_interval=0.25,
+    rebalance_threshold=1.02, rebalance_target=replicated(2)) on
+    TraceClock(speed=1000) -- in turns frozen, live, live, frozen.  Each
+    turn serves two warm waves of 4 x 512 tokens and a measured wave of
+    10 x 512, all arriving at 0; then 8 pinned jobs of [1, 512] through its
+    executor.  Gated: the live arm migrates (>= 1, placement
+    "replicated"), every request of every wave ends ok exactly once, the
+    live table equals the one ExpertLoadModel gives for the executor's
+    measured fractions and every host holds its experts, the measured
+    wave's first tokens are equal rid by rid across the turns, the pinned
+    jobs are torch.equal across the turns, every
+    super_gmm / flash_attention launch takes wgmma, and the kernel library
+    is not rebuilt.  Also prints the fields of `cost_model.H100` measured on
+    this card beside the preset."""
+    from repro_torch.core.cost_model import (H100, ExpertLoadModel,
+                                             Placement)
+    from repro_torch.core.engine import ExecutorEngine
+    from repro_torch.core.executor import DisaggregatedExecutor
+    from repro_torch.core.scheduler import LengthAwareBatcher
+    from repro_torch.core.trace import TraceClock
+    t_phase = time.perf_counter()
+    D, E, S = 2, 4, 512
+    speed = 1000.0  # trace seconds per wall second: the executor's clock
+    lib, lib_path = _build.load(), _build.library_path()
+    lib_mtime = lib_path.stat().st_mtime_ns
+    measured = measure_h100_fields(cfg)
+    print("[rebalance] cost_model.H100 fields, the preset vs measured on "
+          "this card: " + ", ".join(
+              f"{k} {getattr(H100, k):.4g} vs {measured[k]:.4g}"
+              for k in ("hop_latency", "base_latency", "host_dispatch",
+                        "p2p_handshake", "flop_efficiency"))
+          + f" (dense super_gmm {measured['dense_super_gmm_tflops']:.1f} "
+          f"TFLOP/s at n_e=32 C=512 K={cfg.d_model} N={cfg.expert_d_ff})")
+    skewed = _skew_router(params)
+    rng = np.random.RandomState(seed + 23)
+    tokens = [rng.randint(0, cfg.vocab_size, (1, S)) for _ in range(8)]
+    target = Placement("replicated", replicate_hot=2)
+    kernels = _pd_kernels()
+    launches = collections.Counter()
+    out = {"h100_measured": measured, "turns": []}
+    first, pinned = None, None
+    # in turns, so neither arm is always the first on a cold allocator
+    for arm in ("frozen", "live", "live", "frozen"):
+        torch.cuda.synchronize()
+        alloc0 = torch.cuda.memory_allocated()
+        reserved0 = torch.cuda.memory_reserved()
+        for k in kernels.values():
+            _launch.reset_launches(k)
+        ex = DisaggregatedExecutor(skewed, cfg, D=D, E=E, device=DEV)
+        kw = dict(rebalance_interval=0.25, rebalance_threshold=1.02,
+                  rebalance_target=target) if arm == "live" else {}
+        eng = ExecutorEngine(
+            ex, clock=TraceClock(speed=speed), token_seed=seed,
+            batcher=LengthAwareBatcher(inflection=64, max_tokens=2 * S,
+                                       exclusive_cutoff=1 << 30,
+                                       max_wait=0.02), **kw)
+        misses = []  # new capacity shapes met in each wave
+        for wave in range(2):
+            _engine_wave(eng, [10_000 + 100 * wave + i for i in range(4)], S)
+            misses.append(int(ex.bucket_misses.sum()) - sum(misses))
+        busy0 = ex.moe_busy.copy()
+        res, wall = _engine_wave(eng, list(range(10)), S)
+        torch.cuda.synchronize()
+        busy = ex.moe_busy - busy0
+        misses.append(int(ex.bucket_misses.sum()) - sum(misses))
+        st = eng.stats()
+        tokens_first = {rid: r.first_token for rid, r in res.items()}
+        windows = [{"t": float(t), "busy": [float(x) for x in w],
+                    "imbalance": float(i)} for t, w, i in eng.rebalance_windows]
+        eng.close()
+        launches.update({n: k.launches for n, k in kernels.items()})
+        for kname in ("super_gmm", "flash_attention"):
+            n, by = kernels[kname].launches, _routes(kernels[kname])
+            expect(n > 0 and by["wgmma"] == n,
+                   f"rebalance {arm}: {kname} launches by route {by}")
+        migs = [m for m in ex.migrations if m["kind"] == "rebalance"]
+        if arm == "live":
+            expect(len(migs) >= 1 and ex.placement.policy == "replicated",
+                   f"rebalance live: {len(migs)} migrations, placement "
+                   f"{ex.placement.policy}")
+            lm = ExpertLoadModel(num_experts=cfg.num_experts,
+                                 top_k=cfg.top_k, ep=E, mode="measured",
+                                 measured=ex.expert_fractions,
+                                 placement=target)
+            expect(ex.table == lm.placement_table(0),
+                   "rebalance live: the executor's table != "
+                   "ExpertLoadModel's under the target placement")
+            expect(all(e in ex.dev_experts[d]
+                       for e, hosts in enumerate(ex.table) for d in hosts),
+                   "rebalance live: a host does not hold its expert")
+        else:
+            expect(not migs and ex.placement == Placement(),
+                   f"rebalance frozen: migrations {migs}")
+        # the pinned jobs, after the engine released the workers
+        ex.clock = time.monotonic
+        got, r = _wave(ex, tokens, D)
+        launches.update(r["launches"])
+        for kname in ("super_gmm", "flash_attention"):
+            expect(r[kname] > 0 and r[f"{kname}_by_route"]["wgmma"]
+                   == r[kname], f"rebalance {arm} pinned: {kname} launches "
+                   f"by route {r[f'{kname}_by_route']}")
+        torch.cuda.synchronize()
+        alloc1, reserved1 = (torch.cuda.memory_allocated(),
+                             torch.cuda.memory_reserved())
+        out["turns"].append({
+            "arm": arm, "tokens_per_s": 10 * S / wall, "wall_s": wall,
+            "migrations": len(migs),
+            "migrated_bytes": float(sum(m["bytes"] for m in migs)),
+            # the records are in the executor's clock (trace seconds)
+            "swaps": [{"seconds": m["seconds"] / speed,
+                       "copy_bytes": m.get("copy_bytes", 0.0),
+                       "copy_seconds": m.get("copy_seconds", 0.0) / speed,
+                       "devices": list(m["devices"]),
+                       "moved_copies": m["moved_copies"]} for m in migs],
+            "windows_fired": windows,
+            "placement": ex.placement.policy,
+            "moe_imbalance": st.moe_imbalance(),
+            "measured_wave_busy_imbalance": float(busy.max() / busy.mean())
+            if busy.mean() > 0 else 1.0,
+            "bucket_misses_by_wave": misses,
+            "hot_fractions": [float(x) for x in sorted(
+                st.expert_fractions, reverse=True)[:4]],
+            # the measured routing under the placement the arm ended on
+            "device_fractions": [float(x) for x in ex.placement.
+                                 device_fractions(tuple(
+                                     float(v) for v in st.expert_fractions),
+                                     E)],
+            "pinned_tokens_per_s": r["tokens_per_s"],
+            "allocated_before_gb": alloc0 / 1e9,
+            "reserved_before_gb": reserved0 / 1e9,
+            "allocated_after_gb": alloc1 / 1e9,
+            "reserved_after_gb": reserved1 / 1e9})
+        a = out["turns"][-1]
+        print(f"[rebalance] {arm}: measured wave 10 x {S} tokens "
+              f"{a['tokens_per_s']:.0f} tokens/s ({wall:.3f}s wall), MoE "
+              f"busy imbalance in the wave {a['measured_wave_busy_imbalance']:.3f}"
+              f", engine moe_imbalance {a['moe_imbalance']:.3f}, placement "
+              f"{a['placement']}, device shares "
+              f"{np.round(a['device_fractions'], 3).tolist()}, hottest "
+              f"expert fractions {np.round(a['hot_fractions'], 4).tolist()}")
+        for w in windows:
+            print(f"[rebalance] {arm}: the controller fired at t="
+                  f"{w['t']:.4f} s of trace on the window busy "
+                  f"{np.round(w['busy'], 4).tolist()} trace s (imbalance "
+                  f"{w['imbalance']:.3f})")
+        for m in a["swaps"]:
+            rate = 2 * m["copy_bytes"] / max(m["copy_seconds"], 1e-12)
+            print(f"[rebalance] {arm}: swap {1e3 * m['seconds']:.1f} ms onto "
+                  f"devices {m['devices']} ({m['moved_copies']} expert "
+                  f"copies gained, {a['migrated_bytes'] / 1e9:.3f} GB); "
+                  f"gathers wrote {m['copy_bytes'] / 1e9:.2f} GB and read as "
+                  f"much in {1e3 * m['copy_seconds']:.1f} ms = "
+                  f"{rate / 1e12:.2f} TB/s ({rate / HBM_BYTES_PER_S:.0%} of "
+                  f"the HBM bound, bound "
+                  f"{1e3 * 2 * m['copy_bytes'] / HBM_BYTES_PER_S:.1f} ms)")
+        print(f"[rebalance] {arm}: new bucket misses by wave (warm, warm, "
+              f"measured) {misses}; memory allocated "
+              f"{a['allocated_before_gb']:.1f} -> "
+              f"{a['allocated_after_gb']:.1f} GB, reserved "
+              f"{a['reserved_before_gb']:.1f} -> "
+              f"{a['reserved_after_gb']:.1f} GB; pinned wave "
+              f"{a['pinned_tokens_per_s']:.0f} tokens/s")
+        if first is None:
+            first, pinned = tokens_first, got
+        else:
+            expect(tokens_first == first,
+                   f"rebalance {arm}: first tokens differ from the first "
+                   f"frozen turn's: {tokens_first} vs {first}")
+            for i in range(len(tokens)):
+                expect(torch.equal(got[i], pinned[i]),
+                       f"rebalance {arm}: pinned job {i} differs from the "
+                       f"first frozen turn's (max abs err "
+                       f"{max_err(got[i], pinned[i]):.3e})")
+        del eng, ex, got
+        _free()
+    del pinned, skewed
+    _free()
+    expect(_build.load() is lib and _build.library_path() == lib_path
+           and lib_path.stat().st_mtime_ns == lib_mtime,
+           "rebalance: the kernel library was rebuilt")
+    best = {arm: max(t["tokens_per_s"] for t in out["turns"]
+                     if t["arm"] == arm) for arm in ("frozen", "live")}
+    out["best_tokens_per_s"] = best
+    out["speedup"] = best["live"] / best["frozen"]
+    out["launches"] = dict(launches)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[rebalance] best of 2 turns (frozen, live, live, frozen): live "
+          f"{best['live']:.0f} / frozen {best['frozen']:.0f} tokens/s = "
+          f"{out['speedup']:.3f}; first tokens equal rid by rid and the "
+          f"pinned jobs torch.equal across all four turns; phase wall "
+          f"{out['wall_s']:.1f}s")
+    return out
+
+
 def phase_gmm(cfg, params, seed: int, gen) -> dict:
     """lm_forward with the Super Kernel as its gmm (make_super_kernel_gmm):
     in fp32 at the reference's test config against the einsum path (tol
@@ -2153,7 +2448,8 @@ def shapes_from(kernels_line: dict) -> dict:
 
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
-                 batching=None, gmm=None, faults=None) -> dict:
+                 batching=None, gmm=None, faults=None,
+                 rebalance=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -2175,6 +2471,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["gmm"] = gmm["launches"]
     if faults:
         by_path["faults"] = faults["launches"]
+    if rebalance:
+        by_path["rebalance"] = rebalance["launches"]
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2184,7 +2482,7 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,batching,gmm,faults,timing")
+                    "serve,pd,batching,gmm,faults,rebalance,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -2230,8 +2528,9 @@ def main() -> int:
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
-    serve = pd = batching = gmm = faults = None
-    if {"executor", "serve", "batching", "gmm", "faults"} & set(phases):
+    serve = pd = batching = gmm = faults = rebalance = None
+    if {"executor", "serve", "batching", "gmm", "faults",
+            "rebalance"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
             phase_executor(cfg, params)
@@ -2257,13 +2556,16 @@ def main() -> int:
         if "faults" in phases:
             faults = phase_faults(cfg, params, args.seed, serve)
             print(json.dumps({"faults": faults}))
+        if "rebalance" in phases:
+            rebalance = phase_rebalance(cfg, params, args.seed)
+            print(json.dumps({"rebalance": rebalance}))
         del params
         _free()
     if "timing" in phases:
         expect(serve is not None and pd is not None and errs is not None,
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
-                                      faults)))
+                                      faults, rebalance)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

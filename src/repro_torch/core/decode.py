@@ -1,14 +1,22 @@
 """Decode subsystem: the token-generation stage behind prefill/decode
 disaggregation.
 
-`DecodeExecutor` runs REAL single-token decode steps over preallocated
-ragged KV slots; `ExecDecodeEngine` puts it behind the poll-driven decode
-interface the `PDOrchestrator` (core/orchestrator.py) drives:
+Two runtimes behind ONE poll-driven interface (mirroring the prefill side's
+SimEngine/ExecutorEngine split):
+
+  SimDecodeEngine  -- `DecodeSim` (simulator.py): analytic continuous
+                      batching in VIRTUAL time; per-step cost is KV-bytes-
+                      read dominated and batch-width amortized
+                      (`CostModel.decode_step_latency`), expert routing per
+                      step through the same `ExpertLoadModel` as prefill.
+  ExecDecodeEngine -- `DecodeExecutor` (this module): REAL single-token
+                      decode steps over preallocated ragged KV slots.
+
+Both share the flow the `PDOrchestrator` (core/orchestrator.py) drives:
 `enroll(KVHandle, steps, t_ready)` registers a request whose prefill KV
 landed at `t_ready` (admission order + width cap via
 `DecodeAdmissionQueue`); `pump()` runs decode steps and returns
-`DecodeCompletion`s; `drain()` finishes everything enrolled.  (The
-reference's simulator-backed `SimDecodeEngine` is not ported.)
+`DecodeCompletion`s; `drain()` finishes everything enrolled.
 
 Every class here is single-threaded by design -- one orchestrator drives one
 decode engine from its own poll loop, on that thread's current CUDA stream.
@@ -22,8 +30,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import CostModel, ExpertLoadModel
 from repro_torch.core.kv import KVHandle
 from repro_torch.core.scheduler import DecodeAdmissionQueue
+from repro_torch.core.simulator import DecodeSim
 from repro_torch.kernels import _launch
 from repro_torch.models.blocks import decoder_block_decode_ragged
 from repro_torch.models.common import ModelConfig, apply_norm
@@ -39,6 +49,66 @@ class DecodeCompletion:
     t_admitted: float
     token_times: List[float]  # engine-time stamps, one per decode token
     tokens: Optional[List[int]] = None  # sampled ids
+
+
+# ---------------------------------------------------------------------------
+# Simulator decode runtime
+# ---------------------------------------------------------------------------
+
+
+class SimDecodeEngine:
+    """`DecodeSim` behind the decode-engine interface (virtual time)."""
+
+    virtual = True  # pump() takes a causality frontier in virtual seconds
+
+    def __init__(self, cfg: ModelConfig, cm: CostModel,
+                 load_model: Optional[ExpertLoadModel] = None,
+                 width: int = 32):
+        self.cfg, self.cm = cfg, cm
+        self.sim = DecodeSim(cfg, cm, load_model, width=width)
+
+    @property
+    def load(self) -> int:
+        return self.sim.load
+
+    def enroll(self, handle: KVHandle, steps: int, t_ready: float,
+               first_token: Optional[int] = None):
+        self.sim.enroll(handle.rid, handle.prompt_len, steps, t_ready)
+
+    def _collect(self) -> List[DecodeCompletion]:
+        out = [DecodeCompletion(rid=e.rid, t_admitted=e.t_admitted,
+                                token_times=list(e.token_times))
+               for e in self.sim.completed]
+        self.sim.completed = []
+        return out
+
+    def pump(self, t_limit: float) -> List[DecodeCompletion]:
+        """Advance virtual time to `t_limit` — the orchestrator passes its
+        prefill frontier so decode never outruns known prefill progress."""
+        self.sim.advance(t_limit)
+        return self._collect()
+
+    def drain(self) -> Tuple[List[DecodeCompletion], List[int]]:
+        """Finish everything enrolled (all enrollments are known by drain
+        time — the orchestrator drains prefill first).  The internal bound
+        only catches a wedged cost model; normal runs never hit it."""
+        s = self.sim
+        remaining, kv_max = s.remaining_work()
+        if remaining:
+            horizon = s.now + 4.0 * remaining \
+                * self.cm.decode_step_latency([kv_max]) + 60.0
+            leftovers = s.drain(horizon)
+        else:
+            leftovers = s.drain(s.now)
+        return self._collect(), [e.rid for e in leftovers]
+
+    def close(self):
+        pass
+
+
+# ---------------------------------------------------------------------------
+# Real decode runtime
+# ---------------------------------------------------------------------------
 
 
 class DecodeExecutor:

@@ -11,8 +11,12 @@ engine gives the real executor a continuous-ingestion interface:
                                                 #   per-expert routing stats
     engine.close()
 
-Backend:
+Backends:
 
+  SimEngine      -- wraps AsapSim/SyncSim.  Virtual time: submit() injects an
+                   arrival event, poll()/drain() advance the discrete-event
+                   heap incrementally (`step`), completions stream out in
+                   simulated completion order.
   ExecutorEngine -- wraps the long-lived `DisaggregatedExecutor`.  Wall time:
                    a replayable `TraceClock` (trace seconds, optionally
                    time-scaled) gates admission so `Request.arrival` is
@@ -22,17 +26,21 @@ Backend:
                    completions surface out of order from the group worker
                    threads.
 
-`RouterStatsCollector` records MEASURED per-expert token fractions from the
-executor's real router assignments and feeds them back as
-`expert_fractions` / `Placement` popularity input.  The request lifecycle
+`RouterStatsCollector` records MEASURED per-expert token fractions (from the
+executor's real router assignments, or expectation-weighted from the sim's
+load model) and feeds them back as `expert_fractions` / `Placement`
+popularity input or as `SimConfig.measured_fractions`.  With
+`rebalance_interval` the executor engine runs the placement control plane
+the simulator runs (`PlacementController`): every interval it observes the
+window's measured busy time and routing fractions and executes the plans it
+emits through the executor's live swap.  The request lifecycle
 survives faults: a `FaultPlan` is armed on the executor at start (its
 supervisor fails dead MoE devices over), `max_queue` sheds arrivals under
 overload, `request_deadline` expires aged requests, `hedge_factor` clones
 overdue batches (the first completion of each request wins), and drain()
 ends every request with a definite status.  With `keep_kv=True` the
 engine keeps each ok request's prompt KV (from an `emit_kv` executor) until
-the prefill/decode orchestrator claims it with `take_kv`.  (The simulator
-backend of the reference is not ported yet.)
+the prefill/decode orchestrator claims it with `take_kv`.
 """
 from __future__ import annotations
 
@@ -48,10 +56,17 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.executor import BatchJob, DisaggregatedExecutor
+from repro_torch.core.cost_model import (Deployment, Placement,
+                                         resample_fractions)
+from repro_torch.core.executor import (BatchJob, DisaggregatedExecutor,
+                                       SwapAborted)
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.kv import KVHandle, KVSpec
+from repro_torch.core.placement_control import (PlacementController,
+                                                WindowObservation)
 from repro_torch.core.scheduler import Batch, LengthAwareBatcher
+from repro_torch.core.simulator import (AsapSim, SimConfig, SyncSim,
+                                        drain_horizon)
 from repro_torch.core.trace import Request, TraceClock
 from repro_torch.kernels import _launch
 from repro_torch.models.lm import lm_head
@@ -200,9 +215,13 @@ class RouterStatsCollector:
 
     The executor records every real `router_topk` assignment here (before
     placement routing, so the collector sees expert popularity rather than
-    device load).  `fractions()` always sums to 1 and ranks hot experts
+    device load); the SimEngine records the load model's expectation per
+    batch-layer.  `fractions()` always sums to 1 and ranks hot experts
     exactly as the recorded assignments do; `fractions_tuple()` feeds back
-    into `DisaggregatedExecutor(expert_fractions=...)` / `Placement` tables.
+    into `DisaggregatedExecutor(expert_fractions=...)` / `Placement` tables,
+    and `resampled(n)` / `SimConfig.measured_fractions` drive the simulator's
+    skew model from measurements instead of synthetic Zipf.  `save` writes,
+    and `load` reads, the reference's JSON format.
     Thread-safe: group workers record concurrently.
     """
 
@@ -254,6 +273,18 @@ class RouterStatsCollector:
         order = np.argsort(-self.fractions(), kind="stable")
         return order if k is None else order[:k]
 
+    def resampled(self, n: int) -> Tuple[float, ...]:
+        """Measured fractions fitted onto `n` experts — the bridge from a
+        smoke-scale measured run to a production-scale simulator
+        (`SimConfig.measured_fractions`).  A matching expert count returns
+        the fractions VERBATIM (identities preserved — the hot expert stays
+        the hot expert); a mismatch resamples the sorted popularity curve
+        (identities are synthetic and get scattered by the consumer)."""
+        if n == self.num_experts:
+            return self.fractions_tuple()
+        return tuple(float(x)
+                     for x in resample_fractions(self.fractions_tuple(), n))
+
     # ------------------------------------------------------- persistence --
     def to_dict(self) -> dict:
         with self._lock:
@@ -289,8 +320,8 @@ class ServingEngine(abc.ABC):
     """One request lifecycle over an ASAP runtime: submit timed requests,
     stream out-of-order completions, read measured routing stats, close."""
 
-    # True for a backend in virtual time (the reference's simulator); the
-    # port's backends all run against a wall/trace clock
+    # True for a backend in virtual time (SimEngine); the executor engine
+    # runs against a wall/trace clock
     virtual = False
 
     @abc.abstractmethod
@@ -335,6 +366,175 @@ class ServingEngine(abc.ABC):
 
 
 # ---------------------------------------------------------------------------
+# Simulator backend
+# ---------------------------------------------------------------------------
+
+
+class SimEngine(ServingEngine):
+    """ServingEngine over the discrete-event simulators (virtual time).
+
+    submit() injects the arrival event; poll()/drain() advance the event
+    heap (`step()`), so completions stream out in simulated completion
+    order.  Time is virtual: poll() returns instantly no matter how long the
+    simulated horizon is, and `result()` on a handle fast-forwards the sim
+    until that request completes.
+    """
+
+    virtual = True
+
+    def __init__(self, cfg, sim: SimConfig,
+                 asap_dep: Deployment = Deployment(D=4, T=4, E=16),
+                 sync_dep: Deployment = Deployment(D=8, T=4, E=32)):
+        self.cfg = cfg
+        self.sim_cfg = sim
+        self._sim = AsapSim(cfg, sim, asap_dep) if sim.mode == "asap" \
+            else SyncSim(cfg, sim, sync_dep)
+        self._sim.arm()
+        # drop-detection horizon: the offline run_sim bound (duration*4+60)
+        # plus an expected-decode-steps budget when the trace samples output
+        # lengths — long-generation traces must not be mislabeled `timeout`
+        # by a prefill-sized cutoff.  out_len_mean <= 1 reproduces the
+        # run_sim bound exactly.
+        self._horizon = drain_horizon(sim, self._sim.cm)
+        self.router_stats = RouterStatsCollector(max(cfg.num_experts, 1))
+        self._sim.router_hook = self._record_routing
+        self._handles: Dict[int, RequestHandle] = {}
+        self._emitted = 0  # index into the sim's completion list
+        self._outbox: List[RequestResult] = []
+        self._status_counts: Dict[str, int] = {}
+        self._closed = False
+
+    # ----------------------------------------------------------- plumbing --
+    def _step(self) -> bool:
+        """One event, bounded by the horizon (mirrors run_sim's cutoff)."""
+        heap = self._sim._heap
+        if heap and heap[0][0] > self._horizon:
+            return False
+        return self._sim.step()
+
+    def _record_routing(self, tokens: float, lkey: int):
+        """Expectation-weighted routing record: the sim routes no real
+        tokens, so each batch-layer contributes tokens*top_k assignments
+        split by the load model's per-expert fractions."""
+        lm = self._sim.load_model
+        counts = float(tokens) * lm.top_k * lm.expert_fractions(lkey)
+        self.router_stats.record(lkey, counts=counts)
+
+    def _normalized_decomp(self, r: Request) -> Dict[str, float]:
+        d = dict(self._sim.decomp.get(r.rid, {}))
+        ttft = r.ttft or 0.0
+        if "non_kernel" in d:  # AsapSim: kernel / non_kernel (+ queue)
+            queue = d.get("queue", 0.0)
+            kernel = d.get("kernel", 0.0)
+            return {"queue": queue, "kernel": kernel,
+                    "comm": max(ttft - queue - kernel, 0.0)}
+        # SyncSim: kernel / sync_wait / queuing already partition the TTFT
+        return {"queue": d.get("queuing", 0.0),
+                "kernel": d.get("kernel", 0.0),
+                "sync_wait": d.get("sync_wait", 0.0)}
+
+    def _drain_completions(self) -> List[RequestResult]:
+        new = []
+        done = self._sim.done
+        while self._emitted < len(done):
+            r = done[self._emitted]
+            self._emitted += 1
+            res = RequestResult(
+                rid=r.rid, arrival=r.arrival, length=r.length,
+                first_token_time=r.first_token_time,
+                decomposition=self._normalized_decomp(r),
+                batch_id=r.batch_id)
+            h = self._handles.get(r.rid)
+            if h is not None:
+                h._fulfill(res)
+            self._status_counts["ok"] = self._status_counts.get("ok", 0) + 1
+            new.append(res)
+        return new
+
+    # ---------------------------------------------------------------- API --
+    def submit(self, request: Request,
+               tokens: Optional[np.ndarray] = None) -> RequestHandle:
+        assert not self._closed, "submit() after close()"
+        assert request.rid not in self._handles, f"duplicate rid {request.rid}"
+        h = RequestHandle(self, request)
+        self._handles[request.rid] = h
+        self._sim.inject([request])
+        return h
+
+    def poll(self) -> List[RequestResult]:
+        out, self._outbox = self._outbox, []
+        out += self._drain_completions()
+        while not out and self._step():
+            out += self._drain_completions()
+        return out
+
+    def drain(self, timeout: Optional[float] = None) -> List[RequestResult]:
+        """Advance virtual time until the heap empties or the horizon is
+        reached.  Requests an overloaded config could not serve by the
+        horizon do not strand their handles: they terminate with status
+        "timeout" — drain() leaves every submitted request in a definite
+        state on BOTH backends."""
+        out, self._outbox = self._outbox, []
+        while self._step():
+            pass
+        out += self._drain_completions()
+        now = self._sim.now
+        for rid, h in self._handles.items():
+            if h._result is None:
+                res = RequestResult(
+                    rid=rid, arrival=h.arrival, length=h.length,
+                    first_token_time=max(now, h.arrival),
+                    decomposition={"queue": max(now - h.arrival, 0.0)},
+                    status="timeout")
+                h._fulfill(res)
+                self._status_counts["timeout"] = \
+                    self._status_counts.get("timeout", 0) + 1
+                out.append(res)
+        return out
+
+    def _wait_handle(self, handle: RequestHandle, timeout: Optional[float]):
+        while handle._result is None and self._step():
+            self._outbox += self._drain_completions()
+        if handle._result is None:
+            raise TimeoutError(
+                f"request {handle.rid} did not complete by the simulation "
+                f"horizon ({self._horizon:.0f}s; now t={self._sim.now:.3f}s)")
+
+    def take_kv(self, rid: int) -> KVHandle:
+        """Export a completed request's prefill KV state.  The simulator's
+        handle is ANALYTIC: no payload, byte/transfer accounting from the
+        spec — the orchestrator charges the link's wire cost."""
+        h = self._handles.get(rid)
+        assert h is not None and h._result is not None, \
+            f"take_kv({rid}) before the prefill completed"
+        return KVHandle(rid=rid, prompt_len=h.length,
+                        spec=KVSpec.from_config(self.cfg),
+                        created_at=h._result.first_token_time)
+
+    def stats(self) -> EngineStats:
+        elapsed = max(self._sim.now, 1e-9)
+        if isinstance(self._sim, AsapSim):
+            util = self._sim.moe_dev_busy_time / elapsed
+        else:
+            util = self._sim.moe_rank_time / elapsed
+        ctrl = getattr(self._sim, "controller", None)
+        plans = ctrl.plans if ctrl is not None else []
+        return EngineStats(
+            engine=f"sim:{self.sim_cfg.mode}", elapsed=elapsed,
+            submitted=self._sim.total_requests, completed=len(self._sim.done),
+            expert_fractions=self.router_stats.fractions(),
+            router_assignments=self.router_stats.total,
+            moe_device_util=util,
+            placement_policy=self._sim.load_model.placement.policy,
+            migrations=len(plans),
+            migrated_bytes=float(sum(p.total_bytes for p in plans)),
+            statuses=dict(self._status_counts))
+
+    def close(self):
+        self._closed = True
+
+
+# ---------------------------------------------------------------------------
 # Real-executor backend
 # ---------------------------------------------------------------------------
 
@@ -360,6 +560,17 @@ class ExecutorEngine(ServingEngine):
     states (on the executor's device; the token id is the one value read
     back), and fulfills the per-request handles.  All measured router
     assignments land in `router_stats`.
+
+    With `rebalance_interval` (trace seconds) the placement control plane
+    ticks between polls: `_maybe_rebalance` runs on whichever thread calls
+    poll(), drain() or a handle's result().
+
+    Lock order (the reference's): `_rebalance_lock` -> the executor's
+    `_swap_lock` (inside `apply_placement`) and `_rebalance_lock` -> `_lock`
+    (the batcher's retarget).  The supervisor's `_on_failover` runs after
+    its failover released `_swap_lock`, and takes `_rebalance_lock` before
+    `_lock`.  Nothing takes `_rebalance_lock` while holding `_lock` or
+    `_swap_lock`.
     """
 
     def __init__(self, executor: DisaggregatedExecutor, *,
@@ -367,6 +578,13 @@ class ExecutorEngine(ServingEngine):
                  batcher: Optional[LengthAwareBatcher] = None,
                  sample_first_token: bool = True,
                  token_seed: int = 0,
+                 rebalance_interval: Optional[float] = None,
+                 rebalance_threshold: float = 1.05,
+                 rebalance_policy: str = "one_shot_threshold",
+                 rebalance_target: Optional[Placement] = None,
+                 rebalance_release: Optional[float] = None,
+                 rebalance_cooldown: int = 1,
+                 rebalance_max_bytes: Optional[float] = None,
                  fault_plan: Optional[FaultPlan] = None,
                  request_deadline: Optional[float] = None,
                  max_queue: Optional[int] = None,
@@ -387,9 +605,39 @@ class ExecutorEngine(ServingEngine):
         self.router_stats = RouterStatsCollector(max(self.cfg.num_experts, 1))
         self.sample_first_token = sample_first_token
         self._token_seed = token_seed
-        # the placement controller that would follow a failover's degraded
-        # placement is not ported yet: `_on_failover` has nothing to sync
-        self.controller = None
+        # --- live placement control ---------------------------------------
+        # The SAME PlacementController the simulator's rebalancer runs,
+        # observing MEASURED windows here: per-device busy time from the
+        # executor's clock accounting + per-expert fractions from
+        # router_stats.  Plans execute through `apply_placement` between
+        # polls -- quiesce, new resident stacks, atomic table swap.
+        self.controller: Optional[PlacementController] = None
+        self._rebalance_interval = rebalance_interval
+        # created unconditionally: the supervisor's failover callback
+        # (`_on_failover`) serializes against the rebalance tick through it
+        self._rebalance_lock = threading.Lock()
+        # (now, busy-time window, imbalance) of the window each plan came
+        # from: what the controller saw when it fired
+        self.rebalance_windows: List[Tuple[float, np.ndarray, float]] = []
+        if rebalance_interval:
+            target = rebalance_target if rebalance_target is not None \
+                else executor.placement
+            per_copy = executor.expert_copy_bytes
+            self.controller = PlacementController(
+                ep=executor.E, num_experts=max(self.cfg.num_experts, 1),
+                layers=max(self.cfg.num_layers, 1), target=target,
+                policy=rebalance_policy, threshold=rebalance_threshold,
+                release_threshold=rebalance_release,
+                cooldown_windows=rebalance_cooldown,
+                max_bytes_per_window=rebalance_max_bytes,
+                bytes_per_copy=per_copy,
+                initial=executor.placement,
+                initial_fractions=executor.expert_fractions)
+            self._next_rebalance = float(rebalance_interval)  # guarded_by: _rebalance_lock
+            self._busy_snapshot = executor.moe_busy.copy()  # guarded_by: _rebalance_lock
+            self._base_inflection = self.batcher.inflection
+            self._base_hot = float(executor.placement.device_fractions(
+                executor.expert_fractions, executor.E).max())
         # --- fault tolerance / request lifecycle --------------------------
         self._fault_plan = fault_plan
         self.request_deadline = request_deadline  # trace s; None = none
@@ -650,12 +898,23 @@ class ExecutorEngine(ServingEngine):
 
     # --------------------------------------------------- fault tolerance --
     def _on_failover(self, device: int):
-        """Supervisor callback after a failover evacuated `device` (on the
-        supervisor thread, outside the executor's `_swap_lock`): where a
-        placement controller runs, its view follows the degraded placement
-        here.  None is ported yet, so there is nothing to sync."""
-        if self.controller is None:
+        """Supervisor callback after a failover evacuated `device` (runs on
+        the supervisor thread, OUTSIDE the executor's `_swap_lock`).  Keeps
+        the placement controller's view in sync with the degraded reality:
+        without this, the next rebalance window would emit a plan that
+        routes traffic back onto the dead device."""
+        c = self.controller
+        if c is None:
             return
+        with self._rebalance_lock:
+            c.sync(placement=self.ex.placement,
+                   target=c.target.fail(device),
+                   base=c.base.fail(device))
+            hot = float(self.ex.placement.device_fractions(
+                self.ex.expert_fractions, self.ex.E).max())
+            with self._lock:
+                self.batcher.retarget(
+                    self._base_inflection * self._base_hot / max(hot, 1e-9))
 
     def _maybe_hedge(self):
         """Overdue-batch hedging: when a live batch has been out for more
@@ -700,6 +959,61 @@ class ExecutorEngine(ServingEngine):
         out, self._outbox = self._outbox, []  # race-ok: caller holds _lock (documented contract)
         return out
 
+    # ------------------------------------------------- placement control --
+    def _maybe_rebalance(self):
+        """Placement-control tick, run between polls: every
+        `rebalance_interval` trace seconds, hand the controller the window's
+        MEASURED observations (per-device busy time, per-expert routing
+        fractions) and execute the MigrationPlan it emits -- quiesce the
+        affected MoE devices, build their new resident stacks, swap the
+        dispatch tables, and retarget the batcher's inflection for the new
+        hot fraction."""
+        c = self.controller
+        if c is None or not c.active or self._stop.is_set():
+            return
+        if not self._rebalance_lock.acquire(blocking=False):
+            return  # another caller's tick is mid-migration
+        try:
+            now = self.clock.now()
+            if now < self._next_rebalance:
+                return
+            self._next_rebalance = now + float(self._rebalance_interval)
+            window = self.ex.moe_busy - self._busy_snapshot
+            self._busy_snapshot = self.ex.moe_busy.copy()
+            frac = self.router_stats.fractions() \
+                if self.router_stats.total > 0 else None
+            plan = c.observe(WindowObservation(now=now, busy=window,
+                                               fractions=frac))
+            if plan is None:
+                return
+            self.rebalance_windows.append((now, window, c.imbalance(window)))
+            try:
+                self.ex.apply_placement(plan.placement,
+                                        expert_fractions=c.fractions)
+            except SwapAborted:
+                # a worker died mid-quiesce: nothing was swapped, the
+                # supervisor's failover runs next and `_on_failover` syncs
+                # the controller; a later tick retries the plan
+                c.sync(placement=self.ex.placement)
+                return
+            except BaseException:
+                # the controller committed the plan when it emitted it; a
+                # failed swap (quiesce timeout, dying worker) must roll its
+                # view back to what the executor actually serves, so the
+                # migration is retried instead of assumed installed
+                c.sync(placement=self.ex.placement)
+                raise
+            # the hottest device's compute-bound knee moved: scale the
+            # batching target by the hot-fraction ratio (the executor-side
+            # analogue of the sim's moe_inflection_tokens re-derivation)
+            hot = float(plan.placement.device_fractions(
+                c.fractions, self.ex.E).max())
+            with self._lock:
+                self.batcher.retarget(
+                    self._base_inflection * self._base_hot / max(hot, 1e-9))
+        finally:
+            self._rebalance_lock.release()
+
     # ---------------------------------------------------------------- API --
     def take_kv(self, rid: int) -> KVHandle:
         """Claim the completed prefill's KV cache for the decode handoff.
@@ -719,6 +1033,7 @@ class ExecutorEngine(ServingEngine):
 
     def poll(self) -> List[RequestResult]:
         self._check_errors()
+        self._maybe_rebalance()
         self._maybe_hedge()
         with self._lock:
             out, self._outbox = self._outbox, []
@@ -726,14 +1041,18 @@ class ExecutorEngine(ServingEngine):
 
     def drain(self, timeout: Optional[float] = None) -> List[RequestResult]:
         """Block (wall time) until every submitted request completed --
-        including ones whose trace arrival is still in the future."""
+        including ones whose trace arrival is still in the future.  The
+        placement-control loop keeps ticking while we wait."""
         self.start()
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._lock:
             self._draining = True
         self._wake.set()
         while True:
-            self._maybe_hedge()  # outside the lock: it submits jobs
+            # outside the lock: a migration quiesce must not stall
+            # completion callbacks on _done_cv; hedging submits jobs
+            self._maybe_rebalance()
+            self._maybe_hedge()
             with self._done_cv:
                 if self._admit_error is not None or self.ex.errors:
                     # mid-crash drain still terminates with every request
@@ -757,6 +1076,7 @@ class ExecutorEngine(ServingEngine):
         # error instead of deadlocking a timeout=None caller
         while not handle._event.wait(0.1):
             self._check_errors()
+            self._maybe_rebalance()
             self._maybe_hedge()
             if deadline is not None and time.monotonic() >= deadline:
                 raise TimeoutError(f"request {handle.rid} still in flight")

@@ -126,6 +126,13 @@ from repro_torch.models.moe import gated_ffn, router_topk
 _ACCELERATOR_ERROR = getattr(torch, "AcceleratorError", ())
 
 
+class SwapAborted(RuntimeError):
+    """A live re-placement gave way to a failover: a MoE worker died while
+    the swap quiesced (its buffered regions would never drain, and the
+    supervisor's failover waits for `_swap_lock`).  Nothing was swapped;
+    the caller may retry once the failover has run."""
+
+
 def _is_cuda_error(exc: BaseException) -> bool:
     """A failure of the CUDA context, which every worker thread shares (an
     illegal address, a launch failure), as opposed to a host-side one."""
@@ -1312,8 +1319,13 @@ class DisaggregatedExecutor:
 
         Returns the migration record also appended to `self.migrations`:
         its `bytes` count the gained expert copies, at the model's element
-        size.  Serialized by `_swap_lock` with the supervisor's failover."""
+        size.  Serialized by `_swap_lock` with the supervisor's failover.
+        A device the supervisor declared dead stays dead: a placement made
+        before its failover (a rebalance tick that raced it) is installed
+        with that device failed."""
         with self._swap_lock:
+            for d in self.placement.dead:
+                placement = placement.fail(d)
             return self._apply_placement_locked(placement, expert_fractions,
                                                 timeout)
 
@@ -1356,6 +1368,20 @@ class DisaggregatedExecutor:
                 raise RuntimeError(
                     f"apply_placement during {phase}: executor thread "
                     f"failed") from self.errors[0]
+            if drain_hook is None and self._started \
+                    and not self.stop.is_set():
+                # a rebalance: a worker that died since (and is not yet
+                # failed over) never drains, and its supervisor waits for
+                # the lock this swap holds -- give way to the failover
+                # (_moe_threads[e] is replaced only after a failover marked
+                # e dead, so a dead thread of a live device is a new death)
+                down = [e for e in range(self.E)
+                        if e not in self.placement.dead
+                        and not self._moe_threads[e].is_alive()]  # race-ok: see above
+                if down:
+                    raise SwapAborted(
+                        f"apply_placement during {phase}: moe device(s) "
+                        f"{down} died; their failover goes first")
             if self.stop.is_set():
                 raise RuntimeError(f"apply_placement during {phase}: "
                                    f"executor is stopping")
@@ -1364,6 +1390,7 @@ class DisaggregatedExecutor:
                                    f"quiesce within {timeout}s")
 
         deadline = time.monotonic() + timeout
+        _check_alive(deadline, "the start")
         with self._gate_cv:
             self._gate_frozen = True
         try:

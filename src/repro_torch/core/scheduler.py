@@ -1,19 +1,28 @@
-"""Request scheduling policy of the serving engine.
+"""Request scheduling policies.
 
 ASAP (§3.3): length-aware batching + dual-batch pairing. The batcher only has
 to exceed the MoE inflection point -- it does NOT balance across DP groups,
-because the async pipeline lets groups progress independently.
+because the async pipeline lets groups progress independently. Under
+expert-routing skew the inflection target is the HOTTEST MoE device's
+compute-bound knee, not the aggregate stage's (the simulator derives it via
+CostModel.moe_inflection_tokens(ExpertLoadModel.hot_fraction())).
 `DecodeAdmissionQueue` admits requests into the decode stage of
-prefill/decode serving.  (The synchronous baselines of the reference,
-balanced partition and chunked prefill, belong to its simulator and are not
-ported.)
+prefill/decode serving.
+
+Baselines of the simulator (§5.1):
+  Default        -- vLLM-like: aggregate queued requests and partition into D
+                    sub-batches with balanced *total token counts* (LPT
+                    greedy).  Balancing sum(s) is provably inadequate because
+                    attention cost is sum(s^2) (paper §2.2.1).
+  ChunkedPrefill -- split long prompts into fixed-size chunks, reducing
+                    sequence-length variance; still synchronous.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import itertools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 from repro_torch.core.trace import Request
 
@@ -146,6 +155,36 @@ class LengthAwareBatcher:
         return out
 
 
+def balanced_partition(requests: Sequence[Request], d: int,
+                       max_tokens_per_group: int) -> Tuple[List[List[Request]], List[Request]]:
+    """Default baseline: LPT greedy on *total token counts* (the inadequate
+    metric — attention is Σ s²). Returns (groups, overflow)."""
+    groups: List[List[Request]] = [[] for _ in range(d)]
+    loads = [0] * d
+    overflow: List[Request] = []
+    for r in sorted(requests, key=lambda r: -r.length):
+        g = min(range(d), key=lambda i: loads[i])
+        if loads[g] + r.length > max_tokens_per_group and loads[g] > 0:
+            overflow.append(r)
+            continue
+        groups[g].append(r)
+        loads[g] += r.length
+    return groups, overflow
+
+
+def chunk_requests(requests: Sequence[Request], chunk: int) -> List[Batch]:
+    """ChunkedPrefill: split each prompt into `chunk`-token pieces (in order)."""
+    out: List[Batch] = []
+    for r in requests:
+        start = 0
+        while start < r.length:
+            c = min(chunk, r.length - start)
+            out.append(Batch(requests=[r], chunk_of=r, chunk_start=start,
+                             chunk_len=c))
+            start += c
+    return out
+
+
 class DecodeAdmissionQueue:
     """Ready-time-ordered admission into a width-capped decode batch: pops
     eligible requests (KV handoff landed, a slot free) in ready order.
@@ -189,3 +228,20 @@ class DecodeAdmissionQueue:
 
     def __len__(self) -> int:
         return len(self._heap)
+
+
+def pair_batches(ready: List[Batch]) -> List[Tuple[Batch, Optional[Batch]]]:
+    """Dual-batch pairing (§3.3.2): co-schedule two non-exclusive batches."""
+    pairs: List[Tuple[Batch, Optional[Batch]]] = []
+    buf: Optional[Batch] = None
+    for b in ready:
+        if b.exclusive:
+            pairs.append((b, None))
+        elif buf is None:
+            buf = b
+        else:
+            pairs.append((buf, b))
+            buf = None
+    if buf is not None:
+        pairs.append((buf, None))
+    return pairs

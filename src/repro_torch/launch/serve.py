@@ -1,8 +1,24 @@
 """Serving launcher: drives the ASAP prefill pipeline end to end through the
 online `ServingEngine` API (core/engine.py) -- timed request arrivals,
-streaming out-of-order completions, measured router statistics -- over the
-REAL disaggregated threaded runtime (attention group threads + MoE device
-threads + shared-buffer async primitives, one CUDA stream per thread).
+streaming out-of-order completions, measured router statistics -- over
+either runtime:
+
+  --engine executor : the REAL disaggregated threaded runtime (attention
+                      group threads + MoE device threads + shared-buffer
+                      async primitives, one CUDA stream per thread).
+  --engine sim      : the same lifecycle over the discrete-event simulator
+                      at production scale (virtual time, host code only):
+                      deepseek_v32 on D=4 attention groups x T=4 and E=16
+                      MoE devices by default, Poisson arrivals at --rps for
+                      --duration seconds, `--mode asap|default|chunked`
+                      (ASAP or the synchronous baselines), routing skew
+                      --ep-skew / --ep-skew-mode or --measured-from (router
+                      stats JSON saved by --save-router-stats, of either
+                      package).  The simulator prices the reference's
+                      hardware preset: its times are model outputs.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --engine sim --rps 2 \
+      --duration 20 --ep-skew 1.2 --replicate-hot 2 --rebalance-interval 5
 
 Requests arrive on a replayable TraceClock at --rps (Poisson), flow through
 the length-aware batcher into the shared admission queue, and whichever
@@ -56,6 +72,19 @@ each request wins).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --fail-moe-device 1 \
       --failure-at 0.5
+
+Placement control (both engines): `--rebalance-interval S` ticks the
+`PlacementController` every S seconds (trace seconds on the executor,
+virtual on the sim).  The run boots round-robin and migrates toward
+--placement / --replicate-hot once the policy decides; the executor
+re-places experts LIVE between polls (quiesce, new resident stacks, atomic
+table swap).  --rebalance-threshold R (busy-time max/mean trigger),
+--rebalance-policy one_shot_threshold|hysteresis|partial|drift,
+--rebalance-release R, --rebalance-cooldown N, --rebalance-max-bytes B.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      --time-scale 20 --replicate-hot 2 --rebalance-interval 0.5 \
+      --rebalance-threshold 1.0
 """
 from __future__ import annotations
 
@@ -69,15 +98,20 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.cost_model import H100, Placement
-from repro_torch.core.decode import DecodeExecutor, ExecDecodeEngine
-from repro_torch.core.engine import ExecutorEngine, RequestResult
+from repro_torch.core.cost_model import H100, Deployment, Placement
+from repro_torch.core.decode import (DecodeExecutor, ExecDecodeEngine,
+                                     SimDecodeEngine)
+from repro_torch.core.engine import (ExecutorEngine, RequestResult,
+                                     RouterStatsCollector, SimEngine)
 from repro_torch.core.executor import DisaggregatedExecutor
 from repro_torch.core.faults import FaultPlan
 from repro_torch.core.orchestrator import PDOrchestrator
+from repro_torch.core.placement_control import POLICIES
 from repro_torch.core.scheduler import LengthAwareBatcher
+from repro_torch.core.simulator import SimConfig
 from repro_torch.core.trace import (Request, TraceClock, TraceConfig,
-                                    sample_lengths, sample_out_len)
+                                    generate_requests, sample_lengths,
+                                    sample_out_len)
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import init_lm_params
 
@@ -122,7 +156,8 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
                    fault_plan: Optional[FaultPlan] = None,
                    request_deadline: Optional[float] = None,
                    max_queue: Optional[int] = None,
-                   hedge_factor: Optional[float] = None) -> dict:
+                   hedge_factor: Optional[float] = None,
+                   engine_kw: Optional[dict] = None) -> dict:
     """Serve `len(lengths)` requests with Poisson arrivals at `rps` through
     `ExecutorEngine` over `DisaggregatedExecutor(D, E)`.  Returns the
     results, the engine stats and the executor's launch telemetry.
@@ -131,7 +166,9 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
     streams, and with them the allocator's pools, stay warm); its stats are
     reset, and it is returned under "executor" for the next wave.
     `fault_plan`, `request_deadline`, `max_queue` and `hedge_factor` go to
-    the engine (its request lifecycle under faults and overload)."""
+    the engine (its request lifecycle under faults and overload), and so
+    does `engine_kw` (the `rebalance_*` arguments of its placement control
+    plane)."""
     rng = np.random.default_rng(seed + 1)
     n = len(lengths)
     arrivals = np.cumsum(rng.exponential(1.0 / max(rps, 1e-9), size=n))
@@ -159,7 +196,7 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
                                    exclusive_cutoff=1 << 30, max_wait=0.05),
         token_seed=seed, fault_plan=fault_plan,
         request_deadline=request_deadline, max_queue=max_queue,
-        hedge_factor=hedge_factor)
+        hedge_factor=hedge_factor, **(engine_kw or {}))
     t0 = time.time()
     handles = engine.submit_all(reqs)
     results: List[RequestResult] = []
@@ -182,6 +219,7 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
     return {
         "results": results, "handles": handles, "wall": wall, "stats": st,
         "router_stats": router_stats, "arrivals": arrivals, "executor": ex,
+        "rebalance_windows": engine.rebalance_windows,
         "batch_layers": sum(1 for ev in log if ev[0] == "combine"),
         # (B, S) of every attention step; (n_e, C) and the per-expert row
         # counts of every FFN launch
@@ -220,6 +258,13 @@ def _setup(args):
     return device, cfg, params
 
 
+def _placement(args) -> Placement:
+    """--placement / --replicate-hot as the simulator resolves them:
+    `--replicate-hot k` alone means replicated(k) on both engines."""
+    return SimConfig(placement=args.placement,
+                     replicate_hot=args.replicate_hot).resolved_placement()
+
+
 def run_executor(args) -> int:
     setup = _setup(args)
     if setup is None:
@@ -233,8 +278,7 @@ def run_executor(args) -> int:
         lo, hi, max_tokens = 64, 2048, 4096
     D = args.dp_groups if args.dp_groups is not None else 2
     E = args.moe_devices if args.moe_devices is not None else 4
-    placement = Placement.parse(args.placement,
-                                replicate_hot=args.replicate_hot)
+    placement = _placement(args)
     print(f"disaggregated executor engine on {device}: D={D} attention "
           f"groups, E={E} MoE devices, {cfg.name} {cfg.num_layers}L x "
           f"{cfg.num_experts}e d_model={cfg.d_model} "
@@ -253,11 +297,30 @@ def run_executor(args) -> int:
     if plan is not None:
         print(f"fault plan armed (supervised failover): "
               f"{[ev.to_dict() for ev in plan.events]}")
+    # With a rebalance interval the executor boots on the cold round-robin
+    # placement (the simulator's semantics) and the placement control plane
+    # migrates LIVE toward --placement once it observes imbalance.
+    boot = Placement() if args.rebalance_interval else placement
+    engine_kw = {}
+    if args.rebalance_interval:
+        engine_kw = dict(rebalance_interval=args.rebalance_interval,
+                         rebalance_threshold=args.rebalance_threshold,
+                         rebalance_policy=args.rebalance_policy,
+                         rebalance_target=placement,
+                         rebalance_release=args.rebalance_release,
+                         rebalance_cooldown=args.rebalance_cooldown,
+                         rebalance_max_bytes=args.rebalance_max_bytes)
+        print(f"placement control plane: policy={args.rebalance_policy} "
+              f"interval={args.rebalance_interval}s "
+              f"threshold={args.rebalance_threshold} -> target "
+              f"{placement.policy}"
+              + (f"(hot={placement.replicate_hot})"
+                 if placement.replicate_hot else ""))
 
     out = serve_requests(cfg, params, lengths=[int(x) for x in lengths],
                          rps=args.rps, time_scale=args.time_scale,
                          seed=args.seed, device=device, D=D, E=E,
-                         placement=placement, idle_backoff=args.idle_backoff,
+                         placement=boot, idle_backoff=args.idle_backoff,
                          max_batch_tokens=max_tokens, verbose=True,
                          moe_path=args.moe_path,
                          moe_batch_window=args.moe_batch_window,
@@ -265,7 +328,8 @@ def run_executor(args) -> int:
                          fault_plan=plan,
                          request_deadline=args.request_deadline,
                          max_queue=args.max_queue,
-                         hedge_factor=args.hedge_factor)
+                         hedge_factor=args.hedge_factor,
+                         engine_kw=engine_kw)
     results, st = out["results"], out["stats"]
 
     # out-of-order completion evidence (the async-serving property)
@@ -288,15 +352,25 @@ def run_executor(args) -> int:
     print(f"measured router stats: {st.router_assignments:.0f} assignments, "
           f"fractions sum {fr.sum():.3f}, hottest experts {hot} "
           f"({', '.join(f'{fr[e]:.3f}' for e in hot)})")
+    rebalances = [m for m in out["executor"].migrations
+                  if m["kind"] == "rebalance"]
+    if rebalances:
+        print(f"live re-placement: {len(rebalances)} migration(s), "
+              f"{sum(m['bytes'] for m in rebalances) / 1e6:.2f} MB of expert "
+              f"weights moved, now serving placement={st.placement_policy}")
+        for now, window, imb in out["rebalance_windows"]:
+            print(f"  fired at t={now:.3f}s on the window busy="
+                  f"{np.round(window, 4).tolist()} (imbalance {imb:.3f})")
     if st.statuses:
         print("request statuses: "
               + " ".join(f"{k}={v}" for k, v in sorted(st.statuses.items())))
     if st.failovers:
+        fo = [m for m in out["executor"].migrations if m["kind"] == "failover"]
         print(f"supervised failover: {st.failovers} MoE-device "
               f"evacuation(s) executed live; dead device(s) "
               f"{list(out['executor'].placement.dead)} evacuated onto "
-              f"survivors ({st.migrated_bytes / 1e6:.2f} MB of expert "
-              f"weights gained)")
+              f"survivors ({sum(m['bytes'] for m in fo) / 1e6:.2f} MB of "
+              f"expert weights gained)")
     if st.hedges_issued:
         print(f"hedged dispatch: {st.hedges_issued} clone(s) issued, "
               f"{st.hedge_wins} won")
@@ -321,6 +395,8 @@ def run_executor(args) -> int:
                 "dead_devices": list(out["executor"].placement.dead),
                 "migrations": st.migrations,
                 "migrated_bytes": st.migrated_bytes,
+                "migration_log": [dict(m, devices=list(m["devices"]))
+                                  for m in out["executor"].migrations],
                 "hedges_issued": st.hedges_issued,
                 "hedge_wins": st.hedge_wins,
                 "moe_path": args.moe_path,
@@ -339,6 +415,73 @@ def run_executor(args) -> int:
     if missing:  # smoke gate: per-request results must all exist
         print(f"ERROR: missing results for rids {missing}", file=sys.stderr)
         return 1
+    return 0
+
+
+def run_simulation(args) -> int:
+    """The serving lifecycle over the discrete-event simulator (virtual
+    time, the reference's hardware preset): deepseek_v32, Poisson arrivals
+    at --rps for --duration seconds."""
+    cfg = get_config("deepseek_v32")
+    measured = None
+    if args.measured_from:
+        col = RouterStatsCollector.load(args.measured_from)
+        measured = col.resampled(max(cfg.num_experts, 1))
+        print(f"expert-load model driven by MEASURED fractions from "
+              f"{args.measured_from} ({col.total:.0f} assignments over "
+              f"{col.num_experts} experts, resampled to {cfg.num_experts})")
+    sim = SimConfig(mode=args.mode, rps=args.rps, duration=args.duration,
+                    ep_skew=args.ep_skew, ep_skew_mode=args.ep_skew_mode,
+                    placement=args.placement,
+                    replicate_hot=args.replicate_hot,
+                    rebalance_interval=args.rebalance_interval,
+                    rebalance_threshold=args.rebalance_threshold,
+                    rebalance_policy=args.rebalance_policy,
+                    rebalance_release=args.rebalance_release,
+                    rebalance_cooldown=args.rebalance_cooldown,
+                    rebalance_max_bytes=args.rebalance_max_bytes,
+                    failure_at=args.failure_at,
+                    failure_duration=args.failure_duration,
+                    failure_moe_device=args.fail_moe_device,
+                    measured_fractions=measured)
+    deps = {}
+    if args.dp_groups is not None or args.moe_devices is not None:
+        D = args.dp_groups if args.dp_groups is not None else 4
+        E = args.moe_devices if args.moe_devices is not None else 16
+        deps = dict(asap_dep=Deployment(D=D, T=4, E=E),
+                    sync_dep=Deployment(D=2 * D, T=4, E=2 * E))
+    engine = SimEngine(cfg, sim, **deps)
+    engine.submit_all(generate_requests(args.rps, args.duration, sim.trace))
+    results = engine.drain()
+    st = engine.stats()
+
+    pl = sim.resolved_placement()
+    print(f"mode={args.mode} rps={args.rps} duration={args.duration}s "
+          f"ep_skew={args.ep_skew} ({args.ep_skew_mode})"
+          + (" [measured fractions]" if measured else ""))
+    extra = f"placement={pl.policy}"
+    if pl.replicate_hot:
+        extra += f"(hot={pl.replicate_hot})"
+    if args.rebalance_interval:
+        extra += (f" rebalance every {args.rebalance_interval}s "
+                  f"({args.rebalance_policy}); {st.migrations} migration(s), "
+                  f"{st.migrated_bytes / 1e6:.1f} MB moved")
+    if args.fail_moe_device is not None and args.failure_at is not None:
+        extra += (f"  [MoE device {args.fail_moe_device} killed at "
+                  f"t={args.failure_at}s]")
+    print(f"  {extra}")
+    ok = [r for r in results if r.status == "ok"]
+    ttfts = np.array([r.ttft for r in ok])
+    print(f"  completed: {len(ok)}/{st.submitted}"
+          + (f"  (timeout: {len(results) - len(ok)})"
+             if len(results) > len(ok) else ""))
+    if len(ttfts):
+        print(f"  mean TTFT: {ttfts.mean() * 1000:.0f} ms   "
+              f"p99: {np.percentile(ttfts, 99) * 1000:.0f} ms")
+    if st.moe_device_util is not None:
+        u = st.moe_device_util
+        print(f"  MoE device util: mean {u.mean() * 100:.0f}%  "
+              f"max {u.max() * 100:.0f}%  imbalance {st.moe_imbalance():.2f}x")
     return 0
 
 
@@ -467,8 +610,45 @@ def serve_pd(cfg: ModelConfig, params, reqs: Sequence[Request], *,
             "executor": ex, "kv_log": orch.kv_log}
 
 
+def run_pd_sim(args) -> int:
+    """`--mode pd --engine sim`: the simulator's prefill engine feeds
+    `SimDecodeEngine` (analytic continuous batching) through the KV-handoff
+    layer, priced on the prefill simulator's hardware."""
+    out_mean = args.out_len_mean if args.out_len_mean is not None else 4.0
+    out_cv = args.out_len_cv if args.out_len_cv is not None else 0.5
+    label = "colocated baseline" if args.colocated else "disaggregated"
+    cfg = get_config("deepseek_v32")
+    tc = TraceConfig(out_len_mean=out_mean, out_len_cv=out_cv)
+    sim = SimConfig(mode="asap", rps=args.rps, duration=args.duration,
+                    ep_skew=args.ep_skew, ep_skew_mode=args.ep_skew_mode,
+                    trace=tc)
+    width = args.decode_width if args.decode_width is not None else 32
+    pre = SimEngine(cfg, sim)
+    dec = SimDecodeEngine(cfg, pre._sim.cm,
+                          load_model=pre._sim.load_model, width=width)
+    orch = PDOrchestrator([pre], [dec], hw=pre._sim.cm.hw,
+                          colocated=args.colocated)
+    reqs = generate_requests(args.rps, args.duration, tc)
+    print(f"sim pd engine ({label}): rps={args.rps} "
+          f"duration={args.duration}s out_len~lognorm(mean={out_mean}, "
+          f"cv={out_cv}) decode_width={width}")
+    orch.submit_all(reqs)
+    results = orch.drain()
+    for r in sorted(results, key=lambda x: x.completion_time
+                    if x.completion_time is not None
+                    else x.first_token_time)[:12]:
+        print(f"  done rid={r.rid:<3d} tokens_out={r.tokens_out} "
+              f"ttft={r.ttft:.3f}s"
+              + (f" tpot={r.tpot * 1000:.1f}ms" if r.tpot else "")
+              + f" status={r.status}")
+    _pd_summary(results, orch.kv_log, args.colocated)
+    return _pd_gate(results, reqs, orch.kv_log, args.colocated)
+
+
 def run_pd(args) -> int:
     """Disaggregated prefill/decode serving (`--mode pd`)."""
+    if args.engine == "sim":
+        return run_pd_sim(args)
     setup = _setup(args)
     if setup is None:
         return 2
@@ -539,14 +719,24 @@ def run_pd(args) -> int:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         description="Serve prefill requests through the disaggregated "
-                    "executor (PyTorch/CUDA port).")
-    ap.add_argument("--requests", type=int, default=8)
+                    "executor or the simulator (PyTorch/CUDA port).")
+    ap.add_argument("--engine", choices=["executor", "sim"],
+                    default="executor",
+                    help="executor: the threaded runtime on the card; sim: "
+                         "the discrete-event simulator (virtual time)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="executor engine: number of requests")
     ap.add_argument("--rps", type=float, default=4.0,
-                    help="Poisson arrival rate of the timed admission")
+                    help="Poisson arrival rate of the timed admission "
+                         "(both engines)")
+    ap.add_argument("--duration", type=float, default=30.0,
+                    help="sim engine: seconds of Poisson arrivals")
     ap.add_argument("--dp-groups", type=int, default=None,
-                    help="attention DP groups D (default 2)")
+                    help="attention DP groups D (default 2 executor / 4 "
+                         "sim)")
     ap.add_argument("--moe-devices", type=int, default=None,
-                    help="MoE expert devices E (default 4)")
+                    help="MoE expert devices E (default 4 executor / 16 "
+                         "sim)")
     ap.add_argument("--time-scale", type=float, default=1.0,
                     help="trace seconds replayed per wall second (TraceClock "
                          "speed); raise it on a slow CPU")
@@ -556,6 +746,36 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--replicate-hot", type=int, default=0,
                     help="replicate the k hottest experts across the least-"
                          "loaded MoE devices (implies --placement replicated)")
+    ap.add_argument("--ep-skew", type=float, default=0.0,
+                    help="sim engine: Zipf exponent of expert-routing skew "
+                         "(0 = uniform)")
+    ap.add_argument("--ep-skew-mode", default="zipf",
+                    choices=["uniform", "zipf", "layer"],
+                    help="sim engine: hot experts per-layer (zipf) or "
+                         "layer-correlated")
+    ap.add_argument("--measured-from", default=None, metavar="PATH",
+                    help="sim engine: drive expert load from measured router "
+                         "stats JSON (--save-router-stats) instead of "
+                         "synthetic --ep-skew")
+    ap.add_argument("--rebalance-interval", type=float, default=None,
+                    help="seconds between placement-control ticks (both "
+                         "engines): start round-robin, migrate to the target "
+                         "placement once the policy decides -- the executor "
+                         "engine re-places experts LIVE")
+    ap.add_argument("--rebalance-threshold", type=float, default=1.05,
+                    help="observed busy-time max/mean imbalance that "
+                         "triggers a migration")
+    ap.add_argument("--rebalance-policy", default=None, choices=POLICIES,
+                    help="placement-control policy (default "
+                         "one_shot_threshold); requires --rebalance-interval")
+    ap.add_argument("--rebalance-release", type=float, default=None,
+                    help="hysteresis policy: imbalance below which the "
+                         "placement reverts to the boot layout")
+    ap.add_argument("--rebalance-cooldown", type=int, default=1,
+                    help="min windows between migrations (hysteresis/drift)")
+    ap.add_argument("--rebalance-max-bytes", type=float, default=None,
+                    help="partial policy: cap on expert-weight bytes "
+                         "migrated per window")
     ap.add_argument("--idle-backoff", type=float, default=0.05,
                     help="max seconds a MoE worker waits on its condition "
                          "variable before re-checking the stop flag")
@@ -575,7 +795,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "requires --moe-batch-window > 0")
     ap.add_argument("--failure-at", type=float, default=None,
                     help="crash the --fail-moe-device MoE device at this "
-                         "trace second")
+                         "trace second (sim engine: without "
+                         "--fail-moe-device, a DP-group outage)")
     ap.add_argument("--failure-duration", type=float, default=5.0,
                     help="the fault event's duration (trace seconds; a "
                          "crash's failover is permanent)")
@@ -607,9 +828,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (use with --smoke)")
-    ap.add_argument("--mode", default="asap", choices=["asap", "pd"],
-                    help="asap: prefill serving; pd: the disaggregated "
-                         "prefill/decode lifecycle")
+    ap.add_argument("--mode", default="asap",
+                    choices=["asap", "default", "chunked", "pd"],
+                    help="asap: prefill serving; default / chunked: the "
+                         "simulator's synchronous baselines (--engine sim); "
+                         "pd: the disaggregated prefill/decode lifecycle "
+                         "(either engine)")
     ap.add_argument("--out-len-mean", type=float, default=None,
                     help="pd mode: mean sampled decode length (tokens, "
                          "lognormal, deterministic per rid; default 4)")
@@ -624,6 +848,73 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          "share the device, KV transfer costs nothing and no "
                          "handoff is logged")
     args = ap.parse_args(argv)
+    # a policy knob without the interval that would ever tick it is a
+    # configuration mistake the user should hear about, not a silent no-op
+    if args.rebalance_interval is None:
+        for flag, val, default in (
+                ("--rebalance-policy", args.rebalance_policy, None),
+                ("--rebalance-threshold", args.rebalance_threshold, 1.05),
+                ("--rebalance-release", args.rebalance_release, None),
+                ("--rebalance-cooldown", args.rebalance_cooldown, 1),
+                ("--rebalance-max-bytes", args.rebalance_max_bytes, None)):
+            if val != default:
+                ap.error(f"{flag} requires --rebalance-interval (the "
+                         f"control plane never ticks without an interval)")
+    if args.rebalance_policy == "partial" and not args.rebalance_max_bytes:
+        ap.error("--rebalance-policy partial requires --rebalance-max-bytes "
+                 "(the per-window migration budget)")
+    if args.rebalance_release is not None \
+            and args.rebalance_release > args.rebalance_threshold:
+        ap.error(f"--rebalance-release ({args.rebalance_release}) must not "
+                 f"exceed --rebalance-threshold ({args.rebalance_threshold})")
+    if args.rebalance_policy is None:
+        args.rebalance_policy = "one_shot_threshold"
+    if args.rebalance_interval is not None \
+            and args.rebalance_interval <= 0:
+        ap.error("--rebalance-interval must be positive")
+    if args.engine == "sim":
+        for flag, val, default in (
+                ("--request-deadline", args.request_deadline, None),
+                ("--max-queue", args.max_queue, None),
+                ("--hedge-factor", args.hedge_factor, None)):
+            if val != default:
+                ap.error(f"{flag} is an executor-engine request-lifecycle "
+                         f"knob; --engine sim does not consume it")
+        for flag, val, default in (
+                ("--moe-batch-window", args.moe_batch_window, 0.0),
+                ("--moe-batch-max-tokens", args.moe_batch_max_tokens, None)):
+            if val != default:
+                ap.error(f"{flag} batches/tunes the REAL executor's super-"
+                         f"kernel launches; --engine sim does not consume it")
+        if args.moe_path != "fused":
+            ap.error("--moe-path selects the REAL executor's MoE path; "
+                     "--engine sim does not consume it")
+        for flag, val, default in (("--smoke", args.smoke, False),
+                                   ("--layers", args.layers, None)):
+            if val != default:
+                ap.error(f"{flag} sizes the executor's model; --engine sim "
+                         f"simulates deepseek_v32 at full size")
+    else:
+        if args.mode in ("default", "chunked"):
+            ap.error(f"--mode {args.mode} is a synchronous baseline of the "
+                     f"simulator; it requires --engine sim")
+        for flag, val, default in (
+                ("--measured-from", args.measured_from, None),
+                ("--ep-skew", args.ep_skew, 0.0),
+                ("--ep-skew-mode", args.ep_skew_mode, "zipf"),
+                ("--duration", args.duration, 30.0)):
+            if val != default:
+                ap.error(f"{flag} drives the simulator's trace and load "
+                         f"model; it requires --engine sim")
+    try:
+        placement = _placement(args)
+    except ValueError as ex:
+        ap.error(f"--placement/--replicate-hot: {ex}")
+    if args.rebalance_interval is not None and placement == Placement():
+        print("warning: --rebalance-interval with the default round_robin "
+              "--placement arms a control plane that is already at its "
+              "target — no migration will ever fire; pass --placement/"
+              "--replicate-hot to give it somewhere to go", file=sys.stderr)
     if args.requests < 1:
         ap.error("--requests must be >= 1")
     if args.layers is not None and args.layers < 1:
@@ -644,11 +935,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.fail_moe_device is not None and args.failure_at is None:
         ap.error("--fail-moe-device requires --failure-at (when should the "
                  "device die?)")
-    if args.failure_at is not None and args.fail_moe_device is None:
+    if args.engine == "executor" and args.failure_at is not None \
+            and args.fail_moe_device is None:
         ap.error("--failure-at needs --fail-moe-device D: the executor has "
                  "no DP-group failure path, it kills an MoE device")
     if args.fail_moe_device is not None:
-        E = args.moe_devices if args.moe_devices is not None else 4
+        E = args.moe_devices if args.moe_devices is not None \
+            else (16 if args.engine == "sim" else 4)
         try:
             FaultPlan.from_flags(args.failure_at, args.failure_duration,
                                  args.fail_moe_device).validate(E)
@@ -671,6 +964,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.colocated:
             ap.error("--colocated requires --mode pd (it selects the "
                      "colocated prefill+decode baseline)")
+        if args.engine == "sim":
+            return run_simulation(args)
         return run_executor(args)
     if args.out_len_mean is not None and args.out_len_mean < 1.0:
         ap.error("--out-len-mean must be >= 1 (every request emits at "
@@ -681,7 +976,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error("--decode-width must be >= 1")
     if args.save_router_stats:
         ap.error("--save-router-stats is not supported with --mode pd")
-    for flag, val in (("--failure-at", args.failure_at),
+    for flag, val in (("--rebalance-interval", args.rebalance_interval),
+                      ("--failure-at", args.failure_at),
                       ("--request-deadline", args.request_deadline),
                       ("--max-queue", args.max_queue),
                       ("--hedge-factor", args.hedge_factor)):
