@@ -10,7 +10,9 @@ Phases (each prints its own lines; any failure is a non-zero exit):
   kernels   super_gmm, flash_attention, dispatch_scatter and
             combine_gather against their plain PyTorch versions on the
             card: main-path shapes (bf16) and edge shapes (fp32, C=192,
-            S=192, window, softcap, every layer id from one launch signature
+            S=192, window, softcap, head dims 192 and 256 in GQA model
+            layout (S 192/2047, window 512/16, unaligned bases), every layer
+            id from one launch signature
             with no host sync between launches; d=16/4100, N=0/1, every
             pair dropped, unaligned bases); the decode MoE layer's routes:
             dispatch_scatter "whole" torch.equal to moe_dispatch on every
@@ -80,12 +82,31 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             that fired, the swap's seconds and gather rate, bucket misses,
             memory (a {"rebalance": ...} line).
             `--phases device,build,rebalance` runs it alone
+  zoo       (after the qwen3 model is released) the dense decoder
+            families behind build_api: first fp32 at each family's smoke
+            config (every greedy token == the argmax of api.forward over
+            prompt + tokens so far), then at published width in bf16 --
+            gemma3_1b (26 layers, head dim 256, local window 512), qwen2_1p5b
+            (28), olmo_1b (16), deepseek_coder_33b and chameleon_34b (depth
+            cut to 8) -- api.prefill of [2, 2048] tokens (flash launches ==
+            layers, on wmma at dh 256, wgmma at 128; each launch's output
+            vs the plain version on its own q, k, v; the logits vs the
+            dense attention oracle) and 32 (gemma) or 8 greedy api.decode
+            steps with no host sync, each step's logits within 1e-1
+            relative Frobenius error of api.forward; then deepseek_v32 at
+            published width, depth 1: lm_forward on the Super Kernel
+            (E=256, wgmma) and flash at dh 192 (wmma) vs default_gmm (tol
+            1e-1), and its flash, dispatch, gmm and combine calls each vs
+            the plain version on the path's own inputs; one {"zoo": ...}
+            line.
+            `--phases device,build,zoo` runs it alone
   timing    each kernel timed at the shapes its path gave it, beside its
             bound, its plain version and one library call (library_ms is a
             yardstick timed here and used nowhere in the port): super_gmm
             gate/up and down at the serve wave's median launch (counts) and
             dense, flash_attention at the wave's modal (B, S) and at the one
-            with the largest share of launches * B * S^2, dispatch_scatter
+            with the largest share of launches * B * S^2 and at the zoo's
+            head dims 192 and 256 (S 2048, causal), dispatch_scatter
             and combine_gather at the decode shape on the decode path's
             route and on the TPU signature; the host's cost of each step of
             a wrapper call
@@ -96,7 +117,8 @@ Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
 counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
-rebalance) stand in the {"kernels": ...} line under "launches_by_path".
+rebalance, zoo) stand in the {"kernels": ...} line under
+"launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -113,12 +135,14 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -447,6 +471,7 @@ def check_flash_attention(gen) -> float:
     print(f"[kernels] mha_flash bf16 main-path shape H={full.num_heads} "
           f"KVH={full.num_kv_heads} dh={full.head_dim}: max err {worst:.2e} "
           f"(tol 4e-2) ok")
+    check_flash_wide_heads(gen, check)
     print(f"[kernels] flash_attention worst row relative error over every "
           f"case above: fp32 {rel[torch.float32]:.2e} (tol "
           f"{ROW_REL_TOL[torch.float32]:.0e}), bf16 "
@@ -454,14 +479,65 @@ def check_flash_attention(gen) -> float:
     return worst
 
 
-def _mha_plain(q, k, v):
-    """The plain version of mha_flash, run on the card."""
+def check_flash_wide_heads(gen, check):
+    """Head dims 192 and 256 (deepseek_v32's and gemma3's heads, GQA in
+    model layout) against attention_ref on expanded heads, on the card:
+    bf16 on wmma (tol 4e-2) and fp32 on fma (tol 2e-5), causal, window 512
+    and 16, S 192 and 2047; then unaligned bases on wmma.  `check` is
+    check_flash_attention's (absolute and row-relative bounds)."""
+    def rnd(shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    n = 0
+    for dtype, tol, route in ((torch.float32, 2e-5, "fma"),
+                              (torch.bfloat16, 4e-2, "wmma")):
+        for B, H, KVH, dh in ((1, 128, 8, 192), (2, 4, 1, 256)):
+            for S in (192, 2047):
+                q = rnd((B, S, H, dh), dtype)
+                k, v = rnd((B, S, KVH, dh), dtype), rnd((B, S, KVH, dh), dtype)
+                for window in (None, 512, 16):
+                    what = (f"mha_flash {dtype} B={B} H={H} KVH={KVH} "
+                            f"dh={dh} S={S} window={window}")
+                    routes = _routes(flash_attention)
+                    got = mha_flash(q, k, v, window=window)
+                    _took(flash_attention, routes, route, what)
+                    check(got, _mha_plain(q, k, v, window), dtype, tol, what)
+                    del got
+                    n += 1
+                del q, k, v
+    for dh, H, KVH in ((192, 16, 8), (256, 4, 1)):
+        q = _unaligned((1, 300, H, dh), torch.bfloat16, gen)
+        k = rnd((1, 300, KVH, dh), torch.bfloat16)
+        routes = _routes(flash_attention)
+        got = mha_flash(q, k, k, window=16)
+        _took(flash_attention, routes, "wmma", f"unaligned q dh={dh}")
+        check(got, _mha_plain(q, k, k, 16), torch.bfloat16, 4e-2,
+              f"mha_flash unaligned q dh={dh}")
+        n += 1
+    for dtype in (torch.float32, torch.bfloat16):
+        x = rnd((1, 8, 2, 96), dtype)
+        try:
+            mha_flash(x, x, x)
+        except ValueError:
+            pass
+        else:
+            raise Failed(f"flash_attention took head dim 96 ({dtype}): no "
+                         f"kernel is instantiated for it")
+    print(f"[kernels] mha_flash at head dims 192 (H=128 KVH=8) and 256 (H=4 "
+          f"KVH=1), S 192/2047, causal / window 512 / window 16, unaligned "
+          f"bases: {n} cases, bf16 all on wmma (tol 4e-2), fp32 all on fma "
+          f"(tol 2e-5) ok; head dim 96 raises")
+
+
+def _mha_plain(q, k, v, window=None, softcap=None):
+    """The plain version of mha_flash (causal), run on the card."""
     B, S, H, dh = q.shape
 
     def to_bh(x):
         return _expand_kv(x, H).permute(0, 2, 1, 3).reshape(B * H, S, dh)
 
-    o = attention_ref(to_bh(q), to_bh(k), to_bh(v))
+    o = attention_ref(to_bh(q), to_bh(k), to_bh(v), window=window,
+                      softcap=softcap)
     return o.reshape(B, H, S, dh).permute(0, 2, 1, 3)
 
 
@@ -1944,6 +2020,442 @@ def phase_gmm(cfg, params, seed: int, gen) -> dict:
             "default_gmm_wall_ms": 1e3 * wall_e, "dispatch_cases": cases}
 
 
+# --------------------------------------------------------------- zoo --
+
+# The dense decoder families at published width, bf16: (arch, layers run --
+# None for full depth --, greedy decode steps after the prefill)
+ZOO = (("gemma3_1b", None, 32), ("qwen2_1p5b", None, 8), ("olmo_1b", None, 8),
+       ("deepseek_coder_33b", 8, 8), ("chameleon_34b", 8, 8))
+ZOO_B, ZOO_S = 2, 2048  # prompt tokens per model: S > attn_chunk (1024)
+ZOO_TOL = 0.1  # relative Frobenius error of bf16 logits, as the gmm phase
+
+
+def _param_gb(tree) -> float:
+    """Bytes of a nested dict / list of tensors, in GB."""
+    if isinstance(tree, dict):
+        return sum(_param_gb(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_param_gb(v) for v in tree)
+    return 0.0 if tree is None else tree.numel() * tree.element_size() / 1e9
+
+
+def _rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+@contextlib.contextmanager
+def _recording(module, name: str):
+    """Replaces module.name by a wrapper that calls it unchanged and keeps
+    each call's (args, kwargs, result): the main path's own inputs and
+    outputs of a kernel's wrapper, held against the plain version after the
+    counted run.  Yields the list of calls; restores module.name on exit."""
+    fn, calls = getattr(module, name), []
+
+    def rec(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
+def _zoo_check_flash(calls, what: str) -> dict:
+    """Each recorded mha_flash call of a main path (bf16, causal) against
+    _mha_plain on the same q, k, v: max abs error within 4e-2 and row
+    relative error within ROW_REL_TOL, the kernels phase's bf16 bars."""
+    worst = {"max_abs_err": 0.0, "row_rel_err": 0.0, "calls": len(calls)}
+    for i, ((q, k, v), kw, got) in enumerate(calls):
+        expect(kw.get("causal", True), f"{what}: flash call {i} not causal")
+        ref = _mha_plain(q, k, v, kw.get("window"), kw.get("softcap"))
+        err, rel = max_err(got, ref), row_rel_err(got, ref)
+        expect(err <= 4e-2 and rel <= ROW_REL_TOL[torch.bfloat16],
+               f"{what}: flash call {i} (q {tuple(q.shape)}, k "
+               f"{tuple(k.shape)}, window {kw.get('window')}) vs plain: err "
+               f"{err} (tol 4e-2), row rel err {rel} (tol "
+               f"{ROW_REL_TOL[torch.bfloat16]})")
+        worst["max_abs_err"] = max(worst["max_abs_err"], err)
+        worst["row_rel_err"] = max(worst["row_rel_err"], rel)
+        del ref
+    return worst
+
+
+def zoo_teacher_forced(seed: int) -> dict:
+    """fp32 on the card at each family's smoke config (attn_chunk 32, window
+    16): api.prefill of [2, 40] tokens (through the flash kernel's fma route),
+    then 20 greedy api.decode steps (gemma's rings wrap); every token ==
+    the argmax of api.forward over the prompt plus the tokens so far, where
+    the oracle's top-2 gap is under 1e-3 within 1e-4 of its max."""
+    from repro_torch.models.api import build_api
+    out = {}
+    for arch, _, _ in ZOO:
+        cfg = get_config(arch).smoke()
+        api = build_api(cfg)
+        gen = torch.Generator(device=DEV).manual_seed(seed + 11)
+        params = api.init(gen)
+        seq = api.make_batch(gen, 40, 2, "prefill", device=DEV)["tokens"]
+        checked = near = 0
+        with torch.inference_mode():
+            logits, caches = api.prefill(params, {"tokens": seq,
+                                                  "max_len": 60})
+            for _ in range(20):
+                tok = torch.argmax(logits, -1)
+                ref = api.forward(params, {"tokens": seq})[0][:, -1].float()
+                top2 = torch.topk(ref, 2, dim=-1).values
+                for b in range(2):
+                    t_b, r = int(tok[b]), ref[b]
+                    if float(top2[b, 0] - top2[b, 1]) > 1e-3:
+                        expect(t_b == int(torch.argmax(r)),
+                               f"zoo teacher-forced {arch} row {b} position "
+                               f"{seq.shape[1]}: {t_b} != oracle "
+                               f"{int(torch.argmax(r))}")
+                    else:
+                        near += 1
+                        expect(float(r.max() - r[t_b]) <= 1e-4,
+                               f"zoo teacher-forced near-tie {arch}")
+                    checked += 1
+                seq = torch.cat([seq, tok[:, None]], 1)
+                logits, caches = api.decode(params, caches, {"token": tok})
+        out[arch] = {"tokens": checked, "near_ties": near}
+        del params, caches
+    _free()
+    print(f"[zoo] teacher-forced fp32 at the smoke configs: "
+          f"{sum(v['tokens'] for v in out.values())} greedy tokens of "
+          f"{len(out)} families == argmax of api.forward over prompt + "
+          f"tokens so far ({sum(v['near_ties'] for v in out.values())} "
+          f"near-ties checked at 1e-4)")
+    return out
+
+
+def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
+    """One dense config at published width in bf16, random weights from
+    `seed`: api.prefill of [2, 2048] tokens (every attention layer on the
+    flash kernel), then `steps` greedy api.decode steps; the counts of all
+    four kernels set to 0 just before the counted prefill and read after
+    the last step.  Gated: finite logits; flash launches == layers, all on
+    the route its head dim takes; each of those launches' outputs against
+    the plain version on the same q, k, v (_zoo_check_flash); the prefill's
+    logits within ZOO_TOL of lm_prefill on the dense attention oracle; no
+    host sync in the decode steps (the CUDA sync debug mode counts them);
+    each step's logits within ZOO_TOL of api.forward over the prompt plus
+    the tokens so far."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        WGMMA_HEAD_DIMS
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import lm_prefill
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(num_layers=layers)
+    L, B, S = cfg.num_layers, ZOO_B, ZOO_S
+    api = build_api(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' leftovers
+    params = api.init(gen)
+    torch.cuda.synchronize()
+    weights_gb = _param_gb(params)
+    route = "wgmma" if cfg.head_dim in WGMMA_HEAD_DIMS else "wmma"
+    batch = api.make_batch(gen, S, B, "prefill", device=DEV)
+    batch["max_len"] = S + steps
+    kernels = _pd_kernels()
+    with torch.inference_mode():
+        # warm-up: a prefill and one step on its own caches, not counted
+        lg, c = api.prefill(params, batch)
+        api.decode(params, c, {"token": torch.argmax(lg, -1)})
+        del lg, c
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            _launch.reset_launches(k)
+        with _recording(attn_mod, "mha_flash") as flash_calls:
+            t0 = time.perf_counter()
+            logits, caches = api.prefill(params, batch)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        prefill_by_route = _routes(flash_attention)
+        expect(flash_attention.launches == L
+               and prefill_by_route[route] == L,
+               f"zoo {arch}: prefill launched flash {prefill_by_route}, "
+               f"expected {L} on {route}")
+        if cfg.local_per_global:
+            # 2048 prompt tokens fill every ring: each step overwrites a slot
+            rings = [c["local"] for c in caches if isinstance(c, dict)] + [
+                c for c in caches if not isinstance(c, dict)]
+            expect(all(int(r.length.min()) >= r.k.shape[-3] for r in rings),
+                   f"zoo {arch}: a ring is not full after the prefill")
+        steps_logits, tokens = [logits], []
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                t0 = time.perf_counter()
+                ev[0].record()
+                for i in range(steps):
+                    tok = torch.argmax(steps_logits[-1], -1)
+                    tokens.append(tok)
+                    lg, caches = api.decode(params, caches, {"token": tok})
+                    steps_logits.append(lg)
+                    ev[i + 1].record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        # the sync debug mode's own warning; its once-per-process notice
+        # ("...is a prototype feature...") is not a sync
+        hits = [w for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        sync_at = sorted({f"{os.path.basename(w.filename)}:{w.lineno}"
+                          for w in hits})
+        syncs = len(hits)
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+        launches = {n: k.launches for n, k in kernels.items()}
+        by_route = _routes(flash_attention)
+        expect(launches == {"super_gmm": 0, "flash_attention": L,
+                            "dispatch_scatter": 0, "combine_gather": 0}
+               and by_route == prefill_by_route,
+               f"zoo {arch}: launches {launches}, flash by route "
+               f"{by_route}: the decode steps launch no kernel")
+        expect(syncs == 0, f"zoo {arch}: {syncs} host syncs in {steps} "
+               f"decode steps, at {sync_at}")
+        peak_alloc = torch.cuda.max_memory_allocated() / 1e9
+        peak_res = torch.cuda.max_memory_reserved() / 1e9
+        prompt = batch["tokens"]
+        for i, lg in enumerate(steps_logits):
+            expect(bool(torch.isfinite(lg.float()).all()),
+                   f"zoo {arch}: step {i} logits not finite")
+        expect(len(flash_calls) == L, f"zoo {arch}: {len(flash_calls)} "
+               f"mha_flash calls recorded in the prefill, expected {L}")
+        flash = _zoo_check_flash(flash_calls, f"zoo {arch}")
+        del flash_calls
+        dense, _ = lm_prefill(params, cfg, prompt, max_len=S + steps,
+                              use_dense=True)
+        errs = [_rel_fro(logits, dense)]  # the prefill: vs the dense oracle
+        del dense
+        for i in range(1, steps + 1):
+            seq = torch.cat([prompt] + [t[:, None] for t in tokens[:i]], 1)
+            ref = api.forward(params, {"tokens": seq})[0][:, -1]
+            errs.append(_rel_fro(steps_logits[i], ref))
+            del ref
+        expect(errs[0] <= ZOO_TOL,
+               f"zoo {arch}: prefill logits vs the dense attention oracle rel "
+               f"err {errs[0]} (tol {ZOO_TOL})")
+        expect(max(errs[1:]) <= ZOO_TOL,
+               f"zoo {arch}: decode logits vs api.forward rel err "
+               f"{max(errs[1:])} (tol {ZOO_TOL})")
+    toks = torch.stack(tokens, 1).cpu().tolist()
+    r = {"arch": arch, "layers": L, "published_layers": full.num_layers,
+         "cut": None if layers is None else
+         f"depth {full.num_layers} -> {L}", "B": B, "S": S,
+         "weights_gb": weights_gb, "prefill_ms": 1e3 * prefill_s,
+         "prefill_tokens_per_s": B * S / prefill_s, "decode_steps": steps,
+         "decode_ms_per_step": 1e3 * decode_s / steps,
+         "decode_step_ms_events": step_ms,
+         "host_syncs_per_step": syncs / steps, "launches": launches,
+         "flash_by_route": by_route, "flash_vs_plain": flash,
+         "rel_err_prefill_vs_dense": errs[0],
+         "rel_err_decode": errs[1:], "rel_err_max": max(errs),
+         "tokens": toks, "allocated_before_gb": before_gb,
+         "peak_allocated_gb": peak_alloc, "peak_reserved_gb": peak_res}
+    print(f"[zoo] {arch} {L}/{full.num_layers} layers, d_model "
+          f"{cfg.d_model}, H {cfg.num_heads} KVH {cfg.num_kv_heads} dh "
+          f"{cfg.head_dim}, bf16, {weights_gb:.1f} GB of weights: prefill "
+          f"[{B}, {S}] {r['prefill_ms']:.1f} ms ({r['prefill_tokens_per_s']:.0f}"
+          f" tokens/s), flash {by_route} ({L} on {route}); {steps} decode "
+          f"steps {r['decode_ms_per_step']:.2f} ms/step (events: median "
+          f"{sorted(step_ms)[steps // 2]:.2f}), host syncs per step "
+          f"{r['host_syncs_per_step']:.2f}; the prefill's {L} flash outputs "
+          f"vs plain on their own q, k, v: max abs err "
+          f"{flash['max_abs_err']:.2e} (tol 4e-2), row rel err "
+          f"{flash['row_rel_err']:.2e} (tol {ROW_REL_TOL[torch.bfloat16]}); "
+          f"prefill logits vs the dense oracle rel err {errs[0]:.2e}, decode "
+          f"logits vs api.forward {', '.join(f'{e:.2e}' for e in errs[1:])}"
+          f" (tol {ZOO_TOL}); peak allocated {peak_alloc:.1f} GB ("
+          f"{before_gb:.1f} GB allocated before), reserved {peak_res:.1f} GB")
+    del params, caches, logits, steps_logits
+    _free()
+    return r
+
+
+# super_gmm's gated FFN on deepseek_v32's dispatched buffer against its
+# plain version: relative Frobenius error of the bf16 outputs.  ~4.5x what a
+# sound kernel read on an H100 (8.8e-4); losing one expert of 256 (its
+# share of the rows zeroed) would read about 6e-2.
+ZOO_GMM_TOL = 4e-3
+
+
+def _super_moe_ffn_plain(layer_id, experts: dict, xb, act, chunk: int = 32):
+    """super_moe_ffn_ref over `chunk` experts at a time: its fp32 copy of a
+    whole layer of deepseek_v32's experts would be 45 GB."""
+    return torch.cat([
+        super_moe_ffn_ref(layer_id, {n: w[:, e:e + chunk]
+                                     for n, w in experts.items()},
+                          xb[e:e + chunk], act)
+        for e in range(0, xb.shape[0], chunk)])
+
+
+def _zoo_check_moe(cfg, experts: dict, gmm_calls, dispatch_calls,
+                   combine_calls) -> dict:
+    """deepseek_v32's MoE kernels on the main path's own inputs and outputs
+    against their plain versions: the dispatch torch.equal to
+    dispatch_whole_ref on every output; the combine torch.equal to
+    combine_weighted_ref and within 1 bf16 ulp of moe_combine (the kernels
+    phase's bars); super_gmm's gated FFN within ZOO_GMM_TOL of
+    super_moe_ffn_ref."""
+    from repro_torch.kernels.dispatch_combine.ref import (combine_weighted_ref,
+                                                          dispatch_whole_ref)
+    from repro_torch.models.moe import moe_combine
+    E = cfg.num_experts
+    names = ("xb", "perm", "slot", "valid", "group_sizes", "pair_slot")
+    for (x, idx, _, C), _, (xb, info) in dispatch_calls:
+        got = (xb.reshape(E * C, -1),) + tuple(info[n] for n in names[1:])
+        for name, g, p in zip(names, got, dispatch_whole_ref(x, idx, E, C)):
+            expect(torch.equal(g, p), f"zoo deepseek_v32: dispatch {name} at "
+                   f"T={x.shape[0]} E={E} C={C} != its plain version")
+    ulps = 0.0
+    for (yb, info, w, T), kw, got in combine_calls:
+        plain = combine_weighted_ref(yb.reshape(-1, yb.shape[-1]),
+                                     info["pair_slot"], w)
+        expect(torch.equal(got, plain), f"zoo deepseek_v32: combine at T={T}"
+               f" E={E} != its plain version")
+        ulps = max(ulps, _bf16_ulps(got, moe_combine(yb, info, w, T, **kw)))
+    expect(ulps <= 1.0, f"zoo deepseek_v32: combine {ulps} bf16 ulps from "
+           f"moe_combine")
+    gmm_err = 0.0
+    for (xb, _, cfg_inner, layer_id), got in gmm_calls:
+        plain = _super_moe_ffn_plain(layer_id, experts, xb,
+                                     act_fn(cfg_inner.act)).to(got.dtype)
+        gmm_err = max(gmm_err, _rel_fro(got, plain))
+        del plain
+    expect(gmm_err <= ZOO_GMM_TOL, f"zoo deepseek_v32: super_gmm's FFN vs "
+           f"super_moe_ffn_ref rel err {gmm_err} (tol {ZOO_GMM_TOL})")
+    return {"dispatch_calls": len(dispatch_calls), "dispatch_equal": True,
+            "combine_calls": len(combine_calls), "combine_equal": True,
+            "combine_ulps_vs_moe_combine": ulps, "gmm_calls": len(gmm_calls),
+            "gmm_rel_err_vs_plain": gmm_err}
+
+
+def _zoo_deepseek_v32(seed: int) -> dict:
+    """deepseek_v32 at published width (d_model 7168, 128 x 192 heads, 8 KV
+    heads, 256 experts top-8, one shared expert), depth 61 -> 1 (a layer of
+    experts is 22.5 GB in bf16): lm_forward(gmm=make_super_kernel_gmm(...))
+    on tokens [1, 2048] against lm_forward on default_gmm, relative
+    Frobenius error of the logits within ZOO_TOL; flash at dh 192 on wmma,
+    super_gmm 3 launches on wgmma with E = 256, dispatch "whole" and combine
+    "weighted" 1 each -- counts set to 0 just before the counted call.  The
+    counted call's flash, dispatch, gmm and combine calls are recorded and
+    each held against its plain version on the same inputs
+    (_zoo_check_flash, _zoo_check_moe)."""
+    import repro_torch.models.attention as attn_mod
+    import repro_torch.models.moe as moe_mod
+    from repro_torch.kernels.super_gmm.ops import make_super_kernel_gmm
+    from repro_torch.models.lm import init_lm_params, lm_forward
+    full = get_config("deepseek_v32")
+    cfg = full.replace(num_layers=1)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    before_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' leftovers
+    params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed + 5),
+                            cfg, DEV)
+    torch.cuda.synchronize()
+    weights_gb = _param_gb(params)
+    tok = torch.as_tensor(np.random.RandomState(seed + 6).randint(
+        0, cfg.vocab_size, (1, ZOO_S)), device=DEV)
+    experts = params["stages"][0]["ffn"]["experts"]
+    gmm, gmm_calls = make_super_kernel_gmm(experts, cfg), []
+
+    def gmm_recorded(*args):  # the gmm, its calls kept as _recording does
+        out = gmm(*args)
+        gmm_calls.append((args, out))
+        return out
+
+    kernels = _pd_kernels()
+    with torch.inference_mode():
+        lm_forward(params, cfg, tok, gmm=gmm)  # warm-up, not counted
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            _launch.reset_launches(k)
+        with _recording(attn_mod, "mha_flash") as flash_calls, \
+                _recording(moe_mod, "kernel_moe_dispatch") as dispatch_calls, \
+                _recording(moe_mod, "kernel_moe_combine") as combine_calls:
+            t0 = time.perf_counter()
+            got, aux = lm_forward(params, cfg, tok, gmm=gmm_recorded)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        by_route = {n: _routes(k) for n, k in kernels.items()}
+        want, _ = lm_forward(params, cfg, tok)
+        expect(tuple(got.shape) == (1, ZOO_S, cfg.vocab_size)
+               and bool(torch.isfinite(got.float()).all()),
+               "zoo deepseek_v32: logits of the wrong shape or not finite")
+        for name, route, n in (("flash_attention", "wmma", 1),
+                               ("super_gmm", "wgmma", 3),
+                               ("dispatch_scatter", "whole", 1),
+                               ("combine_gather", "weighted", 1)):
+            expect(launches[name] == n and by_route[name][route] == n,
+                   f"zoo deepseek_v32: {name} launched {launches[name]} "
+                   f"times, by route {by_route[name]}; expected {n} on "
+                   f"{route}")
+        expect(len(flash_calls) == len(gmm_calls) == len(dispatch_calls)
+               == len(combine_calls) == 1, "zoo deepseek_v32: expected one "
+               "recorded call of each kernel's wrapper")
+        rel = _rel_fro(got, want)
+        expect(rel <= ZOO_TOL, f"zoo deepseek_v32: rel err {rel}")
+        del want
+        flash = _zoo_check_flash(flash_calls, "zoo deepseek_v32")
+        moe = _zoo_check_moe(cfg, experts, gmm_calls, dispatch_calls,
+                             combine_calls)
+        del flash_calls, gmm_calls, dispatch_calls, combine_calls
+    r = {"arch": "deepseek_v32", "layers": 1,
+         "published_layers": full.num_layers,
+         "cut": f"depth {full.num_layers} -> 1", "B": 1, "S": ZOO_S,
+         "weights_gb": weights_gb, "forward_ms": 1e3 * wall,
+         "tokens_per_s": ZOO_S / wall, "launches": launches,
+         "by_route": by_route, "rel_err_vs_default_gmm": rel,
+         "flash_vs_plain": flash, "moe_vs_plain": moe,
+         "dropped_fraction": float(aux.dropped_fraction),
+         "allocated_before_gb": before_gb,
+         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "peak_reserved_gb": torch.cuda.max_memory_reserved() / 1e9}
+    print(f"[zoo] deepseek_v32 1/{full.num_layers} layers at published "
+          f"width (d_model {cfg.d_model}, H {cfg.num_heads} x {cfg.head_dim}, "
+          f"KVH {cfg.num_kv_heads}, {cfg.num_experts} experts top-"
+          f"{cfg.top_k} + {cfg.num_shared_experts} shared), bf16, "
+          f"{weights_gb:.1f} GB: lm_forward on the Super Kernel, tokens [1, "
+          f"{ZOO_S}], {r['forward_ms']:.1f} ms; vs default_gmm relative "
+          f"Frobenius err {rel:.3e} (tol {ZOO_TOL}); launches {launches} "
+          f"(flash on wmma at dh 192, super_gmm on wgmma at E=256); on the "
+          f"path's own inputs vs plain: flash max abs err "
+          f"{flash['max_abs_err']:.2e} (tol 4e-2), row rel err "
+          f"{flash['row_rel_err']:.2e} (tol {ROW_REL_TOL[torch.bfloat16]}); "
+          f"dispatch and combine torch.equal, combine "
+          f"{moe['combine_ulps_vs_moe_combine']:.2f} bf16 ulp from "
+          f"moe_combine (tol 1); super_gmm's FFN rel err "
+          f"{moe['gmm_rel_err_vs_plain']:.3e} (tol {ZOO_GMM_TOL}); peak "
+          f"allocated {r['peak_allocated_gb']:.1f} GB ({before_gb:.1f} GB "
+          f"allocated before), reserved {r['peak_reserved_gb']:.1f} GB")
+    del params, got
+    _free()
+    return r
+
+
+def phase_zoo(seed: int, card: str) -> dict:
+    """The dense decoder families behind build_api, then deepseek_v32 at
+    depth 1; each model built, run and released before the next."""
+    tf = zoo_teacher_forced(seed)
+    models = [_zoo_model(arch, layers, steps, seed + i)
+              for i, (arch, layers, steps) in enumerate(ZOO)]
+    ds = _zoo_deepseek_v32(seed)
+    launches = {n: sum(m["launches"][n] for m in models + [ds])
+                for n in _pd_kernels()}
+    return {"card": card, "teacher_forced": tf, "models": models,
+            "deepseek_v32": ds, "launches": launches}
+
+
 def _ratio(a: float, b: float) -> float:
     """a / b for a printed comparison; nan where b is 0."""
     return a / b if b else float("nan")
@@ -2393,19 +2905,29 @@ def time_super_gmm(shapes: dict, gen) -> list:
     return cases
 
 
+# flash_attention at the zoo's wide heads, timed beside the serve wave's
+# shapes: (case, config whose heads it takes, B); S = ZOO_S, causal
+ZOO_FLASH = (("dh192", "deepseek_v32", 1), ("dh256", "gemma3_1b", 2))
+
+
 def time_flash_attention(shapes: list, gen) -> list:
-    full = get_config(ARCH)
+    """The serve wave's (B, S) at qwen3's heads ("modal", "heaviest"), then
+    the zoo's head dims 192 and 256 (ZOO_FLASH) -- each causal, in bf16."""
     bf = torch.bfloat16
-    H, KVH, dh = full.num_heads, full.num_kv_heads, full.head_dim
+    specs = [("modal" if i == 0 else "heaviest", B, S, get_config(ARCH))
+             for i, (B, S) in enumerate(shapes)]
+    specs += [(name, B, ZOO_S, get_config(arch))
+              for name, arch, B in ZOO_FLASH]
     cases = []
-    for i, (B, S) in enumerate(shapes):
+    for name, B, S, c in specs:
+        H, KVH, dh = c.num_heads, c.num_kv_heads, c.head_dim
         q = torch.randn((B, S, H, dh), generator=gen, device=DEV).to(bf)
         k = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
         v = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
         qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).contiguous()
                       for t in (q, k, v))
         cases.append(_case(
-            "modal" if i == 0 else "heaviest", "flash",
+            name, "flash",
             lambda: mha_flash(q, k, v),
             lambda: _mha_plain(q, k, v),
             lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -2443,13 +2965,14 @@ def shapes_from(kernels_line: dict) -> dict:
     g = rows["super_gmm"]["cases"][0]["shape"]
     return {"super_gmm": {k: g[k] for k in ("n_e", "C", "counts")},
             "flash_attention": [[c["shape"]["B"], c["shape"]["S"]]
-                                for c in rows["flash_attention"]["cases"]],
+                                for c in rows["flash_attention"]["cases"]
+                                if c["case"] in ("modal", "heaviest")],
             "decode_T": rows["dispatch_scatter"]["shape"]["T"]}
 
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
-                 rebalance=None) -> dict:
+                 rebalance=None, zoo=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -2473,6 +2996,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["faults"] = faults["launches"]
     if rebalance:
         by_path["rebalance"] = rebalance["launches"]
+    if zoo:
+        by_path["zoo"] = zoo["launches"]
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -2482,7 +3007,7 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,batching,gmm,faults,rebalance,timing")
+                    "serve,pd,batching,gmm,faults,rebalance,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -2528,7 +3053,7 @@ def main() -> int:
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
-    serve = pd = batching = gmm = faults = rebalance = None
+    serve = pd = batching = gmm = faults = rebalance = zoo = None
     if {"executor", "serve", "batching", "gmm", "faults",
             "rebalance"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
@@ -2561,11 +3086,14 @@ def main() -> int:
             print(json.dumps({"rebalance": rebalance}))
         del params
         _free()
+    if "zoo" in phases:  # after the qwen3 model is released
+        zoo = phase_zoo(args.seed, card)
+        print(json.dumps({"zoo": zoo}))
     if "timing" in phases:
         expect(serve is not None and pd is not None and errs is not None,
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
-                                      faults, rebalance)))
+                                      faults, rebalance, zoo)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 
 `get_config(arch_id)` returns the full-size ModelConfig; `.smoke()` gives the
 reduced same-family config for CPU tests.  The port carries the MoE
-architectures the executor serves; the other families arrive with their
-model code.
+architectures the executor serves and the dense decoder families; the
+recurrent (rwkv6), hybrid (zamba2) and encoder-decoder (seamless_m4t)
+architectures arrive with their model code, and until then `get_config`
+refuses them.
 """
 from __future__ import annotations
 
@@ -12,6 +14,11 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 ARCHS = [
+    "chameleon_34b",
+    "qwen2_1p5b",
+    "deepseek_coder_33b",
+    "gemma3_1b",
+    "olmo_1b",
     "qwen3_moe_235b_a22b",
     "dbrx_132b",
 ]
@@ -19,6 +26,11 @@ ARCHS = [
 EXTRA_ARCHS = ["deepseek_v32"]  # the paper's own model
 
 _ALIASES = {
+    "chameleon-34b": "chameleon_34b",
+    "qwen2-1.5b": "qwen2_1p5b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "gemma3-1b": "gemma3_1b",
+    "olmo-1b": "olmo_1b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "dbrx-132b": "dbrx_132b",
     "deepseek-v3.2": "deepseek_v32",

@@ -11,6 +11,22 @@
 // it at -inf and take exp2 against a finite row max), which agrees with
 // the reference's NEG_INF = -1e30 on every row that has a visible key.
 //
+// Head dims and routes (flash_attention_launch below; the wrapper's `route`
+// and `HEAD_DIMS` in kernels/flash_attention/flash_attention.py pick them,
+// and a test reads the instantiations out of this file):
+//
+//   route   dtype  head dims              kernel
+//   wgmma   bf16   64, 128 (TMA-able)     flash_wgmma_kernel<DH>
+//   wmma    bf16   32, 64, 128, 192, 256  flash_attention_kernel<bf16, DH,
+//                                         64, 64>
+//   fma     fp32   32, 64, 128, 192, 256  flash_attention_kernel<float, DH,
+//                                         32, 32>
+//
+// Head dims 192 (deepseek_v32) and 256 (gemma3) take wmma in bf16 whatever
+// their alignment: a wgmma kernel at those widths would hold a 96- or
+// 128-register fp32 O accumulator per consumer thread beside S, and the
+// 128-wide one already needs 240.  Any other head dim is refused (-2).
+//
 // What bounds it on an H100: 4 * B * H * S^2 * dh / 2 operations (causal)
 // against B * (2 H + 2 KVH) * S * dh elements moved.  At the serving shapes
 // (qwen3: H=64, KVH=4, dh=128, S=256..2048) that is 20-150 operations per
@@ -36,14 +52,17 @@
 // S).  setmaxnreg moves registers from the producer warpgroup (24) to the
 // consumers (240).
 //
-// Other routes, picked by shape in the wrapper (`route`) and handed to
-// flash_attention_launch, which refuses tensors the wgmma route cannot
-// take: a bf16 tensor that TMA cannot describe (a
-// base not 16-byte aligned, a stride not a multiple of 16 bytes) or head
-// dim 32 takes `flash_attention_kernel` on wmma, whose scores and fp32
-// accumulator live in shared memory; fp32 takes the same kernel's plain FMA
-// loops (correctness only).  A sequence length that is not a multiple of the
-// tile is masked, not rounded to a divisor, on every route.
+// `flash_attention_kernel` serves the other two routes: a bf16 tensor that
+// TMA cannot describe (a base not 16-byte aligned, a stride not a multiple
+// of 16 bytes), head dim 32, 192 or 256 runs its wmma products, whose scores
+// and fp32 accumulator live in shared memory; fp32 runs its plain FMA loops
+// (correctness only).  Its shared memory (`Layout`) is, in bytes: bf16 64x64
+// tiles at DH 128 / 192 / 256: 112,896 / 153,856 / 194,816; fp32 32x32
+// tiles at DH 192 / 256: 107,392 / 140,160 -- all above the 48 KB default,
+// so each instantiation asks for its size (`hopper::allow_smem`), and all
+// under the 232,448 a block may have (static_asserts below).  A sequence
+// length that is not a multiple of the tile is masked, not rounded to a
+// divisor, on every route.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -89,6 +108,16 @@ template <typename T, int DH, int BQ, int BKV> struct Layout {
   static constexpr size_t OFF_L = OFF_O + align128(sizeof(float) * BQ * LDO);
   static constexpr size_t BYTES = OFF_L + align128(sizeof(float) * BQ);
 };
+
+// the largest instantiations (see the header) fit a block's shared memory
+constexpr size_t MAX_SMEM = 232448;
+static_assert(Layout<bf16, 192, 64, 64>::BYTES == 153856, "layout");
+static_assert(Layout<bf16, 256, 64, 64>::BYTES == 194816, "layout");
+static_assert(Layout<float, 192, 32, 32>::BYTES == 107392, "layout");
+static_assert(Layout<float, 256, 32, 32>::BYTES == 140160, "layout");
+static_assert(Layout<bf16, 256, 64, 64>::BYTES <= MAX_SMEM &&
+                  Layout<float, 256, 32, 32>::BYTES <= MAX_SMEM,
+              "shared memory");
 
 struct Strides {
   long long b, s, h;  // elements; the last (dh) axis is contiguous
@@ -589,7 +618,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
 // Routes, as kernels/flash_attention/flash_attention.py::route picks them
 // by shape:
 constexpr int ROUTE_FMA = 0;    // fp32: plain FMA loops
-constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe, or dh 32
+constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe; dh 32/192/256
 constexpr int ROUTE_WGMMA = 2;  // bf16, dh 64 or 128, TMA-describable
 
 // route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
@@ -615,6 +644,8 @@ extern "C" int flash_attention_launch(
     if (dh == 32) return launch<float, 32, 32, 32>(FA_ARGS, 0, s);
     if (dh == 64) return launch<float, 64, 32, 32>(FA_ARGS, 0, s);
     if (dh == 128) return launch<float, 128, 32, 32>(FA_ARGS, 0, s);
+    if (dh == 192) return launch<float, 192, 32, 32>(FA_ARGS, 0, s);
+    if (dh == 256) return launch<float, 256, 32, 32>(FA_ARGS, 0, s);
     return -2;
   }
   if (route == ROUTE_WMMA || route == ROUTE_WGMMA) {
@@ -638,6 +669,8 @@ extern "C" int flash_attention_launch(
     if (dh == 32) return launch<bf16, 32, 64, 64>(FA_ARGS, vec_ok, s);
     if (dh == 64) return launch<bf16, 64, 64, 64>(FA_ARGS, vec_ok, s);
     if (dh == 128) return launch<bf16, 128, 64, 64>(FA_ARGS, vec_ok, s);
+    if (dh == 192) return launch<bf16, 192, 64, 64>(FA_ARGS, vec_ok, s);
+    if (dh == 256) return launch<bf16, 256, 64, 64>(FA_ARGS, vec_ok, s);
     return -2;
   }
 #undef FA_ARGS

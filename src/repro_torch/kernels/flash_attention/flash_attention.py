@@ -9,8 +9,10 @@ launches the kernel or raises.
 
 `route` picks one of three kernels by shape and the launch function runs
 it: "wgmma" (bf16, head dim 64 or 128, TMA-describable tensors: the main
-path), "wmma" (other bf16) and "fma" (fp32).  `flash_attention.launches` counts
-every launch and `flash_attention.launches_by_route` splits them by route.
+path), "wmma" (other bf16, and every bf16 at head dim 32, 192 or 256) and
+"fma" (fp32, every head dim in `HEAD_DIMS`).  `flash_attention.launches`
+counts every launch and `flash_attention.launches_by_route` splits them by
+route.
 """
 from __future__ import annotations
 
@@ -21,19 +23,25 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 
-HEAD_DIMS = (32, 64, 128)  # head dims the kernel is instantiated for
+# head dims the .cu instantiates on the fma and wmma routes, and the ones
+# its wgmma kernel takes (a test reads both out of the .cu)
+HEAD_DIMS = (32, 64, 128, 192, 256)
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
           strides: Sequence[Sequence[int]]) -> str:
-    """The kernel `flash_attention_launch` runs, by shape: fp32 -> "fma";
-    bf16 with head dim 64 or 128 whose q, k, v bases (`ptrs`) are 16-byte
+    """The kernel `flash_attention_launch` runs, by shape: fp32 -> "fma"
+    (head dims 32, 64, 128, 192, 256); bf16 with a head dim in
+    `WGMMA_HEAD_DIMS` (64, 128) whose q, k, v bases (`ptrs`) are 16-byte
     aligned and whose (batch, position, head) strides (elements) are
     multiples of 8, i.e. of 16 bytes, as TMA needs -> "wgmma"; any other
-    bf16 -> "wmma"."""
+    bf16, among them every one at head dim 32, 192 or 256 (deepseek_v32's
+    192, gemma3's 256) -> "wmma".  `flash_launch` refuses a head dim outside
+    `HEAD_DIMS` before this is asked."""
     if dtype == torch.float32:
         return "fma"
-    tma = (dh in (64, 128) and all(p % 16 == 0 for p in ptrs)
+    tma = (dh in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in ptrs)
            and all(x % 8 == 0 for st in strides for x in st))
     return "wgmma" if tma else "wmma"
 

@@ -1,10 +1,13 @@
-"""GQA causal self-attention: the prefill path and the cached decode path.
+"""GQA causal self-attention: the prefill path and the cached decode paths.
 
 Supports GQA (num_kv_heads < num_heads), QKV bias, sliding windows, logit
 softcap and QK norm.  `dense_causal_attention` is the O(S^2)-memory oracle;
 the other branch of `attention_forward`/`attention_prefill` is the flash
 attention kernel (`repro_torch.kernels.flash_attention`), which never
-materialises the [S, S] scores.  Decode (`attention_decode_ragged`) has no
+materialises the [S, S] scores.  `chunked_causal_attention` is the
+reference's blocked online-softmax oracle of that kernel, in plain torch.
+Decode -- `attention_decode` (one scalar cache length, ring buffers for
+windowed layers) and `attention_decode_ragged` (a length per row) -- has no
 kernel in the reference either: plain torch ops, one query per row.
 """
 from __future__ import annotations
@@ -23,8 +26,8 @@ NEG_INF = -1e30
 class KVCache(NamedTuple):
     k: torch.Tensor  # [B, S_max, kv_heads, head_dim]
     v: torch.Tensor  # [B, S_max, kv_heads, head_dim]
-    # ring-buffer write index == tokens written so far (mod window for
-    # windowed layers)
+    # tokens written so far; a windowed layer's ring-buffer write slot is
+    # this mod the window
     length: torch.Tensor  # scalar int32
 
 
@@ -93,6 +96,142 @@ def dense_causal_attention(q, k, v, cfg: ModelConfig,
     p = torch.softmax(s, dim=-1).to(v.dtype)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v)
     return o.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocked online-softmax oracle of the flash kernel
+# ---------------------------------------------------------------------------
+
+
+def _pad_to_chunk(t: torch.Tensor, C: int) -> torch.Tensor:
+    """[B, S, ...] -> [B, S rounded up to a multiple of C, ...], zeros after
+    S (masked out: a padded key lies past every real query)."""
+    S = t.shape[1]
+    return _pad_seq(t, -(-S // C) * C)
+
+
+def _attend_block(q, k, v, mask, softcap):
+    """q [B,Cq,H,hd], k/v [B,Ck,H,hd], mask [Cq,Ck] bool -> (out, max,
+    sumexp), fp32."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if softcap is not None:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)  # [B,H,Cq]
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return o, m, l
+
+
+def chunked_causal_attention(q, k, v, cfg: ModelConfig,
+                             window: Optional[int],
+                             chunk: Optional[int] = None) -> torch.Tensor:
+    """Flash-style online-softmax attention, the reference's blocked oracle
+    of the flash kernel.  q, k, v: [B, S, H(q|kv), hd] (kv in kv_heads;
+    expanded here, or grouped when `cfg.gqa_grouped`).  Query chunks of
+    `chunk` (default `cfg.attn_chunk`) rows each run an online softmax over
+    the key chunks: all of them, or with `cfg.causal_block_skip` only those
+    inside the causal (and window) frontier.  The reference's sharding and
+    remat knobs change nothing here."""
+    B, S, H, hd = q.shape
+    if cfg.gqa_grouped and q.shape[2] != k.shape[2]:
+        return _grouped_chunked_attention(q, k, v, cfg, window, chunk)
+    k = _expand_kv(k, H)
+    v = _expand_kv(v, H)
+    C = min(chunk or cfg.attn_chunk, S)
+    if S % C != 0:
+        q, k, v = (_pad_to_chunk(t, C) for t in (q, k, v))
+        return chunked_causal_attention(q, k, v, cfg, window, C)[:, :S]
+    nq = S // C
+    kc = k.reshape(B, nq, C, H, hd)
+    vc = v.reshape(B, nq, C, H, hd)
+    pos = torch.arange(C, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = q[:, qi * C:(qi + 1) * C]
+        lo = 0
+        if cfg.causal_block_skip and window is not None:
+            lo = max(0, (qi * C - window) // C)
+        ks = range(lo, qi + 1) if cfg.causal_block_skip else range(nq)
+        o_acc = torch.zeros((B, C, H, hd), device=q.device)
+        m_acc = torch.full((B, H, C), NEG_INF, device=q.device)
+        l_acc = torch.zeros((B, H, C), device=q.device)
+        for ki in ks:
+            abs_q = qi * C + pos[:, None]
+            abs_k = ki * C + pos[None, :]
+            mask = abs_k <= abs_q
+            if window is not None:
+                mask &= abs_k > abs_q - window
+            o, m, l = _attend_block(qb, kc[:, ki], vc[:, ki], mask,
+                                    cfg.logit_softcap)
+            m_new = torch.maximum(m_acc, m)
+            corr_old = torch.exp(m_acc - m_new)
+            corr_new = torch.exp(m - m_new)
+            o_acc = o_acc * corr_old.permute(0, 2, 1)[..., None] \
+                + o * corr_new.permute(0, 2, 1)[..., None]
+            l_acc = l_acc * corr_old + l * corr_new
+            m_acc = m_new
+        l_acc = torch.clamp(l_acc, min=1e-30)
+        outs.append((o_acc / l_acc.permute(0, 2, 1)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def _grouped_chunked_attention(q, k, v, cfg: ModelConfig,
+                               window: Optional[int],
+                               chunk: Optional[int] = None) -> torch.Tensor:
+    """GQA without head-expanded k/v: scores per (kv_head, group) by einsum
+    broadcasting.  Same math as `chunked_causal_attention`; every key chunk
+    is visited, as in the reference."""
+    B, S, H, hd = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    C = min(chunk or cfg.attn_chunk, S)
+    if S % C != 0:
+        q, k, v = (_pad_to_chunk(t, C) for t in (q, k, v))
+        return _grouped_chunked_attention(q, k, v, cfg, window, C)[:, :S]
+    nq = S // C
+    q5 = q.reshape(B, S, KVH, G, hd)
+    kc = k.reshape(B, nq, C, KVH, hd)
+    vc = v.reshape(B, nq, C, KVH, hd)
+    scale = hd ** -0.5
+    pos = torch.arange(C, device=q.device)
+    outs = []
+    for qi in range(nq):
+        qb = q5[:, qi * C:(qi + 1) * C].float()
+        o_acc = torch.zeros((B, C, KVH, G, hd), device=q.device)
+        m_acc = torch.full((B, KVH, G, C), NEG_INF, device=q.device)
+        l_acc = torch.zeros((B, KVH, G, C), device=q.device)
+        for ki in range(nq):
+            vb = vc[:, ki]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kc[:, ki].float()) \
+                * scale
+            if cfg.logit_softcap is not None:
+                s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+            abs_q = qi * C + pos[:, None]
+            abs_k = ki * C + pos[None, :]
+            mask = abs_k <= abs_q
+            if window is not None:
+                mask &= abs_k > abs_q - window
+            s = torch.where(mask[None, None, None], s,
+                            torch.full_like(s, NEG_INF))
+            m = s.amax(dim=-1)  # [B,KVH,G,C]
+            p = torch.exp(s - m[..., None])
+            l = p.sum(dim=-1)
+            o = torch.einsum("bhgqk,bkhd->bqhgd", p.to(vb.dtype).float(),
+                             vb.float())
+            m_new = torch.maximum(m_acc, m)
+            c_old = torch.exp(m_acc - m_new)
+            c_new = torch.exp(m - m_new)
+            o_acc = o_acc * c_old.permute(0, 3, 1, 2)[..., None] \
+                + o * c_new.permute(0, 3, 1, 2)[..., None]
+            l_acc = l_acc * c_old + l * c_new
+            m_acc = m_new
+        l_acc = torch.clamp(l_acc, min=1e-30)
+        o = o_acc / l_acc.permute(0, 3, 1, 2)[..., None]
+        outs.append(o.to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(B, S, H, hd)
 
 
 # ---------------------------------------------------------------------------
@@ -170,6 +309,50 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
                    torch.zeros(shape, dtype=cfg.dtype, device=device),
                    torch.zeros((), dtype=torch.int32, device=device))
+
+
+def attention_decode(p, x, cache: KVCache, cfg: ModelConfig, *,
+                     window: Optional[int] = None
+                     ) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode at one scalar cache length. x: [B, 1, d]; `cache`
+    holds `cache.length` prior tokens (a 0-d int32 tensor on the device).
+
+    Windowed layers write a ring buffer (slot `length % size`, and every
+    written slot is valid: `idx < min(length + 1, size)`); full layers
+    append (slot `min(length, size - 1)`, valid `idx <= min(length,
+    size - 1)`) -- the reference's two rules.  Unlike the reference, which
+    returns a new cache, this one CONSUMES `cache`: the new token's K/V is
+    written into `cache.k` / `cache.v` and `cache.length` advances by 1, all
+    IN PLACE (a copy of the cache per layer and step would multiply the
+    step's traffic), through `index_copy_` with a one-element index on the
+    device, so the step reads nothing back to the host.  Returns (out
+    [B, 1, d], cache) -- the same KVCache, so no stale copy is left."""
+    B = x.shape[0]
+    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    length = cache.length
+    pos = length.reshape(1, 1).expand(B, 1)
+    q, k, v = _project_qkv(p, x, x, cfg, pos, pos)
+    size = cache.k.shape[1]
+    if window is not None:
+        slot = length % size  # ring buffer
+    else:
+        slot = torch.clamp(length, max=size - 1)  # append
+    idx = slot.reshape(1).long()
+    cache.k.index_copy_(1, idx, k)
+    cache.v.index_copy_(1, idx, v)
+    qg = q.reshape(B, KVH, cfg.num_heads // KVH, hd)
+    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), cache.k.float())
+    s = s * (hd ** -0.5)
+    if cfg.logit_softcap is not None:
+        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+    i = torch.arange(size, device=x.device)
+    valid = i <= torch.clamp(length, max=size - 1) if window is None \
+        else i < torch.clamp(length + 1, max=size)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    pr = torch.softmax(s, dim=-1).to(cache.v.dtype)
+    o = torch.einsum("bhgs,bshd->bhgd", pr, cache.v)
+    length.add_(1)  # last: pos, slot and valid above read the old length
+    return o.reshape(B, 1, cfg.q_dim) @ p["wo"], cache
 
 
 def attention_decode_ragged(p, x, k_cache, v_cache, lengths,

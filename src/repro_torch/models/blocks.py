@@ -9,7 +9,8 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch.models.attention import (attention_decode_ragged,
+from repro_torch.models.attention import (KVCache, attention_decode,
+                                          attention_decode_ragged,
                                           attention_forward, attention_prefill,
                                           init_attention_params)
 from repro_torch.models.common import (ModelConfig, act_fn, apply_norm,
@@ -87,6 +88,29 @@ def decoder_block_prefill(p, h, cfg: ModelConfig, *,
         y, _ = moe_forward(p["ffn"], x.reshape(B * S, d), cfg,
                            mode="capacity")
         return h + y.reshape(B, S, d), cache
+    return h + ffn_forward(p["ffn"], x, cfg), cache
+
+
+def decoder_block_decode(p, h, cache: KVCache, cfg: ModelConfig, *,
+                         window: Optional[int] = None, moe: bool = False,
+                         memory: Optional[torch.Tensor] = None):
+    """One-token decode at one scalar cache length. h: [B, 1, d]; cache: the
+    layer's KVCache, consumed: written and advanced in place (see
+    `attention_decode`).  Returns (h, the same KVCache).  The MoE runs in capacity mode, as in the
+    reference.  `memory` (the encoder-decoder's cross attention) is not
+    ported yet."""
+    if memory is not None:
+        raise NotImplementedError("decoder_block_decode: cross attention "
+                                  "(memory=) comes with the encoder-decoder "
+                                  "family")
+    B = h.shape[0]
+    a, cache = attention_decode(p["attn"], apply_norm(h, p["ln_attn"], cfg),
+                                cache, cfg, window=window)
+    h = h + a
+    x = apply_norm(h, p["ln_ffn"], cfg)
+    if moe:
+        y, _ = moe_forward(p["ffn"], x.reshape(B, -1), cfg, mode="capacity")
+        return h + y.reshape(B, 1, -1), cache
     return h + ffn_forward(p["ffn"], x, cfg), cache
 
 

@@ -25,7 +25,7 @@ class ModelConfig:
 
     Field for field the reference's `repro.models.common.ModelConfig` (so a
     smoke config compares equal apart from `dtype`, which is a torch dtype
-    here); the port runs the `moe` family so far.
+    here); the port runs the `dense` and `moe` families so far.
     """
 
     name: str
@@ -137,6 +137,41 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Parameter counting (for the MODEL_FLOPS = 6*N*D roofline term)
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree, path: str = ""):
+    """(path, tensor) of every leaf of a nested dict / list of tensors, the
+    path's keys joined by "/" (list items by index); None leaves skipped."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}" if path else str(k))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def param_count(params) -> int:
+    return int(sum(x.numel() for _, x in _leaves(params)))
+
+
+def active_param_count(params, cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only top_k + shared experts active)."""
+    total = 0
+    for keys, leaf in _leaves(params):
+        size = int(leaf.numel())
+        if "experts" in keys and cfg.num_experts:
+            size = size * cfg.top_k // cfg.num_experts
+        total += size
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 
@@ -240,3 +275,21 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
     w = torch.randn((vocab, dim), generator=gen, device=gen.device,
                     dtype=torch.float32)
     return w.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross entropy
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask=None) -> torch.Tensor:
+    """logits [..., V] fp32-accumulated CE; labels int [...]."""
+    logits32 = logits.float()
+    lse = torch.logsumexp(logits32, dim=-1)
+    gold = torch.gather(logits32, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        nll = nll * mask
+        return torch.sum(nll) / torch.sum(mask).to(nll.dtype).clamp(min=1.0)
+    return torch.mean(nll)

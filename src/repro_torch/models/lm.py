@@ -1,9 +1,16 @@
-"""LM core: embedding, the decoder stage over stacked layer params, head.
+"""LM core: stage machinery over heterogeneous layer stacks.
 
 A model is a sequence of *stages*; each stage holds its layers' params
-stacked on a leading `[L, ...]` axis.  The port carries the `decoder` stage
-kind (uniform causal decoder layers, dense or MoE FFN, optional window); the
-other kinds of the reference arrive with their model families.
+stacked on leading layer axes.  Stage kinds the port carries:
+
+  decoder  — uniform causal decoder layers (dense or MoE FFN, optional window)
+  gemma    — superblocks of `lpg` sliding-window layers + 1 global layer
+
+(the reference's `rwkv`, `zamba` and `mamba` kinds arrive with their model
+families).  Three passes per stage kind: forward, prefill (forward +
+caches), decode (one token, cache in/out).  Layers run in a Python loop over
+views of the stacked params; the MoE stage's layer id is device data, which
+is what lets it run through the layer-oblivious Super Kernel.
 """
 from __future__ import annotations
 
@@ -14,7 +21,8 @@ import torch
 
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+from repro_torch.models.common import (ModelConfig, apply_norm,
+                                       cross_entropy_loss, dense_init,
                                        embed_init, make_norm_params)
 from repro_torch.models.moe import MoEAux
 
@@ -22,15 +30,43 @@ from repro_torch.models.moe import MoEAux
 # Stage specs
 # ---------------------------------------------------------------------------
 
+# the families still to port, and the slice that brings each
+_UNPORTED = {"ssm": "the RWKV6 slice (rwkv6_7b)",
+             "hybrid": "the Mamba2 + shared-attention slice (zamba2_1p2b)"}
+
 
 def lm_stages(cfg: ModelConfig):
     """Returns [(kind, n, opts), ...]."""
-    if cfg.family in ("dense", "moe") and not cfg.local_per_global:
+    if cfg.family in ("dense", "moe"):
+        if cfg.local_per_global:
+            per = cfg.local_per_global + 1
+            nb, tail = divmod(cfg.num_layers, per)
+            stages = []
+            if nb:
+                stages.append(("gemma", nb, {"lpg": cfg.local_per_global}))
+            if tail:
+                stages.append(("decoder", tail,
+                               {"moe": False, "window": cfg.window_size}))
+            return stages
         return [("decoder", cfg.num_layers,
                  {"moe": cfg.family == "moe", "window": cfg.window_size})]
-    raise NotImplementedError(
-        f"family {cfg.family!r} (local_per_global={cfg.local_per_global}): "
-        f"the port carries the plain decoder stage only")
+    if cfg.family in _UNPORTED:
+        raise NotImplementedError(
+            f"family {cfg.family!r}: its stages come with "
+            f"{_UNPORTED[cfg.family]}")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+def _init_stage(gen: torch.Generator, kind: str, n: int, opts: dict,
+                cfg: ModelConfig):
+    if kind == "decoder":
+        return B.init_decoder_block_params(gen, cfg, moe=opts["moe"],
+                                           stack=(n,))
+    # gemma: [n, lpg, ...] local layers and [n, ...] global ones, the
+    # reference's layout (so bridged params carry over unchanged)
+    return {"local": B.init_decoder_block_params(gen, cfg,
+                                                 stack=(n, opts["lpg"])),
+            "global": B.init_decoder_block_params(gen, cfg, stack=(n,))}
 
 
 def init_lm_params(gen: torch.Generator, cfg: ModelConfig, device=None):
@@ -42,10 +78,8 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig, device=None):
         raise ValueError(f"generator lives on {gen.device}, not {device}")
     params: dict[str, Any] = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, cfg.dtype),
-        "stages": [
-            B.init_decoder_block_params(gen, cfg, moe=opts["moe"], stack=(n,))
-            for kind, n, opts in lm_stages(cfg)
-        ],
+        "stages": [_init_stage(gen, kind, n, opts, cfg)
+                   for kind, n, opts in lm_stages(cfg)],
         "final_norm": make_norm_params(cfg, gen.device),
     }
     if not cfg.tie_embeddings:
@@ -65,7 +99,9 @@ def embed_tokens(params, tokens, embeddings, cfg: ModelConfig):
     else:
         h = params["embed"][tokens.long()]
     if cfg.scale_embeddings:
-        h = h * math.sqrt(cfg.d_model)
+        # sqrt(d_model) rounded to the model's dtype first, as the reference
+        # multiplies by it (a host float: no device copy, no sync)
+        h = h * float(torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype))
     return h
 
 
@@ -75,12 +111,13 @@ def lm_head(params, h, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Forward
+# Stage passes — forward
 # ---------------------------------------------------------------------------
 
 
-def layer_slice(sp, l: int):
-    """Layer l's params out of a stacked stage: views, no copies."""
+def layer_slice(sp, l):
+    """Layer l's params (an index or a tuple of indices into the stacked
+    axes) out of a stacked stage: views, no copies."""
     if isinstance(sp, dict):
         return {k: layer_slice(v, l) for k, v in sp.items()}
     return None if sp is None else sp[l]
@@ -96,6 +133,36 @@ def _mean_aux(auxs) -> MoEAux:
     return MoEAux(*(torch.stack(f).mean(0) for f in zip(*auxs)))
 
 
+def _gemma_blocks(sp, n: int, lpg: int):
+    """(local layers' params, global layer's params) of each superblock."""
+    for i in range(n):
+        blk = layer_slice(sp, i)
+        yield [layer_slice(blk["local"], j) for j in range(lpg)], blk["global"]
+
+
+def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
+                   use_dense, gmm):
+    if kind == "gemma":
+        for local, glob in _gemma_blocks(sp, n, opts["lpg"]):
+            for lp in local:
+                h, _ = B.decoder_block_forward(lp, h, cfg,
+                                               window=cfg.window_size,
+                                               use_dense=use_dense)
+            h, _ = B.decoder_block_forward(glob, h, cfg, window=None,
+                                           use_dense=use_dense)
+        return h, _zero_aux(cfg, h.device)
+    lids = torch.arange(n, dtype=torch.int32, device=h.device) \
+        if gmm is not None else None
+    auxs = []
+    for l in range(n):
+        h, aux = B.decoder_block_forward(
+            layer_slice(sp, l), h, cfg, window=opts.get("window"),
+            moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense,
+            gmm=gmm, layer_id=None if lids is None else lids[l:l + 1])
+        auxs.append(aux if aux is not None else _zero_aux(cfg, h.device))
+    return h, _mean_aux(auxs)
+
+
 def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
                 moe_mode: str = "capacity", use_dense: Optional[bool] = None,
                 gmm: Optional[Callable] = None):
@@ -109,17 +176,9 @@ def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     h = embed_tokens(params, tokens, embeddings, cfg)
     auxs = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
-        lids = torch.arange(n, dtype=torch.int32, device=h.device) \
-            if gmm is not None else None
-        layer_auxs = []
-        for l in range(n):
-            h, aux = B.decoder_block_forward(
-                layer_slice(sp, l), h, cfg, window=opts.get("window"),
-                moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense,
-                gmm=gmm, layer_id=None if lids is None else lids[l:l + 1])
-            layer_auxs.append(aux if aux is not None
-                              else _zero_aux(cfg, h.device))
-        auxs.append(_mean_aux(layer_auxs))
+        h, aux = _stage_forward(sp, h, kind, n, opts, cfg, moe_mode=moe_mode,
+                                use_dense=use_dense, gmm=gmm)
+        auxs.append(aux)
     return apply_norm(h, params["final_norm"], cfg), _mean_aux(auxs)
 
 
@@ -132,22 +191,159 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     return lm_head(params, h, cfg), aux
 
 
+# ---------------------------------------------------------------------------
+# Loss (blocked CE, so [B,S,V] logits are never materialised at once)
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(params, cfg: ModelConfig, tokens=None, labels=None,
+            embeddings=None, *, aux_coef: float = 0.01, ce_block: int = 512,
+            moe_mode: str = "capacity", gmm: Optional[Callable] = None):
+    """(loss, metrics): mean token CE over `ce_block`-position blocks plus
+    `aux_coef` x the MoE load-balance loss, as the reference computes them.
+    For evaluation: no backward is ported yet."""
+    h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
+                         gmm=gmm)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    Bsz, S, _ = h.shape
+    C = min(ce_block, S)
+    if S % C:
+        C = S  # fallback: single block
+    total = torch.zeros((), device=h.device)
+    for i in range(S // C):
+        logits = h[:, i * C:(i + 1) * C] @ w
+        total = total + cross_entropy_loss(
+            logits, labels[:, i * C:(i + 1) * C]) * (Bsz * C)
+    ce = total / (Bsz * S)
+    loss = ce + aux_coef * aux.load_balance_loss
+    metrics = {"ce": ce, "load_balance": aux.load_balance_loss,
+               "dropped_fraction": aux.dropped_fraction}
+    return loss, metrics
+
+
+# ---------------------------------------------------------------------------
+# Stage passes — prefill (forward + caches)
+# ---------------------------------------------------------------------------
+
+
+def _stack(caches) -> KVCache:
+    """Per-layer caches -> one KVCache stacked on a leading layer axis."""
+    return KVCache(*(torch.stack(f) for f in zip(*caches)))
+
+
+def _stage_prefill(sp, h, kind, n, opts, cfg: ModelConfig, *, max_len,
+                   use_dense):
+    if kind == "gemma":
+        local, glob = [], []
+        for lps, gp in _gemma_blocks(sp, n, opts["lpg"]):
+            lc = []
+            for lp in lps:
+                h, c = B.decoder_block_prefill(lp, h, cfg,
+                                               window=cfg.window_size,
+                                               use_dense=use_dense)
+                lc.append(c)
+            local.append(_stack(lc))
+            h, c = B.decoder_block_prefill(gp, h, cfg, max_len=max_len,
+                                           use_dense=use_dense)
+            glob.append(c)
+        return h, {"local": _stack(local), "global": _stack(glob)}
+    layer = []
+    for l in range(n):
+        h, cache = B.decoder_block_prefill(
+            layer_slice(sp, l), h, cfg, window=opts.get("window"),
+            moe=opts["moe"], max_len=max_len, use_dense=use_dense)
+        layer.append(cache)
+    return h, _stack(layer)
+
+
 def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
                max_len: Optional[int] = None,
                use_dense: Optional[bool] = None):
-    """Returns (last-position logits [B, V], caches): one `KVCache` per
-    stage, its k/v stacked on a leading [L] layer axis ([L, B, S, kvh, hd])
-    and its length [L], as the reference's scan stacks them."""
+    """Returns (last-position logits [B, V], caches): per stage, as the
+    reference's scans stack them -- a decoder stage's `KVCache` with k/v
+    [L, B, S, kvh, hd] and length [L]; a gemma stage's {"local": KVCache
+    [n, lpg, B, window, kvh, hd], "global": KVCache [n, B, max_len, kvh,
+    hd]}."""
     h = embed_tokens(params, tokens, embeddings, cfg)
     caches = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
-        layer = []
-        for l in range(n):
-            h, cache = B.decoder_block_prefill(
-                layer_slice(sp, l), h, cfg, window=opts.get("window"),
-                moe=opts["moe"], max_len=max_len, use_dense=use_dense)
-            layer.append(cache)
-        caches.append(KVCache(*(torch.stack(f) for f in zip(*layer))))
+        h, cache = _stage_prefill(sp, h, kind, n, opts, cfg, max_len=max_len,
+                                  use_dense=use_dense)
+        caches.append(cache)
     h = apply_norm(h, params["final_norm"], cfg)
     logits = lm_head(params, h[:, -1:], cfg)[:, 0]
     return logits, caches
+
+
+# ---------------------------------------------------------------------------
+# Stage passes — decode (one token)
+# ---------------------------------------------------------------------------
+
+
+def _cache_at(cache: KVCache, l) -> KVCache:
+    """Layer l's cache (an index or a tuple of indices into the stacked
+    axes): views, so the layer's in-place writes and length advance land in
+    the stage's cache."""
+    return KVCache(cache.k[l], cache.v[l], cache.length[l])
+
+
+def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig):
+    if kind == "gemma":
+        for i, (lps, gp) in enumerate(_gemma_blocks(sp, n, opts["lpg"])):
+            for j, lp in enumerate(lps):
+                h, _ = B.decoder_block_decode(
+                    lp, h, _cache_at(cache["local"], (i, j)), cfg,
+                    window=cfg.window_size)
+            h, _ = B.decoder_block_decode(gp, h, _cache_at(cache["global"], i),
+                                          cfg)
+        return h
+    for l in range(n):
+        h, _ = B.decoder_block_decode(layer_slice(sp, l), h,
+                                      _cache_at(cache, l), cfg,
+                                      window=opts.get("window"),
+                                      moe=opts["moe"])
+    return h
+
+
+def lm_decode_step(params, cfg: ModelConfig, caches, token, *,
+                   embeddings=None):
+    """token: [B] int (or embeddings [B, 1, d]). Returns (logits [B, V],
+    caches).  CONSUMES `caches`, unlike the reference: every layer's k/v is
+    written and its length advanced in place (`attention_decode`), and the
+    same cache objects come back.  Clone them first to keep a state to
+    return to."""
+    h = embed_tokens(params, token[:, None] if token is not None else None,
+                     embeddings, cfg)
+    for sp, cache, (kind, n, opts) in zip(params["stages"], caches,
+                                          lm_stages(cfg)):
+        h = _stage_decode(sp, h, cache, kind, n, opts, cfg)
+    h = apply_norm(h, params["final_norm"], cfg)
+    return lm_head(params, h, cfg)[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# Cache construction (zeros)
+# ---------------------------------------------------------------------------
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                prefilled: int = 0, device="cuda"):
+    """The decode caches, zeros, with the sizes `lm_prefill` gives (a
+    windowed layer's ring holds min(max_len, window) slots), each layer's
+    length `prefilled`.  On the card unless `device` says otherwise."""
+    def kv(lead: tuple, window=None):
+        size = min(max_len, window) if window else max_len
+        shape = lead + (batch, size, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
+                       torch.zeros(shape, dtype=cfg.dtype, device=device),
+                       torch.full(lead, prefilled, dtype=torch.int32,
+                                  device=device))
+
+    caches = []
+    for kind, n, opts in lm_stages(cfg):
+        if kind == "decoder":
+            caches.append(kv((n,), opts.get("window")))
+        else:
+            caches.append({"local": kv((n, opts["lpg"]), cfg.window_size),
+                           "global": kv((n,))})
+    return caches
