@@ -82,18 +82,26 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             that fired, the swap's seconds and gather rate, bucket misses,
             memory (a {"rebalance": ...} line).
             `--phases device,build,rebalance` runs it alone
-  zoo       (after the qwen3 model is released) the dense decoder
-            families behind build_api: first fp32 at each family's smoke
-            config (every greedy token == the argmax of api.forward over
-            prompt + tokens so far), then at published width in bf16 --
+  zoo       (after the qwen3 model is released) the model families
+            behind build_api: first fp32 at each family's smoke config
+            (every greedy token == the argmax of api.forward over prompt +
+            tokens so far), then at published width in bf16 --
             gemma3_1b (26 layers, head dim 256, local window 512), qwen2_1p5b
             (28), olmo_1b (16), deepseek_coder_33b and chameleon_34b (depth
-            cut to 8) -- api.prefill of [2, 2048] tokens (flash launches ==
-            layers, on wmma at dh 256, wgmma at 128; each launch's output
-            vs the plain version on its own q, k, v; the logits vs the
-            dense attention oracle) and 32 (gemma) or 8 greedy api.decode
-            steps with no host sync, each step's logits within 1e-1
-            relative Frobenius error of api.forward; then deepseek_v32 at
+            cut to 8), rwkv6_7b (32, attention-free), zamba2_1p2b (38 mamba
+            layers, the shared attention block 6 times, dh 64) and
+            seamless_m4t_large_v2 (24 + 24, dh 64; [2, 16384] frame
+            embeddings -> 2048 decoder tokens) -- api.prefill of [2, 2048]
+            tokens (flash launches == causal attention layers: 0 / 6 / 24
+            for the last three, on wmma at dh 256, wgmma at 128 and 64; each
+            launch's output vs the plain version on its own q, k, v; the
+            logits vs the dense attention oracle) and 32 (gemma, rwkv6) or 8
+            greedy api.decode steps with no host sync (the recurrent
+            states written in place), each step's logits within 1e-1
+            relative Frobenius error of api.forward (rwkv6: reported in
+            bf16, where its random weights amplify rounding ~100x, and
+            gated in fp32 at the same width and depth, 30 GB of
+            weights); then deepseek_v32 at
             published width, depth 1: lm_forward on the Super Kernel
             (E=256, wgmma) and flash at dh 192 (wmma) vs default_gmm (tol
             1e-1), and its flash, dispatch, gmm and combine calls each vs
@@ -106,7 +114,8 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             gate/up and down at the serve wave's median launch (counts) and
             dense, flash_attention at the wave's modal (B, S) and at the one
             with the largest share of launches * B * S^2 and at the zoo's
-            head dims 192 and 256 (S 2048, causal), dispatch_scatter
+            head dims 192, 256 and 64 (zamba2's and seamless's shapes; S
+            2048, causal), dispatch_scatter
             and combine_gather at the decode shape on the decode path's
             route and on the TPU signature; the host's cost of each step of
             a wrapper call
@@ -2022,12 +2031,60 @@ def phase_gmm(cfg, params, seed: int, gen) -> dict:
 
 # --------------------------------------------------------------- zoo --
 
-# The dense decoder families at published width, bf16: (arch, layers run --
-# None for full depth --, greedy decode steps after the prefill)
+# The model families behind build_api at published width, bf16: (arch,
+# layers run -- None for full depth --, greedy decode steps after the
+# prefill).  rwkv6 decodes 32 steps: its recurrent state must not drift.
 ZOO = (("gemma3_1b", None, 32), ("qwen2_1p5b", None, 8), ("olmo_1b", None, 8),
-       ("deepseek_coder_33b", 8, 8), ("chameleon_34b", 8, 8))
+       ("deepseek_coder_33b", 8, 8), ("chameleon_34b", 8, 8),
+       ("rwkv6_7b", None, 32), ("zamba2_1p2b", None, 8),
+       ("seamless_m4t_large_v2", None, 8))
 ZOO_B, ZOO_S = 2, 2048  # prompt tokens per model: S > attn_chunk (1024)
+# the encoder-decoder's input: frame embeddings, decoder_len(16384) = 2048
+# decoder tokens, so its decoder's self attention runs the flash kernel
+ZOO_FRAMES = {"seamless_m4t_large_v2": 16384}
 ZOO_TOL = 0.1  # relative Frobenius error of bf16 logits, as the gmm phase
+# Families whose random-weight model amplifies rounding far past ZOO_TOL in
+# bf16: rwkv6's time mix is cubic in its input (r, k, v all projections of
+# it).  On an NVIDIA H100 80GB HBM3 at 700 W, _zoo_fp32_decode measured a
+# rounding gain of 98.9 at published width and depth (a 1e-3 relative
+# perturbation of the embedded prompt moved the fp32 logits by 9.9e-2), and
+# bf16 decode vs api.forward read up to 2.0e-1 while fp32 read 1.7e-4.
+# Their decode is held to api.forward in fp32 at the same width and depth;
+# the bf16 errors are reported beside it.
+ZOO_FP32_DECODE = ("rwkv6_7b",)
+
+
+def _zoo_flash_layers(cfg) -> int:
+    """The causal self-attention layers of one prefill, each a flash launch
+    when its sequence is longer than attn_chunk: none in rwkv6, one per
+    application of zamba2's shared block, the decoder's layers of the
+    encoder-decoder (its encoder and cross attention are plain, as in the
+    reference), every layer of a decoder-only transformer."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.decoder_layers
+    return cfg.num_layers
+
+
+def _prompt_key(cfg) -> str:
+    """The batch entry that holds the tokens a decode continues."""
+    return "dec_tokens" if cfg.family == "encdec" else "tokens"
+
+
+def _dense_prefill(params, cfg, batch, max_len):
+    """The prefill's logits with every causal attention on the dense oracle
+    (use_dense=True) in place of the flash kernel."""
+    if cfg.family == "encdec":
+        from repro_torch.models.encdec import encdec_prefill
+        return encdec_prefill(params, batch["enc_embeddings"],
+                              batch["dec_tokens"], cfg, max_len=max_len,
+                              use_dense=True)[0]
+    from repro_torch.models.lm import lm_prefill
+    return lm_prefill(params, cfg, batch["tokens"], max_len=max_len,
+                      use_dense=True)[0]
 
 
 def _param_gb(tree) -> float:
@@ -2086,10 +2143,13 @@ def _zoo_check_flash(calls, what: str) -> dict:
 
 def zoo_teacher_forced(seed: int) -> dict:
     """fp32 on the card at each family's smoke config (attn_chunk 32, window
-    16): api.prefill of [2, 40] tokens (through the flash kernel's fma route),
-    then 20 greedy api.decode steps (gemma's rings wrap); every token ==
-    the argmax of api.forward over the prompt plus the tokens so far, where
-    the oracle's top-2 gap is under 1e-3 within 1e-4 of its max."""
+    16): api.prefill of [2, 40] tokens (the encoder-decoder: 40 frames and
+    64 decoder tokens) -- the attention through the flash kernel's fma
+    route, rwkv6's and zamba2's chunked scans --, then 20 greedy api.decode
+    steps (gemma's rings wrap; the recurrent states are carried); every
+    token == the argmax of api.forward over the prompt plus the tokens so
+    far, where the oracle's top-2 gap is under 1e-3 within 1e-4 of its
+    max."""
     from repro_torch.models.api import build_api
     out = {}
     for arch, _, _ in ZOO:
@@ -2097,14 +2157,17 @@ def zoo_teacher_forced(seed: int) -> dict:
         api = build_api(cfg)
         gen = torch.Generator(device=DEV).manual_seed(seed + 11)
         params = api.init(gen)
-        seq = api.make_batch(gen, 40, 2, "prefill", device=DEV)["tokens"]
+        batch = api.make_batch(gen, 40, 2, "prefill", device=DEV)
+        key = _prompt_key(cfg)
+        seq = batch[key]
         checked = near = 0
         with torch.inference_mode():
-            logits, caches = api.prefill(params, {"tokens": seq,
-                                                  "max_len": 60})
+            logits, caches = api.prefill(params, {
+                **batch, "max_len": seq.shape[1] + 20})
             for _ in range(20):
                 tok = torch.argmax(logits, -1)
-                ref = api.forward(params, {"tokens": seq})[0][:, -1].float()
+                ref = api.forward(params, {**batch, key: seq})[0][:, -1] \
+                    .float()
                 top2 = torch.topk(ref, 2, dim=-1).values
                 for b in range(2):
                     t_b, r = int(tok[b]), ref[b]
@@ -2132,25 +2195,27 @@ def zoo_teacher_forced(seed: int) -> dict:
 
 
 def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
-    """One dense config at published width in bf16, random weights from
-    `seed`: api.prefill of [2, 2048] tokens (every attention layer on the
-    flash kernel), then `steps` greedy api.decode steps; the counts of all
+    """One config at published width in bf16, random weights from `seed`:
+    api.prefill of [2, 2048] tokens (the encoder-decoder: [2, 16384] frame
+    embeddings and 2048 decoder tokens), every causal attention layer on the
+    flash kernel, then `steps` greedy api.decode steps; the counts of all
     four kernels set to 0 just before the counted prefill and read after
-    the last step.  Gated: finite logits; flash launches == layers, all on
-    the route its head dim takes; each of those launches' outputs against
-    the plain version on the same q, k, v (_zoo_check_flash); the prefill's
-    logits within ZOO_TOL of lm_prefill on the dense attention oracle; no
-    host sync in the decode steps (the CUDA sync debug mode counts them);
-    each step's logits within ZOO_TOL of api.forward over the prompt plus
-    the tokens so far."""
+    the last step.  Gated: finite logits; flash launches ==
+    _zoo_flash_layers, all on the route its head dim takes; each of those
+    launches' outputs against the plain version on the same q, k, v
+    (_zoo_check_flash); the prefill's logits within ZOO_TOL of the same
+    prefill on the dense attention oracle (rwkv6 has no attention: there it
+    is the same path); no host sync in the decode steps (the CUDA sync
+    debug mode counts them); each step's logits within ZOO_TOL of
+    api.forward over the prompt plus the tokens so far."""
     import repro_torch.models.attention as attn_mod
     from repro_torch.kernels.flash_attention.flash_attention import \
         WGMMA_HEAD_DIMS
     from repro_torch.models.api import build_api
-    from repro_torch.models.lm import lm_prefill
     full = get_config(arch)
     cfg = full if layers is None else full.replace(num_layers=layers)
-    L, B, S = cfg.num_layers, ZOO_B, ZOO_S
+    L, B = cfg.num_layers, ZOO_B
+    n_flash, key = _zoo_flash_layers(cfg), _prompt_key(cfg)
     api = build_api(cfg)
     gen = torch.Generator(device=DEV).manual_seed(seed)
     _free()
@@ -2160,7 +2225,9 @@ def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
     torch.cuda.synchronize()
     weights_gb = _param_gb(params)
     route = "wgmma" if cfg.head_dim in WGMMA_HEAD_DIMS else "wmma"
-    batch = api.make_batch(gen, S, B, "prefill", device=DEV)
+    batch = api.make_batch(gen, ZOO_FRAMES.get(arch, ZOO_S), B, "prefill",
+                           device=DEV)
+    S = batch[key].shape[1]
     batch["max_len"] = S + steps
     kernels = _pd_kernels()
     with torch.inference_mode():
@@ -2177,10 +2244,10 @@ def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
         prefill_by_route = _routes(flash_attention)
-        expect(flash_attention.launches == L
-               and prefill_by_route[route] == L,
+        expect(flash_attention.launches == n_flash
+               and prefill_by_route[route] == n_flash,
                f"zoo {arch}: prefill launched flash {prefill_by_route}, "
-               f"expected {L} on {route}")
+               f"expected {n_flash} on {route}")
         if cfg.local_per_global:
             # 2048 prompt tokens fill every ring: each step overwrites a slot
             rings = [c["local"] for c in caches if isinstance(c, dict)] + [
@@ -2215,7 +2282,7 @@ def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
         step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
         launches = {n: k.launches for n, k in kernels.items()}
         by_route = _routes(flash_attention)
-        expect(launches == {"super_gmm": 0, "flash_attention": L,
+        expect(launches == {"super_gmm": 0, "flash_attention": n_flash,
                             "dispatch_scatter": 0, "combine_gather": 0}
                and by_route == prefill_by_route,
                f"zoo {arch}: launches {launches}, flash by route "
@@ -2224,33 +2291,34 @@ def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
                f"decode steps, at {sync_at}")
         peak_alloc = torch.cuda.max_memory_allocated() / 1e9
         peak_res = torch.cuda.max_memory_reserved() / 1e9
-        prompt = batch["tokens"]
+        prompt = batch[key]
         for i, lg in enumerate(steps_logits):
             expect(bool(torch.isfinite(lg.float()).all()),
                    f"zoo {arch}: step {i} logits not finite")
-        expect(len(flash_calls) == L, f"zoo {arch}: {len(flash_calls)} "
-               f"mha_flash calls recorded in the prefill, expected {L}")
+        expect(len(flash_calls) == n_flash, f"zoo {arch}: {len(flash_calls)}"
+               f" mha_flash calls recorded in the prefill, expected "
+               f"{n_flash}")
         flash = _zoo_check_flash(flash_calls, f"zoo {arch}")
         del flash_calls
-        dense, _ = lm_prefill(params, cfg, prompt, max_len=S + steps,
-                              use_dense=True)
+        dense = _dense_prefill(params, cfg, batch, S + steps)
         errs = [_rel_fro(logits, dense)]  # the prefill: vs the dense oracle
         del dense
         for i in range(1, steps + 1):
             seq = torch.cat([prompt] + [t[:, None] for t in tokens[:i]], 1)
-            ref = api.forward(params, {"tokens": seq})[0][:, -1]
+            ref = api.forward(params, {**batch, key: seq})[0][:, -1]
             errs.append(_rel_fro(steps_logits[i], ref))
             del ref
         expect(errs[0] <= ZOO_TOL,
                f"zoo {arch}: prefill logits vs the dense attention oracle rel "
                f"err {errs[0]} (tol {ZOO_TOL})")
-        expect(max(errs[1:]) <= ZOO_TOL,
+        expect(arch in ZOO_FP32_DECODE or max(errs[1:]) <= ZOO_TOL,
                f"zoo {arch}: decode logits vs api.forward rel err "
                f"{max(errs[1:])} (tol {ZOO_TOL})")
     toks = torch.stack(tokens, 1).cpu().tolist()
     r = {"arch": arch, "layers": L, "published_layers": full.num_layers,
          "cut": None if layers is None else
          f"depth {full.num_layers} -> {L}", "B": B, "S": S,
+         "encoder_frames": ZOO_FRAMES.get(arch), "flash_layers": n_flash,
          "weights_gb": weights_gb, "prefill_ms": 1e3 * prefill_s,
          "prefill_tokens_per_s": B * S / prefill_s, "decode_steps": steps,
          "decode_ms_per_step": 1e3 * decode_s / steps,
@@ -2259,24 +2327,93 @@ def _zoo_model(arch: str, layers, steps: int, seed: int) -> dict:
          "flash_by_route": by_route, "flash_vs_plain": flash,
          "rel_err_prefill_vs_dense": errs[0],
          "rel_err_decode": errs[1:], "rel_err_max": max(errs),
+         "decode_gated_in": "fp32" if arch in ZOO_FP32_DECODE else "bf16",
          "tokens": toks, "allocated_before_gb": before_gb,
          "peak_allocated_gb": peak_alloc, "peak_reserved_gb": peak_res}
     print(f"[zoo] {arch} {L}/{full.num_layers} layers, d_model "
           f"{cfg.d_model}, H {cfg.num_heads} KVH {cfg.num_kv_heads} dh "
           f"{cfg.head_dim}, bf16, {weights_gb:.1f} GB of weights: prefill "
-          f"[{B}, {S}] {r['prefill_ms']:.1f} ms ({r['prefill_tokens_per_s']:.0f}"
-          f" tokens/s), flash {by_route} ({L} on {route}); {steps} decode "
-          f"steps {r['decode_ms_per_step']:.2f} ms/step (events: median "
-          f"{sorted(step_ms)[steps // 2]:.2f}), host syncs per step "
-          f"{r['host_syncs_per_step']:.2f}; the prefill's {L} flash outputs "
+          f"[{B}, {S}]"
+          + (f" over [{B}, {ZOO_FRAMES[arch]}] encoder frames"
+             if arch in ZOO_FRAMES else "")
+          + f" {r['prefill_ms']:.1f} ms ({r['prefill_tokens_per_s']:.0f}"
+          f" tokens/s), flash {by_route} ({n_flash} on {route}); {steps} "
+          f"decode steps {r['decode_ms_per_step']:.2f} ms/step (events: "
+          f"median {sorted(step_ms)[steps // 2]:.2f}), host syncs per step "
+          f"{r['host_syncs_per_step']:.2f}; the prefill's {n_flash} flash "
+          f"outputs "
           f"vs plain on their own q, k, v: max abs err "
           f"{flash['max_abs_err']:.2e} (tol 4e-2), row rel err "
           f"{flash['row_rel_err']:.2e} (tol {ROW_REL_TOL[torch.bfloat16]}); "
           f"prefill logits vs the dense oracle rel err {errs[0]:.2e}, decode "
           f"logits vs api.forward {', '.join(f'{e:.2e}' for e in errs[1:])}"
-          f" (tol {ZOO_TOL}); peak allocated {peak_alloc:.1f} GB ("
+          + (f" (not gated in bf16: held in fp32 below)"
+             if arch in ZOO_FP32_DECODE else f" (tol {ZOO_TOL})")
+          + f"; peak allocated {peak_alloc:.1f} GB ("
           f"{before_gb:.1f} GB allocated before), reserved {peak_res:.1f} GB")
     del params, caches, logits, steps_logits
+    _free()
+    if arch in ZOO_FP32_DECODE:
+        r["fp32_decode"] = _zoo_fp32_decode(arch, steps, seed)
+    return r
+
+
+def _zoo_fp32_decode(arch: str, steps: int, seed: int) -> dict:
+    """The decode check of a ZOO_FP32_DECODE family in fp32 at published
+    width and full depth, random weights from `seed`: api.prefill of [2,
+    2048] tokens, then `steps` greedy api.decode steps, each step's logits
+    within ZOO_TOL of api.forward over the prompt plus the tokens so far
+    (gated).  Also measured: the model's rounding gain, the relative change
+    of the last logits when the embedded prompt is perturbed by 1e-3 of its
+    standard deviation, divided by 1e-3."""
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import embed_tokens, lm_forward
+    cfg = get_config(arch).replace(dtype=torch.float32)
+    api = build_api(cfg)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init(gen)
+    weights_gb = _param_gb(params)
+    batch = api.make_batch(gen, ZOO_S, ZOO_B, "prefill", device=DEV)
+    prompt = batch["tokens"]
+    S = prompt.shape[1]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        logits, caches = api.prefill(params, {**batch, "max_len": S + steps})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        seq, errs = prompt, []
+        for _ in range(steps):
+            tok = torch.argmax(logits, -1)
+            seq = torch.cat([seq, tok[:, None]], 1)
+            logits, caches = api.decode(params, caches, {"token": tok})
+            ref = api.forward(params, {"tokens": seq})[0][:, -1]
+            errs.append(_rel_fro(logits, ref))
+            del ref
+        emb = embed_tokens(params, prompt, None, cfg)
+        noise = torch.randn(emb.shape, generator=gen, device=DEV) \
+            * float(emb.std()) * 1e-3
+        base = lm_forward(params, cfg, embeddings=emb)[0][:, -1]
+        moved = lm_forward(params, cfg, embeddings=emb + noise)[0][:, -1]
+        gain = _rel_fro(moved, base) / 1e-3
+        del emb, noise, base, moved
+    expect(max(errs) <= ZOO_TOL, f"zoo {arch} fp32: decode logits vs "
+           f"api.forward rel err {max(errs)} (tol {ZOO_TOL})")
+    r = {"dtype": "fp32", "layers": cfg.num_layers, "B": ZOO_B, "S": S,
+         "weights_gb": weights_gb, "prefill_ms": 1e3 * prefill_s,
+         "decode_steps": steps, "rel_err_decode": errs,
+         "rel_err_max": max(errs), "rounding_gain": gain,
+         "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[zoo] {arch} in fp32 at published width, {cfg.num_layers} "
+          f"layers, {weights_gb:.1f} GB: prefill [{ZOO_B}, {S}] "
+          f"{r['prefill_ms']:.1f} ms; {steps} greedy decode steps, logits vs "
+          f"api.forward rel err max {max(errs):.2e} (tol {ZOO_TOL}; "
+          f"{', '.join(f'{e:.1e}' for e in errs)}); rounding gain "
+          f"{gain:.1f} (relative logit change per relative change of the "
+          f"embedded prompt, 1e-3 of its std); peak allocated "
+          f"{r['peak_allocated_gb']:.1f} GB")
+    del params, caches, logits
     _free()
     return r
 
@@ -2444,8 +2581,9 @@ def _zoo_deepseek_v32(seed: int) -> dict:
 
 
 def phase_zoo(seed: int, card: str) -> dict:
-    """The dense decoder families behind build_api, then deepseek_v32 at
-    depth 1; each model built, run and released before the next."""
+    """The model families behind build_api (the dense decoders, rwkv6,
+    zamba2, seamless_m4t), then deepseek_v32 at depth 1; each model built,
+    run and released before the next."""
     tf = zoo_teacher_forced(seed)
     models = [_zoo_model(arch, layers, steps, seed + i)
               for i, (arch, layers, steps) in enumerate(ZOO)]
@@ -2905,14 +3043,17 @@ def time_super_gmm(shapes: dict, gen) -> list:
     return cases
 
 
-# flash_attention at the zoo's wide heads, timed beside the serve wave's
+# flash_attention at the zoo's head dims, timed beside the serve wave's
 # shapes: (case, config whose heads it takes, B); S = ZOO_S, causal
-ZOO_FLASH = (("dh192", "deepseek_v32", 1), ("dh256", "gemma3_1b", 2))
+ZOO_FLASH = (("dh192", "deepseek_v32", 1), ("dh256", "gemma3_1b", 2),
+             ("dh64_zamba", "zamba2_1p2b", 2),
+             ("dh64_seamless", "seamless_m4t_large_v2", 2))
 
 
 def time_flash_attention(shapes: list, gen) -> list:
     """The serve wave's (B, S) at qwen3's heads ("modal", "heaviest"), then
-    the zoo's head dims 192 and 256 (ZOO_FLASH) -- each causal, in bf16."""
+    the zoo's head dims 192, 256 and 64 (zamba2's shared attention,
+    seamless's decoder; ZOO_FLASH) -- each causal, in bf16."""
     bf = torch.bfloat16
     specs = [("modal" if i == 0 else "heaviest", B, S, get_config(ARCH))
              for i, (B, S) in enumerate(shapes)]

@@ -15,25 +15,34 @@ import torch
 
 from repro_torch.models.common import ModelConfig
 
-_FP32_LEAVES = ("router",)  # the router stays fp32 whatever cfg.dtype says
+# leaves the reference keeps fp32 whatever cfg.dtype says, by (parent key,
+# key): the router, rwkv's decay base and bonus, mamba's A_log, dt_bias and
+# D ("u" and "D" alone could name other leaves)
+_FP32_LEAVES = {("*", "router"), ("time_mix", "w_base"), ("time_mix", "u"),
+                ("mamba", "A_log"), ("mamba", "dt_bias"), ("mamba", "D")}
+
+
+def _fp32_leaf(parent: str, key: str) -> bool:
+    return ("*", key) in _FP32_LEAVES or (parent, key) in _FP32_LEAVES
 
 
 def params_from_numpy(tree: Any, cfg: ModelConfig, device="cuda",
-                      _key: str = "") -> Any:
+                      _key: str = "", _parent: str = "") -> Any:
     """numpy pytree (dicts / lists / arrays / None) -> tensors on `device`.
-    Float leaves take `cfg.dtype` (the router float32), integer leaves keep
-    their type."""
+    Float leaves take `cfg.dtype` (those of `_FP32_LEAVES` float32), integer
+    leaves keep their type."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, cfg, device, k)
+        return {k: params_from_numpy(v, cfg, device, k, _key)
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, cfg, device, _key) for v in tree]
+        return [params_from_numpy(v, cfg, device, _key, _parent)
+                for v in tree]
     arr = np.asarray(tree)
     if arr.dtype.kind == "f" or arr.dtype.name == "bfloat16":
         t = torch.from_numpy(np.array(arr, dtype=np.float32))  # a copy
-        dtype = torch.float32 if _key in _FP32_LEAVES else cfg.dtype
+        dtype = torch.float32 if _fp32_leaf(_parent, _key) else cfg.dtype
         return t.to(device=device, dtype=dtype)
     return torch.from_numpy(np.array(arr)).to(device)
 

@@ -1,10 +1,11 @@
 """GQA causal self-attention: the prefill path and the cached decode paths.
 
 Supports GQA (num_kv_heads < num_heads), QKV bias, sliding windows, logit
-softcap and QK norm.  `dense_causal_attention` is the O(S^2)-memory oracle;
-the other branch of `attention_forward`/`attention_prefill` is the flash
-attention kernel (`repro_torch.kernels.flash_attention`), which never
-materialises the [S, S] scores.  `chunked_causal_attention` is the
+softcap, QK norm, and dense cross attention (encoder-decoder).
+`dense_causal_attention` is the O(S^2)-memory oracle; the other branch of
+`attention_forward`/`attention_prefill` is the flash attention kernel
+(`repro_torch.kernels.flash_attention`), which never materialises the
+[S, S] scores.  `chunked_causal_attention` is the
 reference's blocked online-softmax oracle of that kernel, in plain torch.
 Decode -- `attention_decode` (one scalar cache length, ring buffers for
 windowed layers) and `attention_decode_ragged` (a length per row) -- has no
@@ -37,8 +38,9 @@ class KVCache(NamedTuple):
 
 
 def init_attention_params(gen: torch.Generator, cfg: ModelConfig,
-                          stack: tuple = ()):
-    """`stack` prepends leading axes (the [L] layer axis) to every leaf."""
+                          stack: tuple = (), cross: bool = False):
+    """`stack` prepends leading axes (the [L] layer axis) to every leaf.
+    Cross attention (`cross`) has the same leaves, as in the reference."""
     d, dev = cfg.d_model, gen.device
     p = {
         "wq": dense_init(gen, stack + (d, cfg.q_dim), d, cfg.dtype),
@@ -263,6 +265,28 @@ def attention_forward(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
     o = _causal(q, k, v, cfg, window, use_dense)
     return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def cross_attention_forward(p, x, memory, cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention (decoder -> encoder memory). No RoPE on the cross
+    path, no mask; dense, as in the reference (no kernel there either).
+    x: [B, S, d], memory: [B, S_enc, d]."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, memory, cfg, None, None)
+    o = unmasked_attention(q, _expand_kv(k, cfg.num_heads),
+                           _expand_kv(v, cfg.num_heads), cfg)
+    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+
+
+def unmasked_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
+    """softmax(q kᵀ / √dh) v with no mask (cross attention, the encoder):
+    fp32 scores, probabilities rounded to v's dtype before the product, as
+    the reference.  q: [B, Sq, H, dh]; k, v: [B, Sk, H, dh] (heads already
+    expanded; a k already in fp32 is not copied again)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    s = s * (cfg.head_dim ** -0.5)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1).to(v.dtype),
+                        v)
 
 
 def _pad_seq(t: torch.Tensor, size: int) -> torch.Tensor:

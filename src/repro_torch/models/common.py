@@ -25,7 +25,12 @@ class ModelConfig:
 
     Field for field the reference's `repro.models.common.ModelConfig` (so a
     smoke config compares equal apart from `dtype`, which is a torch dtype
-    here); the port runs the `dense` and `moe` families so far.
+    here).  `family` selects the block wiring:
+      dense   — decoder-only transformer, dense FFN
+      moe     — decoder-only transformer, MoE FFN
+      ssm     — attention-free (RWKV6)
+      hybrid  — Mamba2 backbone + shared attention block (Zamba2)
+      encdec  — encoder-decoder (Seamless-M4T backbone)
     """
 
     name: str

@@ -1,16 +1,18 @@
 """LM core: stage machinery over heterogeneous layer stacks.
 
 A model is a sequence of *stages*; each stage holds its layers' params
-stacked on leading layer axes.  Stage kinds the port carries:
+stacked on leading layer axes.  Stage kinds (the reference's):
 
   decoder  — uniform causal decoder layers (dense or MoE FFN, optional window)
   gemma    — superblocks of `lpg` sliding-window layers + 1 global layer
+  rwkv     — RWKV6 blocks
+  zamba    — superblocks of `every` Mamba2 layers + one SHARED attention block
+  mamba    — plain Mamba2 layers (zamba tail)
 
-(the reference's `rwkv`, `zamba` and `mamba` kinds arrive with their model
-families).  Three passes per stage kind: forward, prefill (forward +
-caches), decode (one token, cache in/out).  Layers run in a Python loop over
-views of the stacked params; the MoE stage's layer id is device data, which
-is what lets it run through the layer-oblivious Super Kernel.
+Three passes per stage kind: forward, prefill (forward + caches), decode
+(one token, the caches consumed: written in place).  Layers run in a Python
+loop over views of the stacked params; the MoE stage's layer id is device
+data, which is what lets it run through the layer-oblivious Super Kernel.
 """
 from __future__ import annotations
 
@@ -24,15 +26,13 @@ from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (ModelConfig, apply_norm,
                                        cross_entropy_loss, dense_init,
                                        embed_init, make_norm_params)
+from repro_torch.models.mamba2 import init_mamba_state
 from repro_torch.models.moe import MoEAux
+from repro_torch.models.rwkv6 import init_rwkv_state
 
 # ---------------------------------------------------------------------------
 # Stage specs
 # ---------------------------------------------------------------------------
-
-# the families still to port, and the slice that brings each
-_UNPORTED = {"ssm": "the RWKV6 slice (rwkv6_7b)",
-             "hybrid": "the Mamba2 + shared-attention slice (zamba2_1p2b)"}
 
 
 def lm_stages(cfg: ModelConfig):
@@ -50,10 +50,14 @@ def lm_stages(cfg: ModelConfig):
             return stages
         return [("decoder", cfg.num_layers,
                  {"moe": cfg.family == "moe", "window": cfg.window_size})]
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r}: its stages come with "
-            f"{_UNPORTED[cfg.family]}")
+    if cfg.family == "ssm":
+        return [("rwkv", cfg.num_layers, {})]
+    if cfg.family == "hybrid":
+        nb, tail = divmod(cfg.num_layers, cfg.shared_attn_every)
+        stages = [("zamba", nb, {"every": cfg.shared_attn_every})]
+        if tail:
+            stages.append(("mamba", tail, {}))
+        return stages
     raise ValueError(f"unknown family {cfg.family}")
 
 
@@ -62,11 +66,19 @@ def _init_stage(gen: torch.Generator, kind: str, n: int, opts: dict,
     if kind == "decoder":
         return B.init_decoder_block_params(gen, cfg, moe=opts["moe"],
                                            stack=(n,))
-    # gemma: [n, lpg, ...] local layers and [n, ...] global ones, the
-    # reference's layout (so bridged params carry over unchanged)
-    return {"local": B.init_decoder_block_params(gen, cfg,
-                                                 stack=(n, opts["lpg"])),
-            "global": B.init_decoder_block_params(gen, cfg, stack=(n,))}
+    if kind == "gemma":
+        # [n, lpg, ...] local layers and [n, ...] global ones, the
+        # reference's layout (so bridged params carry over unchanged)
+        return {"local": B.init_decoder_block_params(gen, cfg,
+                                                     stack=(n, opts["lpg"])),
+                "global": B.init_decoder_block_params(gen, cfg, stack=(n,))}
+    if kind == "rwkv":
+        return B.init_rwkv_block_params(gen, cfg, stack=(n,))
+    if kind == "zamba":  # [n, every, ...] mamba layers
+        return B.init_mamba_block_params(gen, cfg, stack=(n, opts["every"]))
+    if kind == "mamba":
+        return B.init_mamba_block_params(gen, cfg, stack=(n,))
+    raise ValueError(kind)
 
 
 def init_lm_params(gen: torch.Generator, cfg: ModelConfig, device=None):
@@ -82,6 +94,8 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig, device=None):
                    for kind, n, opts in lm_stages(cfg)],
         "final_norm": make_norm_params(cfg, gen.device),
     }
+    if cfg.family == "hybrid":
+        params["shared_attn"] = B.init_shared_attn_params(gen, cfg)
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(
             gen, (cfg.d_model, cfg.vocab_size), cfg.d_model, cfg.dtype)
@@ -140,8 +154,30 @@ def _gemma_blocks(sp, n: int, lpg: int):
         yield [layer_slice(blk["local"], j) for j in range(lpg)], blk["global"]
 
 
+def _zamba_blocks(sp, n: int, every: int):
+    """The mamba layers' params of each zamba superblock."""
+    for i in range(n):
+        blk = layer_slice(sp, i)
+        yield [layer_slice(blk, j) for j in range(every)]
+
+
 def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
-                   use_dense, gmm):
+                   use_dense, gmm, emb, shared):
+    if kind == "rwkv":
+        for l in range(n):
+            h = B.rwkv_block_forward(layer_slice(sp, l), h, cfg)
+        return h, _zero_aux(cfg, h.device)
+    if kind == "zamba":
+        for mambas in _zamba_blocks(sp, n, opts["every"]):
+            for lp in mambas:
+                h = B.mamba_block_forward(lp, h, cfg)
+            h = B.shared_attn_forward(shared, h, emb, cfg,
+                                      use_dense=use_dense)
+        return h, _zero_aux(cfg, h.device)
+    if kind == "mamba":
+        for l in range(n):
+            h = B.mamba_block_forward(layer_slice(sp, l), h, cfg)
+        return h, _zero_aux(cfg, h.device)
     if kind == "gemma":
         for local, glob in _gemma_blocks(sp, n, opts["lpg"]):
             for lp in local:
@@ -172,12 +208,15 @@ def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
 
     `gmm` replaces the capacity mode's expert matmul and gets each layer's
     id as DEVICE data: a one-element view into one `torch.arange(L)` per
-    stage and call, so no layer costs a host-to-device copy."""
+    stage and call, so no layer costs a host-to-device copy.  Zamba's shared
+    attention reads the embedded input beside the hidden state."""
     h = embed_tokens(params, tokens, embeddings, cfg)
+    emb0 = h
     auxs = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
         h, aux = _stage_forward(sp, h, kind, n, opts, cfg, moe_mode=moe_mode,
-                                use_dense=use_dense, gmm=gmm)
+                                use_dense=use_dense, gmm=gmm, emb=emb0,
+                                shared=params.get("shared_attn"))
         auxs.append(aux)
     return apply_norm(h, params["final_norm"], cfg), _mean_aux(auxs)
 
@@ -226,13 +265,34 @@ def lm_loss(params, cfg: ModelConfig, tokens=None, labels=None,
 # ---------------------------------------------------------------------------
 
 
-def _stack(caches) -> KVCache:
-    """Per-layer caches -> one KVCache stacked on a leading layer axis."""
-    return KVCache(*(torch.stack(f) for f in zip(*caches)))
+def _stack(caches):
+    """Per-layer caches (KVCache, RWKVState or MambaState) -> one of the
+    same kind stacked on a leading layer axis."""
+    return type(caches[0])(*(torch.stack(f) for f in zip(*caches)))
 
 
 def _stage_prefill(sp, h, kind, n, opts, cfg: ModelConfig, *, max_len,
-                   use_dense):
+                   use_dense, emb, shared):
+    if kind in ("rwkv", "mamba"):
+        block = B.rwkv_block_prefill if kind == "rwkv" \
+            else B.mamba_block_prefill
+        states = []
+        for l in range(n):
+            h, st = block(layer_slice(sp, l), h, cfg)
+            states.append(st)
+        return h, _stack(states)
+    if kind == "zamba":
+        mc, ac = [], []
+        for mambas in _zamba_blocks(sp, n, opts["every"]):
+            states = []
+            for lp in mambas:
+                h, st = B.mamba_block_prefill(lp, h, cfg)
+                states.append(st)
+            mc.append(_stack(states))
+            h, c = B.shared_attn_prefill(shared, h, emb, cfg, max_len=max_len,
+                                         use_dense=use_dense)
+            ac.append(c)
+        return h, {"mamba": _stack(mc), "shared": _stack(ac)}
     if kind == "gemma":
         local, glob = [], []
         for lps, gp in _gemma_blocks(sp, n, opts["lpg"]):
@@ -263,12 +323,17 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     reference's scans stack them -- a decoder stage's `KVCache` with k/v
     [L, B, S, kvh, hd] and length [L]; a gemma stage's {"local": KVCache
     [n, lpg, B, window, kvh, hd], "global": KVCache [n, B, max_len, kvh,
-    hd]}."""
+    hd]}; an rwkv stage's `RWKVState` [L, ...]; a zamba stage's {"mamba":
+    MambaState [n, every, ...], "shared": KVCache [n, ...] (one per
+    application of the shared block)}; a mamba stage's `MambaState`
+    [L, ...]."""
     h = embed_tokens(params, tokens, embeddings, cfg)
+    emb0 = h
     caches = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
         h, cache = _stage_prefill(sp, h, kind, n, opts, cfg, max_len=max_len,
-                                  use_dense=use_dense)
+                                  use_dense=use_dense, emb=emb0,
+                                  shared=params.get("shared_attn"))
         caches.append(cache)
     h = apply_norm(h, params["final_norm"], cfg)
     logits = lm_head(params, h[:, -1:], cfg)[:, 0]
@@ -280,14 +345,30 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
 # ---------------------------------------------------------------------------
 
 
-def _cache_at(cache: KVCache, l) -> KVCache:
-    """Layer l's cache (an index or a tuple of indices into the stacked
-    axes): views, so the layer's in-place writes and length advance land in
-    the stage's cache."""
-    return KVCache(cache.k[l], cache.v[l], cache.length[l])
+def _cache_at(cache, l):
+    """Layer l's cache (KVCache, RWKVState or MambaState; `l` an index or a
+    tuple of indices into the stacked axes): views, so the layer's in-place
+    writes land in the stage's cache."""
+    return type(cache)(*(f[l] for f in cache))
 
 
-def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig):
+def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig, *, emb,
+                  shared):
+    if kind in ("rwkv", "mamba"):
+        block = B.rwkv_block_decode if kind == "rwkv" \
+            else B.mamba_block_decode
+        for l in range(n):
+            h, _ = block(layer_slice(sp, l), h, _cache_at(cache, l), cfg)
+        return h
+    if kind == "zamba":
+        for i, mambas in enumerate(_zamba_blocks(sp, n, opts["every"])):
+            for j, lp in enumerate(mambas):
+                h, _ = B.mamba_block_decode(lp, h,
+                                            _cache_at(cache["mamba"], (i, j)),
+                                            cfg)
+            h, _ = B.shared_attn_decode(shared, h, emb,
+                                        _cache_at(cache["shared"], i), cfg)
+        return h
     if kind == "gemma":
         for i, (lps, gp) in enumerate(_gemma_blocks(sp, n, opts["lpg"])):
             for j, lp in enumerate(lps):
@@ -309,14 +390,17 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, *,
                    embeddings=None):
     """token: [B] int (or embeddings [B, 1, d]). Returns (logits [B, V],
     caches).  CONSUMES `caches`, unlike the reference: every layer's k/v is
-    written and its length advanced in place (`attention_decode`), and the
-    same cache objects come back.  Clone them first to keep a state to
-    return to."""
+    written and its length advanced in place (`attention_decode`), every
+    recurrent state overwritten in place (`rwkv_block_decode`,
+    `mamba_decode`), and the same cache objects come back.  Clone them first
+    to keep a state to return to."""
     h = embed_tokens(params, token[:, None] if token is not None else None,
                      embeddings, cfg)
+    emb0 = h
     for sp, cache, (kind, n, opts) in zip(params["stages"], caches,
                                           lm_stages(cfg)):
-        h = _stage_decode(sp, h, cache, kind, n, opts, cfg)
+        h = _stage_decode(sp, h, cache, kind, n, opts, cfg, emb=emb0,
+                          shared=params.get("shared_attn"))
     h = apply_norm(h, params["final_norm"], cfg)
     return lm_head(params, h, cfg)[:, 0], caches
 
@@ -339,11 +423,23 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                        torch.full(lead, prefilled, dtype=torch.int32,
                                   device=device))
 
+    def states(st, lead: tuple):  # a zero state per layer
+        return type(st)(*(a.new_zeros(lead + tuple(a.shape)) for a in st))
+
     caches = []
     for kind, n, opts in lm_stages(cfg):
         if kind == "decoder":
             caches.append(kv((n,), opts.get("window")))
-        else:
+        elif kind == "gemma":
             caches.append({"local": kv((n, opts["lpg"]), cfg.window_size),
                            "global": kv((n,))})
+        elif kind == "rwkv":
+            caches.append(states(init_rwkv_state(cfg, batch, device), (n,)))
+        elif kind == "zamba":
+            caches.append({"mamba": states(init_mamba_state(cfg, batch,
+                                                            device),
+                                           (n, opts["every"])),
+                           "shared": kv((n,))})
+        else:  # mamba
+            caches.append(states(init_mamba_state(cfg, batch, device), (n,)))
     return caches

@@ -1,10 +1,13 @@
 """Helpers shared by the tests of the PyTorch port: JAX-side parameters made
 once, handed to both packages through numpy."""
+import functools
+
 import jax
 import numpy as np
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.models.encdec import init_encdec_params as jax_init_encdec_params
 from repro.models.lm import init_lm_params as jax_init_lm_params
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
@@ -31,3 +34,50 @@ def t(a):
 def close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=tol,
                                atol=tol)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_params(arch, seed, replace):
+    jcfg = jax_get_config(arch).smoke().replace(**dict(replace))
+    if jcfg.family in ("dense", "moe"):
+        return jcfg, jax_init_lm_params(jax.random.PRNGKey(seed), jcfg)
+    # the recurrent, hybrid and encoder-decoder inits, compiled: eager,
+    # their nested vmaps dispatch op by op (6 s for zamba2's smoke config)
+    init = jax_init_encdec_params if jcfg.family == "encdec" \
+        else jax_init_lm_params
+    return jcfg, jit(init, cfg=jcfg)(jax.random.PRNGKey(seed))
+
+
+def jit(fn, **static):
+    """The JAX function compiled once with `static` bound: un-jitted, every
+    new shape compiles op by op, which dominates a port test's time."""
+    return jax.jit(functools.partial(fn, **static))
+
+
+def family_setup(arch, seed=0, **replace):
+    """(jax cfg, jax params, port cfg, port params on the CPU) for `arch`'s
+    smoke config (`replace`: more config fields); the port's params are the
+    JAX ones, made numpy and bridged."""
+    jcfg, jparams = _jax_params(arch, seed, tuple(sorted(replace.items())))
+    cfg = get_config(arch).smoke().replace(**replace)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    return jcfg, jparams, cfg, params
+
+
+def tree_leaves(tree):
+    """Leaves of nested dicts / lists / NamedTuples, dict keys in sorted
+    order, so the port's and the reference's caches line up."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def close_trees(got, want, tol):
+    """Leaf by leaf (tree_leaves order): same shapes, within `tol`."""
+    g, w = tree_leaves(got), tree_leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        assert tuple(a.shape) == tuple(b.shape)
+        close(a, b, tol)

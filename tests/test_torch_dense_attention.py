@@ -114,10 +114,36 @@ def test_full_layer_at_capacity_keeps_the_last_slot():
 
 
 def test_decoder_block_decode_refuses_cross_attention():
-    cfg = get_config("olmo_1b").smoke()
-    with pytest.raises(NotImplementedError):
-        blocks.decoder_block_decode({}, torch.zeros(1, 1, cfg.d_model),
-                                    None, cfg, memory=torch.zeros(1, 2, 8))
+    """decoder_block_decode takes memory= now: a cross-attention block
+    (GQA 4/2 heads) prefilled over 12 tokens, then 3 one-token decodes
+    attending to a 20-frame memory -- outputs and caches == the reference's
+    decoder_block_prefill / decoder_block_decode at 2e-5, the cache written
+    in place."""
+    from repro.models import blocks as jblocks
+    jp = jblocks.init_decoder_block_params(jax.random.PRNGKey(11), JCFG,
+                                           cross=True)
+    p = params_from_numpy(jax.tree.map(np.asarray, jp), CFG, "cpu")
+    B, S, steps = 2, 12, 3
+    x = _x(12, B, S + steps, CFG.d_model)
+    mem = _x(13, B, 20, CFG.d_model)
+    h, cache = blocks.decoder_block_prefill(p, t(x[:, :S]), CFG,
+                                            max_len=S + steps,
+                                            memory=t(mem))
+    jh, jcache = jblocks.decoder_block_prefill(jp, jnp.asarray(x[:, :S]),
+                                               JCFG, max_len=S + steps,
+                                               memory=jnp.asarray(mem))
+    close(h, jh, 2e-5)
+    for i in range(S, S + steps):
+        h, c2 = blocks.decoder_block_decode(p, t(x[:, i:i + 1]), cache, CFG,
+                                            memory=t(mem))
+        jh, jcache = jblocks.decoder_block_decode(
+            jp, jnp.asarray(x[:, i:i + 1]), jcache, JCFG,
+            memory=jnp.asarray(mem))
+        assert c2 is cache
+        close(h, jh, 2e-5)
+        close(cache.k, jcache.k, 2e-5)
+        close(cache.v, jcache.v, 2e-5)
+    assert int(cache.length) == int(jcache.length) == S + steps
 
 
 # ------------------------------------------------- chunked (blocked) oracle --

@@ -6,7 +6,6 @@ flash plain path meets the reference's chunked path), `lm_prefill` followed
 by scalar-length `lm_decode_step`s past the smoke window (gemma's rings
 wrap), `init_caches`, `lm_loss`, the parameter counts and `build_api`."""
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,12 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, t
+from _torch_port import (close, close_trees, family_setup, t,
+                         tree_leaves)
 from repro.configs import get_config as jax_get_config
 from repro.models import api as japi
 from repro.models import common as jcommon
 from repro.models import lm as jlm
-from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.models import api, common, lm
 from repro_torch.models.attention import KVCache
@@ -42,22 +41,6 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = old
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_params(arch, seed, replace):
-    jcfg = jax_get_config(arch).smoke().replace(**dict(replace))
-    return jcfg, jlm.init_lm_params(jax.random.PRNGKey(seed), jcfg)
-
-
-def family_setup(arch, seed=0, **replace):
-    """(jax cfg, jax params, port cfg, port params on the CPU) for `arch`'s
-    smoke config (`replace`: more config fields); the port's params are the
-    JAX ones, made numpy and bridged."""
-    jcfg, jparams = _jax_params(arch, seed, tuple(sorted(replace.items())))
-    cfg = get_config(arch).smoke().replace(**replace)
-    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
-    return jcfg, jparams, cfg, params
-
-
 def _setup(arch):
     return family_setup(arch, **(MOE_KW if arch == MOE else {}))
 
@@ -66,22 +49,8 @@ def _tokens(cfg, B, S, seed):
     return np.random.RandomState(seed).randint(0, cfg.vocab_size, (B, S))
 
 
-def _leaves(tree):
-    """Leaves of nested dicts / lists / KVCaches, dict keys in sorted order,
-    so the port's and the reference's caches line up."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
 def _close_caches(got, want, tol=CACHE_TOL):
-    g, w = _leaves(got), _leaves(want)
-    assert len(g) == len(w)
-    for a, b in zip(g, w):
-        assert tuple(a.shape) == tuple(b.shape)
-        close(a, b, tol)
+    close_trees(got, want, tol)
 
 
 def _dtype_name(x):
@@ -105,8 +74,37 @@ def test_config_matches_reference_field_for_field(arch):
 @pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
                                   "seamless_m4t_large_v2", "rwkv6-7b"])
 def test_unported_architectures_raise(arch):
+    """The architectures the port once refused are served now: each name,
+    the alias too, gives the reference's config field for field (full and
+    smoke); a name neither registry knows still raises."""
+    for mk in (lambda c: c, lambda c: c.smoke()):
+        got = dataclasses.asdict(mk(get_config(arch)))
+        want = dataclasses.asdict(mk(jax_get_config(arch)))
+        assert str(got.pop("dtype")).replace("torch.", "") \
+            == jnp.dtype(want.pop("dtype")).name
+        assert got == want
     with pytest.raises(ValueError):
-        get_config(arch)
+        get_config(arch + "_unknown")
+
+
+def test_registry_equals_reference_and_every_arch_builds():
+    """ARCHS, EXTRA_ARCHS and the aliases are the reference's, in its
+    order; build_api serves every one of the 11 architectures (a forward
+    at the smoke config gives [B, S, V] logits)."""
+    from repro import configs as jconfigs
+    from repro_torch import configs
+    assert configs.ARCHS == jconfigs.ARCHS
+    assert configs.EXTRA_ARCHS == jconfigs.EXTRA_ARCHS
+    assert configs._ALIASES == jconfigs._ALIASES
+    gen = torch.Generator().manual_seed(0)
+    for arch in configs.ARCHS + configs.EXTRA_ARCHS:
+        cfg = get_config(arch).smoke()
+        a = api.build_api(cfg)
+        logits, _ = a.forward(a.init(gen),
+                              a.make_batch(gen, 8, 1, "prefill",
+                                           device="cpu"))
+        assert logits.shape[0] == 1 and logits.shape[-1] == cfg.vocab_size
+        assert torch.isfinite(logits).all(), arch
 
 
 def test_gemma_stages_match_reference():
@@ -123,8 +121,17 @@ def test_gemma_stages_match_reference():
 
 @pytest.mark.parametrize("family", ["ssm", "hybrid"])
 def test_unported_stage_kinds_raise(family):
-    with pytest.raises(NotImplementedError):
-        lm.lm_stages(get_config("olmo_1b").replace(family=family))
+    """The stage kinds once refused: rwkv6's 32 rwkv layers, zamba2's 6
+    superblocks of 6 mamba layers + a 2-layer mamba tail; smoke configs
+    too; all == the reference's lm_stages."""
+    arch = {"ssm": "rwkv6_7b", "hybrid": "zamba2_1p2b"}[family]
+    for mk in (lambda c: c, lambda c: c.smoke()):
+        cfg, jcfg = mk(get_config(arch)), mk(jax_get_config(arch))
+        assert cfg.family == family
+        assert lm.lm_stages(cfg) == jlm.lm_stages(jcfg)
+    assert lm.lm_stages(get_config(arch)) == {
+        "ssm": [("rwkv", 32, {})],
+        "hybrid": [("zamba", 6, {"every": 6}), ("mamba", 2, {})]}[family]
 
 
 # ------------------------------------------------------------- forward --
@@ -169,7 +176,7 @@ def test_prefill_then_decode_matches_jax(arch, S, steps):
         jlogits, jcaches = jdec(jparams, jcaches, jnp.asarray(tok))
         close(logits, jlogits, LOGIT_TOL)
         _close_caches(caches, jcaches)
-    lens = [int(x) for x in _leaves(caches) if x.dtype == torch.int32
+    lens = [int(x) for x in tree_leaves(caches) if x.dtype == torch.int32
             for x in x.flatten()]
     assert set(lens) == {S + steps}
 
@@ -180,11 +187,11 @@ def test_decode_writes_the_cache_in_place_without_new_tensors():
     _, _, cfg, params = family_setup("gemma3_1b")
     _, caches = lm.lm_prefill(params, cfg, t(_tokens(cfg, 2, 20, 32)),
                               max_len=24)
-    before = [c.clone() for c in _leaves(caches)]
+    before = [c.clone() for c in tree_leaves(caches)]
     _, new = lm.lm_decode_step(params, cfg, caches,
                                torch.tensor([1, 2], dtype=torch.int32))
     assert new is caches
-    for old, was, now in zip(_leaves(caches), before, _leaves(new)):
+    for old, was, now in zip(tree_leaves(caches), before, tree_leaves(new)):
         assert now is old
         if old.dtype == torch.int32:
             assert torch.equal(now, was + 1)
@@ -202,7 +209,7 @@ def test_init_caches_match_jax_and_prefill(arch):
     want = jlm.init_caches(jcfg, B, max_len, prefilled=S)
     _, pre = lm.lm_prefill(params, cfg, t(_tokens(cfg, B, S, 33)),
                            max_len=max_len)
-    g, w, p = _leaves(got), _leaves(want), _leaves(pre)
+    g, w, p = tree_leaves(got), tree_leaves(want), tree_leaves(pre)
     assert len(g) == len(w) == len(p)
     for a, b, c in zip(g, w, p):
         assert tuple(a.shape) == tuple(b.shape) == tuple(c.shape)
@@ -273,8 +280,21 @@ def test_make_batch_shapes():
 
 
 def test_build_api_refuses_encdec():
-    with pytest.raises(NotImplementedError):
-        api.build_api(get_config("olmo_1b").smoke().replace(family="encdec"))
+    """The encoder-decoder API is built now: its batch, caches and a
+    forward at the smoke config have the reference's shapes."""
+    cfg = get_config("seamless_m4t_large_v2").smoke()
+    a = api.build_api(cfg)
+    gen = torch.Generator().manual_seed(0)
+    b = a.make_batch(gen, 40, 2, "train", device="cpu")
+    assert sorted(b) == ["dec_tokens", "enc_embeddings", "labels"]
+    assert b["enc_embeddings"].shape == (2, 40, cfg.d_model)
+    assert b["dec_tokens"].shape == b["labels"].shape == (2, 64)
+    logits, aux = a.forward(a.init(gen), b)
+    assert logits.shape == (2, 64, cfg.vocab_size) and aux is None
+    memory, caches = a.make_caches(2, 70, 0, enc_len=40, device="cpu")
+    assert memory.shape == (2, 40, cfg.d_model)
+    assert caches.k.shape == (cfg.decoder_layers, 2, 70, cfg.num_kv_heads,
+                              cfg.head_dim)
 
 
 @pytest.mark.parametrize("arch", ["gemma3_1b", "qwen2_1p5b"])
@@ -309,6 +329,6 @@ def test_build_api_equals_direct_calls_and_jax(arch):
         close(last, jlast, LOGIT_TOL)
     _close_caches(caches, jcaches)
     made = a.make_caches(2, 48, 40, device="cpu")
-    assert [x.shape for x in _leaves(made)] \
-        == [x.shape for x in _leaves(caches)]
+    assert [x.shape for x in tree_leaves(made)] \
+        == [x.shape for x in tree_leaves(caches)]
     assert all(isinstance(c, (KVCache, dict)) for c in made)

@@ -45,7 +45,7 @@ def test_config_fields_equal_reference_full_and_smoke(arch):
 def test_get_config_alias_and_unknown():
     assert get_config("qwen3-moe-235b-a22b").name == "qwen3-moe-235b-a22b"
     with pytest.raises(ValueError):
-        get_config("rwkv6_7b")  # not ported yet
+        get_config("mamba_7b")  # in neither registry
 
 
 def test_norms_match():
