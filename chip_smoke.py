@@ -82,6 +82,28 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             that fired, the swap's seconds and gather rate, bucket misses,
             memory (a {"rebalance": ...} line).
             `--phases device,build,rebalance` runs it alone
+  tuning    the Super Kernel's (BM, BN) tiles and the tuning table at the
+            serve configuration's MoE device (32 experts, d 4096, f 1536,
+            bf16, L 4): every tile torch.equal to the default 128x256 and
+            within 2e-3 of the plain version (gate/up and down, the serve
+            wave's counts and dense, C 8 and 512); the quick sweep's table
+            saved, reloaded and every winner looked up again, and the full
+            sweep (per-tile us per bucket, a reading); the serve wave's
+            prompts as pinned jobs untuned and under a table naming
+            non-default tiles per bucket: torch.equal, launches_by_tile ==
+            what the table gives the wave's buckets; merged == per-region
+            torch.equal under a table giving the per-region buckets and the
+            merged bucket different tiles; untuned vs the sweep's table
+            tokens/s of the serve wave as a burst in interleaved turns, best
+            of 3 (a reading, not gated); one {"tuning": ...} line.
+            `--phases device,build,tuning` runs it alone
+  examples  (after the qwen3 model is released) the serving examples'
+            twins, each in its own process on the card: torch_quickstart
+            (its super-kernel vs einsum max err within 2e-3),
+            torch_serve_asap (10/10 completed), torch_imbalance_demo; each
+            must exit 0; their kernel launches by route are a reading (one
+            {"examples": ...} line).  `--phases device,build,examples` runs
+            it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -122,12 +144,16 @@ Phases (each prints its own lines; any failure is a non-zero exit):
   profile   (only with --phases ...,profile) the served requests once more
             under torch.profiler: device time by kernel, busy share
 
+The {"kernels": ...} line's super_gmm row also carries its device ms per
+tile at the serve wave's median launch (`device_ms_by_tile`) and the serve
+wave's launches by tile.
+
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
 counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
-rebalance, zoo) stand in the {"kernels": ...} line under
-"launches_by_path".
+rebalance, tuning -- the tuned wave --, zoo, and each example twin's whole
+run) stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -169,7 +195,11 @@ from repro_torch.kernels.super_gmm.ops import (pack_capacity,
                                                super_moe_ffn, unpack_capacity,
                                                unpack_capacity_multi)
 from repro_torch.kernels.super_gmm.ref import super_moe_ffn_ref
-from repro_torch.kernels.super_gmm.super_gmm import super_gmm, super_gmm_ref
+from repro_torch.kernels.super_gmm import tuning
+from repro_torch.kernels.super_gmm.super_gmm import (DEFAULT_TILE, TILES,
+                                                      super_gmm,
+                                                      super_gmm_ref,
+                                                      tile_name)
 from repro_torch.models.common import act_fn
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates).
@@ -965,6 +995,7 @@ def phase_serve(cfg, params, seed: int) -> dict:
     launches = {n: k.launches for n, k in kernels.items()}
     by_route = {"super_gmm": _routes(super_gmm),
                 "flash_attention": _routes(flash_attention)}
+    by_tile = dict(super_gmm.launches_by_tile)
     syncs = _launch.reset_host_syncs()
     results, st = out["results"], out["stats"]
     expect(len(results) == 8 and all(r.ok for r in results),
@@ -1022,7 +1053,7 @@ def phase_serve(cfg, params, seed: int) -> dict:
           f"{np.round(burst['stats'].group_util, 2).tolist()}")
     expect(not ex.errors, "executor worker failed")
     ttft = [r.ttft for r in results]
-    return {"launches": launches, "by_route": by_route,
+    return {"launches": launches, "by_route": by_route, "by_tile": by_tile,
             "ttft_mean_s": float(np.mean(ttft)),
             "ttft_max_s": float(np.max(ttft)),
             "shapes": out["shapes"], "buckets": out["buckets"],
@@ -1902,6 +1933,279 @@ def phase_rebalance(cfg, params, seed: int) -> dict:
           f"{out['speedup']:.3f}; first tokens equal rid by rid and the "
           f"pinned jobs torch.equal across all four turns; phase wall "
           f"{out['wall_s']:.1f}s")
+    return out
+
+
+def _tile_counts(serve, gen, n_e: int) -> list:
+    """Per-expert row counts for the tile checks: the serve wave's median
+    launch (wave_shapes) where the serve phase ran, else seeded ones."""
+    if serve is not None:
+        return wave_shapes(serve)["super_gmm"]["counts"]
+    return [int(v) for v in torch.randint(0, 700, (n_e,), generator=gen,
+                                          device=DEV).tolist()]
+
+
+def _rotating_table(key: str, buckets) -> tuning.TuningTable:
+    """A table whose every bucket names non-default tiles in turn: up and
+    down never the same tile, and the default never both."""
+    t = tuning.TuningTable()
+    tiles = list(TILES)
+    for i, C in enumerate(buckets):
+        up = tiles[1 + i % (len(tiles) - 1)]
+        down = tiles[(2 + i) % len(tiles)]
+        t.put(key, C, (*up, 64), (*down, 64))
+    return t
+
+
+def _tile_launches(ex, table: tuning.TuningTable, key: str) -> dict:
+    """The super_gmm launches by tile that `table` gives the launches in
+    `ex`'s log: two at the up tile and one at the down tile per
+    super_moe_ffn, the default tile where the table has no entry."""
+    want = collections.Counter()
+    with ex._log_lock:
+        buckets = [ev[3] for ev in ex.log if ev[0] == "launch"]
+    for C in buckets:
+        hit = table.lookup(key, C)
+        up, down = (DEFAULT_TILE, DEFAULT_TILE) if hit is None \
+            else (tuple(hit[0][:2]), tuple(hit[1][:2]))
+        want[tile_name(up)] += 2
+        want[tile_name(down)] += 1
+    return dict(want)
+
+
+def phase_tuning(cfg, params, seed: int, gen, serve=None) -> dict:
+    """The Super Kernel's tiles and the tuning table at the serve
+    configuration (one MoE device of qwen3: 32 experts, d 4096, f 1536,
+    bf16, L = 4): (a) every tile torch.equal to the default tile and within
+    2e-3 of the plain version, gate/up and down, with counts and dense, at
+    C 8 and 512; (b) the quick sweep's table round trip, and the full sweep
+    (its per-tile times per bucket are a reading); (c) the serve wave's
+    prompts as pinned jobs through one executor untuned and under a table
+    whose buckets name non-default tiles: torch.equal, and the launches by
+    tile what the table gives; (d) merged == per-region torch.equal under a
+    table giving the per-region buckets and the merged bucket different
+    tiles; (e) untuned vs tuned (the sweep's winners) tokens/s of the serve
+    wave as a burst, in interleaved turns, best of 3 (a reading)."""
+    import tempfile
+
+    from repro_torch.core.executor import DisaggregatedExecutor
+    from repro_torch.launch import tune_superkernel
+    from repro_torch.launch.serve import serve_requests
+    tiles = list(TILES)
+    expect(len(tiles) > 1 and tiles[0] == DEFAULT_TILE,
+           f"tuning: tiles {tiles}")
+    out = {"tiles": [tile_name(t) for t in tiles]}
+    tuning.set_table(None)
+    g = tune_superkernel.geometry()
+    n_e, d, f, L = g["n_experts"], g["d_model"], g["d_ff"], g["num_layers"]
+    lid = torch.tensor([1], dtype=torch.int32, device=DEV)
+    counts = _tile_counts(serve, gen, n_e)
+    # (a) every tile == the default tile, bit for bit
+    worst = 0.0
+    for proj, (K, N) in (("gate_up", (d, f)), ("down", (f, d))):
+        for C in (8, 512):
+            w, x = _gmm_inputs(gen, L, n_e, C, K, N, torch.bfloat16)
+            cnt = torch.tensor(counts, dtype=torch.int32, device=DEV)
+            for c in (cnt, None):
+                base = super_gmm(lid, w, x, c)
+                ref = super_gmm_ref(lid, w, x, c)
+                for t in tiles:
+                    routes = _routes(super_gmm)
+                    got = super_gmm(lid, w, x, c, tile=t)
+                    _took(super_gmm, routes, "wgmma", f"tile {t}")
+                    what = (f"{proj} C={C} "
+                            f"{'dense' if c is None else 'counts'} tile "
+                            f"{tile_name(t)}")
+                    expect(torch.equal(got, base),
+                           f"tuning: {what} != the default tile (max abs "
+                           f"err {max_err(got, base):.3e})")
+                    err = max_err(got, ref)
+                    expect(err <= 2e-3, f"tuning: {what} vs plain: err "
+                           f"{err}")
+                    worst = max(worst, err)
+            del w, x
+    out["max_abs_err"] = worst
+    print(f"[tuning] tiles {out['tiles']} (BK 64): gate/up K/N {d}/{f} and "
+          f"down {f}/{d}, n_e={n_e} L={L}, C 8 and 512, counts {counts} "
+          f"and dense: every tile torch.equal to the default "
+          f"{tile_name(DEFAULT_TILE)}; vs plain max err {worst:.2e} "
+          f"(tol 2e-3)")
+    # (b) the sweep: the quick one's round trip, then the full one
+    with tempfile.TemporaryDirectory() as tmp:
+        quick = tune_superkernel.run(quick=True,
+                                     out=os.path.join(tmp, "quick.json"))
+        loaded = tuning.TuningTable.load(quick["out"])
+        for key, C, up, _, down, _ in quick["rows"]:
+            got = loaded.lookup(key, int(C))
+            expect(got is not None and (str(got[0]), str(got[1]))
+                   == (up, down), f"tuning: quick sweep round trip at {key} "
+                   f"C={C}")
+        sweep = tune_superkernel.run(out=os.path.join(tmp, "full.json"))
+        table = tuning.TuningTable.load(sweep["out"])
+    key = tuning.config_key(n_e, d, f, torch.bfloat16)
+    out["quick_rows"] = quick["rows"]
+    out["sweep"] = {"rows": sweep["rows"], "us_by_tile": sweep["timings"],
+                    "card": table.meta["card"]}
+    print(f"[tuning] quick sweep {tune_superkernel.QUICK_BUCKETS}: table "
+          f"saved, reloaded, every winner looked up again: "
+          f"{[(r[1], r[2], r[4]) for r in quick['rows']]}")
+    for key_, C, up, up_us, down, down_us in sweep["rows"]:
+        t = sweep["timings"][str(C)]
+        print(f"[tuning] sweep C={C:<4d} up {up} {up_us} us (default "
+              f"{t['up'][tile_name(DEFAULT_TILE)]:.1f}; "
+              + ", ".join(f"{k} {v:.1f}" for k, v in t["up"].items())
+              + f") | down {down} {down_us} us (default "
+              f"{t['down'][tile_name(DEFAULT_TILE)]:.1f}; "
+              + ", ".join(f"{k} {v:.1f}" for k, v in t["down"].items())
+              + ")")
+    # (c) the serve wave's prompts, untuned and under the rotating table
+    rng = np.random.RandomState(seed)
+    lengths = serve["lengths"] if serve is not None else \
+        [int(v) for v in rng.randint(256, 2049, size=8)]
+    tokens = [rng.randint(0, cfg.vocab_size, (1, n)) for n in lengths]
+    D, E = 2, 4
+    rot = _rotating_table(key, tune_superkernel.BUCKETS + [1024, 2048, 4096])
+    ex = DisaggregatedExecutor(params, cfg, D=D, E=E, device=DEV)
+    try:
+        ex.prewarm_buckets(4096)
+        ref, r0 = _wave(ex, tokens, D)
+        tuning.set_table(rot)
+        ex.prewarm_buckets(4096)  # the table's tiles, touched once
+        got, r1 = _wave(ex, tokens, D)
+        by_tile = dict(super_gmm.launches_by_tile)
+        want = _tile_launches(ex, rot, key)
+        tuning.set_table(None)
+        for i in ref:
+            expect(torch.equal(got[i], ref[i]),
+                   f"tuning: job {i} under the table != untuned (max abs "
+                   f"err {max_err(got[i], ref[i]):.3e})")
+        expect({k: v for k, v in by_tile.items() if v} == want,
+               f"tuning: launches by tile {by_tile}, the table gives {want}")
+        expect(by_tile[tile_name(DEFAULT_TILE)] < r1["super_gmm"],
+               "tuning: the table's wave ran only the default tile")
+        out["tuned_wave"] = {"launches_by_tile": by_tile,
+                             "untuned": r0, "tuned": r1}
+        print(f"[tuning] the serve wave's {len(tokens)} prompts {lengths} "
+              f"as pinned jobs (D={D} E={E}): under a table naming "
+              f"non-default tiles per bucket every output torch.equal to "
+              f"the untuned wave; launches by tile {by_tile} == what the "
+              f"table gives the wave's buckets")
+        # (e) untuned vs the sweep's winners, the serve wave as a burst
+        kw = dict(rps=1e6, time_scale=1.0, seed=seed, device=DEV,
+                  max_batch_tokens=4096, executor=ex)
+        turns = []
+        for arm in ("untuned", "tuned", "tuned", "untuned", "untuned",
+                    "tuned"):
+            tuning.set_table(table if arm == "tuned" else None)
+            _launch.reset_launches(super_gmm)
+            r = serve_requests(cfg, params, lengths=lengths, **kw)
+            tuning.set_table(None)
+            expect(len(r["results"]) == len(lengths)
+                   and all(x.ok for x in r["results"]),
+                   f"tuning: {arm} serve wave: not every request ok")
+            turns.append((arm, sum(lengths) / r["wall"],
+                          dict(super_gmm.launches_by_tile)))
+    finally:
+        tuning.set_table(None)
+        del ex
+        _free()
+    best = {a: max(t for arm, t, _ in turns if arm == a)
+            for a in ("untuned", "tuned")}
+    out["tokens_per_s"] = {"turns": [(a, t) for a, t, _ in turns],
+                           "best": best,
+                           "tuned_by_tile": turns[1][2]}
+    print(f"[tuning] serve wave as a burst ({sum(lengths)} tokens), "
+          f"untuned vs the sweep's table in turns "
+          + ", ".join(f"{a} {t:.0f}" for a, t, _ in turns)
+          + f" tokens/s: best of 3 untuned {best['untuned']:.0f}, tuned "
+          f"{best['tuned']:.0f} (a reading, not gated); tuned launches by "
+          f"tile {turns[1][2]}")
+    # (d) merged == per-region under a table splitting the buckets
+    experts = {k: v[:, 0::E] for k, v in
+               params["stages"][0]["ffn"]["experts"].items()}
+    sizes = [300, 40, 700, 9]
+    toks = [torch.randn((n, d), generator=gen, device=DEV).bfloat16()
+            for n in sizes]
+    eids = [torch.randint(0, n_e, (n,), generator=gen, device=DEV)
+            for n in sizes]
+    xb, order, slots, C, bounds = pack_capacity_multi(toks, eids, n_e)
+    per = sorted({pack_capacity(t, e, n_e)[3] for t, e in zip(toks, eids)})
+    expect(C not in per, f"tuning: merged bucket {C} is a per-region one")
+    split = tuning.TuningTable()
+    for b in per:
+        split.put(key, b, (*tiles[3], 64), (*tiles[1], 64))
+    split.put(key, C, (*tiles[2], 64), (*tiles[0], 64))
+    tuning.set_table(split)
+    try:
+        _launch.reset_launches(super_gmm)
+        lidv = torch.tensor([L - 1], dtype=torch.int32, device=DEV)
+        merged = unpack_capacity_multi(
+            super_moe_ffn(lidv, experts, xb, cfg), order, slots, bounds)
+        for r, (t, e) in enumerate(zip(toks, eids)):
+            xb1, o1, s1, _ = pack_capacity(t, e, n_e)
+            one = unpack_capacity(super_moe_ffn(lidv, experts, xb1, cfg),
+                                  o1, s1, len(t))
+            expect(torch.equal(merged[r], one),
+                   f"tuning: merged != per-region under the split table "
+                   f"(region {r}, max abs err "
+                   f"{max_err(merged[r], one):.3e})")
+        split_tiles = dict(super_gmm.launches_by_tile)
+    finally:
+        tuning.set_table(None)
+    expect(all(split_tiles[tile_name(t)] > 0 for t in tiles),
+           f"tuning: the split table did not run every tile: {split_tiles}")
+    out["split"] = {"per_region_buckets": per, "merged_bucket": C,
+                    "launches_by_tile": split_tiles}
+    print(f"[tuning] merged (bucket {C}: up {tile_name(tiles[2])}, down "
+          f"{tile_name(tiles[0])}) == per-region (buckets {per}: up "
+          f"{tile_name(tiles[3])}, down {tile_name(tiles[1])}) torch.equal "
+          f"at the serve geometry; launches by tile {split_tiles}")
+    return out
+
+
+def _launch_line(text: str):
+    """The {"launches": ...} line a twin prints last, or None."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("kernel launches: "):
+            return json.loads(line[len("kernel launches: "):])
+    return None
+
+
+def phase_examples(seed: int) -> dict:
+    """The three serving examples' twins on the card, each in its own
+    process: exit 0; quickstart's super-kernel vs einsum max err within
+    2e-3; serve_asap 10/10 completed.  Each twin's kernel launches by
+    route are a reading."""
+    import re
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = {}
+    for name in ("torch_quickstart", "torch_serve_asap",
+                 "torch_imbalance_demo"):
+        t0 = time.time()
+        p = subprocess.run(
+            [sys.executable, os.path.join(root, "examples", f"{name}.py"),
+             "--device", DEV, "--seed", str(seed)], capture_output=True,
+            text=True, env=env, timeout=600)
+        wall = time.time() - t0
+        for line in p.stdout.splitlines():
+            print(f"[examples] {name}: {line}")
+        expect(p.returncode == 0, f"examples: {name} exited "
+               f"{p.returncode}: {p.stderr[-2000:]}")
+        rec = {"wall_s": wall, "launches": _launch_line(p.stdout)}
+        if name == "torch_quickstart":
+            m = re.search(r"super-kernel vs einsum max err: (\S+)", p.stdout)
+            expect(m is not None, "examples: quickstart printed no error")
+            rec["max_err"] = float(m.group(1))
+            expect(rec["max_err"] <= 2e-3, f"examples: quickstart "
+                   f"super-kernel vs einsum max err {rec['max_err']}")
+        if name == "torch_serve_asap":
+            m = re.search(r"engine completed (\d+)/(\d+) requests", p.stdout)
+            expect(m is not None and int(m.group(1)) == int(m.group(2))
+                   == 10, "examples: serve_asap did not complete 10/10")
+        out[name] = rec
+    print(f"[examples] all three twins exit 0 on the card: "
+          + ", ".join(f"{k} {v['wall_s']:.1f}s" for k, v in out.items()))
     return out
 
 
@@ -3043,6 +3347,30 @@ def time_super_gmm(shapes: dict, gen) -> list:
     return cases
 
 
+def time_super_gmm_tiles(shapes: dict, gen) -> dict:
+    """super_gmm's device ms per tile (profiler) at the serve wave's median
+    launch: gate/up and down, with its counts and dense -- the shapes
+    time_super_gmm times at the default tile."""
+    full = get_config(ARCH)
+    n_e, C, cnt = shapes["n_e"], shapes["C"], shapes["counts"]
+    lid = torch.tensor([1], dtype=torch.int32, device=DEV)
+    out = {}
+    for proj, (K, N) in (("gate_up", (full.d_model, full.expert_d_ff)),
+                         ("down", (full.expert_d_ff, full.d_model))):
+        w, x = _gmm_inputs(gen, SERVE_LAYERS, n_e, C, K, N, torch.bfloat16)
+        counts = torch.tensor(cnt, dtype=torch.int32, device=DEV)
+        for c in (counts, None):
+            case = f"{proj}_{'dense' if c is None else 'counts'}"
+            out[case] = {tile_name(t): _device_ms(
+                lambda c=c, t=t: super_gmm(lid, w, x, c, tile=t), 20,
+                match="super_gmm")[0] for t in TILES}
+            print(f"[timing] super_gmm {case} n_e={n_e} C={C} K={K} N={N} "
+                  f"device ms by tile: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in out[case].items()))
+        del w, x
+    return out
+
+
 # flash_attention at the zoo's head dims, timed beside the serve wave's
 # shapes: (case, config whose heads it takes, B); S = ZOO_S, causal
 ZOO_FLASH = (("dh192", "deepseek_v32", 1), ("dh256", "gemma3_1b", 2),
@@ -3113,7 +3441,8 @@ def shapes_from(kernels_line: dict) -> dict:
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
-                 rebalance=None, zoo=None) -> dict:
+                 rebalance=None, zoo=None, tuned=None,
+                 examples=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -3139,6 +3468,16 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["rebalance"] = rebalance["launches"]
     if zoo:
         by_path["zoo"] = zoo["launches"]
+    if tuned:
+        by_path["tuning"] = tuned["tuned_wave"]["tuned"]["launches"]
+    if examples:
+        for name, rec in examples.items():
+            if rec["launches"] is not None:
+                by_path[name] = {k: v["launches"]
+                                 for k, v in rec["launches"].items()}
+    rows[0]["launches_by_tile"] = serve["by_tile"]
+    rows[0]["device_ms_by_tile"] = time_super_gmm_tiles(
+        shapes["super_gmm"], gen)
     for row in rows:
         row["launches_by_path"] = {p: n[row["name"]]
                                    for p, n in by_path.items()}
@@ -3148,7 +3487,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,batching,gmm,faults,rebalance,zoo,timing")
+                    "serve,pd,batching,gmm,faults,rebalance,tuning,"
+                    "examples,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -3195,8 +3535,9 @@ def main() -> int:
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = batching = gmm = faults = rebalance = zoo = None
+    tuned = examples = None
     if {"executor", "serve", "batching", "gmm", "faults",
-            "rebalance"} & set(phases):
+            "rebalance", "tuning"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
             phase_executor(cfg, params)
@@ -3225,8 +3566,14 @@ def main() -> int:
         if "rebalance" in phases:
             rebalance = phase_rebalance(cfg, params, args.seed)
             print(json.dumps({"rebalance": rebalance}))
+        if "tuning" in phases:
+            tuned = phase_tuning(cfg, params, args.seed, gen, serve)
+            print(json.dumps({"tuning": tuned}))
         del params
         _free()
+    if "examples" in phases:  # each twin in its own process
+        examples = phase_examples(args.seed)
+        print(json.dumps({"examples": examples}))
     if "zoo" in phases:  # after the qwen3 model is released
         zoo = phase_zoo(args.seed, card)
         print(json.dumps({"zoo": zoo}))
@@ -3234,7 +3581,8 @@ def main() -> int:
         expect(serve is not None and pd is not None and errs is not None,
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
-                                      faults, rebalance, zoo)))
+                                      faults, rebalance, zoo, tuned,
+                                      examples)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,32 +23,43 @@
 // read and the fp32 output (padding zeros included) over HBM are the bound;
 // a dense buffer of 512 rows per expert is bound by the tensor cores.
 //
-// bf16 (`super_gmm_wgmma_kernel`, the main path): wgmma on a TMA-fed ring.
-// One persistent block per SM, three warpgroups.  Each block reads
-// counts[0..E) into shared memory and prefix-sums the real 128-row tiles of
-// every expert (ceil(min(counts[e], C) / 128)) and the padding rows beyond
-// them; it first writes its even share of the padding rows' zeros with
-// 16-byte stores, then walks the real (expert, n-tile, m-tile) tiles with a
-// stride of gridDim.x -- m-tiles innermost, so blocks that run together share
-// an expert's weights in L2.  Warpgroup 2 is the producer: one thread reads
-// the layer id and streams each tile's K-steps (BK = 64: a 128x64 x tile and
-// a 64x256 weight tile, 48 KB) by TMA into a four-stage ring with mbarriers,
+// bf16 (`super_gmm_wgmma_kernel<BM, BN>`, the main path): wgmma on a
+// TMA-fed ring.  One persistent block per SM, three warpgroups.  Each block
+// reads counts[0..E) into shared memory and prefix-sums the real BM-row
+// tiles of every expert (ceil(min(counts[e], C) / BM)) and the padding rows
+// beyond them; it first writes its even share of the padding rows' zeros
+// with 16-byte stores, then walks the real (expert, n-tile, m-tile) tiles
+// with a stride of gridDim.x -- m-tiles innermost, so blocks that run
+// together share an expert's weights in L2.  Warpgroup 2 is the producer:
+// one thread reads the layer id and streams each tile's K-steps (BK = 64: a
+// BMx64 x tile in 64-row halves and a 64xBN weight tile in 64-column
+// chunks; 48 KB at the default 128x256) by TMA into a ring with mbarriers
+// (as many stages as fit: 4 at 128x256, up to 8 for narrower tiles),
 // skipping the half of the x tile that holds no real row.  One weight tensor
 // map over the whole [L, E, K, N] stack, with its real strides (the resident
-// stacks are strided views), serves every layer: layer and expert are TMA
-// coordinates.  It is built on the host once per weight tensor and cached
-// by (pointer, shape, strides).  x gets a 3-D map over [E, C, K] per call, so
-// rows beyond C read as zeros and no tile spills into the next expert.
-// Warpgroups 0 and 1 own 64 rows each and run wgmma m64n256k16 from the
-// swizzled ring (weights MN-major), one group in flight while the next stage
-// lands.  The epilogue writes fp32 pairs straight from the accumulator
-// registers, padding rows as zeros, masked at the C and N edges.
+// stacks are strided views), serves every layer and every tile: layer and
+// expert are TMA coordinates.  It is built on the host once per weight
+// tensor and cached by (pointer, shape, strides).  x gets a 3-D map over
+// [E, C, K] per call, so rows beyond C read as zeros and no tile spills into
+// the next expert.  Warpgroups 0 and 1 run wgmma m64nWk16 from the swizzled
+// ring (weights MN-major), one group in flight while the next stage lands:
+// at BM = 128 each owns 64 rows and the whole BN (W = BN), at BM = 64 both
+// take the same 64 rows and half of BN each (W = BN / 2).  The epilogue
+// writes fp32 pairs straight from the accumulator registers, padding rows as
+// zeros, masked at the C and N edges.
 //
-// The K reduction order depends on (K, dtype) only -- BM, BN and BK fixed by
-// dtype, K ascending in steps of 16, no split-K -- never on C or the counts,
-// so a row's result is bitwise the same wherever it sits in a capacity
-// buffer.
-//
+// Tiles.  BK is fixed at 64 and BM, BN are chosen per launch: the
+// instantiated (BM, BN) are 128x256 (the default), 128x128, 64x256 and
+// 64x128, picked by super_gmm_launch's `tile` index (a tuning table names
+// them per capacity bucket; kernels/super_gmm/tuning.py).  No tile changes
+// the K reduction order: every output element is one warpgroup's register,
+// summed by wgmma k16 steps in ascending K, 4 per BK = 64 stage, stages in
+// ascending K, no split-K -- the same sequence at every (BM, BN), which only
+// decides which block and warpgroup hold the element.  So the order depends
+// on (K, dtype) only, never on the tile, C or the counts, and a row's result
+// is bitwise the same wherever it sits in a capacity buffer and whichever
+// tile computed it.
+
 // Other routes, picked by shape in the wrapper (`route`) and handed to
 // super_gmm_launch, which refuses tensors the wgmma route cannot take: bf16
 // that TMA cannot describe (K or N not a multiple of
@@ -321,19 +332,43 @@ super_gmm_bf16_kernel(const int* __restrict__ layer_ptr,
 // ------------------------------------------- bf16 on wgmma + TMA (sm_90a) --
 namespace wg {
 
-constexpr int BM = 128, BN = 256, BK = 64;  // fixed: never chosen from C
-constexpr int STAGES = 4;
+// BK is fixed for every tile; BM and BN are template arguments (Cfg below),
+// and super_gmm_launch picks the instantiation by its `tile` argument.
+constexpr int BK = 64;
 constexpr int THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
 constexpr int MAX_E = 1024;
 constexpr int A_HALF = 64 * BK * 2;   // 64 rows of x, K-major: 8 KB
 constexpr int B_CHUNK = BK * 64 * 2;  // 64 K-rows of 64 weight columns: 8 KB
-constexpr int STAGE = 2 * A_HALF + (BN / 64) * B_CHUNK;  // 48 KB
-constexpr int OFF_BAR = STAGES * STAGE;
-constexpr int OFF_TILES = OFF_BAR + 8 * 2 * STAGES;    // int[MAX_E + 1]
-constexpr int OFF_ROWS = OFF_TILES + 4 * (MAX_E + 1);  // int[MAX_E]
-constexpr int OFF_ZEROS = (OFF_ROWS + 4 * MAX_E + 7) / 8 * 8;  // ll[MAX_E+1]
-constexpr int SMEM = OFF_ZEROS + 8 * (MAX_E + 1) + 1024;
-static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+constexpr int SMEM_CAP = 232448;      // a block's shared memory on an H100
+constexpr int MAX_STAGES = 8;
+// what lies after the ring: mbarriers (for the most stages), the prefix of
+// real tiles, the real rows, the prefix of padding elements, the alignment
+constexpr int TAIL = 8 * 2 * MAX_STAGES + 4 * (MAX_E + 1) + 4 * MAX_E + 8 +
+                     8 * (MAX_E + 1) + 1024;
+
+// One (BM, BN) tile.  The two consumer warpgroups own 64 rows each at
+// BM = 128 (WM = 2, each the whole BN), or split BN at BM = 64 (WN = 2,
+// both on the same 64 rows).  A narrower stage takes more of them.
+template <int BM_, int BN_>
+struct Cfg {
+  static constexpr int BM = BM_, BN = BN_;
+  static constexpr int WM = BM / 64;   // consumer warpgroups along M
+  static constexpr int WN = 2 / WM;    // ... and along N
+  static constexpr int WGN = BN / WN;  // columns of one consumer warpgroup
+  static constexpr int STAGE = WM * A_HALF + (BN / 64) * B_CHUNK;
+  static constexpr int FIT = (SMEM_CAP - TAIL) / STAGE;
+  static constexpr int STAGES = FIT < MAX_STAGES ? FIT : MAX_STAGES;
+  static constexpr int OFF_BAR = STAGES * STAGE;
+  static constexpr int OFF_TILES = OFF_BAR + 8 * 2 * STAGES;  // int[MAX_E+1]
+  static constexpr int OFF_ROWS = OFF_TILES + 4 * (MAX_E + 1);  // int[MAX_E]
+  static constexpr int OFF_ZEROS = (OFF_ROWS + 4 * MAX_E + 7) / 8 * 8;
+  static constexpr int SMEM = OFF_ZEROS + 8 * (MAX_E + 1) + 1024;
+  static_assert(BM == 64 || BM == 128, "BM: one or two 64-row halves");
+  static_assert(BN % 64 == 0 && WGN >= 64 && WGN <= 256 && WGN % 64 == 0,
+                "BN: 64-column weight chunks, a wgmma width per warpgroup");
+  static_assert(STAGE % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(STAGES >= 2 && SMEM <= SMEM_CAP, "the ring fits");
+};
 
 // The largest e < E with pre[e] <= v (pre non-decreasing, pre[E] > v).
 template <typename T>
@@ -351,6 +386,7 @@ struct Tile {
 };
 
 // Real tile t of the walk: experts outermost, then n-tiles, then m-tiles.
+template <int BM, int BN>
 __device__ __forceinline__ Tile tile_at(int t, const int* tiles,
                                         const int* rows, int E) {
   Tile r;
@@ -363,19 +399,36 @@ __device__ __forceinline__ Tile tile_at(int t, const int* tiles,
   return r;
 }
 
+// acc (+)= A[64 x 16] * B[16 x WGN], both from the swizzled ring.
+template <int WGN>
+__device__ __forceinline__ void mma(float (&acc)[WGN / 2], uint64_t da,
+                                    uint64_t db, int scale_d) {
+  if constexpr (WGN == 256) {
+    hopper::wgmma_ss_n256<1>(acc, da, db, scale_d);
+  } else if constexpr (WGN == 128) {
+    hopper::wgmma_ss_n128<1>(acc, da, db, scale_d);
+  } else {
+    static_assert(WGN == 64, "a consumer warpgroup's width");
+    hopper::wgmma_ss_n64<1>(acc, da, db, scale_d);
+  }
+}
+
+template <int BM, int BN>
 __global__ void __launch_bounds__(THREADS, 1)
 super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
                        const __grid_constant__ CUtensorMap tx,
                        const int* __restrict__ layer_ptr,
                        const int* __restrict__ counts,
                        float* __restrict__ out, int E, int C, int K, int N) {
+  using T = Cfg<BM, BN>;
+  constexpr int STAGES = T::STAGES, WM = T::WM, WGN = T::WGN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + OFF_BAR);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
   uint64_t* empty = full + STAGES;
-  int* tiles = reinterpret_cast<int*>(smem + OFF_TILES);  // prefix, real tiles
-  int* rows = reinterpret_cast<int*>(smem + OFF_ROWS);
-  long long* zeros = reinterpret_cast<long long*>(smem + OFF_ZEROS);
+  int* tiles = reinterpret_cast<int*>(smem + T::OFF_TILES);  // prefix
+  int* rows = reinterpret_cast<int*>(smem + T::OFF_ROWS);
+  long long* zeros = reinterpret_cast<long long*>(smem + T::OFF_ZEROS);
   const int NT = (N + BN - 1) / BN, nk = (K + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -432,14 +485,15 @@ super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
       const int layer = *layer_ptr;  // dynamic resolution: the layer is data
       int it = 0;  // K-steps issued: the position in the ring
       for (int t = blockIdx.x; t < total; t += gridDim.x) {
-        const Tile tl = tile_at(t, tiles, rows, E);
-        const bool hi_live = tl.m0 + 64 < tl.rows;  // second x half has a row
+        const Tile tl = tile_at<BM, BN>(t, tiles, rows, E);
+        // the second x half (BM = 128) has a real row
+        const bool hi_live = WM == 2 && tl.m0 + 64 < tl.rows;
         const uint32_t bytes =
             (hi_live ? 2 : 1) * A_HALF + (BN / 64) * B_CHUNK;
         for (int kt = 0; kt < nk; ++kt, ++it) {
           const int s = it % STAGES;
           hopper::mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
-          unsigned char* st = smem + s * STAGE;
+          unsigned char* st = smem + s * T::STAGE;
           hopper::mbar_expect_tx(&full[s], bytes);
           hopper::tma_load_3d(st, &tx, &full[s], kt * BK, tl.m0, tl.e);
           if (hi_live)
@@ -447,14 +501,16 @@ super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
                                 tl.m0 + 64, tl.e);
 #pragma unroll
           for (int c = 0; c < BN / 64; ++c)
-            hopper::tma_load_4d(st + 2 * A_HALF + c * B_CHUNK, &tw, &full[s],
-                                tl.n0 + 64 * c, kt * BK, tl.e, layer);
+            hopper::tma_load_4d(st + WM * A_HALF + c * B_CHUNK, &tw,
+                                &full[s], tl.n0 + 64 * c, kt * BK, tl.e,
+                                layer);
         }
       }
     }
   } else {  // --------------------------------------------- consumers --
     hopper::regs_alloc<232>();
     const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int wm = wgi % WM, wn = wgi / WM;  // this warpgroup's rows, columns
 
     // 1. this block's even share of the padding rows beyond the real
     //    tiles: whole rows, so each expert's share is one contiguous run
@@ -477,27 +533,29 @@ super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
     // 2. the real tiles.  A warpgroup whose rows are all padding multiplies
     //    too (its x half was not loaded; its rows are stored as zeros):
     //    a branch around wgmma would make ptxas serialise every product.
-    float acc[BN / 2];
+    float acc[WGN / 2];
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < WGN / 2; ++i) acc[i] = 0.f;
     const int r0 = (tid / 32) * 16 + lane / 4;  // rows r0, r0 + 8 of 64
     int it = 0;
     for (int t = blockIdx.x; t < total; t += gridDim.x) {
-      const Tile tl = tile_at(t, tiles, rows, E);
-      const int mw = tl.m0 + 64 * wgi;  // this warpgroup's first row
+      const Tile tl = tile_at<BM, BN>(t, tiles, rows, E);
+      const int mw = tl.m0 + 64 * wm;   // this warpgroup's first row
+      const int nw = tl.n0 + WGN * wn;  // ... and first column
       int prev = 0;
       for (int kt = 0; kt < nk; ++kt, ++it) {
         const int s = it % STAGES;
         hopper::mbar_wait(&full[s], (it / STAGES) & 1);
-        const unsigned char* st = smem + s * STAGE;
+        const unsigned char* st = smem + s * T::STAGE;
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk) {
           const uint64_t da =
-              hopper::desc_sw128(st + wgi * A_HALF + kk * 32, 16, 1024);
+              hopper::desc_sw128(st + wm * A_HALF + kk * 32, 16, 1024);
           const uint64_t db = hopper::desc_sw128(
-              st + 2 * A_HALF + kk * 16 * 128, B_CHUNK, 1024);
-          hopper::wgmma_ss_n256<1>(acc, da, db, (kt | kk) != 0);
+              st + WM * A_HALF + wn * (WGN / 64) * B_CHUNK + kk * 16 * 128,
+              B_CHUNK, 1024);
+          mma<WGN>(acc, da, db, (kt | kk) != 0);
         }
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();  // the previous K-step's products are done
@@ -514,11 +572,11 @@ super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
         const int row = mw + r0 + 8 * r;
         if (row >= C) continue;
         const bool real = row < tl.rows;
-        float* orow = ob + static_cast<long long>(row) * N + tl.n0 +
+        float* orow = ob + static_cast<long long>(row) * N + nw +
                       2 * (lane & 3);
 #pragma unroll
-        for (int j = 0; j < BN / 8; ++j) {
-          if (tl.n0 + 8 * j + 2 * (lane & 3) >= N) continue;
+        for (int j = 0; j < WGN / 8; ++j) {
+          if (nw + 8 * j + 2 * (lane & 3) >= N) continue;
           *reinterpret_cast<float2*>(orow + 8 * j) =
               real ? make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1])
                    : make_float2(0.f, 0.f);
@@ -530,7 +588,9 @@ super_gmm_wgmma_kernel(const __grid_constant__ CUtensorMap tw,
 
 // One weight tensor map per weight tensor, built on the host once and kept
 // by (pointer, shape, strides): the map is a pure function of that key, so
-// an entry can never go stale.  Launches come from several host threads.
+// an entry can never go stale, and every tile reads through it (its boxes
+// are 64-column chunks, whatever the tile's BN).  Launches come from several
+// host threads.
 struct WeightKey {
   const void* w;
   long long L, E, K, N, sl, se;
@@ -562,24 +622,27 @@ bool weight_map(CUtensorMap* out, const WeightKey& key) {
   return true;
 }
 
+template <int BM, int BN>
 int launch(const int* lid, const int* cnt, const void* w, const void* x,
            float* o, int L, int E, int C, int K, int N, long long w_stride_l,
            long long w_stride_e, cudaStream_t stream) {
+  using T = Cfg<BM, BN>;
   CUtensorMap tw, tx;
   if (!weight_map(&tw, {w, L, E, K, N, w_stride_l, w_stride_e})) return -3;
-  // 3-D over [E, C, K]: rows beyond C read as zeros
+  // 3-D over [E, C, K] in 64-row halves: rows beyond C read as zeros
   const uint64_t dims[3] = {static_cast<uint64_t>(K),
                             static_cast<uint64_t>(C),
                             static_cast<uint64_t>(E)};
   const uint64_t strides[2] = {2ull * K, 2ull * C * K};
   const uint32_t box[3] = {BK, 64, 1};
   if (!hopper::make_map(&tx, x, 3, dims, strides, box)) return -3;
-  cudaError_t err = hopper::allow_smem<super_gmm_wgmma_kernel>(SMEM);
+  cudaError_t err =
+      hopper::allow_smem<super_gmm_wgmma_kernel<BM, BN>>(T::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = hopper::sm_count();
   if (grid <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  super_gmm_wgmma_kernel<<<grid, THREADS, SMEM, stream>>>(tw, tx, lid, cnt, o,
-                                                         E, C, K, N);
+  super_gmm_wgmma_kernel<BM, BN><<<grid, THREADS, T::SMEM, stream>>>(
+      tw, tx, lid, cnt, o, E, C, K, N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -592,22 +655,27 @@ constexpr int ROUTE_FMA = 0;    // fp32
 constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe
 constexpr int ROUTE_WGMMA = 2;  // bf16, TMA-describable: the main path
 
+#define WG_ARGS lid, cnt, w, x, o, L, E, C, K, N, w_stride_l, w_stride_e, s
+
 // route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
-// `counts` may be null (every row real).  w: [L, E, K, N] with layer/expert
-// strides w_stride_l/w_stride_e (elements) and each [K, N] matrix
-// contiguous; x: [E, C, K] contiguous.  Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError(), -1 for an
-// unknown route, -3 for a tensor map the driver refuses and -4 for tensors
-// the wgmma route cannot take.
+// tile: the wgmma route's (BM, BN), by index (kernels/super_gmm/
+// super_gmm.py::TILES lists them in this order; 0, the default, on the
+// other routes).  `counts` may be null (every row real).  w: [L, E, K, N]
+// with layer/expert strides w_stride_l/w_stride_e (elements) and each
+// [K, N] matrix contiguous; x: [E, C, K] contiguous.  Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError(), -1
+// for an unknown route, -3 for a tensor map the driver refuses and -4 for
+// tensors the wgmma route cannot take or a tile it does not know.
 extern "C" int super_gmm_launch(const void* layer_id, const void* counts,
                                 const void* w, const void* x, void* out,
-                                int route, int L, int E, int C, int K, int N,
-                                long long w_stride_l, long long w_stride_e,
-                                void* stream) {
+                                int route, int tile, int L, int E, int C,
+                                int K, int N, long long w_stride_l,
+                                long long w_stride_e, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   const int* lid = reinterpret_cast<const int*>(layer_id);
   const int* cnt = reinterpret_cast<const int*>(counts);
   float* o = reinterpret_cast<float*>(out);
+  if (route != ROUTE_WGMMA && tile != 0) return -4;  // tiles are wgmma's
   if (route == ROUTE_FMA) {
     dim3 grid((N + F_BN - 1) / F_BN, (C + F_BC - 1) / F_BC, E);
     super_gmm_f32_kernel<<<grid, F_THREADS, 0, s>>>(
@@ -624,8 +692,11 @@ extern "C" int super_gmm_launch(const void* layer_id, const void* counts,
       (N % 8 == 0) && (w_stride_l % 8 == 0) && (w_stride_e % 8 == 0);
   if (route == ROUTE_WGMMA) {
     if (!(aligned && K > 0 && E <= wg::MAX_E)) return -4;
-    return wg::launch(lid, cnt, w, x, o, L, E, C, K, N, w_stride_l,
-                      w_stride_e, s);
+    if (tile == 0) return wg::launch<128, 256>(WG_ARGS);
+    if (tile == 1) return wg::launch<128, 128>(WG_ARGS);
+    if (tile == 2) return wg::launch<64, 256>(WG_ARGS);
+    if (tile == 3) return wg::launch<64, 128>(WG_ARGS);
+    return -4;
   }
   if (route != ROUTE_WMMA) return -1;
   cudaError_t err =

@@ -115,8 +115,7 @@ def _compile(lib_path: pathlib.Path, srcs) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.super_gmm_launch.restype = _I
-    lib.super_gmm_launch.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                                     _I, _I, _LL, _LL, _VP]
+    lib.super_gmm_launch.argtypes = [_VP] * 5 + [_I] * 7 + [_LL, _LL, _VP]
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_launch.argtypes = (
         [_VP] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _VP])

@@ -20,16 +20,23 @@ ROUTES = ("fma", "wmma", "wgmma")
 host_syncs = 0  # guarded_by: _count_lock
 
 
-def count_launch(wrapper, route: Optional[str] = None) -> None:
+def count_launch(wrapper, route: Optional[str] = None,
+                 tile: Optional[str] = None) -> None:
     """Add one to `wrapper.launches` -- called where, and only where, the
     wrapper launches its kernel.  A wrapper with several routes also names
     the one it launched; the launch is counted in
-    `wrapper.launches_by_route` too, and a route it does not have raises."""
+    `wrapper.launches_by_route` too, and a route it does not have raises.
+    A wrapper whose kernel has several tiles names the tile too
+    (`wrapper.launches_by_tile`), and a tile it does not have raises."""
     with _count_lock:
+        if route is not None and route not in wrapper.launches_by_route:
+            raise KeyError(f"{wrapper.__name__}: no route {route!r}")
+        if tile is not None and tile not in wrapper.launches_by_tile:
+            raise KeyError(f"{wrapper.__name__}: no tile {tile!r}")
         if route is not None:
-            if route not in wrapper.launches_by_route:
-                raise KeyError(f"{wrapper.__name__}: no route {route!r}")
             wrapper.launches_by_route[route] += 1
+        if tile is not None:
+            wrapper.launches_by_tile[tile] += 1
         wrapper.launches += 1
 
 
@@ -40,6 +47,9 @@ def reset_launches(wrapper) -> None:
         if hasattr(wrapper, "launches_by_route"):
             wrapper.launches_by_route = dict.fromkeys(
                 wrapper.launches_by_route, 0)
+        if hasattr(wrapper, "launches_by_tile"):
+            wrapper.launches_by_tile = dict.fromkeys(
+                wrapper.launches_by_tile, 0)
 
 
 def note_host_sync(n: int = 1) -> None:

@@ -17,6 +17,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import _launch
+from repro_torch.kernels.super_gmm import tuning
 from repro_torch.kernels.super_gmm.super_gmm import super_gmm
 from repro_torch.models.common import ModelConfig, act_fn
 
@@ -29,12 +30,24 @@ def super_moe_ffn(layer_id: torch.Tensor, experts: dict, xb: torch.Tensor,
     xb: [E, C, d] -> [E, C, d] (fp32).  `layer_id` is a [1] int32 tensor on
     xb's device and stays runtime data: it is never read on the host.
     `counts` ([E] int32 on xb's device, or None) gives the real rows per
-    expert; the kernel skips the padding beyond them."""
+    expert; the kernel skips the padding beyond them.
+
+    Every call consults the active tuning table (`tuning.lookup_blocks`, a
+    host dict read): on a hit the gate and up launches take its up tile and
+    the down launch its down tile; an entry that is not a tile of the kernel
+    raises ValueError, also on the CPU; with no entry the default tile
+    runs."""
     act = act_fn(cfg.act)
-    g = super_gmm(layer_id, experts["w_gate"], xb, counts)
-    u = super_gmm(layer_id, experts["w_up"], xb, counts)
+    E, C, d = xb.shape
+    up = down = None
+    tuned = tuning.lookup_blocks(E, d, experts["w_gate"].shape[-1], xb.dtype,
+                                 C)
+    if tuned is not None:
+        up, down = (tuning.tile_of(b, xb.dtype) for b in tuned)
+    g = super_gmm(layer_id, experts["w_gate"], xb, counts, tile=up)
+    u = super_gmm(layer_id, experts["w_up"], xb, counts, tile=up)
     h = act(g).mul_(u).to(xb.dtype)  # in place: one [E, C, f] fp32 less
-    return super_gmm(layer_id, experts["w_down"], h, counts)
+    return super_gmm(layer_id, experts["w_down"], h, counts, tile=down)
 
 
 def make_super_kernel_gmm(stacked_experts: dict, cfg: ModelConfig

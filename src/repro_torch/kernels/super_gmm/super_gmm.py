@@ -23,10 +23,17 @@ launches the kernel or raises.
 it: "wgmma" (bf16 that TMA can describe: the main path), "wmma" (other
 bf16) and "fma" (fp32).  `super_gmm.launches` counts every launch and
 `super_gmm.launches_by_route` splits them by route.
+
+The wgmma kernel is instantiated at every (BM, BN) of `TILES` (BK fixed at
+64); `tile` picks one per launch, `DEFAULT_TILE` when it is None.  No tile
+changes any output element's K reduction order, so every tile gives the
+same bits.  `super_gmm.launches_by_tile` counts the wgmma launches by tile
+("128x256", ...).  A tuning table (`tuning.py`) chooses the tile per
+capacity bucket through `ops.super_moe_ffn`.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +41,16 @@ from repro_torch.kernels import _build, _launch
 
 # The most experts the wgmma kernel's shared-memory prefix sums hold.
 MAX_EXPERTS = 1024
+# The wgmma kernel's (BM, BN) instantiations, in the order of the `tile`
+# index super_gmm_launch takes (csrc/super_gmm.cu: `if (tile == i) return
+# wg::launch<BM, BN>`); the first is the default.  BK is 64 for all.
+TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
+DEFAULT_TILE = TILES[0]
+BK = 64
+
+
+def tile_name(tile) -> str:
+    return f"{tile[0]}x{tile[1]}"
 
 
 def route(dtype: torch.dtype, E: int, K: int, N: int, ptrs: Sequence[int],
@@ -65,9 +82,18 @@ def super_gmm_ref(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
 
 
 def super_gmm(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
-              counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+              counts: Optional[torch.Tensor] = None,
+              tile: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """layer_id: [1] int32 on x's device; w: [L, E, K, N]; x: [E, C, K];
-    counts: None or [E] int32 on x's device; returns [E, C, N] float32."""
+    counts: None or [E] int32 on x's device; tile: None (the default) or a
+    (BM, BN) of `TILES`, for the wgmma route only; returns [E, C, N]
+    float32.  On a CPU tensor the plain version runs and the tile (checked
+    against `TILES`) changes nothing."""
+    if tile is not None:
+        tile = tuple(tile)
+        if tile not in TILES:
+            raise ValueError(f"super_gmm: tile {tile} is not one of the "
+                             f"instantiated (BM, BN) {TILES}")
     L, E, K, N = w.shape
     Ex, C, Kx = x.shape
     if (Ex, Kx) != (E, K):
@@ -99,15 +125,26 @@ def super_gmm(layer_id: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
     lib = _build.load()
     r = route(x.dtype, E, K, N, (w.data_ptr(), x.data_ptr()),
               (w.stride(0), w.stride(1)))
+    if tile is not None and r != "wgmma":
+        # a tuned run that silently ran another kernel would invalidate the
+        # measurement
+        raise ValueError(f"super_gmm: tile {tile} given, but these tensors "
+                         f"take the {r!r} route; tiles are the wgmma "
+                         f"route's")
+    if r == "wgmma" and tile is None:
+        tile = DEFAULT_TILE
     code = lib.super_gmm_launch(
         layer_id.data_ptr(),
         counts.data_ptr() if counts is not None else None,
         w.data_ptr(), x.data_ptr(), out.data_ptr(), _launch.ROUTES.index(r),
+        TILES.index(tile) if tile is not None else 0,
         L, E, C, K, N, w.stride(0), w.stride(1), _launch.stream_ptr(x.device))
     _launch.check(code, "super_gmm")
-    _launch.count_launch(super_gmm, r)
+    _launch.count_launch(super_gmm, r,
+                         tile_name(tile) if tile is not None else None)
     return out
 
 
 super_gmm.launches = 0
 super_gmm.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)
+super_gmm.launches_by_tile = dict.fromkeys(map(tile_name, TILES), 0)

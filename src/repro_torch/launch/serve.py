@@ -56,6 +56,11 @@ round trips; prefill serving only).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --moe-batch-window 0.002 \
       --moe-batch-max-tokens 4096
+
+`--tuning-table PATH` (executor and `--mode pd`) installs a Super Kernel
+tile table written by `python -m repro_torch.launch.tune_superkernel`:
+every launch whose geometry and capacity bucket it names runs that (BM, BN)
+tile, the same bits as the default tile.
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd
   PYTHONPATH=src python -m repro_torch.launch.serve --mode pd --smoke \
       --device cpu --time-scale 20
@@ -112,6 +117,7 @@ from repro_torch.core.simulator import SimConfig
 from repro_torch.core.trace import (Request, TraceClock, TraceConfig,
                                     generate_requests, sample_lengths,
                                     sample_out_len)
+from repro_torch.kernels.super_gmm import tuning
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.lm import init_lm_params
 
@@ -229,6 +235,12 @@ def serve_requests(cfg: ModelConfig, params, *, lengths: Sequence[int],
     }
 
 
+def _load_tuning_table(args):
+    if args.tuning_table:
+        tuning.set_table(tuning.TuningTable.load(args.tuning_table))
+        print(f"super-kernel tuning table loaded from {args.tuning_table}")
+
+
 def _print_batching(args):
     if args.moe_batch_window:
         print(f"continuous MoE batching: window="
@@ -287,6 +299,7 @@ def run_executor(args) -> int:
           + (f"(hot={placement.replicate_hot})" if placement.replicate_hot
              else "") + f" moe-path={args.moe_path} "
           f"time-scale={args.time_scale}x]")
+    _load_tuning_table(args)
     _print_batching(args)
     lengths = np.clip(sample_lengths(args.requests, trace), lo, hi)
     print(f"{args.requests} requests, Poisson arrivals at {args.rps} req/s, "
@@ -679,6 +692,7 @@ def run_pd(args) -> int:
           f"{str(cfg.dtype).replace('torch.', '')} -> decode runtime with "
           f"{slots} slots x {max_len} tokens; {args.requests} requests, "
           f"lengths {[int(x) for x in lengths]}, out_lens {out_lens}")
+    _load_tuning_table(args)
     _print_batching(args)
     out = serve_pd(cfg, params, reqs, device=device, D=D, E=E, slots=slots,
                    max_len=max_len, time_scale=args.time_scale,
@@ -793,6 +807,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--moe-batch-max-tokens", type=int, default=None,
                     help="cap on the merged token rows of one batched launch; "
                          "requires --moe-batch-window > 0")
+    ap.add_argument("--tuning-table", default=None, metavar="PATH",
+                    help="Super Kernel tuning table JSON (from python -m "
+                         "repro_torch.launch.tune_superkernel) consulted per "
+                         "launch for the kernel's (BM, BN) tile; absent "
+                         "entries take the default tile")
     ap.add_argument("--failure-at", type=float, default=None,
                     help="crash the --fail-moe-device MoE device at this "
                          "trace second (sim engine: without "
@@ -882,7 +901,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                          f"knob; --engine sim does not consume it")
         for flag, val, default in (
                 ("--moe-batch-window", args.moe_batch_window, 0.0),
-                ("--moe-batch-max-tokens", args.moe_batch_max_tokens, None)):
+                ("--moe-batch-max-tokens", args.moe_batch_max_tokens, None),
+                ("--tuning-table", args.tuning_table, None)):
             if val != default:
                 ap.error(f"{flag} batches/tunes the REAL executor's super-"
                          f"kernel launches; --engine sim does not consume it")

@@ -162,10 +162,10 @@ def test_serve_main_smoke_cpu(tmp_path, capsys):
 
 def test_serve_rejects_flags_outside_the_slice():
     # --moe-batch-window and --moe-path are ported (their invalid
-    # combinations: test_torch_moe_batching.py), and so are --engine sim
-    # and the --rebalance-* flags (test_torch_engine_rebalance.py);
-    # --moe-kernel and --tuning-table stay out
-    for flag in (["--moe-kernel", "ref"], ["--tuning-table", "table.json"]):
+    # combinations: test_torch_moe_batching.py), and so are --engine sim,
+    # the --rebalance-* flags (test_torch_engine_rebalance.py) and
+    # --tuning-table (test_torch_tuning.py); --moe-kernel stays out
+    for flag in (["--moe-kernel", "ref"],):
         with pytest.raises(SystemExit) as e:
             serve.main(["--smoke", "--device", "cpu"] + flag)
         assert e.value.code == 2  # argparse error, nothing silently ignored

@@ -319,7 +319,8 @@ def test_concurrent_polls_tick_the_controller_once_per_window(model):
     (["--placement", "greedy_balanced", "--replicate-hot", "2"],
      "conflicts with"),
     (["--engine", "sim", "--tuning-table", "t.json"],
-     "unrecognized arguments: --tuning-table"),
+     "--tuning-table batches/tunes the REAL executor's super-kernel "
+     "launches; --engine sim does not consume it"),
 ])
 def test_serve_rejects_bad_rebalance_and_sim_flags(argv, needle, capsys):
     with pytest.raises(SystemExit) as e:

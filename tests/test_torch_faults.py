@@ -162,8 +162,10 @@ def test_engine_crash_failover_serves_every_request(model):
     reqs = _trace(8)
     eng.submit_all(reqs)
     results = eng.drain(timeout=TIMEOUT)
-    st = eng.stats()
+    # close() joins the supervisor, whose failover counts only after its
+    # evacuation swap: stats read before it race that swap
     eng.close()
+    st = eng.stats()
     _definite(results, reqs)
     assert all(r.status == "ok" for r in results), \
         [(r.rid, r.status) for r in results]

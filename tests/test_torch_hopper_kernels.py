@@ -3,6 +3,7 @@ by which the wrappers pick a kernel, a plain mirror of the super_gmm
 kernel's persistent tile walk, the per-route launch counts, and the kernel
 build's digest.  Nothing here needs nvcc or a card."""
 import itertools
+import re
 import shutil
 from typing import List, Optional, Sequence, Tuple
 
@@ -14,15 +15,22 @@ from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.super_gmm import super_gmm as sg
 
-# The wgmma kernel's tile (rows of C, columns of N), fixed by dtype
-# (csrc/super_gmm.cu).
-BM, BN = 128, 256
+
+def cu_tiles() -> List[Tuple[int, int]]:
+    """The wgmma kernel's (BM, BN) instantiations, read back out of
+    csrc/super_gmm.cu's `if (tile == i) return wg::launch<BM, BN>` lines, in
+    the order of their index."""
+    src = (_build.CSRC / "super_gmm.cu").read_text()
+    found = re.findall(r"if \(tile == (\d+)\) return wg::launch<(\d+), "
+                       r"(\d+)>", src)
+    assert [int(i) for i, _, _ in found] == list(range(len(found)))
+    return [(int(bm), int(bn)) for _, bm, bn in found]
 
 
 # ------------------------------------------------------ persistent walk --
 
 def persistent_walk(counts: Optional[Sequence[int]], E: int, C: int, N: int,
-                    grid: int
+                    grid: int, BM: int, BN: int
                     ) -> Tuple[List[List[Tuple[int, int, int]]],
                                List[List[Tuple[int, int, int]]]]:
     """Plain mirror of the wgmma kernel's persistent walk, per block of a
@@ -60,7 +68,7 @@ def persistent_walk(counts: Optional[Sequence[int]], E: int, C: int, N: int,
     return walk_tiles, walk_pads
 
 
-def _brute_force(counts, E, C, N):
+def _brute_force(counts, E, C, N, BM, BN):
     """Every real (expert, m0, n0) tile, and every padding element
     (expert, flat offset in its [C, N] output), by enumeration."""
     tiles, pad = set(), set()
@@ -75,22 +83,29 @@ def _brute_force(counts, E, C, N):
     return tiles, pad
 
 
+# counts 0, 1, 64, 65, 128, 129, C and > C (BM and BM + 1 of every tile),
+# E = 1 and E = 128, ragged N
 _WALKS = [
-    # counts 0, 1, BM, BM + 1, C and > C, E = 1 and E = 128, ragged N
-    ([0], 1, 200, 64), ([1], 1, 200, 64), ([BM], 1, 300, 264),
-    ([BM + 1], 1, 300, 264), ([300], 1, 300, 264), ([999], 1, 300, 8),
-    ([0, 1, BM, BM + 1, 260, 999], 6, 260, 520),
+    ([0], 1, 200, 64), ([1], 1, 200, 64), ([128], 1, 300, 264),
+    ([129], 1, 300, 264), ([300], 1, 300, 264), ([999], 1, 300, 8),
+    ([0, 1, 128, 129, 260, 999], 6, 260, 520),
     (None, 3, 130, 256),
     ([(7 * e) % 300 for e in range(128)], 128, 256, 16),
     ([0] * 127 + [1], 128, 8, 24),
+    ([64, 65, 63, 127], 4, 200, 392),
 ]
+_TILES = [(128, 256), (128, 128), (64, 256), (64, 128)]
+# (grid, BM, BN); the default tile's cases keep their ids ("1", "7", "132")
+_GRID_TILES = [(g, bm, bn) for g in (1, 7, 132) for bm, bn in _TILES]
+_GRID_TILE_IDS = [str(g) if (bm, bn) == _TILES[0] else f"{g}-{bm}x{bn}"
+                  for g, bm, bn in _GRID_TILES]
 
 
-@pytest.mark.parametrize("grid", [1, 7, 132])
+@pytest.mark.parametrize("grid,BM,BN", _GRID_TILES, ids=_GRID_TILE_IDS)
 @pytest.mark.parametrize("counts,E,C,N", _WALKS)
-def test_persistent_walk_equals_brute_force(counts, E, C, N, grid):
-    walk_tiles, walk_pads = persistent_walk(counts, E, C, N, grid)
-    want_tiles, want_pad = _brute_force(counts, E, C, N)
+def test_persistent_walk_equals_brute_force(counts, E, C, N, grid, BM, BN):
+    walk_tiles, walk_pads = persistent_walk(counts, E, C, N, grid, BM, BN)
+    want_tiles, want_pad = _brute_force(counts, E, C, N, BM, BN)
     got_tiles = [t for block in walk_tiles for t in block]
     assert sorted(got_tiles) == sorted(want_tiles)  # each tile exactly once
     got_pad = [(e, first + i) for block in walk_pads
@@ -260,10 +275,26 @@ def test_library_name_follows_the_digest(tmp_path, monkeypatch):
     assert _build.ptxas_report() == ""  # nothing built here
 
 
+def test_tiles_of_the_cu_equal_the_wrappers_and_the_mirrors():
+    """One list of tiles: the `.cu`'s instantiations in index order are the
+    wrapper's TILES (the default first), the tuning table's candidates and
+    the tiles the walk mirror is parametrized over."""
+    assert cu_tiles() == list(sg.TILES) == _TILES
+    assert sg.DEFAULT_TILE == sg.TILES[0] == (128, 256)
+    assert all(bm in (64, 128) and bn % 64 == 0 for bm, bn in sg.TILES)
+
+
 def test_walk_and_routes_agree_on_tile_constants():
-    """The mirror walks the tile the route's kernel uses; every
-    combination of the edge counts lands each tile in exactly one block."""
-    for counts in itertools.product((0, 1, BM, BM + 1), repeat=2):
-        tiles, _ = persistent_walk(list(counts), 2, 2 * BM, BN, 3)
-        flat = [t for block in tiles for t in block]
-        assert len(flat) == len(set(flat))
+    """For every tile the `.cu` instantiates (read back from it), the mirror
+    walks that tile and every combination of the edge counts lands each
+    tile in exactly one block."""
+    tiles = cu_tiles()
+    assert len(tiles) > 1 and tiles == _TILES
+    for BM, BN in tiles:
+        for counts in itertools.product((0, 1, BM, BM + 1), repeat=2):
+            walk, _ = persistent_walk(list(counts), 2, 2 * BM, BN, 3, BM,
+                                      BN)
+            flat = [t for block in walk for t in block]
+            assert len(flat) == len(set(flat))
+            assert {(m0, n0) for _, m0, n0 in flat} <= {
+                (m, n) for m in range(0, 2 * BM, BM) for n in (0,)}

@@ -1,5 +1,6 @@
 """The port imports torch and numpy, never jax, the JAX package or (at module
-level) triton; its entry point imports where jax cannot be imported."""
+level) triton -- and so do the examples' twins (`examples/torch_*.py`) and
+`chip_smoke.py`; its entry points import where jax cannot be imported."""
 import ast
 import os
 import pathlib
@@ -10,7 +11,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
@@ -30,6 +31,9 @@ def _imports(tree, module_level_only):
 
 def test_port_has_files():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
+    assert {p.name for p in FILES if p.parent.name == "examples"} == {
+        "torch_quickstart.py", "torch_serve_asap.py",
+        "torch_imbalance_demo.py"}
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -52,10 +56,30 @@ def test_serve_imports_where_jax_is_unimportable(tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT / "src")])
     code = ("import repro_torch.launch.serve as s, repro_torch.bridge, "
-            "repro_torch.core.engine, sys; "
+            "repro_torch.core.engine, repro_torch.launch.tune_superkernel, "
+            "sys; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules; "
             "print('imported', s.ARCH)")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "imported qwen3_moe_235b_a22b" in out.stdout
+
+
+@pytest.mark.parametrize("name", ["torch_quickstart", "torch_serve_asap",
+                                  "torch_imbalance_demo"])
+def test_example_twins_run_where_jax_is_unimportable(tmp_path, name):
+    """Each twin's --help runs with a `jax` and a `repro` that raise on
+    import ahead of the real ones: it imports neither."""
+    for mod in ("jax", "repro"):
+        pkg = tmp_path / mod
+        pkg.mkdir()
+        (pkg / "__init__.py").write_text(
+            f"raise ImportError('{mod} must not be imported by the port')\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT / "src")])
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py"), "--help"],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--device" in out.stdout
