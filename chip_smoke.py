@@ -97,13 +97,35 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             tokens/s of the serve wave as a burst in interleaved turns, best
             of 3 (a reading, not gated); one {"tuning": ...} line.
             `--phases device,build,tuning` runs it alone
-  examples  (after the qwen3 model is released) the serving examples'
-            twins, each in its own process on the card: torch_quickstart
-            (its super-kernel vs einsum max err within 2e-3),
-            torch_serve_asap (10/10 completed), torch_imbalance_demo; each
-            must exit 0; their kernel launches by route are a reading (one
-            {"examples": ...} line).  `--phases device,build,examples` runs
-            it alone
+  examples  (after the qwen3 model is released) the examples' twins, each
+            in its own process on the card: torch_quickstart (its
+            super-kernel vs einsum max err within 2e-3), torch_serve_asap
+            (10/10 completed), torch_imbalance_demo, torch_train_moe (50
+            steps, a failure injected at 25 and recovered from, the loss
+            improves, both backward kernels launch); each must exit 0; their
+            kernel launches by route are a reading (one {"examples": ...}
+            line).  `--phases device,build,examples` runs it alone
+  train     (after the qwen3 model is released) training on the card:
+            (a) flash_attention_bwd against attention_bwd_ref -- the
+            main-path shape (bf16, B 1, S 2048, H 64, KVH 4, dh 128,
+            causal), fp32, S 192, window 512 and 16, softcap, dh 64,
+            non-causal, an unaligned base, strided q/k/v, fp32 dh 32 --
+            dq/dk/dv relative error within BWD_TOL, two runs torch.equal,
+            the forward's o torch.equal with and without its lse, head dim
+            256 raising; combine_weighted_bwd at the full-width shape, dyb
+            bitwise and dw within DW_TOL, deterministic; the dispatch's
+            backward at E 128 ("whole") and 1117 ("scatter") torch.equal
+            to the plain version; (b) one train step at the small fp32
+            config on the card against the CPU's (every leaf's gradient
+            present and non-zero, within STEP_GRAD_TOL); (d) a
+            ResilientTrainer run with a failure at step 3 of 6 torch.equal
+            to an uninterrupted one; (c) qwen3_moe_235b_a22b at published
+            width, depth 1, bf16: 4 build_train_step steps on one [1, 2048]
+            batch (loss falls, finite, every leaf a gradient; per step the
+            launches, host syncs, forward / backward / optimizer ms,
+            tokens/s, peak memory); the backward kernels timed at that
+            step's inputs (a {"train": ...} line).  `--phases
+            device,build,train` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -147,6 +169,10 @@ Phases (each prints its own lines; any failure is a non-zero exit):
 The {"kernels": ...} line's super_gmm row also carries its device ms per
 tile at the serve wave's median launch (`device_ms_by_tile`) and the serve
 wave's launches by tile.
+
+The {"kernels": ...} line also carries the two backward kernels
+(flash_attention_bwd, combine_weighted_bwd): their launches are the
+full-width train step's, their times at that step's inputs.
 
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
@@ -2171,22 +2197,27 @@ def _launch_line(text: str):
     return None
 
 
+TRAIN_MOE_STEPS = 50  # the train twin's run: its failure at step 25
+
+
 def phase_examples(seed: int) -> dict:
-    """The three serving examples' twins on the card, each in its own
-    process: exit 0; quickstart's super-kernel vs einsum max err within
-    2e-3; serve_asap 10/10 completed.  Each twin's kernel launches by
-    route are a reading."""
+    """The examples' twins on the card, each in its own process: exit 0;
+    quickstart's super-kernel vs einsum max err within 2e-3; serve_asap
+    10/10 completed; train_moe (TRAIN_MOE_STEPS steps, a failure at half
+    of them) recovers, its loss improves and its backward kernels launch.
+    Each twin's kernel launches by route are a reading."""
     import re
     root = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     out = {}
+    extra = {"torch_train_moe": ["--steps", str(TRAIN_MOE_STEPS)]}
     for name in ("torch_quickstart", "torch_serve_asap",
-                 "torch_imbalance_demo"):
+                 "torch_imbalance_demo", "torch_train_moe"):
         t0 = time.time()
         p = subprocess.run(
             [sys.executable, os.path.join(root, "examples", f"{name}.py"),
-             "--device", DEV, "--seed", str(seed)], capture_output=True,
-            text=True, env=env, timeout=600)
+             "--device", DEV, "--seed", str(seed), *extra.get(name, [])],
+            capture_output=True, text=True, env=env, timeout=600)
         wall = time.time() - t0
         for line in p.stdout.splitlines():
             print(f"[examples] {name}: {line}")
@@ -2203,9 +2234,608 @@ def phase_examples(seed: int) -> dict:
             m = re.search(r"engine completed (\d+)/(\d+) requests", p.stdout)
             expect(m is not None and int(m.group(1)) == int(m.group(2))
                    == 10, "examples: serve_asap did not complete 10/10")
+        if name == "torch_train_moe":
+            m = re.search(r"loss: (\S+) -> (\S+) \(improved\)", p.stdout)
+            expect(m is not None and "recovered at step" in p.stdout,
+                   "examples: train_moe did not improve and recover")
+            rec["loss"] = [float(m.group(1)), float(m.group(2))]
+            launches = rec["launches"] or {}
+            expect(all(launches.get(k, {}).get("launches", 0) > 0 for k in (
+                "flash_attention_bwd", "combine_weighted_bwd")),
+                "examples: train_moe's backward kernels never launched")
         out[name] = rec
-    print(f"[examples] all three twins exit 0 on the card: "
+    print(f"[examples] all four twins exit 0 on the card: "
           + ", ".join(f"{k} {v['wall_s']:.1f}s" for k, v in out.items()))
+    return out
+
+
+# ------------------------------------------------------------------ train --
+
+# flash_attention_bwd's bar on the relative Frobenius error of dq, dk and dv
+# against attention_bwd_ref in fp32 on the same inputs and the kernel's own
+# o and lse: fp32 ~60x the 1.7e-7 a sound kernel gave on an H100 (sums in
+# another order); bf16 ~4x the 2.4e-3 it gave -- bf16 keeps 8 bits, and the
+# outputs and the P, dS operands of its products are rounded to it, as the
+# forward rounds P.  A lost tile or a wrong scale reads ~1.
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# |lse - plain lse|: fp32 log-sum-exp of scores of size ~10, ~3e-6 seen
+LSE_TOL = 1e-4
+# combine_weighted_bwd's dw (fp32 dot products over d) against float64:
+# within 5e-5 of the sum of |terms| (fp32 over 4096 terms in another order
+# gives ~1e-6 of it); dyb is held bit for bit
+DW_TOL = 5e-5
+# the card's train step against the CPU's, fp32: every leaf's gradient
+# within 1e-4 relative Frobenius error (other sums on the card: cuBLAS, the
+# kernels; the CPU tests hold the CPU against the reference at the same bar)
+STEP_GRAD_TOL = 1e-4
+TRAIN_LAYERS = 1  # the full-width step's one cut: depth 94 -> 1
+TRAIN_STEPS = 4
+TRAIN_S = 2048
+
+BF, F32 = torch.bfloat16, torch.float32
+# name, dtype, B, S, H, KVH, dh, causal, window, softcap, layout
+FLASH_BWD_CASES = [
+    ("main", BF, 1, 2048, 64, 4, 128, True, None, None, "model"),
+    ("fp32", F32, 1, 512, 8, 2, 128, True, None, None, "model"),
+    ("S192", BF, 2, 192, 8, 2, 128, True, None, None, "model"),
+    ("window512", BF, 1, 2048, 8, 2, 128, True, 512, None, "model"),
+    ("window16", BF, 1, 300, 8, 2, 128, True, 16, None, "model"),
+    ("softcap", BF, 1, 512, 8, 2, 128, True, None, 30.0, "model"),
+    ("dh64", BF, 2, 1024, 8, 2, 64, True, None, None, "model"),
+    ("noncausal", BF, 1, 320, 8, 2, 64, False, None, None, "model"),
+    ("unaligned", BF, 1, 256, 8, 2, 128, True, None, None, "unaligned"),
+    ("strided", BF, 1, 256, 8, 2, 128, True, None, None, "strided"),
+    ("fp32_dh32", F32, 2, 100, 4, 4, 32, True, 16, 20.0, "model"),
+]
+
+
+def _bwd_wrappers():
+    from repro_torch.kernels import wrappers
+    return wrappers()
+
+
+def _reset_counts():
+    for w in _bwd_wrappers():
+        _launch.reset_launches(w)
+    _launch.reset_host_syncs()
+
+
+def _read_counts() -> dict:
+    return {w.__name__: w.launches for w in _bwd_wrappers()}
+
+
+def _flash_inputs(gen, dtype, B, S, H, KVH, dh, layout):
+    def rnd(shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    if layout == "unaligned":  # bases one element past 16 bytes: no vectors
+        q, k, v, do = (_unaligned(s, dtype, gen) for s in (
+            (B, S, H, dh), (B, S, KVH, dh), (B, S, KVH, dh), (B, S, H, dh)))
+    elif layout == "strided":  # q, k, v slices of one fused projection
+        qkv = rnd((B, S, H + 2 * KVH, dh))
+        q, k, v = qkv.split((H, KVH, KVH), dim=2)
+        do = rnd((B, S, H, dh))
+    else:
+        q, k, v, do = rnd((B, S, H, dh)), rnd((B, S, KVH, dh)), \
+            rnd((B, S, KVH, dh)), rnd((B, S, H, dh))
+    return q, k, v, do
+
+
+def check_flash_bwd(gen) -> dict:
+    """flash_attention_bwd against attention_bwd_ref on every case: the
+    forward's o torch.equal with and without its lse, the lse against the
+    plain one, dq, dk, dv within BWD_TOL, two runs torch.equal; the main
+    case once more through FlashAttention (autograd) torch.equal to the
+    wrapper; a head dim without a backward kernel raises."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_launch)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+    out = {}
+    for name, dt, B, S, H, KVH, dh, causal, win, cap, layout in \
+            FLASH_BWD_CASES:
+        q, k, v, do = _flash_inputs(gen, dt, B, S, H, KVH, dh, layout)
+        opts = dict(causal=causal, window=win, softcap=cap)
+        o0 = flash_launch(q, k, v, **opts)
+        o, lse = flash_launch(q, k, v, with_lse=True, **opts)
+        expect(torch.equal(o0, o), f"train {name}: o with lse differs")
+        _, lse_ref = attention_fwd_ref(q.float(), k.float(), v.float(),
+                                       **opts)
+        lse_err = max_err(lse, lse_ref)
+        expect(lse_err <= LSE_TOL, f"train {name}: lse err {lse_err}")
+        got = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+        want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                 lse, do.float(), **opts)
+        torch.cuda.synchronize()
+        det = all(torch.equal(a, b) for a, b in zip(got, again))
+        rel = [_rel_fro(a, b) for a, b in zip(got, want)]
+        rec = {"dtype": str(dt).split(".")[-1], "B": B, "S": S, "H": H,
+               "KVH": KVH, "dh": dh, "causal": causal, "window": win,
+               "softcap": cap, "layout": layout, "lse_err": lse_err,
+               "rel_dq": rel[0], "rel_dk": rel[1], "rel_dv": rel[2],
+               "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
+               "tol": BWD_TOL[dt], "deterministic": det}
+        expect(det, f"train {name}: two backward runs differ")
+        expect(max(rel) <= BWD_TOL[dt], f"train {name}: dq/dk/dv rel err "
+               f"{rel} > {BWD_TOL[dt]}")
+        if name == "main":  # the Function carries the kernel's gradient
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            fn = mha_flash(*qkv, **opts)
+            expect(torch.equal(fn, o), "train main: FlashAttention's o")
+            for a, b in zip(torch.autograd.grad(fn, qkv, do), got):
+                expect(torch.equal(a, b), "train main: FlashAttention's "
+                       "backward is not the kernel's")
+        out[name] = rec
+        print(f"[train] flash_bwd {name}: rel dq {rel[0]:.2e} dk "
+              f"{rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL[dt]:.0e}), lse "
+              f"err {lse_err:.1e}, deterministic {det}")
+        del q, k, v, do, o0, o, lse, got, again, want
+    q = torch.zeros((1, 64, 2, 256), dtype=BF, device=DEV)
+    lse = torch.zeros((1, 2, 64), device=DEV)
+    try:
+        flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, lse, q)
+        raise Failed("train: flash_attention_bwd took head dim 256")
+    except NotImplementedError as e:
+        print(f"[train] head dim 256 raises: {e}")
+    return out
+
+
+def _skewed_routing(gen, T, E, K):
+    """Router-like (weights, ids) of T tokens: top-K of a softmax whose
+    first 4 experts are favoured, so some pairs overflow capacity."""
+    logits = torch.randn((T, E), generator=gen, device=DEV)
+    logits[:, :4] += 2.0
+    w, idx = torch.topk(torch.softmax(logits, -1), K, -1)
+    return w / w.sum(-1, keepdim=True), idx.to(torch.int32)
+
+
+def check_combine_bwd(gen) -> dict:
+    """combine_weighted_bwd at the full-width step's shape (T 2048, K 8, E
+    128, C 160, d 4096) in bf16 and fp32, on a routing that drops pairs:
+    dyb torch.equal to the plain version, dw within DW_TOL of float64, two
+    runs torch.equal.  Then the dispatch's backward (the weighted combine
+    with unit weights) at E = 128 ("whole") and E = 1117 ("scatter")
+    torch.equal to the plain version."""
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import (
+        combine_gather, combine_weighted_bwd, dispatch_scatter,
+        dispatch_whole)
+    from repro_torch.kernels.dispatch_combine.ops import kernel_moe_dispatch
+    from repro_torch.kernels.dispatch_combine.ref import (
+        combine_weighted_bwd_ref, combine_weighted_ref)
+    from repro_torch.models.moe import expert_capacity
+    cfg = get_config(ARCH)
+    T, K, E, d = TRAIN_S, cfg.top_k, cfg.num_experts, cfg.d_model
+    C = expert_capacity(T, cfg)
+    out = {}
+    w, idx = _skewed_routing(gen, T, E, K)
+    for dt in (BF, F32):
+        x = torch.randn((T, d), generator=gen, device=DEV).to(dt)
+        _, _, _, valid, _, ps = dispatch_whole(x, idx, E, C)
+        yb = torch.randn((E * C, d), generator=gen, device=DEV).to(dt)
+        dout = torch.randn((T, d), generator=gen, device=DEV).to(dt)
+        dyb, dw = combine_weighted_bwd(dout, yb, ps, w)
+        dyb2, dw2 = combine_weighted_bwd(dout, yb, ps, w)
+        rdyb, _ = combine_weighted_bwd_ref(dout, yb, ps, w)
+        kept = ps < E * C
+        terms = yb.double()[ps.clamp(max=E * C - 1)] \
+            * dout.double().repeat_interleave(K, 0)
+        exact = torch.where(kept, terms.sum(-1), 0.0).reshape(T, K)
+        scale = torch.where(kept, terms.abs().sum(-1), 1.0).reshape(T, K)
+        dw_err = float(((dw.double() - exact).abs() / scale).max())
+        name = str(dt).split(".")[-1]
+        rec = {"dyb_equal": torch.equal(dyb, rdyb), "dw_err": dw_err,
+               "dw_tol": DW_TOL, "dropped": int((~valid).sum()),
+               "deterministic": torch.equal(dyb, dyb2)
+               and torch.equal(dw, dw2),
+               "max_abs_err": max(max_err(dyb, rdyb),
+                                  float((dw.double() - exact).abs().max()))}
+        expect(rec["dropped"] > 0, "train: the combine check drops no pair")
+        expect(rec["dyb_equal"], f"train combine_bwd {name}: dyb differs")
+        expect(dw_err <= DW_TOL, f"train combine_bwd {name}: dw err "
+               f"{dw_err}")
+        expect(rec["deterministic"], f"train combine_bwd {name}: runs "
+               f"differ")
+        out[name] = rec
+        print(f"[train] combine_weighted_bwd {name}: dyb bitwise, dw err "
+              f"{dw_err:.1e} of sum|terms| (tol {DW_TOL:.0e}), "
+              f"{rec['dropped']} pairs dropped")
+    for E2, route, T2 in ((E, "whole", T), (1117, "scatter", 512)):
+        cfg2 = cfg.replace(num_experts=E2)
+        _, idx2 = _skewed_routing(gen, T2, E2, K)
+        x = torch.randn((T2, d), generator=gen, device=DEV).to(BF) \
+            .requires_grad_(True)
+        d0, c0 = _routes(dispatch_scatter), _routes(combine_gather)
+        xb, info = kernel_moe_dispatch(x, idx2, cfg2)
+        dxb = torch.randn(xb.shape, generator=gen, device=DEV).to(BF)
+        dx, = torch.autograd.grad(xb, x, dxb)
+        _took(dispatch_scatter, d0, route, f"train dispatch E={E2}")
+        _took(combine_gather, c0, "weighted", f"train dispatch bwd E={E2}")
+        C2 = info["capacity"]
+        want = combine_weighted_ref(dxb.reshape(E2 * C2, d),
+                                    info["pair_slot"],
+                                    torch.ones((T2, K), device=DEV))
+        expect(torch.equal(dx, want), f"train: dispatch backward at "
+               f"E={E2} differs from the plain version")
+        out[f"dispatch_E{E2}"] = {"route": route, "equal": True,
+                                  "dropped": int((~info["valid"]).sum())}
+        print(f"[train] dispatch backward E={E2} ({route}): torch.equal to "
+              f"the plain version, {out[f'dispatch_E{E2}']['dropped']} "
+              f"pairs dropped")
+    return out
+
+
+def _small_train_cfg():
+    return get_config(ARCH).smoke().replace(num_layers=2, num_experts=4,
+                                            top_k=2)
+
+
+def _to(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().to(device, copy=True), tree)
+
+
+def check_card_vs_cpu_step(seed: int) -> dict:
+    """One train step at the small fp32 config (qwen3 smoke, 2 layers, 4
+    experts top-2, S 64 > attn_chunk 32, head dim 32) on the card and on
+    the CPU from the same params and batch: every floating leaf gets a
+    gradient that is neither None nor zero on the card, every kernel of the
+    path launches, the loss agrees within 1e-5 and every leaf's gradient
+    within STEP_GRAD_TOL; then build_train_step on both: the loss, and the
+    params within 2 lr."""
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch.steps import (TrainState, build_train_step,
+                                          value_and_grad)
+    from repro_torch.models.api import build_api
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves
+    cfg = _small_train_cfg()
+    api = build_api(cfg)
+    params_c = api.init(torch.Generator().manual_seed(seed))
+    params_g = _to(params_c, DEV)
+    nb = pipeline_for(cfg, 64, 2, seed, device="cpu").numpy_batch(0)
+    bc = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in
+          nb.items()}
+    bg = {k: v.to(DEV) for k, v in bc.items()}
+    ps = leaves(params_g)
+    for p in ps:
+        p.requires_grad_(True)
+    _reset_counts()
+    loss, _ = api.loss(params_g, bg)
+    raw = torch.autograd.grad(loss, ps, allow_unused=True)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for p in ps:
+        p.requires_grad_(False)
+    missing = [i for i, g in enumerate(raw)
+               if g is None or float(g.abs().max()) == 0.0]
+    expect(not missing, f"train: leaves {missing} of {len(ps)} got no "
+           f"gradient on the card")
+    for name in ("flash_attention", "flash_attention_bwd", "dispatch_scatter",
+                 "combine_gather", "combine_weighted_bwd"):
+        expect(counts[name] > 0, f"train small step: {name} never launched "
+               f"({counts})")
+    del raw
+    (lg, _), gg = value_and_grad(api.loss, params_g, bg)
+    (lc, _), gc_ = value_and_grad(api.loss, params_c, bc)
+    rel = [_rel_fro(a.cpu(), b) for a, b in zip(leaves(gg), leaves(gc_))]
+    loss_err = abs(float(lg) - float(lc))
+    expect(loss_err <= 1e-5 * max(1.0, float(lc)),
+           f"train: card loss {float(lg)} vs CPU {float(lc)}")
+    expect(max(rel) <= STEP_GRAD_TOL, f"train: card vs CPU gradient rel err "
+           f"{max(rel)} (leaf {int(np.argmax(rel))})")
+    lr = 1e-3
+    opt = AdamW(lr=lr)
+    sg, mg = build_train_step(api, opt)(
+        TrainState(params_g, opt.init(params_g)), bg)
+    sc, mc = build_train_step(api, opt)(
+        TrainState(params_c, opt.init(params_c)), bc)
+    step_err = max(max_err(a.cpu(), b) for a, b in zip(leaves(sg.params),
+                                                       leaves(sc.params)))
+    expect(step_err <= 2 * lr, f"train: params after a step differ by "
+           f"{step_err} > 2 lr")
+    expect(abs(float(mg["loss"]) - float(mc["loss"])) <= 1e-5
+           * max(1.0, float(mc["loss"])), "train: build_train_step's loss")
+    rec = {"leaves": len(ps), "loss_card": float(lg), "loss_cpu": float(lc),
+           "max_grad_rel_err": max(rel), "tol": STEP_GRAD_TOL,
+           "params_max_err_after_step": step_err, "launches": counts}
+    print(f"[train] small fp32 step, card vs CPU: loss {float(lg):.6f} vs "
+          f"{float(lc):.6f}, {len(ps)} leaves all with a gradient, worst "
+          f"leaf rel err {max(rel):.1e} (tol {STEP_GRAD_TOL:.0e}), params "
+          f"after the step within {step_err:.1e}; launches {counts}")
+    return rec
+
+
+def check_resume(seed: int) -> dict:
+    """ResilientTrainer on the card at the small config: 6 steps, a
+    checkpoint every 2, a failure injected at step 3 and recovered from by
+    CheckpointManager's restore; the final params and moments torch.equal
+    to an uninterrupted run's."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch.steps import TrainState, build_train_step
+    from repro_torch.models.api import build_api
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.fault_tolerance import ResilientTrainer
+    from repro_torch.tree import leaves
+    cfg = _small_train_cfg()
+    api = build_api(cfg)
+    params0 = api.init(torch.Generator(device=DEV).manual_seed(seed + 1))
+    opt = AdamW(lr=1e-3, warmup_steps=2)
+    pipe = pipeline_for(cfg, 64, 2, seed, device=DEV)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    runs = {}
+    try:
+        for name, fail in (("resumed", 3), ("uninterrupted", None)):
+            p = _to(params0, DEV)
+            trainer = ResilientTrainer(
+                build_train_step(api, opt), pipe,
+                CheckpointManager(os.path.join(root, name)), ckpt_every=2)
+            state, step, _ = trainer.run(TrainState(p, opt.init(p)), 6,
+                                         inject_failure_at=fail)
+            expect(step == 6, f"train resume: {name} ended at step {step}")
+            runs[name] = state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    a, b = runs["resumed"], runs["uninterrupted"]
+    equal = all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(b)))
+    expect(equal, "train resume: the resumed run's params differ from the "
+           "uninterrupted run's")
+    print("[train] resume: failure at step 3 of 6, restored from step 2's "
+          "checkpoint; final params and moments torch.equal to the "
+          "uninterrupted run")
+    return {"equal": equal, "steps": 6, "failure_at": 3, "ckpt_every": 2}
+
+
+def _model_flops(cfg, params, tokens: int, S: int) -> float:
+    """A step's model FLOPs: 6 x the matmul params each token meets (the
+    attention projections, the router, top_k experts, the LM head) x tokens,
+    plus causal attention's 3 x 2 B H S^2 dh (forward and backward)."""
+    from repro_torch.tree import leaves_with_paths
+    n = 0
+    for path, t in leaves_with_paths(params):
+        if path[0] == "embed" or any("norm" in str(k) for k in path):
+            continue
+        size = t.numel()
+        if "experts" in path:
+            size = size * cfg.top_k // cfg.num_experts
+        n += size
+    B = tokens // S
+    attn = 3 * 2.0 * B * cfg.num_heads * S * S * cfg.head_dim \
+        * cfg.num_layers
+    return 6.0 * n * tokens + attn
+
+
+def full_width_train(seed: int) -> dict:
+    """qwen3_moe_235b_a22b at published width, depth 1, bf16: TRAIN_STEPS
+    build_train_step steps (AdamW lr 3e-4) on one repeated [1, 2048] batch
+    of pipeline_for.  Each step: the launches of every kernel (counts set
+    to 0 just before, read just after), host syncs, forward / backward /
+    optimizer ms by CUDA events, tokens/s, peak memory.  Gated: the loss
+    falls and stays finite, every leaf gets a gradient, the backward
+    kernels launch.  The backward kernels' inputs of the last step are
+    kept for the timing rows."""
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.kernels.dispatch_combine import ops as dc_ops
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.steps import TrainState, build_train_step
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves
+    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    t0 = time.time()
+    params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
+                            cfg, DEV)
+    n_params = sum(t.numel() for t in leaves(params))
+    ev = {k: torch.cuda.Event(enable_timing=True)
+          for k in ("start", "fwd", "opt0", "opt1", "end")}
+
+    class TimedAdamW(AdamW):
+        def update(self, grads, state, params):
+            ev["opt0"].record()
+            out = AdamW.update(self, grads, state, params)
+            ev["opt1"].record()
+            return out
+
+    api = build_api(cfg)
+
+    def loss(p, batch):
+        out = api.loss(p, batch)
+        ev["fwd"].record()
+        return out
+
+    opt = TimedAdamW(lr=3e-4)
+    state = TrainState(params, opt.init(params))
+    torch.cuda.synchronize()
+    print(f"[train] {cfg.name} full width, {TRAIN_LAYERS} layer, bf16: "
+          f"{n_params / 1e9:.2f} B params, params + fp32 moments "
+          f"{torch.cuda.memory_allocated() / 1e9:.1f} GB in "
+          f"{time.time() - t0:.1f}s")
+    step_fn = build_train_step(api._replace(loss=loss), opt)
+    batch = pipeline_for(cfg, TRAIN_S, 1, seed, device=DEV).batch(0)
+    tokens = batch["tokens"].numel()
+    flops = _model_flops(cfg, params, tokens, TRAIN_S)
+    steps, total = [], collections.Counter()
+    for i in range(TRAIN_STEPS):
+        last = i == TRAIN_STEPS - 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with contextlib.ExitStack() as stack:
+            grads = stack.enter_context(_recording(torch.autograd, "grad")) \
+                if i == 0 else None
+            if last:
+                fl = stack.enter_context(_recording(fa,
+                                                    "flash_attention_bwd"))
+                cb = stack.enter_context(_recording(dc_ops,
+                                                    "combine_weighted_bwd"))
+            t0 = time.time()
+            ev["start"].record()
+            state, m = step_fn(state, batch)
+            ev["end"].record()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        counts = _read_counts()
+        syncs = _launch.reset_host_syncs()
+        total.update(counts)
+        if grads is not None:
+            got = grads[0][2]
+            expect(len(got) == len(leaves(params)) and all(
+                g is not None and float(g.abs().max()) > 0 for g in got),
+                "train full width: a leaf got no gradient")
+            del got
+            grads.clear()
+        rec = {"step": i + 1, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]),
+               "dropped_fraction": float(m["dropped_fraction"]),
+               "fwd_ms": ev["start"].elapsed_time(ev["fwd"]),
+               "bwd_ms": ev["fwd"].elapsed_time(ev["opt0"]),
+               "opt_ms": ev["opt0"].elapsed_time(ev["opt1"]),
+               "step_ms": ev["start"].elapsed_time(ev["end"]),
+               "wall_s": wall, "tokens_per_s": tokens / wall,
+               "host_syncs": syncs, "launches": counts,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        rec["model_flops_share"] = flops / (rec["step_ms"] / 1e3) \
+            / PEAK_FLOPS[torch.bfloat16]
+        steps.append(rec)
+        print(f"[train] step {i + 1}: loss {rec['loss']:.4f}, fwd "
+              f"{rec['fwd_ms']:.1f} bwd {rec['bwd_ms']:.1f} opt "
+              f"{rec['opt_ms']:.1f} ms (step {rec['step_ms']:.1f} ms), "
+              f"{rec['tokens_per_s']:.0f} tokens/s, {syncs} host syncs, "
+              f"peak {rec['peak_gb']:.1f} GB, launches {counts}")
+    losses = [s["loss"] for s in steps]
+    expect(all(np.isfinite(losses)) and all(np.isfinite(
+        [s["grad_norm"] for s in steps])), f"train: non-finite {losses}")
+    expect(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+    expect(all(torch.isfinite(t).all() for t in leaves(state.params)),
+           "train: non-finite params")
+    for name in ("flash_attention_bwd", "combine_weighted_bwd",
+                 "flash_attention", "dispatch_scatter", "combine_gather"):
+        expect(total[name] > 0, f"train: {name} never launched at full "
+               f"width ({dict(total)})")
+    inputs = {name: (tuple(t.detach() for t in calls[-1][0]), calls[-1][1])
+              for name, calls in (("flash_attention_bwd", fl),
+                                  ("combine_weighted_bwd", cb))}
+    del state, params, m, fl, cb
+    _free()
+    return {"arch": cfg.name, "layers": TRAIN_LAYERS, "params": n_params,
+            "tokens_per_step": tokens, "model_flops_per_step": flops,
+            "losses": losses, "steps": steps, "launches": dict(total),
+            "inputs": inputs}
+
+
+def _time_bwd(kern, plain, lib, nbytes, ops, dtype, shape, match):
+    """A backward kernel at the main path's inputs: ms (wrapper calls back
+    to back, CUDA events), device ms (profiler, kernels whose name holds
+    `match`), the plain version's ms, one library call's, the bound from
+    this run's bytes and operations, max abs error against the plain
+    version."""
+    got, want = kern(), plain()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    del got, want
+    ms = cuda_ms(kern, iters=20, warmup=3)
+    dev, rows = _device_ms(kern, 10, match=match)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    return {"case": "train", "ms": ms, "device_ms": dev,
+            "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": cuda_ms(lib, iters=20, warmup=3),
+            "device_ms_by": "profiler" if rows else "cuda_events",
+            "max_abs_err": err, "shape": shape}
+
+
+def time_bwd_kernels(inputs: dict) -> dict:
+    """flash_attention_bwd and combine_weighted_bwd at the inputs the
+    full-width step's last backward gave them.  Library yardsticks (timed
+    here, used nowhere in the port): the backward of
+    scaled_dot_product_attention on expanded heads through autograd, and
+    of embedding_bag(mode="sum", per_sample_weights) -- the weighted
+    combine's own function -- through autograd."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.dispatch_combine.dispatch_combine import \
+        combine_weighted_bwd
+    from repro_torch.kernels.dispatch_combine.ref import \
+        combine_weighted_bwd_ref
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_attention_bwd
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    rows = {}
+    (q, k, v, o, lse, do), kw = inputs["flash_attention_bwd"]
+    B, S, H, dh = q.shape
+    KVH = k.shape[2]
+    qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).detach().clone()
+                  .requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    doh = do.permute(0, 2, 1, 3)
+    nbytes = 2 * B * S * dh * (4 * H + 4 * KVH) + 4 * B * H * S
+    ops = 5 * 2.0 * B * H * S * S * dh / 2  # S, dV, dP, dQ, dK (causal)
+    rows["flash_attention_bwd"] = _time_bwd(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+        lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
+        lambda: torch.autograd.grad(lo, (qh, kh, vh), doh,
+                                    retain_graph=True),
+        nbytes, ops, q.dtype,
+        {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh, "dtype": "bf16",
+         "causal": kw["causal"]}, "flash_bwd")
+    rows["flash_attention_bwd"]["library_call"] = \
+        "scaled_dot_product_attention backward (expanded heads, autograd)"
+    del qh, kh, vh, lo
+    (dout, yb, ps, w), _ = inputs["combine_weighted_bwd"]
+    T, K = w.shape
+    R, d = yb.shape
+    kept = int((ps < R).sum())
+    # fp32 copies: CUDA's embedding_bag has no bf16 backward for
+    # per_sample_weights (the yardstick reads twice the kernel's bytes)
+    ypad = torch.cat([yb, yb.new_zeros((1, d))]).float() \
+        .requires_grad_(True)
+    wl = w.to(yb.dtype).float().requires_grad_(True)
+    lo = F.embedding_bag(ps.clamp(max=R).reshape(T, K), ypad,
+                         per_sample_weights=wl, mode="sum", padding_idx=R)
+    dout32 = dout.float()
+    es = yb.element_size()
+    nbytes = es * (T * d + kept * d + R * d) + 8 * T * K + 4 * T * K \
+        + 4 * T * K
+    rows["combine_weighted_bwd"] = _time_bwd(
+        lambda: combine_weighted_bwd(dout, yb, ps, w),
+        lambda: combine_weighted_bwd_ref(dout, yb, ps, w),
+        lambda: torch.autograd.grad(lo, (ypad, wl), dout32,
+                                    retain_graph=True),
+        nbytes, 3.0 * kept * d, yb.dtype,
+        {"T": T, "K": K, "rows": R, "d": d, "kept": kept, "dtype": "bf16"},
+        "combine_weighted_bwd")
+    rows["combine_weighted_bwd"]["library_call"] = \
+        "embedding_bag(mode=sum, per_sample_weights) backward (autograd), " \
+        "fp32 (no bf16 backward on CUDA)"
+    for name, r in rows.items():
+        print(f"[train] {name}: {r['ms']:.3f} ms (device {r['device_ms']:.3f})"
+              f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms")
+    return rows
+
+
+def phase_train(seed: int, gen) -> dict:
+    """(a) the backward kernels against their plain versions, (b) the
+    small fp32 step on the card against the CPU's, (c) the full-width step
+    and the backward kernels timed at its inputs, (d) a resumed run against
+    an uninterrupted one."""
+    t0 = time.time()
+    out = {"flash_bwd": check_flash_bwd(gen),
+           "combine_bwd": check_combine_bwd(gen),
+           "small_step": check_card_vs_cpu_step(seed)}
+    _free()
+    full = full_width_train(seed)
+    inputs = full.pop("inputs")
+    out["full_width"] = full
+    out["timing"] = time_bwd_kernels(inputs)
+    del inputs
+    _free()
+    out["resume"] = check_resume(seed)
+    out["wall_s"] = time.time() - t0
+    print(f"[train] phase done in {out['wall_s']:.1f}s")
     return out
 
 
@@ -2405,20 +3035,36 @@ def _rel_fro(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got - want).norm() / want.norm())
 
 
-@contextlib.contextmanager
-def _recording(module, name: str):
-    """Replaces module.name by a wrapper that calls it unchanged and keeps
-    each call's (args, kwargs, result): the main path's own inputs and
-    outputs of a kernel's wrapper, held against the plain version after the
-    counted run.  Yields the list of calls; restores module.name on exit."""
-    fn, calls = getattr(module, name), []
+class _Recorder:
+    """Calls `fn` unchanged and keeps each call's (args, kwargs, result).
+    Every other attribute is `fn`'s, read and written through: a wrapper
+    that counts its launches on itself (`_launch.count_launch`) still counts
+    on the real function while its module's name points here."""
 
-    def rec(*args, **kwargs):
-        out = fn(*args, **kwargs)
-        calls.append((args, kwargs, out))
+    def __init__(self, fn, calls: list):
+        object.__setattr__(self, "_fn", fn)
+        object.__setattr__(self, "_calls", calls)
+
+    def __call__(self, *args, **kwargs):
+        out = self._fn(*args, **kwargs)
+        self._calls.append((args, kwargs, out))
         return out
 
-    setattr(module, name, rec)
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+    def __setattr__(self, name, value):
+        setattr(self._fn, name, value)
+
+
+@contextlib.contextmanager
+def _recording(module, name: str):
+    """Replaces module.name by a `_Recorder` of it: the main path's own
+    inputs and outputs of a kernel's wrapper, held against the plain
+    version after the counted run.  Yields the list of calls; restores
+    module.name on exit."""
+    fn, calls = getattr(module, name), []
+    setattr(module, name, _Recorder(fn, calls))
     try:
         yield calls
     finally:
@@ -3442,7 +4088,7 @@ def shapes_from(kernels_line: dict) -> dict:
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
                  rebalance=None, zoo=None, tuned=None,
-                 examples=None) -> dict:
+                 examples=None, train=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -3457,6 +4103,10 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
              time_flash_attention(shapes["flash_attention"], gen), serve,
              errs)] + _moe_rows(gen, pd, errs,
                                 gmm["dispatch_cases"] if gmm else ())
+    if train:
+        rows += [_bwd_row(name, line, train)
+                 for name, line in (("flash_attention_bwd", 97),
+                                    ("combine_weighted_bwd", 75))]
     by_path = {"serve": serve["launches"], "pd": pd["launches"]}
     if batching:
         by_path["batching"] = batching["bitwise"]["batched"]["launches"]
@@ -3475,20 +4125,42 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
             if rec["launches"] is not None:
                 by_path[name] = {k: v["launches"]
                                  for k, v in rec["launches"].items()}
+    if train:
+        by_path["train"] = train["full_width"]["launches"]
     rows[0]["launches_by_tile"] = serve["by_tile"]
     rows[0]["device_ms_by_tile"] = time_super_gmm_tiles(
         shapes["super_gmm"], gen)
-    for row in rows:
+    for row in rows:  # the paths that read this kernel's count
         row["launches_by_path"] = {p: n[row["name"]]
-                                   for p, n in by_path.items()}
+                                   for p, n in by_path.items()
+                                   if row["name"] in n}
     return {"kernels": rows}
+
+
+def _bwd_row(name, line, train) -> dict:
+    """A backward kernel's row: the full-width train step's launches (its
+    main path) and the times at that step's inputs.  It is the gradient of
+    the TPU kernel `replaces` names, which has no backward of its own."""
+    t = train["timing"][name]
+    src = "flash_attention" if name.startswith("flash") else \
+        "dispatch_combine"
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{src}/{src}.py:{line}",
+            "gradient_of": "flash_attention" if src == "flash_attention"
+            else "combine_gather",
+            "launches": train["full_width"]["launches"][name],
+            **{k: t[k] for k in ("max_abs_err", "ms", "device_ms",
+                                 "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "library_call", "shape")},
+            "cases": [t]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
                     "serve,pd,batching,gmm,faults,rebalance,tuning,"
-                    "examples,zoo,timing")
+                    "examples,train,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -3535,7 +4207,7 @@ def main() -> int:
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = batching = gmm = faults = rebalance = zoo = None
-    tuned = examples = None
+    tuned = examples = train = None
     if {"executor", "serve", "batching", "gmm", "faults",
             "rebalance", "tuning"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
@@ -3574,6 +4246,9 @@ def main() -> int:
     if "examples" in phases:  # each twin in its own process
         examples = phase_examples(args.seed)
         print(json.dumps({"examples": examples}))
+    if "train" in phases:  # after the serving model is released
+        train = phase_train(args.seed, gen)
+        print(json.dumps({"train": train}))
     if "zoo" in phases:  # after the qwen3 model is released
         zoo = phase_zoo(args.seed, card)
         print(json.dumps({"zoo": zoo}))
@@ -3582,7 +4257,7 @@ def main() -> int:
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
                                       faults, rebalance, zoo, tuned,
-                                      examples)))
+                                      examples, train)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

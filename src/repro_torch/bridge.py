@@ -4,7 +4,8 @@ The caller converts the reference's parameter pytree to numpy
 (`jax.tree.map(np.asarray, params)`; bf16 leaves as float32, numpy has no
 bf16) and hands it to `params_from_numpy`, which builds the port's nested
 dict of tensors with the same keys and the same stacked `[L, ...]` layer
-axis.  This module never imports jax.
+axis.  `opt_state_from_numpy` / `opt_state_to_numpy` carry the AdamW state
+(step, m, v) both ways.  This module never imports jax.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.optim.adamw import OptState
+from repro_torch.tree import tree_map
 
 # leaves the reference keeps fp32 whatever cfg.dtype says, by (parent key,
 # key): the router, rwkv's decay base and bonus, mamba's A_log, dt_bias and
@@ -59,3 +62,23 @@ def params_to_numpy(tree: Any) -> Any:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
+
+
+def opt_state_from_numpy(state: Any, device="cuda"):
+    """The reference's AdamW state as numpy, (step, m, v) (its `OptState`
+    mapped through `np.asarray`), -> the port's `OptState` on `device`:
+    step an int32 scalar, the moments fp32 trees."""
+    step, m, v = state
+
+    def fp32(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+    return OptState(torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                 device=device),
+                    tree_map(fp32, m), tree_map(fp32, v))
+
+
+def opt_state_to_numpy(state) -> tuple:
+    """The inverse: the port's `OptState` -> numpy (step, m, v)."""
+    return (np.asarray(state.step.detach().cpu().numpy(), dtype=np.int32),
+            params_to_numpy(state.m), params_to_numpy(state.v))

@@ -433,6 +433,115 @@ void launch_combine(const void* pair_slot, const void* w, const void* yb,
 }
 
 
+
+// ---------------------------------------------------------------------------
+// combine_weighted_bwd: the gradient of combine_weighted, one launch.
+//
+//   dyb[pair_slot[t*K+k]] = w[t, k] * dout[t]   (w rounded to yb's type, as
+//                                                the forward rounds it; the
+//                                                product rounded once)
+//   dw[t, k] = sum_d yb[pair_slot[t*K+k], d] * dout[t, d]   (fp32)
+//
+// Each row of yb is hit by at most one pair (the dispatch gives each kept
+// pair its own capacity row), so no two writes meet and nothing is atomic.
+// Two kinds of block: a rows block owns BWD_ROWS rows of dyb and finds the
+// pairs that land in them by a scan of pair_slot (a row no pair hits is
+// written as zeros: no separate fill); a dw block gives one warp to each
+// pair, its dot product summed lane by lane in a fixed order and then
+// across the warp by xor shuffles, so two runs give the same bits.  A
+// dropped pair (pair_slot outside yb) gets dw 0.  Bytes bound it: dout and
+// the kept rows of yb read, dyb written once.
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_ROWS = 128;  // dyb rows per rows block
+
+template <typename Ty, int V>
+__global__ void __launch_bounds__(BWD_THREADS)
+combine_weighted_bwd_kernel(const long long* __restrict__ pair_slot,
+                            const float* __restrict__ w,
+                            const typename Ty::raw* __restrict__ yb,
+                            const typename Ty::raw* __restrict__ dout,
+                            typename Ty::raw* __restrict__ dyb,
+                            float* __restrict__ dw, int T, int K,
+                            long long rows, int vecs, int row_blocks) {
+  using P = Pack<typename Ty::raw, V>;
+  const long long N = static_cast<long long>(T) * K;
+  const P* y = reinterpret_cast<const P*>(yb);
+  const P* g = reinterpret_cast<const P*>(dout);
+  if (static_cast<int>(blockIdx.x) < row_blocks) {
+    __shared__ long long src[BWD_ROWS];  // the pair landing in each row
+    const long long r0 = static_cast<long long>(blockIdx.x) * BWD_ROWS;
+    for (int j = threadIdx.x; j < BWD_ROWS; j += BWD_THREADS) src[j] = -1;
+    __syncthreads();
+    for (long long i = threadIdx.x; i < N; i += BWD_THREADS) {
+      const long long s = pair_slot[i];
+      if (s >= r0 && s < r0 + BWD_ROWS && s < rows) src[s - r0] = i;
+    }
+    __syncthreads();
+    P* out = reinterpret_cast<P*>(dyb);
+    for (int rr = 0; rr < BWD_ROWS && r0 + rr < rows; ++rr) {
+      const long long i = src[rr];
+      // the weight in the payload's type, as the forward rounds it
+      const float wk = i >= 0 ? Ty::load(Ty::store(w[i])) : 0.f;
+      const long long t = i >= 0 ? i / K : 0;
+      for (int u = threadIdx.x; u < vecs; u += BWD_THREADS) {
+        P o;
+        if (i >= 0) {
+          const P gv = g[t * vecs + u];
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            o.x[e] = Ty::store(__fmul_rn(wk, Ty::load(gv.x[e])));
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) o.x[e] = Ty::store(0.f);
+        }
+        out[(r0 + rr) * vecs + u] = o;
+      }
+    }
+    return;
+  }
+  const long long i =
+      static_cast<long long>(blockIdx.x - row_blocks) * (BWD_THREADS / 32) +
+      threadIdx.x / 32;
+  if (i >= N) return;
+  const int lane = threadIdx.x % 32;
+  const long long s = pair_slot[i];
+  float acc = 0.f;
+  if (s >= 0 && s < rows) {
+    const long long t = i / K;
+    for (int u = lane; u < vecs; u += 32) {
+      const P a = y[s * vecs + u], b = g[t * vecs + u];
+#pragma unroll
+      for (int e = 0; e < V; ++e)
+        acc = fmaf(Ty::load(a.x[e]), Ty::load(b.x[e]), acc);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(FULL_MASK, acc, off);
+  if (lane == 0) dw[i] = acc;
+}
+
+template <typename Ty, int V>
+int launch_combine_bwd(const void* pair_slot, const void* w, const void* yb,
+                       const void* dout, void* dyb, void* dw, int T, int K,
+                       long long rows, int vecs, cudaStream_t s) {
+  const long long row_blocks = (rows + BWD_ROWS - 1) / BWD_ROWS;
+  const long long dw_blocks =
+      (static_cast<long long>(T) * K + BWD_THREADS / 32 - 1) /
+      (BWD_THREADS / 32);
+  if (row_blocks + dw_blocks > 0x7fffffffLL) return -2;
+  combine_weighted_bwd_kernel<Ty, V><<<
+      static_cast<unsigned>(row_blocks + dw_blocks), BWD_THREADS, 0, s>>>(
+      reinterpret_cast<const long long*>(pair_slot),
+      reinterpret_cast<const float*>(w),
+      reinterpret_cast<const typename Ty::raw*>(yb),
+      reinterpret_cast<const typename Ty::raw*>(dout),
+      reinterpret_cast<typename Ty::raw*>(dyb), reinterpret_cast<float*>(dw),
+      T, K, rows, vecs, static_cast<int>(row_blocks));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // token_of, slot: [n] int32; x: [rows_in, d]; out: [rows_out, d], zeroed by
@@ -569,4 +678,35 @@ extern "C" int combine_weighted_launch(const void* pair_slot, const void* w,
       launch_combine<F32, 1>(pair_slot, w, yb, out, T, K, rows, d, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The gradient of combine_weighted_launch: pair_slot [T*K] int64; w [T, K]
+// fp32; yb [rows, d]; dout [T, d] (yb's type) -> dyb [rows, d] (yb's type,
+// every row written, zeros where no pair lands) and dw [T, K] fp32.
+// elem_size: 2 (bf16) or 4 (fp32).  One launch on `stream`.  Returns a
+// cudaError_t, -1 for an element size it does not take, -2 for a grid too
+// large.
+extern "C" int combine_weighted_bwd_launch(const void* pair_slot,
+                                           const void* w, const void* yb,
+                                           const void* dout, void* dyb,
+                                           void* dw, int T, int K,
+                                           long long rows, int d,
+                                           int elem_size, void* stream) {
+  if (elem_size != 2 && elem_size != 4) return -1;
+  if (d <= 0 || (rows <= 0 && T <= 0)) return 0;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const long long row_bytes = static_cast<long long>(d) * elem_size;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(yb) |
+                         reinterpret_cast<uintptr_t>(dout) |
+                         reinterpret_cast<uintptr_t>(dyb);
+  const bool wide = row_bytes % 16 == 0 && addr % 16 == 0;
+  if (elem_size == 2)
+    return wide ? launch_combine_bwd<Bf16, 8>(pair_slot, w, yb, dout, dyb,
+                                              dw, T, K, rows, d / 8, s)
+                : launch_combine_bwd<Bf16, 1>(pair_slot, w, yb, dout, dyb,
+                                              dw, T, K, rows, d, s);
+  return wide ? launch_combine_bwd<F32, 4>(pair_slot, w, yb, dout, dyb, dw, T,
+                                           K, rows, d / 4, s)
+              : launch_combine_bwd<F32, 1>(pair_slot, w, yb, dout, dyb, dw, T,
+                                           K, rows, d, s);
 }

@@ -68,6 +68,7 @@
 #include <mma.h>
 
 #include <cmath>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -152,10 +153,11 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
 template <typename T, int DH, int BQ, int BKV>
 __global__ void __launch_bounds__(NT)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int KVH, int S, Strides sq, Strides sk, Strides sv,
-                       Strides so, int causal, int window, float softcap,
-                       float sm_scale, int vec_ok) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int KVH, int S,
+                       Strides sq, Strides sk, Strides sv, Strides so,
+                       int causal, int window, float softcap, float sm_scale,
+                       int vec_ok) {
   using L = Layout<T, DH, BQ, BKV>;
   constexpr int LDQ = L::LDQ, LDP = L::LDP, LDS = L::LDS, LDO = L::LDO;
   constexpr int TPR = NT / BQ;  // threads that share one query row
@@ -324,6 +326,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (sub == 0) Ls[r] = l_run;
+  // the row's log-sum-exp in the scaled (and capped) score's units, for the
+  // backward: p = exp(s - lse)
+  if (lse != nullptr && sub == 0 && qpos < S)
+    lse[static_cast<long long>(bh) * S + qpos] =
+        m_run + logf(fmaxf(l_run, 1e-30f));
   __syncthreads();
   for (int idx = tid; idx < BQ * DH; idx += NT) {
     const int rr = idx / DH, d = idx % DH;
@@ -335,10 +342,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH, int BQ, int BKV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KVH, int S, Strides sq, Strides sk, Strides sv, Strides so,
-           int causal, int window, float softcap, float sm_scale, int vec_ok,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KVH, int S, Strides sq, Strides sk, Strides sv,
+           Strides so, int causal, int window, float softcap, float sm_scale,
+           int vec_ok, cudaStream_t stream) {
   constexpr auto kern = flash_attention_kernel<T, DH, BQ, BKV>;
   constexpr int bytes = static_cast<int>(Layout<T, DH, BQ, BKV>::BYTES);
   cudaError_t err = hopper::allow_smem<kern>(bytes);
@@ -346,8 +353,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   dim3 grid((S + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, bytes, stream>>>(
       reinterpret_cast<const T*>(q), reinterpret_cast<const T*>(k),
-      reinterpret_cast<const T*>(v), reinterpret_cast<T*>(o), H, KVH, S, sq,
-      sk, sv, so, causal, window, softcap, sm_scale, vec_ok);
+      reinterpret_cast<const T*>(v), reinterpret_cast<T*>(o), lse, H, KVH, S,
+      sq, sk, sv, so, causal, window, softcap, sm_scale, vec_ok);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,8 +399,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   bf16* __restrict__ o, Strides so, int H, int KVH, int S,
-                   int causal, int window, float softcap, float sm_scale) {
+                   bf16* __restrict__ o, float* __restrict__ lse, Strides so,
+                   int H, int KVH, int S, int causal, int window,
+                   float softcap, float sm_scale) {
   using L = Smem<DH>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = hopper::align1024(smem_raw);
@@ -565,6 +573,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
       inv[r] = 1.f / fmaxf(l, 1e-30f);
+      // the row's log-sum-exp in natural units of the scaled score (m_run
+      // is in raw units: sm_scale brings it there), for the backward
+      const int qpos = qa + 8 * r;
+      if (lse != nullptr && (lane & 3) == 0 && qpos < S)
+        lse[static_cast<long long>(bh) * S + qpos] =
+            m_run[r] * sm_scale + logf(fmaxf(l, 1e-30f));
     }
     bf16* op = o + b * so.b + h * so.h;
 #pragma unroll
@@ -582,9 +596,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-           int KVH, int S, Strides sq, Strides sk, Strides sv, Strides so,
-           int causal, int window, float softcap, float sm_scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int H, int KVH, int S, Strides sq, Strides sk, Strides sv,
+           Strides so, int causal, int window, float softcap, float sm_scale,
            cudaStream_t stream) {
   // 4-D maps over [B, S, heads, dh] with the real strides: (dh chunk, key
   // or query offset, head, batch) are the coordinates of a tile
@@ -606,12 +620,410 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int H,
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (S + BQ - 1) / BQ);
   kern<<<grid, THREADS, Smem<DH>::BYTES, stream>>>(
-      tq, tk, tv, reinterpret_cast<bf16*>(o), so, H, KVH, S, causal, window,
-      softcap, sm_scale);
+      tq, tk, tv, reinterpret_cast<bf16*>(o), lse, so, H, KVH, S, causal,
+      window, softcap, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace wg
+
+// ------------------------------------------------------------- backward --
+//
+// flash_attention_bwd: the gradient of the forward above, recomputed from
+// the forward's log-sum-exp (no [S, S] matrix is ever stored):
+//
+//   D  = rowsum(dO * O)                      (flash_bwd_rowdot_kernel)
+//   P  = exp(S - lse), S the scaled (capped) scores under the forward's mask
+//   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - D)  [* (1 - tanh^2) if capped]
+//   dQ = dS K * sm_scale,  dK = dS^T Q * sm_scale
+//
+// Two kernels split the work so that no sum is shared between blocks: one
+// block per (batch*head, key tile) walks the query tiles of the key tile's
+// frontier and keeps its head's dK, dV tile in fp32 (flash_bwd_dkdv_kernel,
+// written to a per-head fp32 scratch); one block per (batch*head, query
+// tile) walks the key tiles and keeps dQ (flash_bwd_dq_kernel).  A last
+// pass (flash_bwd_reduce_kernel) sums each KV head's group of query heads
+// in a fixed order (GQA) and writes dK, dV in the input's type.  No atomics:
+// two runs give the same bits.  bf16 runs its products on wmma (P and dS
+// rounded to bf16 first, as the forward rounds P), fp32 on plain FMA loops
+// (correctness first).  Head dims 32, 64 and 128; the wrapper refuses the
+// others before launching.
+//
+// What bounds it on an H100: 2.5x the forward's products (5 matrix products
+// per tile pair against 2), recomputed twice here (dQ and dK/dV each form S
+// and dP again): 7 products of B * H * S^2 / 2 * dh multiply-adds (causal)
+// against B * (4 H + 4 KVH) * S * dh elements moved -- the tensor cores,
+// far more than the bytes.  This first kernel keeps its scores in shared
+// memory (wmma, not wgmma): making it fast is later work.
+namespace bwd {
+
+template <typename T, int DH, int BQ, int BKV> struct Layout {
+  static constexpr int LDQ = DH + Pad<T>::T_;   // q, k, v, dO tiles (T)
+  static constexpr int LDP = BKV + Pad<T>::T_;  // P, dS (T)
+  static constexpr int LDS = BKV + Pad<T>::F_;  // S, dP (fp32)
+  static constexpr int LDA = DH + Pad<T>::F_;   // dK, dV or dQ sums (fp32)
+  static constexpr int ROWS = BQ > BKV ? BQ : BKV;
+  static constexpr size_t TILE = align128(sizeof(T) * ROWS * LDQ);
+  static constexpr size_t OFF_Q = 0;
+  static constexpr size_t OFF_DO = OFF_Q + TILE;
+  static constexpr size_t OFF_K = OFF_DO + TILE;
+  static constexpr size_t OFF_V = OFF_K + TILE;
+  static constexpr size_t OFF_S = OFF_V + TILE;
+  static constexpr size_t OFF_DP = OFF_S + align128(sizeof(float) * BQ * LDS);
+  static constexpr size_t OFF_P = OFF_DP + align128(sizeof(float) * BQ * LDS);
+  static constexpr size_t OFF_DS = OFF_P + align128(sizeof(T) * BQ * LDP);
+  static constexpr size_t OFF_A0 = OFF_DS + align128(sizeof(T) * BQ * LDP);
+  static constexpr size_t OFF_A1 =
+      OFF_A0 + align128(sizeof(float) * ROWS * LDA);
+  static constexpr size_t OFF_L = OFF_A1 + align128(sizeof(float) * ROWS * LDA);
+  static constexpr size_t OFF_D = OFF_L + align128(sizeof(float) * BQ);
+  static constexpr size_t BYTES = OFF_D + align128(sizeof(float) * BQ);
+};
+static_assert(Layout<bf16, 128, 64, 64>::BYTES <= MAX_SMEM &&
+                  Layout<float, 128, 32, 32>::BYTES <= MAX_SMEM,
+              "backward shared memory");
+
+// C[M, N] (fp32, row stride ldc) += A[M, K] B[K, N] over the block, A and B
+// in shared memory: A(i, k) = A_COL ? A[k * lda + i] : A[i * lda + k],
+// B(k, j) = B_COL ? B[j * ldb + k] : B[k * ldb + j].  bf16 on wmma (each
+// warp owns whole 16x16 tiles of C), fp32 on FMA loops.
+template <typename T, int M, int N, int K, bool A_COL, bool B_COL>
+__device__ __forceinline__ void block_mma(float* C, int ldc, const T* A,
+                                          int lda, const T* Bm, int ldb) {
+  if constexpr (sizeof(T) == 2) {
+    using namespace nvcuda;
+    static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "wmma tiles");
+    using LA = typename std::conditional<A_COL, wmma::col_major,
+                                         wmma::row_major>::type;
+    using LB = typename std::conditional<B_COL, wmma::col_major,
+                                         wmma::row_major>::type;
+    constexpr int TN = N / 16;
+    for (int tile = threadIdx.x / 32; tile < (M / 16) * TN;
+         tile += NT / 32) {
+      const int i0 = (tile / TN) * 16, j0 = (tile % TN) * 16;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+      wmma::load_matrix_sync(c, C + i0 * ldc + j0, ldc, wmma::mem_row_major);
+#pragma unroll
+      for (int k0 = 0; k0 < K; k0 += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
+        wmma::load_matrix_sync(
+            a, reinterpret_cast<const bf16*>(A) +
+                   (A_COL ? k0 * lda + i0 : i0 * lda + k0), lda);
+        wmma::load_matrix_sync(
+            b, reinterpret_cast<const bf16*>(Bm) +
+                   (B_COL ? j0 * ldb + k0 : k0 * ldb + j0), ldb);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(C + i0 * ldc + j0, c, ldc, wmma::mem_row_major);
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < M * N; idx += NT) {
+      const int i = idx / N, j = idx % N;
+      float s = C[i * ldc + j];
+#pragma unroll 8
+      for (int k = 0; k < K; ++k)
+        s = fmaf(to_f(A_COL ? A[k * lda + i] : A[i * lda + k]),
+                 to_f(B_COL ? Bm[j * ldb + k] : Bm[k * ldb + j]), s);
+      C[i * ldc + j] = s;
+    }
+  }
+}
+
+__device__ __forceinline__ void zero_f(float* a, int n) {
+  for (int idx = threadIdx.x; idx < n; idx += NT) a[idx] = 0.f;
+}
+
+// S = Q K^T and dP = dO V^T of one (query tile, key tile) pair, then, in
+// place, P (T) and dS (T) under the forward's mask.  Rows past S and keys
+// past S give P = dS = 0.
+template <typename T, int DH, int BQ, int BKV>
+__device__ __forceinline__ void tile_grads(unsigned char* smem, int q0, int k0,
+                                           int S, int causal, int window,
+                                           float softcap, float sm_scale) {
+  using L = Layout<T, DH, BQ, BKV>;
+  const T* Qs = reinterpret_cast<const T*>(smem + L::OFF_Q);
+  const T* dOs = reinterpret_cast<const T*>(smem + L::OFF_DO);
+  const T* Ks = reinterpret_cast<const T*>(smem + L::OFF_K);
+  const T* Vs = reinterpret_cast<const T*>(smem + L::OFF_V);
+  float* Ss = reinterpret_cast<float*>(smem + L::OFF_S);
+  float* dPs = reinterpret_cast<float*>(smem + L::OFF_DP);
+  T* Ps = reinterpret_cast<T*>(smem + L::OFF_P);
+  T* dSs = reinterpret_cast<T*>(smem + L::OFF_DS);
+  const float* Ls = reinterpret_cast<const float*>(smem + L::OFF_L);
+  const float* Ds = reinterpret_cast<const float*>(smem + L::OFF_D);
+  zero_f(Ss, BQ * L::LDS);
+  zero_f(dPs, BQ * L::LDS);
+  __syncthreads();
+  block_mma<T, BQ, BKV, DH, false, true>(Ss, L::LDS, Qs, L::LDQ, Ks, L::LDQ);
+  block_mma<T, BQ, BKV, DH, false, true>(dPs, L::LDS, dOs, L::LDQ, Vs,
+                                         L::LDQ);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BQ * BKV; idx += NT) {
+    const int i = idx / BKV, j = idx % BKV;
+    const int qpos = q0 + i, kpos = k0 + j;
+    float s = Ss[i * L::LDS + j] * sm_scale, th = 0.f;
+    if (softcap > 0.f) {
+      th = tanhf(s / softcap);
+      s = th * softcap;
+    }
+    bool ok = qpos < S && kpos < S;
+    if (causal) ok = ok && kpos <= qpos;
+    if (window > 0) ok = ok && kpos > qpos - window;
+    const float p = ok ? expf(s - Ls[i]) : 0.f;
+    float ds = p * (dPs[i * L::LDS + j] - Ds[i]);
+    if (softcap > 0.f) ds *= 1.f - th * th;
+    Ps[i * L::LDP + j] = from_f<T>(p);
+    dSs[i * L::LDP + j] = from_f<T>(ds);
+  }
+  __syncthreads();
+}
+
+// lse and D of query rows q0 .. q0 + BQ - 1 into shared memory (0 past S).
+template <typename T, int DH, int BQ, int BKV>
+__device__ __forceinline__ void load_rows(unsigned char* smem,
+                                          const float* lse, const float* D,
+                                          long long row0, int q0, int S) {
+  using L = Layout<T, DH, BQ, BKV>;
+  float* Ls = reinterpret_cast<float*>(smem + L::OFF_L);
+  float* Ds = reinterpret_cast<float*>(smem + L::OFF_D);
+  for (int i = threadIdx.x; i < BQ; i += NT) {
+    const bool in = q0 + i < S;
+    Ls[i] = in ? lse[row0 + q0 + i] : 0.f;
+    Ds[i] = in ? D[row0 + q0 + i] : 0.f;
+  }
+}
+
+// One block per (key tile, batch*head): this head's dK, dV of the key tile
+// (unscaled dK), fp32, into dk_part / dv_part [B, H, S, DH].
+template <typename T, int DH, int BQ, int BKV>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const T* __restrict__ dO,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ D, float* __restrict__ dk_part,
+                      float* __restrict__ dv_part, int H, int KVH, int S,
+                      Strides sq, Strides sk, Strides sv, Strides sdo,
+                      int causal, int window, float softcap, float sm_scale,
+                      int vec_ok) {
+  using L = Layout<T, DH, BQ, BKV>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::OFF_Q);
+  T* dOs = reinterpret_cast<T*>(smem + L::OFF_DO);
+  T* Ks = reinterpret_cast<T*>(smem + L::OFF_K);
+  T* Vs = reinterpret_cast<T*>(smem + L::OFF_V);
+  const T* Ps = reinterpret_cast<const T*>(smem + L::OFF_P);
+  const T* dSs = reinterpret_cast<const T*>(smem + L::OFF_DS);
+  float* dKa = reinterpret_cast<float*>(smem + L::OFF_A0);
+  float* dVa = reinterpret_cast<float*>(smem + L::OFF_A1);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);
+  const int k0 = blockIdx.x * BKV;
+  const bool vec = vec_ok != 0;
+  const long long row0 = static_cast<long long>(bh) * S;
+
+  load_tile<T, DH, BKV, L::LDQ>(Ks, k + b * sk.b + hk * sk.h, k0, S, sk.s,
+                                vec);
+  load_tile<T, DH, BKV, L::LDQ>(Vs, v + b * sv.b + hk * sv.h, k0, S, sv.s,
+                                vec);
+  zero_f(dKa, BKV * L::LDA);
+  zero_f(dVa, BKV * L::LDA);
+  // query tiles that see a key of this tile: from the diagonal (causal) to
+  // the last query inside the window of the tile's last key
+  const int qt_lo = causal ? k0 / BQ : 0;
+  const int q_end = window > 0 ? min(S, k0 + BKV - 1 + window) : S;
+  const int qt_hi = (q_end + BQ - 1) / BQ;
+  for (int qt = qt_lo; qt < qt_hi; ++qt) {
+    const int q0 = qt * BQ;
+    __syncthreads();  // the last tile's products are done with Q, dO, P, dS
+    load_tile<T, DH, BQ, L::LDQ>(Qs, q + b * sq.b + h * sq.h, q0, S, sq.s,
+                                 vec);
+    load_tile<T, DH, BQ, L::LDQ>(dOs, dO + b * sdo.b + h * sdo.h, q0, S,
+                                 sdo.s, vec);
+    load_rows<T, DH, BQ, BKV>(smem, lse, D, row0, q0, S);
+    tile_grads<T, DH, BQ, BKV>(smem, q0, k0, S, causal, window, softcap,
+                               sm_scale);
+    block_mma<T, BKV, DH, BQ, true, false>(dVa, L::LDA, Ps, L::LDP, dOs,
+                                           L::LDQ);
+    block_mma<T, BKV, DH, BQ, true, false>(dKa, L::LDA, dSs, L::LDP, Qs,
+                                           L::LDQ);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < BKV * DH; idx += NT) {
+    const int r = idx / DH, d = idx % DH;
+    const int pos = k0 + r;
+    if (pos >= S) continue;
+    const long long at = (row0 + pos) * DH + d;
+    dk_part[at] = dKa[r * L::LDA + d];
+    dv_part[at] = dVa[r * L::LDA + d];
+  }
+}
+
+// One block per (query tile, batch*head): dQ of the tile, in T.
+template <typename T, int DH, int BQ, int BKV>
+__global__ void __launch_bounds__(NT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dO,
+                    const float* __restrict__ lse, const float* __restrict__ D,
+                    T* __restrict__ dq, int H, int KVH, int S, Strides sq,
+                    Strides sk, Strides sv, Strides sdo, Strides sdq,
+                    int causal, int window, float softcap, float sm_scale,
+                    int vec_ok) {
+  using L = Layout<T, DH, BQ, BKV>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem + L::OFF_Q);
+  T* dOs = reinterpret_cast<T*>(smem + L::OFF_DO);
+  T* Ks = reinterpret_cast<T*>(smem + L::OFF_K);
+  T* Vs = reinterpret_cast<T*>(smem + L::OFF_V);
+  const T* dSs = reinterpret_cast<const T*>(smem + L::OFF_DS);
+  float* dQa = reinterpret_cast<float*>(smem + L::OFF_A0);
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);
+  const int q0 = blockIdx.x * BQ;
+  const bool vec = vec_ok != 0;
+
+  load_tile<T, DH, BQ, L::LDQ>(Qs, q + b * sq.b + h * sq.h, q0, S, sq.s, vec);
+  load_tile<T, DH, BQ, L::LDQ>(dOs, dO + b * sdo.b + h * sdo.h, q0, S, sdo.s,
+                               vec);
+  load_rows<T, DH, BQ, BKV>(smem, lse, D, static_cast<long long>(bh) * S, q0,
+                            S);
+  zero_f(dQa, BQ * L::LDA);
+  // key tiles inside the causal / window frontier, as in the forward
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / BKV, t_hi = (kv_hi + BKV - 1) / BKV;
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * BKV;
+    __syncthreads();  // the last tile's product is done with K and dS
+    load_tile<T, DH, BKV, L::LDQ>(Ks, k + b * sk.b + hk * sk.h, k0, S, sk.s,
+                                  vec);
+    load_tile<T, DH, BKV, L::LDQ>(Vs, v + b * sv.b + hk * sv.h, k0, S, sv.s,
+                                  vec);
+    tile_grads<T, DH, BQ, BKV>(smem, q0, k0, S, causal, window, softcap,
+                               sm_scale);
+    block_mma<T, BQ, DH, BKV, false, false>(dQa, L::LDA, dSs, L::LDP, Ks,
+                                            L::LDQ);
+  }
+  __syncthreads();
+  T* dqp = dq + b * sdq.b + h * sdq.h;
+  for (int idx = threadIdx.x; idx < BQ * DH; idx += NT) {
+    const int r = idx / DH, d = idx % DH;
+    const int pos = q0 + r;
+    if (pos < S)
+      dqp[pos * sdq.s + d] = from_f<T>(dQa[r * L::LDA + d] * sm_scale);
+  }
+}
+
+// D[b, h, pos] = sum_d dO * O over the row, one warp per row.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dO,
+                        float* __restrict__ D, int B, int H, int S, int DH,
+                        Strides so, Strides sdo) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
+  if (row >= static_cast<long long>(B) * H * S) return;
+  const int lane = threadIdx.x % 32;
+  const int pos = static_cast<int>(row % S);
+  const long long bh = row / S;
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+  const T* orow = o + b * so.b + pos * so.s + h * so.h;
+  const T* grow = dO + b * sdo.b + pos * sdo.s + h * sdo.h;
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32)
+    acc = fmaf(to_f(orow[d]), to_f(grow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) D[row] = acc;
+}
+
+// dk[b, pos, hk] = sm_scale * sum over the group's heads g of
+// dk_part[b, hk * G + g, pos], in order of g; dv the same, unscaled.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+flash_bwd_reduce_kernel(const float* __restrict__ dk_part,
+                        const float* __restrict__ dv_part, T* __restrict__ dk,
+                        T* __restrict__ dv, int B, int H, int KVH, int S,
+                        int DH, Strides sdk, Strides sdv, float sm_scale) {
+  const int G = H / KVH;
+  const long long n = static_cast<long long>(B) * S * KVH * DH;
+  for (long long idx = static_cast<long long>(blockIdx.x) * NT + threadIdx.x;
+       idx < n; idx += static_cast<long long>(gridDim.x) * NT) {
+    const int d = static_cast<int>(idx % DH);
+    long long rest = idx / DH;
+    const int hk = static_cast<int>(rest % KVH);
+    rest /= KVH;
+    const int pos = static_cast<int>(rest % S);
+    const int b = static_cast<int>(rest / S);
+    float gk = 0.f, gv = 0.f;
+    for (int g = 0; g < G; ++g) {
+      const long long at =
+          ((static_cast<long long>(b) * H + hk * G + g) * S + pos) * DH + d;
+      gk += dk_part[at];
+      gv += dv_part[at];
+    }
+    dk[b * sdk.b + pos * sdk.s + hk * sdk.h + d] = from_f<T>(gk * sm_scale);
+    dv[b * sdv.b + pos * sdv.s + hk * sdv.h + d] = from_f<T>(gv);
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *o, *dO;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float *D, *dk_part, *dv_part;
+  int B, H, KVH, S;
+  Strides sq, sk, sv, so, sdo, sdq, sdk, sdv;
+  int causal, window;
+  float softcap, sm_scale;
+  int vec_ok;
+};
+
+template <typename T, int DH, int BQ, int BKV>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = static_cast<int>(Layout<T, DH, BQ, BKV>::BYTES);
+  constexpr auto kdkdv = flash_bwd_dkdv_kernel<T, DH, BQ, BKV>;
+  constexpr auto kdq = flash_bwd_dq_kernel<T, DH, BQ, BKV>;
+  cudaError_t err = hopper::allow_smem<kdkdv>(bytes);
+  if (err == cudaSuccess) err = hopper::allow_smem<kdq>(bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const T* q = reinterpret_cast<const T*>(a.q);
+  const T* k = reinterpret_cast<const T*>(a.k);
+  const T* v = reinterpret_cast<const T*>(a.v);
+  const T* dO = reinterpret_cast<const T*>(a.dO);
+  const long long rows = static_cast<long long>(a.B) * a.H * a.S;
+  flash_bwd_rowdot_kernel<T><<<static_cast<unsigned>((rows + NT / 32 - 1) /
+                                                     (NT / 32)),
+                               NT, 0, stream>>>(
+      reinterpret_cast<const T*>(a.o), dO, a.D, a.B, a.H, a.S, DH, a.so,
+      a.sdo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdkdv<<<dim3((a.S + BKV - 1) / BKV, a.B * a.H), NT, bytes, stream>>>(
+      q, k, v, dO, a.lse, a.D, a.dk_part, a.dv_part, a.H, a.KVH, a.S, a.sq,
+      a.sk, a.sv, a.sdo, a.causal, a.window, a.softcap, a.sm_scale,
+      a.vec_ok);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdq<<<dim3((a.S + BQ - 1) / BQ, a.B * a.H), NT, bytes, stream>>>(
+      q, k, v, dO, a.lse, a.D, reinterpret_cast<T*>(a.dq), a.H, a.KVH, a.S,
+      a.sq, a.sk, a.sv, a.sdo, a.sdq, a.causal, a.window, a.softcap,
+      a.sm_scale, a.vec_ok);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(a.B) * a.S * a.KVH * DH;
+  const long long blocks = (n + NT - 1) / NT;
+  flash_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks < 8192 ? blocks
+                                                                   : 8192),
+                               NT, 0, stream>>>(
+      a.dk_part, a.dv_part, reinterpret_cast<T*>(a.dk),
+      reinterpret_cast<T*>(a.dv), a.B, a.H, a.KVH, a.S, DH, a.sdk, a.sdv,
+      a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -623,22 +1035,25 @@ constexpr int ROUTE_WGMMA = 2;  // bf16, dh 64 or 128, TMA-describable
 
 // route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
 // q, o: [B, S, H, dh]-strided; k, v: [B, S, KVH, dh]-strided (strides in
-// elements, dh contiguous).  window <= 0 and softcap <= 0 switch those
-// options off.  Launches on `stream`, allocates nothing, does not
+// elements, dh contiguous).  lse: null (inference), or [B, H, S] fp32, each
+// row's log-sum-exp of its scaled (capped) scores for the backward; o is
+// the same either way.  window <= 0 and softcap <= 0 switch those options
+// off.  Launches on `stream`, allocates nothing, does not
 // synchronise; returns cudaGetLastError(), -1 for an unknown route, -2 for
 // a head dim it does not take, -3 for a tensor map the driver refuses and
 // -4 for tensors the wgmma route cannot take.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int route, int B,
-    int H, int KVH, int S, int dh, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, int causal, int window, float softcap,
-    float sm_scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse_,
+    int route, int B, int H, int KVH, int S, int dh, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, int causal, int window,
+    float softcap, float sm_scale, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  float* lse = reinterpret_cast<float*>(lse_);
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh},
       sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
-#define FA_ARGS q, k, v, o, B, H, KVH, S, sq, sk, sv, so, causal, window, \
+#define FA_ARGS q, k, v, o, lse, B, H, KVH, S, sq, sk, sv, so, causal, window, \
                 softcap, sm_scale
   if (route == ROUTE_FMA) {
     if (dh == 32) return launch<float, 32, 32, 32>(FA_ARGS, 0, s);
@@ -674,5 +1089,55 @@ extern "C" int flash_attention_launch(
     return -2;
   }
 #undef FA_ARGS
+  return -1;
+}
+
+// The backward of flash_attention_launch.  route: ROUTE_FMA (fp32) or
+// ROUTE_WMMA (bf16).  q, o, dO: [B, S, H, dh]-strided; k, v: [B, S, KVH,
+// dh]-strided; lse: [B, H, S] fp32 from the forward.  Writes dq [B, S, H,
+// dh], dk, dv [B, S, KVH, dh] (strided as given, the inputs' type) through
+// scratch the caller allocates: D [B, H, S] fp32 and dk_part, dv_part [B, H,
+// S, dh] fp32.  Four launches on `stream`, no atomics, no synchronisation;
+// returns cudaGetLastError(), -1 for an unknown route, -2 for a head dim it
+// does not take.
+extern "C" int flash_attention_bwd_launch(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dO, const void* lse, void* dq, void* dk, void* dv, void* D,
+    void* dk_part, void* dv_part, int route, int B, int H, int KVH, int S,
+    int dh, const long long* strides, int causal, int window, float softcap,
+    float sm_scale, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  // strides: (batch, position, head) of q, k, v, o, dO, dq, dk, dv in turn
+  auto st = [&](int i) {
+    return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  };
+  bwd::Args a{q, k, v, o, dO, reinterpret_cast<const float*>(lse), dq, dk,
+              dv, reinterpret_cast<float*>(D),
+              reinterpret_cast<float*>(dk_part),
+              reinterpret_cast<float*>(dv_part), B, H, KVH, S, st(0), st(1),
+              st(2), st(3), st(4), st(5), st(6), st(7), causal, window,
+              softcap, sm_scale, 0};
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (route == ROUTE_FMA) {
+    if (dh == 32) return bwd::launch<float, 32, 32, 32>(a, s);
+    if (dh == 64) return bwd::launch<float, 64, 32, 32>(a, s);
+    if (dh == 128) return bwd::launch<float, 128, 32, 32>(a, s);
+    return -2;
+  }
+  if (route == ROUTE_WMMA) {
+    auto mult8 = [](const Strides& t) {
+      return t.b % 8 == 0 && t.s % 8 == 0 && t.h % 8 == 0;
+    };
+    const void* ptrs[5] = {q, k, v, o, dO};
+    bool aligned = true;
+    for (int i = 0; i < 5; ++i)
+      aligned = aligned && reinterpret_cast<size_t>(ptrs[i]) % 16 == 0 &&
+                mult8(st(i));
+    a.vec_ok = aligned ? 1 : 0;
+    if (dh == 32) return bwd::launch<bf16, 32, 64, 64>(a, s);
+    if (dh == 64) return bwd::launch<bf16, 64, 64, 64>(a, s);
+    if (dh == 128) return bwd::launch<bf16, 128, 64, 64>(a, s);
+    return -2;
+  }
   return -1;
 }

@@ -118,7 +118,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.super_gmm_launch.argtypes = [_VP] * 5 + [_I] * 7 + [_LL, _LL, _VP]
     lib.flash_attention_launch.restype = _I
     lib.flash_attention_launch.argtypes = (
-        [_VP] * 4 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _VP])
+        [_VP] * 5 + [_I] * 6 + [_LL] * 12 + [_I, _I, _F, _F, _VP])
+    lib.flash_attention_bwd_launch.restype = _I
+    lib.flash_attention_bwd_launch.argtypes = (
+        [_VP] * 12 + [_I] * 6 + [_VP] + [_I, _I, _F, _F, _VP])
     lib.dispatch_scatter_launch.restype = _I
     lib.dispatch_scatter_launch.argtypes = [_VP] * 4 + [_I] * 5 + [_VP]
     lib.combine_gather_launch.restype = _I
@@ -129,6 +132,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.combine_weighted_launch.restype = _I
     lib.combine_weighted_launch.argtypes = [_VP] * 4 + [_I, _I, _LL, _I, _I,
                                                         _VP]
+    lib.combine_weighted_bwd_launch.restype = _I
+    lib.combine_weighted_bwd_launch.argtypes = [_VP] * 6 + [_I, _I, _LL, _I,
+                                                            _I, _VP]
 
 
 def library_path() -> pathlib.Path:

@@ -1,5 +1,6 @@
 """Shared plumbing of the kernel wrappers: launch counters, the host-sync
-counter and the error check every launch goes through."""
+counter, the error check every launch goes through and the test that picks
+a wrapper's autograd Function."""
 from __future__ import annotations
 
 import threading
@@ -64,6 +65,14 @@ def reset_host_syncs() -> int:
     with _count_lock:
         old, host_syncs = host_syncs, 0
     return old
+
+
+def needs_grad(*tensors) -> bool:
+    """True where autograd records: grad mode on and an input that needs a
+    gradient.  Only then do the wrappers go through their autograd
+    Functions (and the flash forward keep its log-sum-exp): serving calls
+    the kernels directly."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def check(code: int, what: str) -> None:

@@ -12,6 +12,12 @@ two routes, counted in `launches_by_route`:
                        "weighted": out[t] = sum_k w[t, k] yb[pair_slot[t*K+k]]
                        (`combine_weighted`), one launch
 
+`combine_weighted_bwd` is the gradient of the "weighted" route, its own
+CUDA kernel in the same `.cu` (one launch writes dyb, zeros and all, and
+dw), counted in `combine_weighted_bwd.launches`; the dispatch's gradient
+needs no kernel of its own: it is the "weighted" route with unit weights
+(`ops.py`).  The TPU kernels have no backward.
+
 The "scatter" and "gather" routes replace the TPU kernels of the same names
 in `repro.kernels.dispatch_combine.dispatch_combine`, with the same
 signatures; the decode MoE layer runs the "whole" and "weighted" routes
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.dispatch_combine.ref import (combine_gather_ref,
+                                                      combine_weighted_bwd_ref,
                                                       combine_weighted_ref,
                                                       dispatch_scatter_ref,
                                                       dispatch_whole_ref)
@@ -181,7 +188,45 @@ def combine_weighted(yb: torch.Tensor, pair_slot: torch.Tensor,
     return out
 
 
+def combine_weighted_bwd(dout: torch.Tensor, yb: torch.Tensor,
+                         pair_slot: torch.Tensor, weights: torch.Tensor):
+    """The gradient of `combine_weighted`: dout [T, d] (yb's type), yb [R,
+    d], pair_slot [T*K] int64, weights [T, K] -> (dyb [R, d] yb's type, dw
+    [T, K] fp32).  dyb[pair_slot[t*K+k]] = w[t, k] dout[t] with w rounded
+    to yb's type as the forward rounds it (each row is hit by at most one
+    pair; rows no pair hits are zero); dw[t, k] = <yb[slot], dout[t]>
+    summed in fp32 in a fixed order (0 for a dropped pair)."""
+    if yb.dim() != 2 or weights.dim() != 2 or dout.dim() != 2:
+        raise ValueError(f"combine_weighted_bwd: dout [T, d], yb [R, d] and "
+                         f"weights [T, K] expected, got {tuple(dout.shape)}, "
+                         f"{tuple(yb.shape)} and {tuple(weights.shape)}")
+    T, K = weights.shape
+    R, d = yb.shape
+    if dout.shape != (T, d) or dout.dtype != yb.dtype \
+            or pair_slot.dtype != torch.long or pair_slot.shape != (T * K,) \
+            or not (pair_slot.device == dout.device == weights.device
+                    == yb.device):
+        raise ValueError(f"combine_weighted_bwd: dout must be [{T}, {d}] "
+                         f"{yb.dtype}, pair_slot a [{T * K}] int64 tensor, "
+                         f"all on {yb.device}")
+    if yb.device.type == "cpu":
+        return combine_weighted_bwd_ref(dout, yb, pair_slot, weights)
+    _check_payload("combine_weighted_bwd: yb", yb)
+    yb, dout, pair_slot = (t.contiguous() for t in (yb, dout, pair_slot))
+    weights = weights.float().contiguous()
+    dyb = torch.empty_like(yb)
+    dw = torch.empty((T, K), dtype=torch.float32, device=yb.device)
+    code = _build.load().combine_weighted_bwd_launch(
+        pair_slot.data_ptr(), weights.data_ptr(), yb.data_ptr(),
+        dout.data_ptr(), dyb.data_ptr(), dw.data_ptr(), T, K, R, d,
+        _ELEM_SIZE[yb.dtype], _launch.stream_ptr(yb.device))
+    _launch.check(code, "combine_weighted_bwd")
+    _launch.count_launch(combine_weighted_bwd)
+    return dyb, dw
+
+
 dispatch_scatter.launches = 0
 dispatch_scatter.launches_by_route = {"scatter": 0, "whole": 0}
 combine_gather.launches = 0
 combine_gather.launches_by_route = {"gather": 0, "weighted": 0}
+combine_weighted_bwd.launches = 0

@@ -90,13 +90,43 @@ def combine_weighted_ref(yb: torch.Tensor, pair_slot: torch.Tensor,
     pair_slot: [T*K]; weights: [T, K] -> [T, d], yb's type."""
     R, d = yb.shape
     T, K = weights.shape
+    f = _acc_type(yb)
     ps = pair_slot.reshape(T, K)
     ok = (ps >= 0) & (ps < R)
     rows = yb.index_select(0, torch.where(ok, ps, 0).reshape(-1)) \
-        .reshape(T, K, d).float()
-    w = weights.to(yb.dtype).float()
-    acc = torch.zeros((T, d), dtype=torch.float32, device=yb.device)
+        .reshape(T, K, d).to(f)
+    w = weights.to(yb.dtype).to(f)
+    acc = torch.zeros((T, d), dtype=f, device=yb.device)
     for k in range(K):
         acc = torch.where(ok[:, k, None], acc + w[:, k, None] * rows[:, k],
                           acc)
     return acc.to(yb.dtype)
+
+
+def _acc_type(t: torch.Tensor) -> torch.dtype:
+    """fp32 for the kernels' types; float64 stays float64 (gradchecks)."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
+def combine_weighted_bwd_ref(dout: torch.Tensor, yb: torch.Tensor,
+                             pair_slot: torch.Tensor,
+                             weights: torch.Tensor):
+    """The gradient of `combine_weighted_ref`, as its kernel computes it:
+    dyb[pair_slot[t*K + k]] = w[t, k] * dout[t] (the weight rounded to yb's
+    type first, the product rounded once to yb's type), every other row of
+    dyb zero; dw[t, k] = sum_d yb[slot, d] * dout[t, d] in fp32 (0 for a
+    pair_slot outside yb).  dout: [T, d]; yb: [R, d]; pair_slot: [T*K];
+    weights: [T, K] -> (dyb [R, d] yb's type, dw [T, K] fp32)."""
+    R, d = yb.shape
+    T, K = weights.shape
+    f = _acc_type(yb)
+    ps = pair_slot.reshape(-1)
+    ok = (ps >= 0) & (ps < R)
+    w = weights.to(yb.dtype).to(f).reshape(-1)
+    g = dout.to(f).repeat_interleave(K, dim=0)  # [T*K, d], pair order
+    rows = (w[:, None] * g).to(yb.dtype)
+    dyb = torch.zeros((R + 1, d), dtype=yb.dtype, device=yb.device)
+    dyb.index_copy_(0, torch.where(ok, ps, R), rows)  # kept slots unique
+    y = yb.index_select(0, torch.where(ok, ps, 0)).to(f)
+    dw = torch.where(ok, (y * g).sum(-1), torch.zeros_like(w))
+    return dyb[:R], dw.reshape(T, K).to(f)

@@ -13,20 +13,36 @@ path), "wmma" (other bf16, and every bf16 at head dim 32, 192 or 256) and
 "fma" (fp32, every head dim in `HEAD_DIMS`).  `flash_attention.launches`
 counts every launch and `flash_attention.launches_by_route` splits them by
 route.
+
+The gradient: `FlashAttention` (a `torch.autograd.Function`) runs the
+forward with its per-row log-sum-exp and, for the backward,
+`flash_attention_bwd` -- the CUDA kernel of the same `.cu` on a card
+("fma" for fp32, "wmma" for bf16, head dims in `BWD_HEAD_DIMS`; another
+head dim raises `NotImplementedError`), `attention_bwd_ref` on the CPU.
+The TPU kernel has no backward; the reference trains through its plain
+chunked attention instead.  `flash_attention_bwd.launches` counts its
+launches.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.kernels import _build, _launch
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                     attention_fwd_ref,
+                                                     attention_ref)
 
 # head dims the .cu instantiates on the fma and wmma routes, and the ones
 # its wgmma kernel takes (a test reads both out of the .cu)
 HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128)
+# head dims the backward kernel instantiates (a test reads them out of the
+# .cu too)
+BWD_HEAD_DIMS = (32, 64, 128)
 
 
 def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
@@ -46,70 +62,140 @@ def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
     return "wgmma" if tma else "wmma"
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: Optional[int] = None,
-                  softcap: Optional[float] = None) -> torch.Tensor:
-    """q, k, v: [BH, S, dh]."""
-    BH, S, dh = q.shape
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float())
-    s = s / math.sqrt(dh)
-    if softcap is not None:
-        s = torch.tanh(s / softcap) * softcap
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
-    s = torch.where(mask[None], s, torch.full_like(s, -1e30))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v).to(q.dtype)
+def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor):
+    B, S, H, dh = q.shape
+    KVH = k.shape[2]
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{what}: q, k, v must lie on one CUDA device")
+    if q.dtype not in _launch.DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{what}: q, k, v must share float32 or bfloat16")
+    if k.shape != (B, S, KVH, dh) or v.shape != k.shape or H % KVH:
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not match")
 
 
 def flash_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool, window: Optional[int],
-                 softcap: Optional[float]) -> torch.Tensor:
+                 softcap: Optional[float], with_lse: bool = False):
     """Launch the kernel on CUDA tensors in model layout: q [B, S, H, dh],
     k, v [B, S, KVH, dh] (KVH divides H; the kernel indexes the KV head, the
-    expanded K/V are never written).  Returns [B, S, H, dh]."""
+    expanded K/V are never written).  Returns [B, S, H, dh]; with
+    `with_lse`, (o, lse [B, H, S] fp32), o the same bits."""
     B, S, H, dh = q.shape
     KVH = k.shape[2]
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention: q, k, v must lie on one CUDA "
-                         "device")
-    if q.dtype not in _launch.DTYPES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError("flash_attention: q, k, v must share float32 or "
-                         "bfloat16")
+    _check_qkv("flash_attention", q, k, v)
     if dh not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {dh} not in "
                          f"{HEAD_DIMS}")
-    if k.shape != (B, S, KVH, dh) or v.shape != k.shape or H % KVH:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
     q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if o.numel() == 0:
-        return o
+        return (o, lse) if with_lse else o
     lib = _build.load()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     strides = (q.stride()[:3], k.stride()[:3], v.stride()[:3])
     r = route(q.dtype, dh, ptrs, strides)
     code = lib.flash_attention_launch(
-        *ptrs, o.data_ptr(), _launch.ROUTES.index(r), B, H, KVH, S, dh,
+        *ptrs, o.data_ptr(), lse.data_ptr() if with_lse else None,
+        _launch.ROUTES.index(r), B, H, KVH, S, dh,
         *strides[0], *strides[1], *strides[2], *o.stride()[:3],
         int(bool(causal)), int(window) if window is not None else 0,
         float(softcap) if softcap is not None else 0.0,
         1.0 / math.sqrt(dh), _launch.stream_ptr(q.device))
     _launch.check(code, "flash_attention")
     _launch.count_launch(flash_attention, r)
-    return o
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """The gradient of the forward in model layout: q, o, do [B, S, H, dh];
+    k, v [B, S, KVH, dh]; lse [B, H, S] fp32 from the forward -> (dq, dk,
+    dv) in q's type.  On the CPU `attention_bwd_ref`; on CUDA tensors the
+    backward kernel (deterministic: no atomics), or a raise."""
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window, softcap=softcap)
+    B, S, H, dh = q.shape
+    KVH = k.shape[2]
+    if dh not in BWD_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention_bwd: head dim {dh} has no backward kernel "
+            f"(head dims {BWD_HEAD_DIMS})")
+    _check_qkv("flash_attention_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or lse.shape != (B, H, S) \
+            or lse.dtype != torch.float32 or lse.device != q.device \
+            or o.device != q.device or do.device != q.device:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} do not "
+                         f"match q {tuple(q.shape)}")
+    q, k, v, o, do = (t if t.stride(3) == 1 else t.contiguous()
+                      for t in (q, k, v, o, do))
+    lse = lse.contiguous()
+    dq = torch.empty((B, S, H, dh), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, S, KVH, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    f32 = dict(dtype=torch.float32, device=q.device)
+    D = torch.empty((B, H, S), **f32)
+    dk_part = torch.empty((B, H, S, dh), **f32)
+    dv_part = torch.empty((B, H, S, dh), **f32)
+    strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
+    r = "fma" if q.dtype == torch.float32 else "wmma"
+    code = _build.load().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), D.data_ptr(), dk_part.data_ptr(), dv_part.data_ptr(),
+        _launch.ROUTES.index(r), B, H, KVH, S, dh,
+        (ctypes.c_longlong * len(strides))(*strides), int(bool(causal)),
+        int(window) if window is not None else 0,
+        float(softcap) if softcap is not None else 0.0, 1.0 / math.sqrt(dh),
+        _launch.stream_ptr(q.device))
+    _launch.check(code, "flash_attention_bwd")
+    _launch.count_launch(flash_attention_bwd, r)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention in model layout: q [B, S, H, dh], k,
+    v [B, S, KVH, dh].  The forward keeps its log-sum-exp for the backward
+    (the kernel's o is the same bits as without it)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        opts = dict(causal=causal, window=window, softcap=softcap)
+        if q.device.type == "cpu":
+            o, lse = attention_fwd_ref(q, k, v, **opts)
+        else:
+            o, lse = flash_launch(q, k, v, with_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = opts
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, **ctx.opts)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """q, k, v: [BH, S, dh] (kv already head-expanded). Returns [BH, S, dh]."""
+    if _launch.needs_grad(q, k, v):
+        return FlashAttention.apply(q.unsqueeze(2), k.unsqueeze(2),
+                                    v.unsqueeze(2), causal, window,
+                                    softcap).squeeze(2)
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap)
@@ -120,3 +206,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"fma": 0, "wmma": 0}

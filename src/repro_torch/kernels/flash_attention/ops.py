@@ -5,16 +5,13 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._launch import needs_grad
 from repro_torch.kernels.flash_attention.flash_attention import (
-    attention_ref, flash_launch)
+    FlashAttention, flash_launch)
+from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+from repro_torch.kernels.flash_attention.ref import expand_kv as _expand_kv
 
-
-def _expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """[B, S, kv_heads, hd] -> [B, S, num_heads, hd] by group replication."""
-    kvh = k.shape[2]
-    if kvh == num_heads:
-        return k
-    return torch.repeat_interleave(k, num_heads // kvh, dim=2)
+__all__ = ["_expand_kv", "mha_flash"]
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -22,17 +19,13 @@ def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               softcap: Optional[float] = None) -> torch.Tensor:
     """Model layout [B, S, H, dh]; k, v may have fewer heads (GQA).  On a
     CUDA tensor the kernel reads this layout directly and indexes the KV head
-    itself; on the CPU the plain version runs on the expanded heads."""
-    B, S, H, dh = q.shape
+    itself; on the CPU the plain version runs on the expanded heads.  Where
+    autograd records, the call goes through `FlashAttention`, whose backward
+    is the backward kernel (its plain version on the CPU)."""
+    if needs_grad(q, k, v):
+        return FlashAttention.apply(q, k, v, causal, window, softcap)
     if q.device.type != "cpu":
         return flash_launch(q, k, v, causal=causal, window=window,
                             softcap=softcap)
-    k = _expand_kv(k, H)
-    v = _expand_kv(v, H)
-
-    def to_bh(x):
-        return x.permute(0, 2, 1, 3).reshape(B * H, S, dh)
-
-    o = attention_ref(to_bh(q), to_bh(k), to_bh(v), causal=causal,
-                      window=window, softcap=softcap)
-    return o.reshape(B, H, S, dh).permute(0, 2, 1, 3)
+    return attention_fwd_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)[0]

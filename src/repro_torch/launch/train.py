@@ -1,0 +1,97 @@
+"""Training launcher on one device -- the twin of `repro.launch.train`.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b_a22b \
+      --smoke --steps 20 --batch 8 --seq 128 --ckpt-dir build/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+
+The reference's flags, plus `--device` (the card by default; `cpu` runs
+the kernels' plain versions).  One deliberate difference: no mesh and no
+shardings -- one H100 is the reference's 1-device mesh, on which every
+partition spec places the whole tree on the one device.  The step is
+`build_train_step` (AdamW, gradients through the kernels on the card), the
+loop `ResilientTrainer` when `--ckpt-dir` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.data.pipeline import pipeline_for
+from repro_torch.launch.steps import TrainState, build_train_step
+from repro_torch.models.api import build_api
+from repro_torch.models.common import param_count
+from repro_torch.optim.adamw import AdamW
+from repro_torch.runtime.fault_tolerance import ResilientTrainer
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3_moe_235b_a22b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced same-family config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=10)
+    ap.add_argument("--inject-failure-at", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the kernels' plain "
+                         "versions (use with --smoke)")
+    return ap
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    api = build_api(cfg)
+    dev = torch.device(args.device)
+    print(f"arch={cfg.name} device={dev} (one device: no mesh)")
+
+    opt = AdamW(lr=args.lr)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params = api.init(gen)
+    print(f"params: {param_count(params) / 1e6:.2f}M")
+    state = TrainState(params, opt.init(params))
+    step_fn = build_train_step(api, opt)
+    pipe = pipeline_for(cfg, args.seq, args.batch, args.seed, device=dev)
+
+    class _Pipe:  # the model's own inputs where it takes no token stream
+        def batch(self, step):
+            if cfg.family == "encdec" or cfg.frontend == "audio":
+                g = torch.Generator(device=dev).manual_seed(step)
+                return api.make_batch(g, args.seq, args.batch, "train",
+                                      device=dev)
+            return pipe.batch(step)
+
+    def on_step(step, metrics):
+        if step % 5 == 0 or step == 1:
+            loss = float(metrics["loss"])
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"({time.strftime('%H:%M:%S')})", flush=True)
+
+    metrics = {}
+    if args.ckpt_dir:
+        trainer = ResilientTrainer(step_fn, _Pipe(),
+                                   CheckpointManager(args.ckpt_dir),
+                                   ckpt_every=args.ckpt_every)
+        state, step, metrics = trainer.run(
+            state, args.steps, inject_failure_at=args.inject_failure_at,
+            on_step=on_step)
+    else:
+        for step in range(args.steps):
+            state, metrics = step_fn(state, _Pipe().batch(step))
+            on_step(step + 1, metrics)
+    print("final loss:", float(metrics["loss"]))
+
+
+if __name__ == "__main__":
+    main()

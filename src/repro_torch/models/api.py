@@ -51,8 +51,9 @@ class ModelAPI(NamedTuple):
 
 
 def build_api(cfg: ModelConfig, **fwd_kw) -> ModelAPI:
-    """`fwd_kw` go to `lm_loss` (aux_coef, ce_block, moe_mode, gmm); the
-    encoder-decoder's loss takes none, as in the reference."""
+    """`fwd_kw` go to `lm_loss` (aux_coef, ce_block, moe_mode, gmm, remat);
+    the encoder-decoder's loss takes none, as in the reference.  `loss` is
+    differentiable on both branches (the kernels' gradients on a card)."""
     if cfg.family == "encdec":
         return _build_encdec_api(cfg)
     return _build_lm_api(cfg, **fwd_kw)

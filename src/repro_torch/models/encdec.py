@@ -9,16 +9,18 @@ S_dec = max(S_enc // 8, 64) (speech-to-text ratio).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache
-from repro_torch.models.common import (ModelConfig, apply_norm,
-                                       cross_entropy_loss, embed_init,
+from repro_torch.models.common import (ModelConfig, apply_norm, embed_init,
                                        make_norm_params)
-from repro_torch.models.lm import _cache_at, _stack, layer_slice
+from repro_torch.models.lm import (_cache_at, _stack, blocked_ce,
+                                   layer_slice)
 
 
 def decoder_len(seq_len: int) -> int:
@@ -48,13 +50,18 @@ def encode(params, enc_embeddings: torch.Tensor,
 
 
 def decode_train(params, memory, dec_tokens, cfg: ModelConfig, *,
-                 use_dense: Optional[bool] = None):
-    """The decoder over whole token sequences: final-normed h [B, S, d]."""
+                 use_dense: Optional[bool] = None, remat: bool = False):
+    """The decoder over whole token sequences: final-normed h [B, S, d].
+    `remat`: each decoder layer recomputed in the backward (the reference's
+    plain `jax.checkpoint`: nothing saved)."""
+    block = B.decoder_block_forward
+    if remat:
+        block = functools.partial(torch.utils.checkpoint.checkpoint, block,
+                                  use_reentrant=False)
     h = params["embed"][dec_tokens.long()]
     for l in range(cfg.decoder_layers):
-        h, _ = B.decoder_block_forward(layer_slice(params["decoder"], l), h,
-                                       cfg, memory=memory,
-                                       use_dense=use_dense)
+        h, _ = block(layer_slice(params["decoder"], l), h, cfg,
+                     memory=memory, use_dense=use_dense)
     return apply_norm(h, params["final_norm"], cfg)
 
 
@@ -67,22 +74,13 @@ def encdec_forward(params, enc_embeddings, dec_tokens, cfg: ModelConfig, *,
 
 
 def encdec_loss(params, cfg: ModelConfig, enc_embeddings, dec_tokens, labels,
-                ce_block: int = 512):
+                remat: bool = True, ce_block: int = 512):
     """(ce, {"ce": ce}): mean token CE over `ce_block`-position blocks, as
-    the reference computes it.  For evaluation: no backward is ported."""
+    the reference computes it; differentiable, the decoder recomputed per
+    layer in the backward under `remat` (the reference's default)."""
     memory = encode(params, enc_embeddings, cfg)
-    h = decode_train(params, memory, dec_tokens, cfg)
-    w = params["embed"].T
-    Bsz, S, _ = h.shape
-    C = min(ce_block, S)
-    if S % C:
-        C = S
-    total = torch.zeros((), device=h.device)
-    for i in range(S // C):
-        total = total + cross_entropy_loss(
-            h[:, i * C:(i + 1) * C] @ w,
-            labels[:, i * C:(i + 1) * C]) * (Bsz * C)
-    ce = total / (Bsz * S)
+    h = decode_train(params, memory, dec_tokens, cfg, remat=remat)
+    ce = blocked_ce(h, params["embed"].T, labels, ce_block)
     return ce, {"ce": ce}
 
 

@@ -13,13 +13,18 @@ Three passes per stage kind: forward, prefill (forward + caches), decode
 (one token, the caches consumed: written in place).  Layers run in a Python
 loop over views of the stacked params; the MoE stage's layer id is device
 data, which is what lets it run through the layer-oblivious Super Kernel.
+The forward is differentiable on both devices (the kernels' autograd
+Functions carry the gradient on the card); `remat` recomputes each layer
+(or superblock) in the backward, as the reference's `jax.checkpoint` does.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache
@@ -29,6 +34,13 @@ from repro_torch.models.common import (ModelConfig, apply_norm,
 from repro_torch.models.mamba2 import init_mamba_state
 from repro_torch.models.moe import MoEAux
 from repro_torch.models.rwkv6 import init_rwkv_state
+
+# The reference's remat policies.  Every one but "none" recomputes the whole
+# layer here: torch's checkpoint keeps no chosen intermediates (jax's
+# dots_saveable policies save the matrix products), so those two are full
+# recompute too -- more time, the same numbers.
+REMAT_POLICIES = ("none", "nothing_saveable", "dots_saveable",
+                  "dots_with_no_batch_dims_saveable")
 
 # ---------------------------------------------------------------------------
 # Stage specs
@@ -161,37 +173,63 @@ def _zamba_blocks(sp, n: int, every: int):
         yield [layer_slice(blk, j) for j in range(every)]
 
 
+def _maybe_remat(body: Callable, cfg: ModelConfig, remat: bool) -> Callable:
+    """`body` (one layer, or one superblock) recomputed in the backward
+    under `torch.utils.checkpoint` (non-reentrant), as the reference's
+    `_maybe_remat`; `body` itself where remat is off or the policy is
+    "none"."""
+    if not remat or cfg.remat_policy == "none":
+        return body
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+    def recomputed(*args, **kwargs):
+        return torch.utils.checkpoint.checkpoint(body, *args,
+                                                 use_reentrant=False,
+                                                 **kwargs)
+
+    return recomputed
+
+
+def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense):
+    for lp in local:
+        h, _ = B.decoder_block_forward(lp, h, cfg, window=cfg.window_size,
+                                       use_dense=use_dense)
+    h, _ = B.decoder_block_forward(glob, h, cfg, window=None,
+                                   use_dense=use_dense)
+    return h
+
+
+def _zamba_block(mambas, shared, h, emb, cfg: ModelConfig, use_dense):
+    for lp in mambas:
+        h = B.mamba_block_forward(lp, h, cfg)
+    return B.shared_attn_forward(shared, h, emb, cfg, use_dense=use_dense)
+
+
 def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
-                   use_dense, gmm, emb, shared):
-    if kind == "rwkv":
+                   use_dense, gmm, emb, shared, remat=False):
+    if kind in ("rwkv", "mamba"):
+        block = _maybe_remat(B.rwkv_block_forward if kind == "rwkv"
+                             else B.mamba_block_forward, cfg, remat)
         for l in range(n):
-            h = B.rwkv_block_forward(layer_slice(sp, l), h, cfg)
+            h = block(layer_slice(sp, l), h, cfg)
         return h, _zero_aux(cfg, h.device)
     if kind == "zamba":
+        block = _maybe_remat(_zamba_block, cfg, remat)
         for mambas in _zamba_blocks(sp, n, opts["every"]):
-            for lp in mambas:
-                h = B.mamba_block_forward(lp, h, cfg)
-            h = B.shared_attn_forward(shared, h, emb, cfg,
-                                      use_dense=use_dense)
-        return h, _zero_aux(cfg, h.device)
-    if kind == "mamba":
-        for l in range(n):
-            h = B.mamba_block_forward(layer_slice(sp, l), h, cfg)
+            h = block(mambas, shared, h, emb, cfg, use_dense)
         return h, _zero_aux(cfg, h.device)
     if kind == "gemma":
+        block = _maybe_remat(_gemma_block, cfg, remat)
         for local, glob in _gemma_blocks(sp, n, opts["lpg"]):
-            for lp in local:
-                h, _ = B.decoder_block_forward(lp, h, cfg,
-                                               window=cfg.window_size,
-                                               use_dense=use_dense)
-            h, _ = B.decoder_block_forward(glob, h, cfg, window=None,
-                                           use_dense=use_dense)
+            h = block(local, glob, h, cfg, use_dense)
         return h, _zero_aux(cfg, h.device)
     lids = torch.arange(n, dtype=torch.int32, device=h.device) \
         if gmm is not None else None
+    block = _maybe_remat(B.decoder_block_forward, cfg, remat)
     auxs = []
     for l in range(n):
-        h, aux = B.decoder_block_forward(
+        h, aux = block(
             layer_slice(sp, l), h, cfg, window=opts.get("window"),
             moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense,
             gmm=gmm, layer_id=None if lids is None else lids[l:l + 1])
@@ -201,7 +239,7 @@ def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
 
 def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
                 moe_mode: str = "capacity", use_dense: Optional[bool] = None,
-                gmm: Optional[Callable] = None):
+                gmm: Optional[Callable] = None, remat: bool = False):
     """Embed + all stages + final norm. Returns (h [B,S,d], MoEAux): the
     aux is averaged over each stage's layers, then over the stages, as in
     the reference (zeros for a stage without experts).
@@ -209,24 +247,25 @@ def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     `gmm` replaces the capacity mode's expert matmul and gets each layer's
     id as DEVICE data: a one-element view into one `torch.arange(L)` per
     stage and call, so no layer costs a host-to-device copy.  Zamba's shared
-    attention reads the embedded input beside the hidden state."""
+    attention reads the embedded input beside the hidden state.  `remat`:
+    each layer (superblock) recomputed in the backward (`_maybe_remat`)."""
     h = embed_tokens(params, tokens, embeddings, cfg)
     emb0 = h
     auxs = []
     for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
         h, aux = _stage_forward(sp, h, kind, n, opts, cfg, moe_mode=moe_mode,
                                 use_dense=use_dense, gmm=gmm, emb=emb0,
-                                shared=params.get("shared_attn"))
+                                shared=params.get("shared_attn"), remat=remat)
         auxs.append(aux)
     return apply_norm(h, params["final_norm"], cfg), _mean_aux(auxs)
 
 
 def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
                moe_mode: str = "capacity", use_dense: Optional[bool] = None,
-               gmm: Optional[Callable] = None):
+               gmm: Optional[Callable] = None, remat: bool = False):
     """Full logits (use for small scales / sampling)."""
     h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
-                         use_dense=use_dense, gmm=gmm)
+                         use_dense=use_dense, gmm=gmm, remat=remat)
     return lm_head(params, h, cfg), aux
 
 
@@ -235,25 +274,43 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
 # ---------------------------------------------------------------------------
 
 
-def lm_loss(params, cfg: ModelConfig, tokens=None, labels=None,
-            embeddings=None, *, aux_coef: float = 0.01, ce_block: int = 512,
-            moe_mode: str = "capacity", gmm: Optional[Callable] = None):
-    """(loss, metrics): mean token CE over `ce_block`-position blocks plus
-    `aux_coef` x the MoE load-balance loss, as the reference computes them.
-    For evaluation: no backward is ported yet."""
-    h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
-                         gmm=gmm)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+def blocked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+               ce_block: int) -> torch.Tensor:
+    """Mean token CE of logits h @ w over `ce_block`-position blocks (one
+    block where S is not a multiple).  With several blocks each is
+    recomputed in the backward, as the reference checkpoints its scan body,
+    so no block's [B, C, V] logits outlive it."""
     Bsz, S, _ = h.shape
     C = min(ce_block, S)
     if S % C:
         C = S  # fallback: single block
+    nb = S // C
+
+    def blk(hb, lb):
+        return cross_entropy_loss(hb @ w, lb) * (Bsz * C)
+
+    if nb > 1:
+        blk = functools.partial(torch.utils.checkpoint.checkpoint, blk,
+                                use_reentrant=False)
     total = torch.zeros((), device=h.device)
-    for i in range(S // C):
-        logits = h[:, i * C:(i + 1) * C] @ w
-        total = total + cross_entropy_loss(
-            logits, labels[:, i * C:(i + 1) * C]) * (Bsz * C)
-    ce = total / (Bsz * S)
+    for i in range(nb):
+        total = total + blk(h[:, i * C:(i + 1) * C],
+                            labels[:, i * C:(i + 1) * C])
+    return total / (Bsz * S)
+
+
+def lm_loss(params, cfg: ModelConfig, tokens=None, labels=None,
+            embeddings=None, *, aux_coef: float = 0.01, ce_block: int = 512,
+            moe_mode: str = "capacity", gmm: Optional[Callable] = None,
+            remat: bool = True):
+    """(loss, metrics): mean token CE over `ce_block`-position blocks plus
+    `aux_coef` x the MoE load-balance loss, as the reference computes them.
+    Differentiable; `remat` (the reference's default, True) recomputes each
+    layer in the backward per `cfg.remat_policy` (`_maybe_remat`)."""
+    h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
+                         gmm=gmm, remat=remat)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    ce = blocked_ce(h, w, labels, ce_block)
     loss = ce + aux_coef * aux.load_balance_loss
     metrics = {"ce": ce, "load_balance": aux.load_balance_loss,
                "dropped_fraction": aux.dropped_fraction}

@@ -7,6 +7,7 @@ reference's."""
 import importlib.util
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -208,3 +209,75 @@ def test_twins_default_to_the_card(monkeypatch, capsys):
     for name in ("torch_quickstart", "torch_serve_asap"):
         assert _twin(name).main([]) == 2
         assert "--device cpu" in capsys.readouterr().err
+
+
+# ------------------------------------------------------------- train_moe --
+
+TRAIN_STEPS = 50  # failure at 25, before the first checkpoint (every 50)
+
+
+def _printed_losses(stdout: str) -> list:
+    """The `step N  loss X` lines, in order: (step, loss)."""
+    return [(int(m.group(1)), float(m.group(2))) for m in re.finditer(
+        r"^step\s+(\d+)\s+loss\s+(\S+)", stdout, re.M)]
+
+
+def test_train_moe_twin_matches_the_reference(tmp_path):
+    """examples/train_moe.py and its twin as subprocesses, `--steps 50`
+    (one failure injected at 25 and recovered from, as in the reference):
+    both exit 0 and print an improved loss.  Their printed losses are then
+    held against each other on the same params: the twin's `train()` on the
+    reference example's params (its init under PRNGKey(0), bridged) prints
+    the reference's loss at every printed step within 2e-3 (the reference
+    prints 4 decimals; fp32 sums in another order drift by ~1e-5 over the
+    75 steps run)."""
+    procs = {
+        "ref": subprocess.Popen(
+            [sys.executable, str(EXAMPLES / "train_moe.py"), "--steps",
+             str(TRAIN_STEPS), "--ckpt-dir", str(tmp_path / "ref")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_env(), cwd=str(ROOT)),
+        "twin": subprocess.Popen(
+            [sys.executable, str(EXAMPLES / "torch_train_moe.py"), "--steps",
+             str(TRAIN_STEPS), "--device", "cpu", "--ckpt-dir",
+             str(tmp_path / "twin")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=dict(_env(), OMP_NUM_THREADS="1"), cwd=str(ROOT))}
+    mod = _twin("torch_train_moe")
+    cfg = mod.model_config()
+    _, _, _, params = family_setup(
+        ARCH, **{k: getattr(cfg, k) for k in (
+            "num_layers", "num_experts", "top_k", "d_model", "d_ff",
+            "moe_d_ff", "vocab_size")})
+    # one thread: the model is tiny, and a thread pool beside the two
+    # subprocesses' spins on the cores they hold
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        got = mod.train(cfg, params, TRAIN_STEPS, str(tmp_path / "bridged"),
+                        "cpu", verbose=False)
+    finally:
+        torch.set_num_threads(threads)
+    out = {}
+    try:
+        for n, p in procs.items():
+            so, se = p.communicate(timeout=TIMEOUT)
+            assert p.returncode == 0, f"{n} exited {p.returncode}:\n{se}"
+            out[n] = so
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for so in out.values():
+        assert "(improved)" in so and "recovered at step 25" in so
+    want = _printed_losses(out["ref"])
+    assert [s for s, _ in want] == [25, 25, 50]  # 25 replayed from scratch
+    assert [s for s, _ in _printed_losses(out["twin"])] == [25, 25, 50]
+    # losses[i] is step (i % 25) + 1 of its run: 25 before the failure, then
+    # a restart from step 0 (no checkpoint yet) for 50 more
+    assert len(got["losses"]) == 75 and got["step"] == TRAIN_STEPS
+    for (step, loss), i in zip(want, (24, 49, 74)):
+        assert abs(got["losses"][i] - loss) <= 2e-3, (step, i)
+    first = float(re.search(r"loss: (\S+) ->", out["ref"]).group(1))
+    assert abs(got["losses"][0] - first) <= 2e-3

@@ -33,7 +33,12 @@ def test_port_has_files():
     assert len(FILES) > 20 and (ROOT / "chip_smoke.py") in FILES
     assert {p.name for p in FILES if p.parent.name == "examples"} == {
         "torch_quickstart.py", "torch_serve_asap.py",
-        "torch_imbalance_demo.py"}
+        "torch_imbalance_demo.py", "torch_train_moe.py"}
+    src = ROOT / "src" / "repro_torch"
+    for sub in ("optim/adamw.py", "optim/compress.py", "data/pipeline.py",
+                "checkpoint/manager.py", "runtime/fault_tolerance.py",
+                "launch/steps.py", "launch/train.py", "tree.py"):
+        assert src / sub in FILES
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -57,7 +62,10 @@ def test_serve_imports_where_jax_is_unimportable(tmp_path):
     env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), str(ROOT / "src")])
     code = ("import repro_torch.launch.serve as s, repro_torch.bridge, "
             "repro_torch.core.engine, repro_torch.launch.tune_superkernel, "
-            "sys; "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.optim.adamw, repro_torch.optim.compress, "
+            "repro_torch.data.pipeline, repro_torch.checkpoint.manager, "
+            "repro_torch.runtime.fault_tolerance, sys; "
             "assert 'jax' not in sys.modules and 'repro' not in sys.modules; "
             "print('imported', s.ARCH)")
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
@@ -67,7 +75,7 @@ def test_serve_imports_where_jax_is_unimportable(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["torch_quickstart", "torch_serve_asap",
-                                  "torch_imbalance_demo"])
+                                  "torch_imbalance_demo", "torch_train_moe"])
 def test_example_twins_run_where_jax_is_unimportable(tmp_path, name):
     """Each twin's --help runs with a `jax` and a `repro` that raise on
     import ahead of the real ones: it imports neither."""
