@@ -106,13 +106,25 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             kernel launches by route are a reading (one {"examples": ...}
             line).  `--phases device,build,examples` runs it alone
   train     (after the qwen3 model is released) training on the card:
-            (a) flash_attention_bwd against attention_bwd_ref -- the
-            main-path shape (bf16, B 1, S 2048, H 64, KVH 4, dh 128,
-            causal), fp32, S 192, window 512 and 16, softcap, dh 64,
-            non-causal, an unaligned base, strided q/k/v, fp32 dh 32 --
-            dq/dk/dv relative error within BWD_TOL, two runs torch.equal,
-            the forward's o torch.equal with and without its lse, head dim
-            256 raising; combine_weighted_bwd at the full-width shape, dyb
+            (a) first, the wgmma launches on threads with no current CUDA
+            context (a remat recompute of the wgmma flash forward as the
+            first op of the autograd thread, gradients torch.equal to no
+            remat; the flash forward, its backward and super_gmm each
+            alone on a new thread, torch.equal); then
+            flash_attention_bwd against attention_bwd_ref --
+            FLASH_BWD_CASES: the main-path shape (bf16, B 1, S 2048, H 64,
+            KVH 4, dh 128, causal), fp32, S 192, window 512 and 16,
+            softcap, dh 64, non-causal, an unaligned base, strided q/k/v,
+            fp32 dh 32, gemma3_1b's local layer (dh 256, S 4096, H 4, KVH
+            1, window 512), dh 256 at a ragged S 1000, deepseek_v32's
+            geometry (dh 192, S 2048, H 128, KVH 8), fp32 dh 192 and 256,
+            no GQA (H = KVH 8) -- dq/dk/dv relative error within BWD_TOL,
+            two runs torch.equal, each on the route it must take (bf16 dh
+            64/128 in model layout, strided included, on "wgmma";
+            unaligned and dh 192/256 on "wmma"; fp32 on "fma"), the
+            forward's o torch.equal with and without its lse and within
+            the kernels phase's bars of the plain forward's at every case's
+            shape, head dim 16 raising; combine_weighted_bwd at the full-width shape, dyb
             bitwise and dw within DW_TOL, deterministic; the dispatch's
             backward at E 128 ("whole") and 1117 ("scatter") torch.equal
             to the plain version; (b) one train step at the small fp32
@@ -121,11 +133,17 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             ResilientTrainer run with a failure at step 3 of 6 torch.equal
             to an uninterrupted one; (c) qwen3_moe_235b_a22b at published
             width, depth 1, bf16: 4 build_train_step steps on one [1, 2048]
-            batch (loss falls, finite, every leaf a gradient; per step the
-            launches, host syncs, forward / backward / optimizer ms,
-            tokens/s, peak memory); the backward kernels timed at that
-            step's inputs (a {"train": ...} line).  `--phases
-            device,build,train` runs it alone
+            batch, then gemma3_1b at published width and all 26 layers on
+            one [1, 4096] batch (loss falls, finite, every leaf a non-zero
+            gradient, one flash_attention_bwd per attention layer and step
+            on "wgmma" for qwen3 and "wmma" for gemma3's head dim 256, no
+            host sync for gemma3; per step the launches, host syncs,
+            forward / backward / optimizer ms, tokens/s, peak memory, model
+            FLOPs share); the backward kernels timed at those steps'
+            inputs and flash_attention_bwd at deepseek_v32's geometry,
+            each beside its bound, its plain version and SDPA's backward on
+            expanded heads (the backend that ran named) (a {"train": ...}
+            line).  `--phases device,build,train` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -174,6 +192,10 @@ The {"kernels": ...} line also carries the two backward kernels
 (flash_attention_bwd, combine_weighted_bwd): their launches are the
 full-width train step's, their times at that step's inputs.
 
+No kernel falls back to another route or to its plain version on the card:
+a wgmma launch whose tensor maps cannot be encoded, or that fails to
+launch, raises (flash_attention_bwd's included).
+
 Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
@@ -185,9 +207,9 @@ To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
 into the other tree's root and run it there as
     python3 chip_smoke.py --phases device,build,timing --shapes-from F
-which times super_gmm and flash_attention alone at that line's shapes, the
-decode MoE layer's kernel_moe_dispatch / kernel_moe_combine calls, and a
-decode step alone, with the repro_torch beside the script, and prints one
+which times super_gmm, flash_attention and flash_attention_bwd alone at
+that line's shapes, the decode MoE layer's kernel_moe_dispatch /
+kernel_moe_combine calls, and a decode step alone, with the repro_torch beside the script, and prints one
 {"timing": ...} line.
 
 Without a CUDA device the script exits non-zero and prints no result.
@@ -202,6 +224,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 import warnings
 
@@ -2260,6 +2283,9 @@ def phase_examples(seed: int) -> dict:
 BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # |lse - plain lse|: fp32 log-sum-exp of scores of size ~10, ~3e-6 seen
 LSE_TOL = 1e-4
+# the forward's o against the plain forward's: the kernels phase's absolute
+# bars (beside ROW_REL_TOL), here at the train shapes
+FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 4e-2}
 # combine_weighted_bwd's dw (fp32 dot products over d) against float64:
 # within 5e-5 of the sum of |terms| (fp32 over 4096 terms in another order
 # gives ~1e-6 of it); dyb is held bit for bit
@@ -2271,6 +2297,11 @@ STEP_GRAD_TOL = 1e-4
 TRAIN_LAYERS = 1  # the full-width step's one cut: depth 94 -> 1
 TRAIN_STEPS = 4
 TRAIN_S = 2048
+# gemma3_1b trains at published width and all 26 layers, uncut: S 4096 is
+# over its attn_chunk (1024), so every layer takes the flash kernels, and 8x
+# its 512 window
+GEMMA_ARCH = "gemma3_1b"
+GEMMA_S = 4096
 
 BF, F32 = torch.bfloat16, torch.float32
 # name, dtype, B, S, H, KVH, dh, causal, window, softcap, layout
@@ -2286,7 +2317,25 @@ FLASH_BWD_CASES = [
     ("unaligned", BF, 1, 256, 8, 2, 128, True, None, None, "unaligned"),
     ("strided", BF, 1, 256, 8, 2, 128, True, None, None, "strided"),
     ("fp32_dh32", F32, 2, 100, 4, 4, 32, True, 16, 20.0, "model"),
+    # gemma3_1b's local layer (head dim 256, window 512), dh 256 ragged,
+    # deepseek_v32's geometry (head dim 192, H 128, KVH 8), fp32 at both,
+    # and no GQA on the wgmma route
+    ("gemma3_dh256", BF, 1, 4096, 4, 1, 256, True, 512, None, "model"),
+    ("dh256_S1000", BF, 1, 1000, 4, 1, 256, True, None, None, "model"),
+    ("deepseek_dh192", BF, 1, 2048, 128, 8, 192, True, None, None, "model"),
+    ("fp32_dh192", F32, 1, 256, 4, 2, 192, True, None, None, "model"),
+    ("fp32_dh256", F32, 1, 200, 4, 1, 256, True, 64, 30.0, "model"),
+    ("nogqa", BF, 1, 2048, 8, 8, 128, True, None, None, "model"),
 ]
+
+
+def _bwd_route_of(dt, dh, layout) -> str:
+    """The route a FLASH_BWD_CASES case must take: bf16 at head dim 64 or
+    128 in model layout (strided slices included) on wgmma, other bf16 on
+    wmma, fp32 on fma."""
+    if dt == F32:
+        return "fma"
+    return "wgmma" if dh in (64, 128) and layout != "unaligned" else "wmma"
 
 
 def _bwd_wrappers():
@@ -2321,12 +2370,115 @@ def _flash_inputs(gen, dtype, B, S, H, KVH, dh, layout):
     return q, k, v, do
 
 
+def _current_context():
+    """The CUDA driver's current context on the calling thread (None for
+    none), asked of libcuda without making one current."""
+    import ctypes
+    ctx = ctypes.c_void_p()
+    rc = ctypes.CDLL("libcuda.so.1").cuCtxGetCurrent(ctypes.byref(ctx))
+    expect(rc == 0, f"cuCtxGetCurrent returned {rc}")
+    return ctx.value
+
+
+def _on_fresh_thread(fn) -> dict:
+    """fn() on a new thread: {"ctx": its current context when it began,
+    "out": fn's result}; an exception re-raised here."""
+    box = {}
+
+    def run():
+        box["ctx"] = _current_context()
+        try:
+            box["out"] = fn()
+            torch.cuda.synchronize()
+        except BaseException as e:  # noqa: BLE001 -- re-raised below
+            box["err"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "err" in box:
+        raise box["err"]
+    return box
+
+
+def check_fresh_threads(gen) -> dict:
+    """The wgmma launches encode tensor maps, which needs a current CUDA
+    context, on threads that have none: (a) a remat recompute of the wgmma
+    flash forward (torch.utils.checkpoint over mha_flash, bf16 dh 128) as
+    the first op of the process's autograd thread -- this must be the run's
+    first backward -- its gradients torch.equal to the same without remat;
+    (b) the flash forward, its backward and super_gmm, each on "wgmma",
+    alone on a new Python thread, torch.equal to the main thread's.  Each
+    thread must have begun with no context, or the check shows nothing."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_launch)
+    seen = []
+
+    class Probe(torch.autograd.Function):  # the backward's first node
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(_current_context())
+            return g
+
+    q, k, v, do = _flash_inputs(gen, BF, 1, 1024, 8, 2, 128, "model")
+    fwd, bwd = _routes(flash_attention), _routes(flash_attention_bwd)
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = Probe.apply(torch.utils.checkpoint.checkpoint(
+        mha_flash, *qkv, use_reentrant=False))
+    remat = torch.autograd.grad(out, qkv, do)
+    expect(seen == [None], f"train fresh threads: the autograd thread's "
+           f"context at its first node was {seen}, not none: this check "
+           f"must run the process's first backward")
+    _took(flash_attention, fwd, "wgmma", "the remat forward and recompute")
+    _took(flash_attention_bwd, bwd, "wgmma", "the remat backward")
+    expect(flash_attention.launches_by_route["wgmma"] - fwd["wgmma"] == 2,
+           "train fresh threads: the forward was not recomputed")
+    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain = torch.autograd.grad(mha_flash(*qkv), qkv, do)
+    expect(all(torch.equal(a, b) for a, b in zip(remat, plain)),
+           "train fresh threads: the remat gradients differ")
+    opts = dict(causal=True, window=None, softcap=None)
+    o, lse = flash_launch(q, k, v, with_lse=True, **opts)
+    lid = torch.tensor([0], dtype=torch.int32, device=DEV)
+    w, x = _gmm_inputs(gen, 1, 8, 64, 1024, 512, BF)
+    calls = [(flash_attention,
+              lambda: flash_launch(q, k, v, with_lse=True, **opts)),
+             (flash_attention_bwd,
+              lambda: flash_attention_bwd(q, k, v, o, lse, do, **opts)),
+             (super_gmm, lambda: super_gmm(lid, w, x))]
+    fresh = {}
+    for wrapper, fn in calls:
+        name = wrapper.__name__
+        before = _routes(wrapper)
+        box = _on_fresh_thread(fn)
+        _took(wrapper, before, "wgmma", f"{name} on a fresh thread")
+        expect(box["ctx"] is None, f"train fresh threads: {name}'s thread "
+               f"began with a context")
+        want = fn()
+        got = box["out"]
+        got, want = (got, want) if isinstance(got, tuple) else \
+            ((got,), (want,))
+        expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"train fresh threads: {name} on a fresh thread differs")
+        fresh[name] = "wgmma"
+    print("[train] tensor maps on context-less threads: a remat recompute "
+          "of the wgmma forward as the autograd thread's first op, and "
+          + ", ".join(fresh) + " each alone on a new thread, torch.equal")
+    return {"remat_first_op": True, "fresh_thread": fresh}
+
+
 def check_flash_bwd(gen) -> dict:
     """flash_attention_bwd against attention_bwd_ref on every case: the
-    forward's o torch.equal with and without its lse, the lse against the
-    plain one, dq, dk, dv within BWD_TOL, two runs torch.equal; the main
-    case once more through FlashAttention (autograd) torch.equal to the
-    wrapper; a head dim without a backward kernel raises."""
+    forward's o torch.equal with and without its lse, o and the lse against
+    the plain forward's (o within FWD_TOL and ROW_REL_TOL, the kernels
+    phase's bars), dq, dk, dv within BWD_TOL, two runs torch.equal, each on
+    the route `_bwd_route_of` names; the main case once more through
+    FlashAttention (autograd) torch.equal to the wrapper; a head dim without
+    a backward kernel raises."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_launch)
     from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
@@ -2339,12 +2491,23 @@ def check_flash_bwd(gen) -> dict:
         o0 = flash_launch(q, k, v, **opts)
         o, lse = flash_launch(q, k, v, with_lse=True, **opts)
         expect(torch.equal(o0, o), f"train {name}: o with lse differs")
-        _, lse_ref = attention_fwd_ref(q.float(), k.float(), v.float(),
-                                       **opts)
+        o_ref, lse_ref = attention_fwd_ref(q.float(), k.float(), v.float(),
+                                           **opts)
+        o_err, o_rel = max_err(o, o_ref), row_rel_err(o, o_ref)
+        expect(o_err <= FWD_TOL[dt] and o_rel <= ROW_REL_TOL[dt],
+               f"train {name}: forward o err {o_err} (tol {FWD_TOL[dt]}), "
+               f"row rel err {o_rel} (tol {ROW_REL_TOL[dt]})")
         lse_err = max_err(lse, lse_ref)
         expect(lse_err <= LSE_TOL, f"train {name}: lse err {lse_err}")
+        del o_ref, lse_ref
+        before = dict(flash_attention_bwd.launches_by_route)
         got = flash_attention_bwd(q, k, v, o, lse, do, **opts)
         again = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+        took = [r for r, n in flash_attention_bwd.launches_by_route.items()
+                if n != before[r]]
+        want_route = _bwd_route_of(dt, dh, layout)
+        expect(took == [want_route], f"train {name}: backward took {took}, "
+               f"not {want_route}")
         want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
                                  lse, do.float(), **opts)
         torch.cuda.synchronize()
@@ -2352,10 +2515,12 @@ def check_flash_bwd(gen) -> dict:
         rel = [_rel_fro(a, b) for a, b in zip(got, want)]
         rec = {"dtype": str(dt).split(".")[-1], "B": B, "S": S, "H": H,
                "KVH": KVH, "dh": dh, "causal": causal, "window": win,
-               "softcap": cap, "layout": layout, "lse_err": lse_err,
+               "softcap": cap, "layout": layout, "o_err": o_err,
+               "o_row_rel_err": o_rel, "lse_err": lse_err,
                "rel_dq": rel[0], "rel_dk": rel[1], "rel_dv": rel[2],
                "max_abs_err": max(max_err(a, b) for a, b in zip(got, want)),
-               "tol": BWD_TOL[dt], "deterministic": det}
+               "tol": BWD_TOL[dt], "deterministic": det,
+               "route": want_route}
         expect(det, f"train {name}: two backward runs differ")
         expect(max(rel) <= BWD_TOL[dt], f"train {name}: dq/dk/dv rel err "
                f"{rel} > {BWD_TOL[dt]}")
@@ -2367,17 +2532,19 @@ def check_flash_bwd(gen) -> dict:
                 expect(torch.equal(a, b), "train main: FlashAttention's "
                        "backward is not the kernel's")
         out[name] = rec
-        print(f"[train] flash_bwd {name}: rel dq {rel[0]:.2e} dk "
-              f"{rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL[dt]:.0e}), lse "
-              f"err {lse_err:.1e}, deterministic {det}")
+        print(f"[train] flash_bwd {name} ({want_route}): rel dq "
+              f"{rel[0]:.2e} dk "
+              f"{rel[1]:.2e} dv {rel[2]:.2e} (tol {BWD_TOL[dt]:.0e}), o "
+              f"err {o_err:.1e} row rel {o_rel:.1e}, lse err "
+              f"{lse_err:.1e}, deterministic {det}")
         del q, k, v, do, o0, o, lse, got, again, want
-    q = torch.zeros((1, 64, 2, 256), dtype=BF, device=DEV)
+    q = torch.zeros((1, 64, 2, 16), dtype=BF, device=DEV)
     lse = torch.zeros((1, 2, 64), device=DEV)
     try:
         flash_attention_bwd(q, q[:, :, :1], q[:, :, :1], q, lse, q)
-        raise Failed("train: flash_attention_bwd took head dim 256")
+        raise Failed("train: flash_attention_bwd took head dim 16")
     except NotImplementedError as e:
-        print(f"[train] head dim 256 raises: {e}")
+        print(f"[train] head dim 16 raises: {e}")
     return out
 
 
@@ -2589,10 +2756,32 @@ def check_resume(seed: int) -> dict:
     return {"equal": equal, "steps": 6, "failure_at": 3, "ckpt_every": 2}
 
 
+def _attn_pairs(S: int, window=None) -> float:
+    """The (query, key) pairs a causal mask (cut to `window` keys) lets
+    through at sequence length S."""
+    if window is None or window >= S:
+        return S * (S + 1) / 2
+    return window * (window + 1) / 2 + (S - window) * window
+
+
+def _layer_windows(cfg) -> list:
+    """Each attention layer's window (None: global), in model order."""
+    from repro_torch.models.lm import lm_stages
+    out = []
+    for kind, n, opts in lm_stages(cfg):
+        if kind == "gemma":
+            out += ([cfg.window_size] * opts["lpg"] + [None]) * n
+        elif kind == "decoder":
+            out += [opts["window"]] * n
+    return out
+
+
 def _model_flops(cfg, params, tokens: int, S: int) -> float:
     """A step's model FLOPs: 6 x the matmul params each token meets (the
-    attention projections, the router, top_k experts, the LM head) x tokens,
-    plus causal attention's 3 x 2 B H S^2 dh (forward and backward)."""
+    attention projections, the router, top_k experts, the LM head -- the
+    embedding once more where it is tied) x tokens, plus attention's 3 x 4
+    B H dh per visible (query, key) pair of each layer (forward and
+    backward; causal, windows counted)."""
     from repro_torch.tree import leaves_with_paths
     n = 0
     for path, t in leaves_with_paths(params):
@@ -2602,21 +2791,32 @@ def _model_flops(cfg, params, tokens: int, S: int) -> float:
         if "experts" in path:
             size = size * cfg.top_k // cfg.num_experts
         n += size
+    if cfg.tie_embeddings:
+        n += params["embed"].numel()
     B = tokens // S
-    attn = 3 * 2.0 * B * cfg.num_heads * S * S * cfg.head_dim \
-        * cfg.num_layers
+    attn = sum(3 * 4.0 * B * cfg.num_heads * cfg.head_dim * _attn_pairs(S, w)
+               for w in _layer_windows(cfg))
     return 6.0 * n * tokens + attn
 
 
-def full_width_train(seed: int) -> dict:
-    """qwen3_moe_235b_a22b at published width, depth 1, bf16: TRAIN_STEPS
-    build_train_step steps (AdamW lr 3e-4) on one repeated [1, 2048] batch
-    of pipeline_for.  Each step: the launches of every kernel (counts set
-    to 0 just before, read just after), host syncs, forward / backward /
-    optimizer ms by CUDA events, tokens/s, peak memory.  Gated: the loss
-    falls and stays finite, every leaf gets a gradient, the backward
-    kernels launch.  The backward kernels' inputs of the last step are
-    kept for the timing rows."""
+def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
+                     S: int = TRAIN_S, bwd_route: str = "wgmma",
+                     kernels=("flash_attention_bwd", "combine_weighted_bwd",
+                              "flash_attention", "dispatch_scatter",
+                              "combine_gather"),
+                     record=("flash_attention_bwd", "combine_weighted_bwd"),
+                     no_sync: bool = False) -> dict:
+    """`arch` at published width (depth cut to `layers`, None for all),
+    bf16: TRAIN_STEPS build_train_step steps (AdamW lr 3e-4) on one repeated
+    [1, S] batch of pipeline_for.  Each step: the launches of every kernel
+    (counts set to 0 just before, read just after) and the backward's by
+    route, host syncs, forward / backward / optimizer ms by CUDA events,
+    tokens/s, peak memory.  Gated: the loss falls and stays finite, every
+    leaf gets a non-zero gradient, every kernel of `kernels` launches, every
+    step runs one flash_attention_bwd per attention layer and all on
+    `bwd_route`, and with `no_sync` no host sync.  The inputs of the last
+    step's last call of each wrapper in `record` are kept for the timing
+    rows."""
     from repro_torch.data.pipeline import pipeline_for
     from repro_torch.kernels.dispatch_combine import ops as dc_ops
     from repro_torch.kernels.flash_attention import flash_attention as fa
@@ -2625,7 +2825,9 @@ def full_width_train(seed: int) -> dict:
     from repro_torch.models.lm import init_lm_params
     from repro_torch.optim.adamw import AdamW
     from repro_torch.tree import leaves
-    cfg = get_config(ARCH).replace(num_layers=TRAIN_LAYERS)
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
     t0 = time.time()
     params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
                             cfg, DEV)
@@ -2650,15 +2852,17 @@ def full_width_train(seed: int) -> dict:
     opt = TimedAdamW(lr=3e-4)
     state = TrainState(params, opt.init(params))
     torch.cuda.synchronize()
-    print(f"[train] {cfg.name} full width, {TRAIN_LAYERS} layer, bf16: "
+    print(f"[train] {cfg.name} full width, {cfg.num_layers} layers, bf16: "
           f"{n_params / 1e9:.2f} B params, params + fp32 moments "
           f"{torch.cuda.memory_allocated() / 1e9:.1f} GB in "
           f"{time.time() - t0:.1f}s")
     step_fn = build_train_step(api._replace(loss=loss), opt)
-    batch = pipeline_for(cfg, TRAIN_S, 1, seed, device=DEV).batch(0)
+    batch = pipeline_for(cfg, S, 1, seed, device=DEV).batch(0)
     tokens = batch["tokens"].numel()
-    flops = _model_flops(cfg, params, tokens, TRAIN_S)
-    steps, total = [], collections.Counter()
+    flops = _model_flops(cfg, params, tokens, S)
+    n_attn = len(_layer_windows(cfg))
+    modules = {"flash_attention_bwd": fa, "combine_weighted_bwd": dc_ops}
+    steps, total, recorded = [], collections.Counter(), {}
     for i in range(TRAIN_STEPS):
         last = i == TRAIN_STEPS - 1
         torch.cuda.synchronize()
@@ -2668,10 +2872,8 @@ def full_width_train(seed: int) -> dict:
             grads = stack.enter_context(_recording(torch.autograd, "grad")) \
                 if i == 0 else None
             if last:
-                fl = stack.enter_context(_recording(fa,
-                                                    "flash_attention_bwd"))
-                cb = stack.enter_context(_recording(dc_ops,
-                                                    "combine_weighted_bwd"))
+                recorded = {name: stack.enter_context(
+                    _recording(modules[name], name)) for name in record}
             t0 = time.time()
             ev["start"].record()
             state, m = step_fn(state, batch)
@@ -2679,52 +2881,61 @@ def full_width_train(seed: int) -> dict:
             torch.cuda.synchronize()
             wall = time.time() - t0
         counts = _read_counts()
+        routes = dict(fa.flash_attention_bwd.launches_by_route)
         syncs = _launch.reset_host_syncs()
         total.update(counts)
         if grads is not None:
             got = grads[0][2]
             expect(len(got) == len(leaves(params)) and all(
                 g is not None and float(g.abs().max()) > 0 for g in got),
-                "train full width: a leaf got no gradient")
+                f"train {cfg.name}: a leaf got no gradient")
             del got
             grads.clear()
+        expect(routes == {**dict.fromkeys(routes, 0), bwd_route: n_attn},
+               f"train {cfg.name}: flash_attention_bwd launches by route "
+               f"{routes}, not {n_attn} on {bwd_route}")
+        expect(not no_sync or syncs == 0,
+               f"train {cfg.name}: {syncs} host syncs in a step")
         rec = {"step": i + 1, "loss": float(m["loss"]),
                "grad_norm": float(m["grad_norm"]),
-               "dropped_fraction": float(m["dropped_fraction"]),
+               "dropped_fraction": float(m.get("dropped_fraction", 0.0)),
                "fwd_ms": ev["start"].elapsed_time(ev["fwd"]),
                "bwd_ms": ev["fwd"].elapsed_time(ev["opt0"]),
                "opt_ms": ev["opt0"].elapsed_time(ev["opt1"]),
                "step_ms": ev["start"].elapsed_time(ev["end"]),
                "wall_s": wall, "tokens_per_s": tokens / wall,
                "host_syncs": syncs, "launches": counts,
+               "flash_bwd_by_route": routes,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         rec["model_flops_share"] = flops / (rec["step_ms"] / 1e3) \
             / PEAK_FLOPS[torch.bfloat16]
         steps.append(rec)
-        print(f"[train] step {i + 1}: loss {rec['loss']:.4f}, fwd "
+        print(f"[train] {cfg.name} step {i + 1}: loss {rec['loss']:.4f}, fwd "
               f"{rec['fwd_ms']:.1f} bwd {rec['bwd_ms']:.1f} opt "
               f"{rec['opt_ms']:.1f} ms (step {rec['step_ms']:.1f} ms), "
               f"{rec['tokens_per_s']:.0f} tokens/s, {syncs} host syncs, "
-              f"peak {rec['peak_gb']:.1f} GB, launches {counts}")
+              f"peak {rec['peak_gb']:.1f} GB, model FLOPs share "
+              f"{rec['model_flops_share']:.3f}, launches {counts}, "
+              f"flash_attention_bwd by route {routes}")
     losses = [s["loss"] for s in steps]
     expect(all(np.isfinite(losses)) and all(np.isfinite(
-        [s["grad_norm"] for s in steps])), f"train: non-finite {losses}")
-    expect(losses[-1] < losses[0], f"train: loss did not fall: {losses}")
+        [s["grad_norm"] for s in steps])),
+        f"train {cfg.name}: non-finite {losses}")
+    expect(losses[-1] < losses[0],
+           f"train {cfg.name}: loss did not fall: {losses}")
     expect(all(torch.isfinite(t).all() for t in leaves(state.params)),
-           "train: non-finite params")
-    for name in ("flash_attention_bwd", "combine_weighted_bwd",
-                 "flash_attention", "dispatch_scatter", "combine_gather"):
-        expect(total[name] > 0, f"train: {name} never launched at full "
-               f"width ({dict(total)})")
+           f"train {cfg.name}: non-finite params")
+    for name in kernels:
+        expect(total[name] > 0, f"train {cfg.name}: {name} never launched "
+               f"at full width ({dict(total)})")
     inputs = {name: (tuple(t.detach() for t in calls[-1][0]), calls[-1][1])
-              for name, calls in (("flash_attention_bwd", fl),
-                                  ("combine_weighted_bwd", cb))}
-    del state, params, m, fl, cb
+              for name, calls in recorded.items()}
+    del state, params, m, recorded
     _free()
-    return {"arch": cfg.name, "layers": TRAIN_LAYERS, "params": n_params,
-            "tokens_per_step": tokens, "model_flops_per_step": flops,
-            "losses": losses, "steps": steps, "launches": dict(total),
-            "inputs": inputs}
+    return {"arch": cfg.name, "layers": cfg.num_layers, "S": S,
+            "params": n_params, "tokens_per_step": tokens,
+            "model_flops_per_step": flops, "losses": losses, "steps": steps,
+            "launches": dict(total), "inputs": inputs}
 
 
 def _time_bwd(kern, plain, lib, nbytes, ops, dtype, shape, match):
@@ -2745,15 +2956,81 @@ def _time_bwd(kern, plain, lib, nbytes, ops, dtype, shape, match):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": cuda_ms(lib, iters=20, warmup=3),
             "device_ms_by": "profiler" if rows else "cuda_events",
+            "device_ms_by_kernel": {n: t for n, t, _ in rows},
             "max_abs_err": err, "shape": shape}
 
 
-def time_bwd_kernels(inputs: dict) -> dict:
-    """flash_attention_bwd and combine_weighted_bwd at the inputs the
-    full-width step's last backward gave them.  Library yardsticks (timed
-    here, used nowhere in the port): the backward of
-    scaled_dot_product_attention on expanded heads through autograd, and
-    of embedding_bag(mode="sum", per_sample_weights) -- the weighted
+def _sdpa_bwd(q, k, v, do, kw):
+    """The yardstick of flash_attention_bwd: scaled_dot_product_attention's
+    backward on expanded heads through autograd (the window as a boolean
+    mask), on the first backend that takes the call -- cuDNN (PyTorch's own
+    first choice on an H100), flash, efficient, then math.  Returns (the
+    call, the backend's name)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    B, S, H, dh = q.shape
+    qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).detach().clone()
+                  .requires_grad_(True) for t in (q, k, v))
+    doh = do.permute(0, 2, 1, 3)
+    mask = None
+    if kw.get("window"):
+        pos = torch.arange(S, device=q.device)
+        mask = (pos[None, :] > pos[:, None] - kw["window"]) & (
+            pos[None, :] <= pos[:, None] if kw["causal"] else True)
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "... not used because"
+                lo = F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask,
+                    is_causal=mask is None and kw["causal"])
+            torch.autograd.grad(lo, (qh, kh, vh), doh, retain_graph=True)
+        except RuntimeError:
+            continue
+        return (lambda: torch.autograd.grad(lo, (qh, kh, vh), doh,
+                                            retain_graph=True),
+                backend.name)
+    raise Failed("no scaled_dot_product_attention backend took the call")
+
+
+def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
+    """flash_attention_bwd on these inputs (the route `route` gives them),
+    timed beside its plain version, SDPA's backward and the bound
+    from this call's bytes and the operations of its visible pairs."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, route)
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    B, S, H, dh = q.shape
+    KVH = k.shape[2]
+    pairs = _attn_pairs(S, kw.get("window")) if kw["causal"] else \
+        float(S * min(S, 2 * (kw.get("window") or S)))
+    nbytes = 2 * B * S * dh * (4 * H + 4 * KVH) + 4 * B * H * S
+    ops = 5 * 2.0 * B * H * dh * pairs  # S, dV, dP, dQ, dK
+    lib, backend = _sdpa_bwd(q, k, v, do, kw)
+    row = _time_bwd(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+        lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw), lib,
+        nbytes, ops, q.dtype,
+        {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh,
+         "dtype": str(q.dtype).split(".")[-1], "causal": kw["causal"],
+         "window": kw.get("window")}, "flash_bwd")
+    row["case"] = label
+    row["route"] = route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
+                         [t.stride()[:3] for t in (q, k, v, do)])
+    row["library_call"] = (f"scaled_dot_product_attention backward "
+                           f"(expanded heads, autograd, {backend} backend)")
+    return row
+
+
+def time_bwd_kernels(inputs: dict, gemma_inputs: dict, gen) -> dict:
+    """flash_attention_bwd at the inputs the full-width qwen3 step's last
+    backward gave it (the main shape, wgmma), at gemma3_1b's last-step
+    inputs (head dim 256, wmma) and at deepseek_v32's attention geometry
+    (B 1, S 2048, H 128, KVH 8, head dim 192, causal, wmma; made here); and
+    combine_weighted_bwd at the qwen3 step's inputs.  Library yardsticks
+    (timed here, used nowhere in the port): SDPA's backward (`_sdpa_bwd`),
+    and embedding_bag(mode="sum", per_sample_weights) -- the weighted
     combine's own function -- through autograd."""
     import torch.nn.functional as F
     from repro_torch.kernels.dispatch_combine.dispatch_combine import \
@@ -2761,29 +3038,19 @@ def time_bwd_kernels(inputs: dict) -> dict:
     from repro_torch.kernels.dispatch_combine.ref import \
         combine_weighted_bwd_ref
     from repro_torch.kernels.flash_attention.flash_attention import \
-        flash_attention_bwd
-    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+        flash_launch
     rows = {}
     (q, k, v, o, lse, do), kw = inputs["flash_attention_bwd"]
-    B, S, H, dh = q.shape
-    KVH = k.shape[2]
-    qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).detach().clone()
-                  .requires_grad_(True) for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    doh = do.permute(0, 2, 1, 3)
-    nbytes = 2 * B * S * dh * (4 * H + 4 * KVH) + 4 * B * H * S
-    ops = 5 * 2.0 * B * H * S * S * dh / 2  # S, dV, dP, dQ, dK (causal)
-    rows["flash_attention_bwd"] = _time_bwd(
-        lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
-        lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
-        lambda: torch.autograd.grad(lo, (qh, kh, vh), doh,
-                                    retain_graph=True),
-        nbytes, ops, q.dtype,
-        {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh, "dtype": "bf16",
-         "causal": kw["causal"]}, "flash_bwd")
-    rows["flash_attention_bwd"]["library_call"] = \
-        "scaled_dot_product_attention backward (expanded heads, autograd)"
-    del qh, kh, vh, lo
+    cases = [_time_flash_bwd("train qwen3 (main)", q, k, v, o, lse, do, kw)]
+    (q, k, v, o, lse, do), kw = gemma_inputs["flash_attention_bwd"]
+    cases.append(_time_flash_bwd("train gemma3_1b", q, k, v, o, lse, do, kw))
+    q, k, v, do = _flash_inputs(gen, BF, 1, 2048, 128, 8, 192, "model")
+    kw = dict(causal=True, window=None, softcap=None)
+    o, lse = flash_launch(q, k, v, with_lse=True, **kw)
+    cases.append(_time_flash_bwd("deepseek_v32 geometry", q, k, v, o, lse,
+                                 do, kw))
+    del q, k, v, o, lse, do
+    rows["flash_attention_bwd"] = {**cases[0], "cases": cases}
     (dout, yb, ps, w), _ = inputs["combine_weighted_bwd"]
     T, K = w.shape
     R, d = yb.shape
@@ -2810,28 +3077,39 @@ def time_bwd_kernels(inputs: dict) -> dict:
     rows["combine_weighted_bwd"]["library_call"] = \
         "embedding_bag(mode=sum, per_sample_weights) backward (autograd), " \
         "fp32 (no bf16 backward on CUDA)"
-    for name, r in rows.items():
-        print(f"[train] {name}: {r['ms']:.3f} ms (device {r['device_ms']:.3f})"
-              f", bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
-              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms")
+    for r in cases + [rows["combine_weighted_bwd"]]:
+        print(f"[train] {r.get('route', 'cuda')} {r['case']} {r['shape']}: "
+              f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+              f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms "
+              f"({r['library_call']})")
     return rows
 
 
 def phase_train(seed: int, gen) -> dict:
-    """(a) the backward kernels against their plain versions, (b) the
-    small fp32 step on the card against the CPU's, (c) the full-width step
-    and the backward kernels timed at its inputs, (d) a resumed run against
-    an uninterrupted one."""
+    """(a) tensor maps on context-less threads, the backward kernels
+    against their plain versions, (b) the
+    small fp32 step on the card against the CPU's, (c) the full-width qwen3
+    step, then gemma3_1b at published width and depth, and the backward
+    kernels timed at their inputs, (d) a resumed run against an
+    uninterrupted one."""
     t0 = time.time()
-    out = {"flash_bwd": check_flash_bwd(gen),
+    out = {"fresh_threads": check_fresh_threads(gen),
+           "flash_bwd": check_flash_bwd(gen),
            "combine_bwd": check_combine_bwd(gen),
            "small_step": check_card_vs_cpu_step(seed)}
     _free()
     full = full_width_train(seed)
     inputs = full.pop("inputs")
     out["full_width"] = full
-    out["timing"] = time_bwd_kernels(inputs)
-    del inputs
+    gemma = full_width_train(seed, GEMMA_ARCH, None, GEMMA_S, "wmma",
+                             kernels=("flash_attention",
+                                      "flash_attention_bwd"),
+                             record=("flash_attention_bwd",), no_sync=True)
+    gemma_inputs = gemma.pop("inputs")
+    out["gemma3"] = gemma
+    out["timing"] = time_bwd_kernels(inputs, gemma_inputs, gen)
+    del inputs, gemma_inputs
     _free()
     out["resume"] = check_resume(seed)
     out["wall_s"] = time.time() - t0
@@ -4082,7 +4360,44 @@ def shapes_from(kernels_line: dict) -> dict:
             "flash_attention": [[c["shape"]["B"], c["shape"]["S"]]
                                 for c in rows["flash_attention"]["cases"]
                                 if c["case"] in ("modal", "heaviest")],
-            "decode_T": rows["dispatch_scatter"]["shape"]["T"]}
+            "decode_T": rows["dispatch_scatter"]["shape"]["T"],
+            "flash_attention_bwd": [
+                c["shape"] for c in rows["flash_attention_bwd"]["cases"]]
+            if "flash_attention_bwd" in rows else []}
+
+
+def time_flash_bwd_alone(shapes: list, gen) -> list:
+    """flash_attention_bwd of the repro_torch beside this script at each
+    shape (made here from `gen`, its forward's o and lse first): ms (CUDA
+    events) and device ms (the kernels named flash_bwd) -- the parent-vs-
+    change turns of `--shapes-from`."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_launch)
+    out = []
+    for sh in shapes:
+        # an older tree names the backward's own head dims
+        if sh["dh"] not in getattr(fa, "BWD_HEAD_DIMS", fa.HEAD_DIMS):
+            out.append({"shape": sh, "ms": None, "device_ms": None,
+                        "note": f"no backward at head dim {sh['dh']} here"})
+            continue
+        dt = getattr(torch, sh["dtype"])
+        q, k, v, do = _flash_inputs(gen, dt, sh["B"], sh["S"], sh["H"],
+                                    sh["KVH"], sh["dh"], "model")
+        kw = dict(causal=sh["causal"], window=sh["window"], softcap=None)
+        o, lse = flash_launch(q, k, v, with_lse=True, **kw)
+
+        def call():
+            return flash_attention_bwd(q, k, v, o, lse, do, **kw)
+
+        dev, rows = _device_ms(call, 10, match="flash_bwd")
+        out.append({"shape": sh, "ms": cuda_ms(call, iters=20, warmup=3),
+                    "device_ms": dev,
+                    "device_ms_by_kernel": {n: t for n, t, _ in rows}})
+        print(f"[timing] flash_attention_bwd {sh}: {out[-1]['ms']:.3f} ms "
+              f"(device {dev:.3f})")
+        del q, k, v, do, o, lse
+    return out
 
 
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
@@ -4127,6 +4442,7 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                                  for k, v in rec["launches"].items()}
     if train:
         by_path["train"] = train["full_width"]["launches"]
+        by_path["train_gemma3"] = train["gemma3"]["launches"]
     rows[0]["launches_by_tile"] = serve["by_tile"]
     rows[0]["device_ms_by_tile"] = time_super_gmm_tiles(
         shapes["super_gmm"], gen)
@@ -4149,11 +4465,24 @@ def _bwd_row(name, line, train) -> dict:
             "replaces": f"src/repro/kernels/{src}/{src}.py:{line}",
             "gradient_of": "flash_attention" if src == "flash_attention"
             else "combine_gather",
-            "launches": train["full_width"]["launches"][name],
+            "launches": train["full_width"]["launches"][name]
+            + train["gemma3"]["launches"].get(name, 0),
             **{k: t[k] for k in ("max_abs_err", "ms", "device_ms",
                                  "plain_ms", "bound_ms", "bound_by",
                                  "library_ms", "library_call", "shape")},
-            "cases": [t]}
+            "cases": t.get("cases", [t]),
+            **({"launches_by_route": _bwd_routes(train)}
+               if name.startswith("flash") else {})}
+
+
+def _bwd_routes(train) -> dict:
+    """flash_attention_bwd's launches by route over both full-width steps'
+    runs."""
+    total = collections.Counter()
+    for run in (train["full_width"], train["gemma3"]):
+        for step in run["steps"]:
+            total.update(step["flash_bwd_by_route"])
+    return dict(total)
 
 
 def main() -> int:
@@ -4200,6 +4529,8 @@ def main() -> int:
             "super_gmm": time_super_gmm(shapes["super_gmm"], gen),
             "flash_attention": time_flash_attention(
                 shapes["flash_attention"], gen),
+            "flash_attention_bwd": time_flash_bwd_alone(
+                shapes["flash_attention_bwd"], gen),
             "moe_path": time_moe_path(gen, T),
             "decode_step": decode_step_alone(args.seed,
                                              [int(v) for v in lengths])}}))

@@ -639,22 +639,41 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //
 // Two kernels split the work so that no sum is shared between blocks: one
 // block per (batch*head, key tile) walks the query tiles of the key tile's
-// frontier and keeps its head's dK, dV tile in fp32 (flash_bwd_dkdv_kernel,
-// written to a per-head fp32 scratch); one block per (batch*head, query
-// tile) walks the key tiles and keeps dQ (flash_bwd_dq_kernel).  A last
-// pass (flash_bwd_reduce_kernel) sums each KV head's group of query heads
-// in a fixed order (GQA) and writes dK, dV in the input's type.  No atomics:
-// two runs give the same bits.  bf16 runs its products on wmma (P and dS
-// rounded to bf16 first, as the forward rounds P), fp32 on plain FMA loops
-// (correctness first).  Head dims 32, 64 and 128; the wrapper refuses the
-// others before launching.
+// frontier and keeps its head's dK, dV tile in fp32 (written to a per-head
+// fp32 scratch); one block per (batch*head, query tile) walks the key tiles
+// and keeps dQ.  A last pass (flash_bwd_reduce_kernel) sums each KV head's
+// group of query heads in a fixed order (GQA) and writes dK, dV in the
+// input's type.  No atomics: two runs give the same bits.  P and dS are
+// rounded to bf16 before their products, as the forward rounds P.
+//
+// Head dims and routes (flash_attention_bwd_launch below; the wrapper's
+// `route`, `HEAD_DIMS` and `WGMMA_HEAD_DIMS` pick them, as for the forward,
+// and a test reads the instantiations out of this file):
+//
+//   route   dtype  head dims              kernels
+//   wgmma   bf16   64, 128 (TMA-able)     wgb:: flash_bwd_dkdv_wgmma_kernel,
+//                                         flash_bwd_dq_wgmma_kernel<DH>
+//   wmma    bf16   32, 64, 128            bwd:: flash_bwd_dkdv_kernel,
+//                  (64 x 64 tiles);       flash_bwd_dq_kernel<bf16, DH,
+//                  192, 256 (32 x 32)     BQ, BKV>
+//   fma     fp32   32, 64, 128, 192, 256  the same at <float, DH, 32, 32>
+//                  (32 x 32 tiles)
+//
+// The wmma route keeps S, dP, P, dS and its sums in shared memory (wmma
+// 16 x 16 round trips, 4 warps, plain loads) and serves what the wgmma
+// route does not: head dims 32, 192 (deepseek_v32) and 256 (gemma3), and
+// tensors TMA cannot describe.  fp32 runs plain FMA loops (correctness
+// first).  Any other head dim is refused (-2) -- the wrapper raises first.
 //
 // What bounds it on an H100: 2.5x the forward's products (5 matrix products
-// per tile pair against 2), recomputed twice here (dQ and dK/dV each form S
-// and dP again): 7 products of B * H * S^2 / 2 * dh multiply-adds (causal)
+// per tile pair against 2), recomputed here (dQ and dK/dV each form S and
+// dP again): 7 products of B * H * S^2 / 2 * dh multiply-adds (causal)
 // against B * (4 H + 4 KVH) * S * dh elements moved -- the tensor cores,
-// far more than the bytes.  This first kernel keeps its scores in shared
-// memory (wmma, not wgmma): making it fast is later work.
+// far more than the bytes, so 7/5 of the 5-product bound is this design's
+// own floor.  The wgmma route (below `bwd`) keeps every intermediate in
+// registers and feeds the tensor cores by TMA; the fp32 dK/dV scratch it
+// shares with the wmma route moves 2 x 4 B * H * S * dh bytes each way,
+// beside the 2 x 2 B * KVH * S * dh of the outputs.
 namespace bwd {
 
 template <typename T, int DH, int BQ, int BKV> struct Layout {
@@ -682,6 +701,16 @@ template <typename T, int DH, int BQ, int BKV> struct Layout {
 static_assert(Layout<bf16, 128, 64, 64>::BYTES <= MAX_SMEM &&
                   Layout<float, 128, 32, 32>::BYTES <= MAX_SMEM,
               "backward shared memory");
+// head dims 192 and 256 on 32 x 32 tiles (64 x 64 would take ~321 KB at
+// 256): bf16 115,968 / 148,736 bytes, fp32 165,376 / 214,528
+static_assert(Layout<bf16, 192, 32, 32>::BYTES == 115968 &&
+                  Layout<bf16, 256, 32, 32>::BYTES == 148736 &&
+                  Layout<float, 192, 32, 32>::BYTES == 165376 &&
+                  Layout<float, 256, 32, 32>::BYTES == 214528,
+              "backward layout");
+static_assert(Layout<bf16, 256, 32, 32>::BYTES <= MAX_SMEM &&
+                  Layout<float, 256, 32, 32>::BYTES <= MAX_SMEM,
+              "backward shared memory at head dim 256");
 
 // C[M, N] (fp32, row stride ldc) += A[M, K] B[K, N] over the block, A and B
 // in shared memory: A(i, k) = A_COL ? A[k * lda + i] : A[i * lda + k],
@@ -1025,6 +1054,614 @@ int launch(const Args& a, cudaStream_t stream) {
 
 }  // namespace bwd
 
+// ---------------------------------- backward, bf16 on wgmma + TMA (sm_90a) --
+//
+// The route the wrapper picks for bf16 at head dim 64 or 128 whose q, k, v,
+// dO TMA can describe.  The same arithmetic as `bwd` above, laid out for
+// the card: two kernels of consumer warpgroups, every intermediate in
+// accumulator registers.  Thread 0 also feeds the block's ring by TMA on
+// mbarriers, over the same 4-D [B, S, heads, dh] tensor maps with the real
+// strides that the forward uses, so GQA is never expanded: it fills every
+// stage up front and refills the stage of tile i - 1 at the top of tile i,
+// once every warpgroup has released it.  No producer warp: any third
+// warpgroup caps every thread at 168 registers (65,536 / 384), and the
+// dK/dV consumer's 128 accumulators at head dim 128 beside S^T and dP^T
+// spilled there even with setmaxnreg; with two warpgroups each thread may
+// hold 255.
+//
+//   flash_bwd_dkdv_wgmma_kernel: one block per (batch*head, 128-key tile);
+//     K and V loaded once, Q, dO (64 queries) and their lse2, D rows
+//     streamed through a four-stage ring over the query tiles of the key
+//     tile's causal / window frontier.  Each warpgroup owns 64 keys: S^T =
+//     K Q^T and dP^T = V dO^T (both operands K-major from shared memory)
+//     into registers; P^T = exp2(S^T c2 - lse2) and dS^T = P^T (dP^T - D)
+//     [* (1 - tanh^2)] formed there (the mask applied only on tiles where
+//     it bites), packed to bf16 and used as the register A operand of dV +=
+//     P^T dO and dK += dS^T Q (dO, Q the MN-major B operands: the tile that
+//     served S^T serves these).  dK, dV stay in registers for the whole
+//     walk (64 + 64 fp32 at head dim 128) and go to the per-head fp32
+//     scratch at the end.
+//   flash_bwd_dq_wgmma_kernel: one block per (batch*head, 192-query tile),
+//     Q and dO loaded once, K and V (64 keys) streamed through a three-
+//     stage ring over the frontier as in the forward.  Each of its three
+//     warpgroups owns 64 queries: S = Q K^T, dP = dO V^T into registers, dS in registers as
+//     the A operand of dQ += dS K (K the MN-major B operand).
+//
+// flash_bwd_prep_kernel forms, per (batch*head) row padded to a multiple of
+// 192 positions, D = rowsum(dO * O) and lse2 = lse * log2(e) (the forward's
+// natural-log units in exp2's), lse2 = +inf and D = 0 past S, so every tile
+// the kernels read is in bounds and a query past S has P = 0.  The GQA sum
+// of the per-head dK, dV stays the ordered `flash_bwd_reduce_kernel`: no
+// atomics, two runs give the same bits.
+namespace wgb {
+
+// No producer warp: thread 0 feeds the rings.  The dK/dV kernel runs two
+// warpgroups, so each thread may hold 255 registers (a third warpgroup
+// caps them at 168 and spills its consumers); the dQ kernel's consumers
+// fit 168, and it runs three.
+constexpr int KV_THREADS = 256;
+constexpr int Q_THREADS = 384;
+constexpr int STAGES = 3;     // dQ kernel: depth of the K/V ring
+constexpr int KV_STAGES = 4;  // dK/dV kernel: depth of the Q/dO ring
+constexpr int KV_KEYS = 128;  // dK/dV kernel: keys per block
+constexpr int KV_QS = 64;     // ... queries per streamed tile
+constexpr int Q_QS = 192;     // dQ kernel: queries per block
+constexpr int Q_KEYS = 64;    // ... keys per streamed tile
+constexpr int PAD = 192;      // the prep kernel's rows: S rounded up to it
+// every tile a kernel reads from those rows lies inside them
+static_assert(PAD % Q_QS == 0 && PAD % KV_QS == 0, "PAD");
+// the score tiles are 64 x 64 (ss_pair, four k16 steps of the A operands)
+static_assert(KV_QS == 64 && Q_KEYS == 64, "64-wide score tiles");
+
+template <int DH> struct SmemKV {
+  static constexpr int CH = DH / 64;
+  static constexpr int K_CHUNK = KV_KEYS * 128;
+  static constexpr int K_TILE = CH * K_CHUNK;
+  static constexpr int Q_CHUNK = KV_QS * 128;
+  static constexpr int Q_TILE = CH * Q_CHUNK;
+  static constexpr int ROW = KV_QS * 4;  // one stage's lse2 (or D), bytes
+  static constexpr int OFF_K = 0;        // K | V | Q ring | dO ring | lse2,
+  static constexpr int OFF_V = K_TILE;   // D rings | barriers
+  static constexpr int OFF_Q = 2 * K_TILE;
+  static constexpr int OFF_DO = OFF_Q + KV_STAGES * Q_TILE;
+  static constexpr int OFF_L = OFF_DO + KV_STAGES * Q_TILE;
+  static constexpr int OFF_D = OFF_L + KV_STAGES * ROW;
+  static constexpr int OFF_BAR = OFF_D + KV_STAGES * ROW;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * KV_STAGES) + 1024;
+};
+
+template <int DH> struct SmemQ {
+  static constexpr int CH = DH / 64;
+  static constexpr int Q_CHUNK = Q_QS * 128;
+  static constexpr int Q_TILE = CH * Q_CHUNK;
+  static constexpr int K_CHUNK = Q_KEYS * 128;
+  static constexpr int K_TILE = CH * K_CHUNK;
+  static constexpr int OFF_Q = 0;  // Q | dO | K ring | V ring | barriers
+  static constexpr int OFF_DO = Q_TILE;
+  static constexpr int OFF_K = 2 * Q_TILE;
+  static constexpr int OFF_V = OFF_K + STAGES * K_TILE;
+  static constexpr int OFF_BAR = OFF_V + STAGES * K_TILE;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * STAGES) + 1024;
+};
+static_assert(SmemKV<128>::BYTES <= MAX_SMEM && SmemQ<128>::BYTES <= MAX_SMEM,
+              "wgmma backward shared memory");
+
+// D[64 x DH] (+)= A[64 x 16] (registers) * B[16 x DH] (shared, MN-major)
+template <int DH>
+__device__ __forceinline__ void rs_acc(float (&d)[DH / 2],
+                                       const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 128)
+    hopper::wgmma_rs_n128(d, a, db, 1);
+  else
+    hopper::wgmma_rs_n64(d, a, db, 1);
+}
+
+// The pair of products X Y^T, X2 Y2^T (64 x 64) of a 64-row slice: both
+// operands K-major from 128-byte-swizzled tiles whose 64-column chunks lie
+// `xc` / `yc` bytes apart.
+template <int DH>
+__device__ __forceinline__ void ss_pair(float (&s)[32], float (&t)[32],
+                                        const unsigned char* x, int xc,
+                                        const unsigned char* y, int yc,
+                                        const unsigned char* x2,
+                                        const unsigned char* y2) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int off_x = (kk / 4) * xc + (kk % 4) * 32;
+    const int off_y = (kk / 4) * yc + (kk % 4) * 32;
+    hopper::wgmma_ss_n64<0>(s, hopper::desc_sw128(x + off_x, 16, 1024),
+                            hopper::desc_sw128(y + off_y, 16, 1024), kk > 0);
+  }
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const int off_x = (kk / 4) * xc + (kk % 4) * 32;
+    const int off_y = (kk / 4) * yc + (kk % 4) * 32;
+    hopper::wgmma_ss_n64<0>(t, hopper::desc_sw128(x2 + off_x, 16, 1024),
+                            hopper::desc_sw128(y2 + off_y, 16, 1024),
+                            kk > 0);
+  }
+}
+
+// P and dS of one score element: s the raw score (q.k), dp its dP, l2 the
+// row's lse2, dd its D.  Returns dS; p through `p`.
+__device__ __forceinline__ float grad_elem(float s, float dp, float l2,
+                                           float dd, bool ok, float c2,
+                                           float cap_in, float cap_out,
+                                           float& p) {
+  float th = 0.f;
+  if (cap_in != 0.f) {  // capped in raw units: c2 applies the scale
+    th = tanhf(s * cap_in);
+    s = th * cap_out;
+  }
+  p = ok ? wg::ex2(fmaf(s, c2, -l2)) : 0.f;
+  float ds = p * (dp - dd);
+  if (cap_in != 0.f) ds *= 1.f - th * th;
+  return ds;
+}
+
+// Tile i's Q, dO, lse2 and D rows (queries from q0) into stage s of the
+// dK/dV kernel's ring, completing on full[s].
+template <int DH>
+__device__ __forceinline__ void kv_fetch(unsigned char* smem, uint64_t* full,
+                                         const CUtensorMap* tq,
+                                         const CUtensorMap* tdo,
+                                         const float* lrow, const float* drow,
+                                         int q0, int s, int h, int b) {
+  using L = SmemKV<DH>;
+  hopper::mbar_expect_tx(&full[s], 2 * L::Q_TILE + 2 * L::ROW);
+  unsigned char* qs = smem + L::OFF_Q + s * L::Q_TILE;
+  unsigned char* dos = smem + L::OFF_DO + s * L::Q_TILE;
+  for (int c = 0; c < L::CH; ++c) {
+    hopper::tma_load_4d(qs + c * L::Q_CHUNK, tq, &full[s], 64 * c, q0, h, b);
+    hopper::tma_load_4d(dos + c * L::Q_CHUNK, tdo, &full[s], 64 * c, q0, h,
+                        b);
+  }
+  hopper::bulk_load(smem + L::OFF_L + s * L::ROW, lrow + q0, L::ROW,
+                    &full[s]);
+  hopper::bulk_load(smem + L::OFF_D + s * L::ROW, drow + q0, L::ROW,
+                    &full[s]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(KV_THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse2,
+                            const float* __restrict__ Dp,
+                            float* __restrict__ dk_part,
+                            float* __restrict__ dv_part, int H, int KVH,
+                            int S, int S_pad, int causal, int window,
+                            float softcap, float sm_scale) {
+  using L = SmemKV<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + KV_STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);   // GQA: the KV head of this query head
+  const int k0 = blockIdx.y * KV_KEYS;  // the heaviest key tiles go first
+  // query tiles that see a key of this tile: from the diagonal (causal) to
+  // the last query inside the window of the tile's last key
+  const int qt_lo = causal ? k0 / KV_QS : 0;
+  const int q_end = window > 0 ? min(S, k0 + KV_KEYS - 1 + window) : S;
+  const int n_tiles = (q_end + KV_QS - 1) / KV_QS - qt_lo;
+  const float* lrow = lse2 + static_cast<long long>(bh) * S_pad;
+  const float* drow = Dp + static_cast<long long>(bh) * S_pad;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < KV_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], KV_THREADS / 32);  // lane 0 of each warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // K, V once; the ring's first tiles
+    hopper::mbar_expect_tx(kv_full, 2 * L::K_TILE);
+    for (int c = 0; c < L::CH; ++c) {
+      hopper::tma_load_4d(smem + L::OFF_K + c * L::K_CHUNK, &tk, kv_full,
+                          64 * c, k0, hk, b);
+      hopper::tma_load_4d(smem + L::OFF_V + c * L::K_CHUNK, &tv, kv_full,
+                          64 * c, k0, hk, b);
+    }
+    for (int i = 0; i < min(KV_STAGES, n_tiles); ++i)
+      kv_fetch<DH>(smem, full, &tq, &tdo, lrow, drow, (qt_lo + i) * KV_QS,
+                   i, h, b);
+  }
+
+  const int wgi = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int kw = k0 + 64 * wgi;                     // this warpgroup's keys
+  const int ka = kw + (tid / 32) * 16 + lane / 4;   // rows ka, ka + 8
+  const float c2 = sm_scale * wg::LOG2E;
+  const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+  const unsigned char* ks = smem + L::OFF_K + wgi * 64 * 128;
+  const unsigned char* vs = smem + L::OFF_V + wgi * 64 * 128;
+
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % KV_STAGES;
+    const uint32_t ph = (i / KV_STAGES) & 1;
+    const int q0 = (qt_lo + i) * KV_QS;
+    // thread 0 refills the stage of tile i - 1 once both warpgroups are
+    // done with it (so they stay within a tile of each other)
+    if (threadIdx.x == 0 && i > 0 && i - 1 + KV_STAGES < n_tiles) {
+      const int sp = (i - 1) % KV_STAGES;
+      hopper::mbar_wait(&empty[sp], ((i - 1) / KV_STAGES) & 1);
+      kv_fetch<DH>(smem, full, &tq, &tdo, lrow, drow,
+                   (qt_lo + i - 1 + KV_STAGES) * KV_QS, sp, h, b);
+    }
+    __syncwarp();
+    const unsigned char* qs = smem + L::OFF_Q + s * L::Q_TILE;
+    const unsigned char* dos = smem + L::OFF_DO + s * L::Q_TILE;
+    const float* ls = reinterpret_cast<const float*>(smem + L::OFF_L +
+                                                     s * L::ROW);
+    const float* ds = reinterpret_cast<const float*>(smem + L::OFF_D +
+                                                     s * L::ROW);
+
+    // ---- S^T = K Q^T, dP^T = V dO^T into registers -----------------------
+    float st[32], dpt[32];
+    hopper::mbar_wait(&full[s], ph);
+    hopper::wgmma_fence();
+    ss_pair<DH>(st, dpt, ks, L::K_CHUNK, qs, L::Q_CHUNK, vs, dos);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(st);
+    hopper::fence_regs(dpt);
+
+    // ---- P^T, dS^T in registers, packed as the A operands ----------------
+    // element 8 kk + 2 j + e: key row ka + 8 (j & 1), query column
+    // 16 kk + 8 (j >> 1) + 2 (lane & 3) + e of the tile
+    const bool diag = causal && kw + 63 > q0;
+    const bool wedge = window > 0 && kw <= q0 + KV_QS - 1 - window;
+    uint32_t pa[KV_QS / 16][4], sa[KV_QS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KV_QS / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e0 = 8 * kk + 2 * j;
+        const int col = 16 * kk + 8 * (j >> 1) + 2 * (lane & 3);
+        const int kpos = ka + 8 * (j & 1);
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 dd = *reinterpret_cast<const float2*>(ds + col);
+        bool ok0 = true, ok1 = true;
+        if (diag || wedge) {
+          const int qpos = q0 + col;
+          if (causal) {
+            ok0 = kpos <= qpos;
+            ok1 = kpos <= qpos + 1;
+          }
+          if (window > 0) {
+            ok0 = ok0 && kpos > qpos - window;
+            ok1 = ok1 && kpos > qpos + 1 - window;
+          }
+        }
+        float p0, p1;
+        const float g0 = grad_elem(st[e0], dpt[e0], l2.x, dd.x, ok0, c2,
+                                   cap_in, cap_out, p0);
+        const float g1 = grad_elem(st[e0 + 1], dpt[e0 + 1], l2.y, dd.y, ok1,
+                                   c2, cap_in, cap_out, p1);
+        pa[kk][j] = wg::pack_bf16(p0, p1);
+        sa[kk][j] = wg::pack_bf16(g0, g1);
+      }
+    }
+
+    // ---- dV += P^T dO, dK += dS^T Q --------------------------------------
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_QS / 16; ++kk)
+      rs_acc<DH>(dv, pa[kk],
+                 hopper::desc_sw128(dos + kk * 16 * 128, L::Q_CHUNK, 1024));
+#pragma unroll
+    for (int kk = 0; kk < KV_QS / 16; ++kk)
+      rs_acc<DH>(dk, sa[kk],
+                 hopper::desc_sw128(qs + kk * 16 * 128, L::Q_CHUNK, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dv);
+    hopper::fence_regs(dk);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // the stage is free
+  }
+
+  // ---- this head's dK (unscaled), dV rows to the fp32 scratch -----------
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int pos = ka + 8 * r;
+    if (pos >= S) continue;
+    const long long at = (static_cast<long long>(bh) * S + pos) * DH +
+                         2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<float2*>(dk_part + at + 8 * j) =
+          make_float2(dk[4 * j + 2 * r], dk[4 * j + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dv_part + at + 8 * j) =
+          make_float2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// Key tile k0's K and V into stage s of the dQ kernel's ring, completing on
+// full[s].
+template <int DH>
+__device__ __forceinline__ void q_fetch(unsigned char* smem, uint64_t* full,
+                                        const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int k0, int s,
+                                        int hk, int b) {
+  using L = SmemQ<DH>;
+  hopper::mbar_expect_tx(&full[s], 2 * L::K_TILE);
+  unsigned char* ks = smem + L::OFF_K + s * L::K_TILE;
+  unsigned char* vs = smem + L::OFF_V + s * L::K_TILE;
+  for (int c = 0; c < L::CH; ++c) {
+    hopper::tma_load_4d(ks + c * L::K_CHUNK, tk, &full[s], 64 * c, k0, hk, b);
+    hopper::tma_load_4d(vs + c * L::K_CHUNK, tv, &full[s], 64 * c, k0, hk, b);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Q_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ Dp, bf16* __restrict__ dq,
+                          Strides sdq, int H, int KVH, int S, int S_pad,
+                          int causal, int window, float softcap,
+                          float sm_scale) {
+  using L = SmemQ<DH>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + STAGES;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * Q_QS;  // heaviest first
+  // key tiles inside the causal / window frontier, as in the forward
+  const int kv_hi = causal ? min(S, q0 + Q_QS) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / Q_KEYS;
+  const int n_tiles = (kv_hi + Q_KEYS - 1) / Q_KEYS - t_lo;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], Q_THREADS / 32);  // lane 0 of each warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q, dO once; the ring's first tiles
+    hopper::mbar_expect_tx(q_full, 2 * L::Q_TILE);
+    for (int c = 0; c < L::CH; ++c) {
+      hopper::tma_load_4d(smem + L::OFF_Q + c * L::Q_CHUNK, &tq, q_full,
+                          64 * c, q0, h, b);
+      hopper::tma_load_4d(smem + L::OFF_DO + c * L::Q_CHUNK, &tdo, q_full,
+                          64 * c, q0, h, b);
+    }
+    for (int i = 0; i < min(STAGES, n_tiles); ++i)
+      q_fetch<DH>(smem, full, &tk, &tv, (t_lo + i) * Q_KEYS, i, hk, b);
+  }
+
+  const int wgi = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int qw = q0 + 64 * wgi;
+  const int qa = qw + (tid / 32) * 16 + lane / 4;  // rows qa, qa + 8
+  const float c2 = sm_scale * wg::LOG2E;
+  const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+  const unsigned char* qs = smem + L::OFF_Q + wgi * 64 * 128;
+  const unsigned char* dos = smem + L::OFF_DO + wgi * 64 * 128;
+  const long long row = static_cast<long long>(bh) * S_pad;
+  const float l2[2] = {lse2[row + qa], lse2[row + qa + 8]};
+  const float dd[2] = {Dp[row + qa], Dp[row + qa + 8]};
+
+  float dqa[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dqa[i] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t ph = (i / STAGES) & 1;
+    const int k0 = (t_lo + i) * Q_KEYS;
+    // thread 0 refills the stage of tile i - 1 once every warpgroup is
+    // done with it
+    if (threadIdx.x == 0 && i > 0 && i - 1 + STAGES < n_tiles) {
+      const int sp = (i - 1) % STAGES;
+      hopper::mbar_wait(&empty[sp], ((i - 1) / STAGES) & 1);
+      q_fetch<DH>(smem, full, &tk, &tv, (t_lo + i - 1 + STAGES) * Q_KEYS, sp,
+                  hk, b);
+    }
+    __syncwarp();
+    const unsigned char* ks = smem + L::OFF_K + s * L::K_TILE;
+    const unsigned char* vs = smem + L::OFF_V + s * L::K_TILE;
+
+    // ---- S = Q K^T, dP = dO V^T into registers ---------------------------
+    float sc[32], dp[32];
+    hopper::mbar_wait(&full[s], ph);
+    hopper::wgmma_fence();
+    ss_pair<DH>(sc, dp, qs, L::Q_CHUNK, ks, L::K_CHUNK, dos, vs);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    // ---- dS in registers: the A operand of dQ += dS K --------------------
+    const bool edge = k0 + Q_KEYS > S;
+    const bool diag = causal && k0 + Q_KEYS - 1 > qw;
+    const bool wedge = window > 0 && k0 <= qw + 63 - window;
+    uint32_t sa[Q_KEYS / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < Q_KEYS / 16; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e0 = 8 * kk + 2 * j, r = j & 1;
+        const int kpos = k0 + 16 * kk + 8 * (j >> 1) + 2 * (lane & 3);
+        bool ok0 = true, ok1 = true;
+        if (edge || diag || wedge) {
+          const int qpos = qa + 8 * r;
+          ok0 = kpos < S;
+          ok1 = kpos + 1 < S;
+          if (causal) {
+            ok0 = ok0 && kpos <= qpos;
+            ok1 = ok1 && kpos + 1 <= qpos;
+          }
+          if (window > 0) {
+            ok0 = ok0 && kpos > qpos - window;
+            ok1 = ok1 && kpos + 1 > qpos - window;
+          }
+        }
+        float p0, p1;
+        const float g0 = grad_elem(sc[e0], dp[e0], l2[r], dd[r], ok0, c2,
+                                   cap_in, cap_out, p0);
+        const float g1 = grad_elem(sc[e0 + 1], dp[e0 + 1], l2[r], dd[r], ok1,
+                                   c2, cap_in, cap_out, p1);
+        sa[kk][j] = wg::pack_bf16(g0, g1);
+      }
+    }
+
+    // ---- dQ += dS K --------------------------------------------------------
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Q_KEYS / 16; ++kk)
+      rs_acc<DH>(dqa, sa[kk],
+                 hopper::desc_sw128(ks + kk * 16 * 128, L::K_CHUNK, 1024));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dqa);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K/V stage is free
+  }
+
+  // ---- dq = dQ * sm_scale, rows beyond S not stored ---------------------
+  bf16* dqp = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qa + 8 * r;
+    if (qpos >= S) continue;
+    bf16* out = dqp + qpos * sdq.s + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =
+          __floats2bfloat162_rn(dqa[4 * j + 2 * r] * sm_scale,
+                                dqa[4 * j + 2 * r + 1] * sm_scale);
+  }
+}
+
+// D = rowsum(dO * O) and lse2 = lse * log2(e) per (batch*head, position)
+// into rows of S_pad (a multiple of PAD): D = 0 and lse2 = +inf past S.
+// One warp per padded row.
+__global__ void __launch_bounds__(NT)
+flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
+                      const float* __restrict__ lse, float* __restrict__ Dp,
+                      float* __restrict__ lse2, int B, int H, int S,
+                      int S_pad, int DH, Strides so, Strides sdo) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (NT / 32) + threadIdx.x / 32;
+  if (row >= static_cast<long long>(B) * H * S_pad) return;
+  const int lane = threadIdx.x % 32;
+  const int pos = static_cast<int>(row % S_pad);
+  const long long bh = row / S_pad;
+  if (pos >= S) {
+    if (lane == 0) {
+      Dp[row] = 0.f;
+      lse2[row] = INFINITY;
+    }
+    return;
+  }
+  const int b = static_cast<int>(bh / H), h = static_cast<int>(bh % H);
+  const bf16* orow = o + b * so.b + pos * so.s + h * so.h;
+  const bf16* grow = dO + b * sdo.b + pos * sdo.s + h * sdo.h;
+  float acc = 0.f;
+  for (int d = lane; d < DH; d += 32)
+    acc = fmaf(__bfloat162float(orow[d]), __bfloat162float(grow[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) {
+    Dp[row] = acc;
+    lse2[row] = lse[bh * S + pos] * wg::LOG2E;
+  }
+}
+
+// a.D holds 2 * B * H * S_pad floats: D, then lse2.
+template <int DH>
+int launch(const bwd::Args& a, cudaStream_t stream) {
+  const int S_pad = (a.S + PAD - 1) / PAD * PAD;
+  const long long rows = static_cast<long long>(a.B) * a.H * S_pad;
+  float* Dp = a.D;
+  float* lse2 = a.D + rows;
+  // 4-D maps over [B, S, heads, dh] with the real strides, boxes of 64
+  // columns by `box_rows` positions
+  auto map = [&](CUtensorMap* m, const void* base, int heads,
+                 const Strides& st, int box_rows) {
+    const uint64_t dims[4] = {DH, static_cast<uint64_t>(a.S),
+                              static_cast<uint64_t>(heads),
+                              static_cast<uint64_t>(a.B)};
+    const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+    const uint32_t box[4] = {64, static_cast<uint32_t>(box_rows), 1, 1};
+    return hopper::make_map(m, base, 4, dims, strides, box);
+  };
+  CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
+  if (!map(&kq, a.q, a.H, a.sq, KV_QS) || !map(&kdo, a.dO, a.H, a.sdo, KV_QS) ||
+      !map(&kk, a.k, a.KVH, a.sk, KV_KEYS) ||
+      !map(&kv, a.v, a.KVH, a.sv, KV_KEYS) ||
+      !map(&qq, a.q, a.H, a.sq, Q_QS) || !map(&qdo, a.dO, a.H, a.sdo, Q_QS) ||
+      !map(&qk, a.k, a.KVH, a.sk, Q_KEYS) ||
+      !map(&qv, a.v, a.KVH, a.sv, Q_KEYS))
+    return -3;
+  constexpr auto kdkdv = flash_bwd_dkdv_wgmma_kernel<DH>;
+  constexpr auto kdq = flash_bwd_dq_wgmma_kernel<DH>;
+  cudaError_t err = hopper::allow_smem<kdkdv>(SmemKV<DH>::BYTES);
+  if (err == cudaSuccess) err = hopper::allow_smem<kdq>(SmemQ<DH>::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + NT / 32 - 1) /
+                                                (NT / 32)),
+                          NT, 0, stream>>>(
+      reinterpret_cast<const bf16*>(a.o), reinterpret_cast<const bf16*>(a.dO),
+      a.lse, Dp, lse2, a.B, a.H, a.S, S_pad, DH, a.so, a.sdo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdkdv<<<dim3(a.B * a.H, (a.S + KV_KEYS - 1) / KV_KEYS), KV_THREADS,
+          SmemKV<DH>::BYTES, stream>>>(kq, kk, kv, kdo, lse2, Dp, a.dk_part,
+                                       a.dv_part, a.H, a.KVH, a.S, S_pad,
+                                       a.causal, a.window, a.softcap,
+                                       a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdq<<<dim3(a.B * a.H, (a.S + Q_QS - 1) / Q_QS), Q_THREADS, SmemQ<DH>::BYTES,
+        stream>>>(qq, qk, qv, qdo, lse2, Dp, reinterpret_cast<bf16*>(a.dq),
+                  a.sdq, a.H, a.KVH, a.S, S_pad, a.causal, a.window,
+                  a.softcap, a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n = static_cast<long long>(a.B) * a.S * a.KVH * DH;
+  const long long blocks = (n + NT - 1) / NT;
+  bwd::flash_bwd_reduce_kernel<bf16><<<static_cast<unsigned>(
+                                           blocks < 8192 ? blocks : 8192),
+                                       NT, 0, stream>>>(
+      a.dk_part, a.dv_part, reinterpret_cast<bf16*>(a.dk),
+      reinterpret_cast<bf16*>(a.dv), a.B, a.H, a.KVH, a.S, DH, a.sdk, a.sdv,
+      a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wgb
+
 }  // namespace
 
 // Routes, as kernels/flash_attention/flash_attention.py::route picks them
@@ -1092,14 +1729,19 @@ extern "C" int flash_attention_launch(
   return -1;
 }
 
-// The backward of flash_attention_launch.  route: ROUTE_FMA (fp32) or
-// ROUTE_WMMA (bf16).  q, o, dO: [B, S, H, dh]-strided; k, v: [B, S, KVH,
+// The backward of flash_attention_launch.  route: ROUTE_FMA (fp32),
+// ROUTE_WMMA (bf16) or ROUTE_WGMMA (bf16, head dim 64 or 128, q, k, v, dO
+// TMA-describable).  q, o, dO: [B, S, H, dh]-strided; k, v: [B, S, KVH,
 // dh]-strided; lse: [B, H, S] fp32 from the forward.  Writes dq [B, S, H,
 // dh], dk, dv [B, S, KVH, dh] (strided as given, the inputs' type) through
-// scratch the caller allocates: D [B, H, S] fp32 and dk_part, dv_part [B, H,
-// S, dh] fp32.  Four launches on `stream`, no atomics, no synchronisation;
-// returns cudaGetLastError(), -1 for an unknown route, -2 for a head dim it
-// does not take.
+// scratch the caller allocates: D, 2 * B * H * S_pad fp32 with S_pad = S
+// rounded up to a multiple of 192 (the fma and wmma routes use its first
+// B * H * S as [B, H, S]; the wgmma route its two halves as the padded D
+// and lse2 rows), and dk_part, dv_part [B, H, S, dh] fp32.  Four launches
+// on `stream`, no atomics, no synchronisation; returns cudaGetLastError(),
+// -1 for an unknown route, -2 for a head dim it does not take, -3 for a
+// tensor map that cannot be encoded and -4 for tensors the wgmma route
+// cannot take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv, void* D,
@@ -1122,21 +1764,32 @@ extern "C" int flash_attention_bwd_launch(
     if (dh == 32) return bwd::launch<float, 32, 32, 32>(a, s);
     if (dh == 64) return bwd::launch<float, 64, 32, 32>(a, s);
     if (dh == 128) return bwd::launch<float, 128, 32, 32>(a, s);
+    if (dh == 192) return bwd::launch<float, 192, 32, 32>(a, s);
+    if (dh == 256) return bwd::launch<float, 256, 32, 32>(a, s);
     return -2;
   }
-  if (route == ROUTE_WMMA) {
-    auto mult8 = [](const Strides& t) {
-      return t.b % 8 == 0 && t.s % 8 == 0 && t.h % 8 == 0;
-    };
+  auto mult8 = [](const Strides& t) {
+    return t.b % 8 == 0 && t.s % 8 == 0 && t.h % 8 == 0;
+  };
+  auto aligned = [&](int i) {  // 16-byte base, strides of 16 bytes
     const void* ptrs[5] = {q, k, v, o, dO};
-    bool aligned = true;
-    for (int i = 0; i < 5; ++i)
-      aligned = aligned && reinterpret_cast<size_t>(ptrs[i]) % 16 == 0 &&
-                mult8(st(i));
-    a.vec_ok = aligned ? 1 : 0;
+    return reinterpret_cast<size_t>(ptrs[i]) % 16 == 0 && mult8(st(i));
+  };
+  if (route == ROUTE_WGMMA) {  // TMA reads q, k, v and dO
+    if (!(aligned(0) && aligned(1) && aligned(2) && aligned(4))) return -4;
+    if (dh == 64) return wgb::launch<64>(a, s);
+    if (dh == 128) return wgb::launch<128>(a, s);
+    return -4;
+  }
+  if (route == ROUTE_WMMA) {
+    bool vec = true;
+    for (int i = 0; i < 5; ++i) vec = vec && aligned(i);
+    a.vec_ok = vec ? 1 : 0;
     if (dh == 32) return bwd::launch<bf16, 32, 64, 64>(a, s);
     if (dh == 64) return bwd::launch<bf16, 64, 64, 64>(a, s);
     if (dh == 128) return bwd::launch<bf16, 128, 64, 64>(a, s);
+    if (dh == 192) return bwd::launch<bf16, 192, 32, 32>(a, s);
+    if (dh == 256) return bwd::launch<bf16, 256, 32, 32>(a, s);
     return -2;
   }
   return -1;

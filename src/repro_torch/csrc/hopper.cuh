@@ -49,16 +49,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes the current device's primary context current on the calling thread
+// (cudaSetDevice does so).  cuTensorMapEncodeTiled needs a current
+// context, and a thread whose runtime calls so far needed none -- PyTorch's
+// autograd worker, say -- has none yet.
+inline cudaError_t bind_context() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 // A bf16 tensor map of `rank` dims (innermost first; dim 0 contiguous),
 // strides in BYTES for dims 1.. (multiples of 16), a box of 64 elements in
 // dim 0 (128 bytes, the swizzle span) and box[1..] elements in the others.
-// Elements outside the tensor read as zeros.  Returns false if the driver
-// refuses the description.
+// Elements outside the tensor read as zeros.  Binds the device's context
+// first, whatever thread calls.  Returns false if the driver refuses the
+// description.
 inline bool make_map(CUtensorMap* map, const void* base, int rank,
                      const uint64_t* dims, const uint64_t* strides_bytes,
                      const uint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
+  if (fn == nullptr || bind_context() != cudaSuccess) return false;
   cuuint64_t d[5], s[4];
   cuuint32_t b[5], e[5];
   for (int i = 0; i < rank; ++i) {
@@ -182,6 +193,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A plain (non-tensor) bulk copy of `bytes` from global to shared memory;
+// completion lands on `bar`.  Both addresses 16-byte aligned, `bytes` a
+// multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

@@ -16,12 +16,14 @@ route.
 
 The gradient: `FlashAttention` (a `torch.autograd.Function`) runs the
 forward with its per-row log-sum-exp and, for the backward,
-`flash_attention_bwd` -- the CUDA kernel of the same `.cu` on a card
-("fma" for fp32, "wmma" for bf16, head dims in `BWD_HEAD_DIMS`; another
-head dim raises `NotImplementedError`), `attention_bwd_ref` on the CPU.
-The TPU kernel has no backward; the reference trains through its plain
-chunked attention instead.  `flash_attention_bwd.launches` counts its
-launches.
+`flash_attention_bwd` -- the CUDA kernels of the same `.cu` on a card,
+picked by the forward's `route` asked of q, k, v and dO ("wgmma" for bf16
+at head dim 64 or 128 with TMA-describable tensors; "wmma" for other bf16;
+"fma" for fp32; the forward's `HEAD_DIMS`, another raises
+`NotImplementedError`), `attention_bwd_ref` on the CPU.  The TPU kernel has
+no backward; the reference trains through its plain chunked attention
+instead.  `flash_attention_bwd.launches` counts its launches and
+`flash_attention_bwd.launches_by_route` splits them by route.
 """
 from __future__ import annotations
 
@@ -37,24 +39,26 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_ref)
 
 # head dims the .cu instantiates on the fma and wmma routes, and the ones
-# its wgmma kernel takes (a test reads both out of the .cu)
+# its wgmma kernels take, forward and backward alike (a test reads them out
+# of the .cu)
 HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128)
-# head dims the backward kernel instantiates (a test reads them out of the
-# .cu too)
-BWD_HEAD_DIMS = (32, 64, 128)
+# the backward's scratch rows: S rounded up to a multiple of this (the
+# .cu's wgb::PAD)
+BWD_PAD = 192
 
 
 def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
           strides: Sequence[Sequence[int]]) -> str:
-    """The kernel `flash_attention_launch` runs, by shape: fp32 -> "fma"
-    (head dims 32, 64, 128, 192, 256); bf16 with a head dim in
-    `WGMMA_HEAD_DIMS` (64, 128) whose q, k, v bases (`ptrs`) are 16-byte
+    """The kernel `flash_attention_launch` runs, by shape, and the kernels
+    `flash_attention_bwd_launch` runs when asked of q, k, v and dO: fp32 ->
+    "fma" (head dims 32, 64, 128, 192, 256); bf16 with a head dim in
+    `WGMMA_HEAD_DIMS` (64, 128) whose q, k, v (dO) bases (`ptrs`) are 16-byte
     aligned and whose (batch, position, head) strides (elements) are
     multiples of 8, i.e. of 16 bytes, as TMA needs -> "wgmma"; any other
     bf16, among them every one at head dim 32, 192 or 256 (deepseek_v32's
-    192, gemma3's 256) -> "wmma".  `flash_launch` refuses a head dim outside
-    `HEAD_DIMS` before this is asked."""
+    192, gemma3's 256) -> "wmma".  `flash_launch` and `flash_attention_bwd`
+    refuse a head dim outside `HEAD_DIMS` before this is asked."""
     if dtype == torch.float32:
         return "fma"
     tma = (dh in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in ptrs)
@@ -119,16 +123,17 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of the forward in model layout: q, o, do [B, S, H, dh];
     k, v [B, S, KVH, dh]; lse [B, H, S] fp32 from the forward -> (dq, dk,
     dv) in q's type.  On the CPU `attention_bwd_ref`; on CUDA tensors the
-    backward kernel (deterministic: no atomics), or a raise."""
+    backward kernels of `route`'s route (deterministic: no atomics), or
+    a raise -- never another route."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, softcap=softcap)
     B, S, H, dh = q.shape
     KVH = k.shape[2]
-    if dh not in BWD_HEAD_DIMS:
+    if dh not in HEAD_DIMS:
         raise NotImplementedError(
             f"flash_attention_bwd: head dim {dh} has no backward kernel "
-            f"(head dims {BWD_HEAD_DIMS})")
+            f"(head dims {HEAD_DIMS})")
     _check_qkv("flash_attention_bwd", q, k, v)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
             or do.dtype != q.dtype or lse.shape != (B, H, S) \
@@ -146,11 +151,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     f32 = dict(dtype=torch.float32, device=q.device)
-    D = torch.empty((B, H, S), **f32)
+    S_pad = -(-S // BWD_PAD) * BWD_PAD
+    D = torch.empty((2 * B * H * S_pad,), **f32)
     dk_part = torch.empty((B, H, S, dh), **f32)
     dv_part = torch.empty((B, H, S, dh), **f32)
     strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
-    r = "fma" if q.dtype == torch.float32 else "wmma"
+    r = route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
+              [t.stride()[:3] for t in (q, k, v, do)])
     code = _build.load().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
@@ -207,4 +214,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 flash_attention.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_route = {"fma": 0, "wmma": 0}
+flash_attention_bwd.launches_by_route = dict.fromkeys(_launch.ROUTES, 0)

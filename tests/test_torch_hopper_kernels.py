@@ -7,6 +7,7 @@ import re
 import shutil
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import pytest
 import torch
 
@@ -175,6 +176,214 @@ def test_flash_route_edges(case, want):
     assert _fa_route(q, k, v, dtype, ptrs) == want
 
 
+# ------------------------------------------------- backward route rules --
+
+_BWD_ALIGNED = (0, 0, 0, 0)  # q, k, v, dO bases
+
+
+def _bwd_route(q, k, v, do, dtype=torch.bfloat16, ptrs=_BWD_ALIGNED):
+    return fa.route(dtype, q.shape[-1], ptrs,
+                    [t.stride()[:3] for t in (q, k, v, do)])
+
+
+def _fused_qkv(B, S, H, KVH, dh):
+    """q, k, v as slices of one fused projection [B, S, H + 2 KVH, dh]."""
+    qkv = torch.empty((B, S, H + 2 * KVH, dh), device="meta")
+    return qkv.split((H, KVH, KVH), dim=2)
+
+
+@pytest.mark.parametrize("dtype,dh,layout,want", [
+    *[(torch.float32, dh, "model", "fma") for dh in fa.HEAD_DIMS],
+    (torch.bfloat16, 64, "model", "wgmma"),
+    (torch.bfloat16, 128, "model", "wgmma"),
+    (torch.bfloat16, 64, "fused", "wgmma"),
+    (torch.bfloat16, 128, "fused", "wgmma"),
+    (torch.bfloat16, 32, "model", "wmma"),
+    (torch.bfloat16, 192, "model", "wmma"),
+    (torch.bfloat16, 256, "model", "wmma"),
+    (torch.bfloat16, 128, "unaligned_q", "wmma"),
+    (torch.bfloat16, 128, "unaligned_do", "wmma"),
+    (torch.bfloat16, 64, "unaligned_k", "wmma"),
+    (torch.bfloat16, 128, "odd_pos_stride", "wmma"),
+    (torch.bfloat16, 128, "odd_do_stride", "wmma"),
+    (torch.float32, 128, "unaligned_q", "fma"),
+])
+def test_flash_bwd_route(dtype, dh, layout, want):
+    """fp32 -> fma; bf16 at head dim 64 / 128 with 16-byte-aligned q, k, v,
+    dO bases and strides of 8 elements -> wgmma (slices of a fused
+    projection too); every other bf16 -> wmma."""
+    B, S, H, KVH = 2, 100, 8, 2
+    if layout == "fused":
+        q, k, v = _fused_qkv(B, S, H, KVH, dh)
+    else:
+        q, k, v = _model_qkv(B, S, H, KVH, dh)
+    do = torch.empty((B, S, H, dh), device="meta")
+    if layout == "odd_pos_stride":
+        q = torch.as_strided(torch.empty(10 ** 6, device="meta"),
+                             (B, S, H, dh), (S * (H * dh + 4), H * dh + 4,
+                                             dh, 1))
+    if layout == "odd_do_stride":
+        do = torch.as_strided(torch.empty(10 ** 6, device="meta"),
+                              (B, S, H, dh), (S * H * (dh + 2), H * (dh + 2),
+                                              dh + 2, 1))
+    ptrs = {"unaligned_q": (2, 0, 0, 0), "unaligned_k": (0, 2, 0, 0),
+            "unaligned_do": (0, 0, 0, 8)}.get(layout, _BWD_ALIGNED)
+    assert _bwd_route(q, k, v, do, dtype, ptrs) == want
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_1b",
+                                  "deepseek_v32", "olmo_1b", "zamba2_1p2b"])
+def test_flash_bwd_route_of_the_models(arch):
+    """Each model's bf16 attention in model layout takes wgmma where its
+    head dim has a wgmma backward, wmma where not (gemma3's 256,
+    deepseek_v32's 192)."""
+    cfg = get_config(arch)
+    q, k, v = _model_qkv(1, 4096, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+    want = "wgmma" if cfg.head_dim in fa.WGMMA_HEAD_DIMS else "wmma"
+    assert _bwd_route(q, k, v, q) == want
+
+
+# --------------------------------------------------- backward tile walks --
+
+def _cu_src() -> str:
+    return (_build.CSRC / "flash_attention.cu").read_text()
+
+
+def bwd_tiles() -> dict:
+    """The backward's (key-side, query-side) tile shapes by (route, head
+    dim), read back out of csrc/flash_attention.cu: the dK/dV kernel's
+    (keys per block, queries per tile) and the dQ kernel's (queries per
+    block, keys per tile).  The fma and wmma kernels use one (BQ, BKV) for
+    both; the wgmma kernels their own constants."""
+    src = _cu_src()
+    body = src[src.index('extern "C" int flash_attention_bwd_launch('):]
+    out = {}
+    for dh, dt, dh2, bq, bkv in re.findall(
+            r"if \(dh == (\d+)\) return bwd::launch<(\w+), (\d+), (\d+), "
+            r"(\d+)>", body):
+        assert dh == dh2
+        route = "fma" if dt == "float" else "wmma"
+        out[(route, int(dh))] = {"dkdv": (int(bkv), int(bq)),
+                                 "dq": (int(bq), int(bkv))}
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+             for n in ("KV_KEYS", "KV_QS", "Q_QS", "Q_KEYS")}
+    for dh in fa.WGMMA_HEAD_DIMS:
+        out[("wgmma", dh)] = {"dkdv": (const["KV_KEYS"], const["KV_QS"]),
+                              "dq": (const["Q_QS"], const["Q_KEYS"])}
+    return out
+
+
+def dkdv_walk(S, KEYS, QS, causal, window):
+    """Plain mirror of the dK/dV kernels' walk: per key tile k0 (one block
+    each), the query tiles q0 it visits, in order."""
+    walk = {}
+    for k0 in range(0, S, KEYS):
+        qt_lo = k0 // QS if causal else 0
+        q_end = min(S, k0 + KEYS - 1 + window) if window else S
+        walk[k0] = [qt * QS for qt in range(qt_lo, -(-q_end // QS))]
+    return walk
+
+
+def dq_walk(S, QS, KEYS, causal, window):
+    """Plain mirror of the dQ kernels' walk: per query tile q0 (one block
+    each), the key tiles k0 it visits, in order (the forward's frontier)."""
+    walk = {}
+    for q0 in range(0, S, QS):
+        kv_hi = min(S, q0 + QS) if causal else S
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        walk[q0] = [t * KEYS for t in range(kv_lo // KEYS,
+                                            -(-kv_hi // KEYS))]
+    return walk
+
+
+def _visible(S, causal, window):
+    """[q, k] of every pair the forward's mask lets through, by
+    enumeration."""
+    qpos = np.arange(S)[:, None]
+    kpos = np.arange(S)[None, :]
+    vis = np.ones((S, S), bool)
+    if causal:
+        vis &= kpos <= qpos
+    if window:
+        vis &= kpos > qpos - window
+    return vis
+
+
+def _tile_counts(vis, q_rows, k_rows):
+    """Visible pairs per (query tile, key tile) of the given row counts."""
+    S = vis.shape[0]
+    nq, nk = -(-S // q_rows), -(-S // k_rows)
+    pad = np.zeros((nq * q_rows, nk * k_rows), np.int64)
+    pad[:S, :S] = vis
+    return pad.reshape(nq, q_rows, nk, k_rows).sum(axis=(1, 3))
+
+
+@pytest.mark.parametrize("window", [None, 16, 512], ids=["nowin", "w16",
+                                                          "w512"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", [100, 192, 1000, 4096])
+def test_bwd_walks_cover_every_visible_pair_once(S, causal, window):
+    """At every route's tiles (read from the .cu), each walk visits each
+    tile pair at most once and every tile pair holding a visible (q, k)
+    pair exactly once, so every visible pair is summed once into dK/dV and
+    once into dQ.  Where a wgmma consumer skips the mask (its 64 rows against
+    the tile: no causal diagonal, no window edge, no ragged end in the
+    dQ kernel), every pair it sums is visible."""
+    vis = _visible(S, causal, window)
+    tiles = bwd_tiles()
+    assert {r for r, _ in tiles} == {"fma", "wmma", "wgmma"}
+    for (route, dh), t in tiles.items():
+        keys, qs = t["dkdv"]
+        counts = _tile_counts(vis, qs, keys)
+        seen = np.zeros_like(counts)
+        for k0, q0s in dkdv_walk(S, keys, qs, causal, window).items():
+            for q0 in q0s:
+                seen[q0 // qs, k0 // keys] += 1
+        assert seen.max() <= 1, (route, dh, "dkdv")
+        assert (seen[counts > 0] == 1).all(), (route, dh, "dkdv")
+        q_rows, k_rows = t["dq"]
+        counts = _tile_counts(vis, q_rows, k_rows)
+        seen = np.zeros_like(counts)
+        for q0, k0s in dq_walk(S, q_rows, k_rows, causal, window).items():
+            for k0 in k0s:
+                seen[q0 // q_rows, k0 // k_rows] += 1
+        assert seen.max() <= 1, (route, dh, "dq")
+        assert (seen[counts > 0] == 1).all(), (route, dh, "dq")
+        if route != "wgmma":
+            continue
+        # the mask-skip tests of the kernels, per 64-row consumer slice
+        for k0, q0s in dkdv_walk(S, keys, qs, causal, window).items():
+            for kw in range(k0, min(k0 + keys, S), 64):
+                for q0 in q0s:
+                    diag = causal and kw + 63 > q0
+                    wedge = bool(window) and kw <= q0 + qs - 1 - window
+                    if not (diag or wedge):
+                        assert vis[q0:q0 + qs, kw:kw + 64].all()
+        for q0, k0s in dq_walk(S, q_rows, k_rows, causal, window).items():
+            for qw in range(q0, min(q0 + q_rows, S), 64):
+                for k0 in k0s:
+                    edge = k0 + k_rows > S
+                    diag = causal and k0 + k_rows - 1 > qw
+                    wedge = bool(window) and k0 <= qw + 63 - window
+                    if not (edge or diag or wedge):
+                        assert vis[qw:qw + 64, k0:k0 + k_rows].all()
+
+
+def test_bwd_tiles_of_the_cu():
+    """The tiles the walks are held at: 64 x 64 on wmma up to head dim 128,
+    32 x 32 at 192 and 256 (and every fma head dim), the wgmma kernels'
+    128-key (dK, dV) and 192-query (dQ) blocks over 64-row tiles, every head
+    dim of HEAD_DIMS on fma and wmma."""
+    tiles = bwd_tiles()
+    for dh in fa.HEAD_DIMS:
+        assert tiles[("fma", dh)]["dq"] == (32, 32)
+        assert tiles[("wmma", dh)]["dq"] == ((64, 64) if dh <= 128
+                                              else (32, 32))
+    for dh in fa.WGMMA_HEAD_DIMS:
+        assert tiles[("wgmma", dh)] == {"dkdv": (128, 64), "dq": (192, 64)}
+
+
 def _resident_views(L, n_experts, K, N, D):
     """The MoE devices' resident [L, n_e, K, N] stacks under round-robin
     placement: strided views of the model's stack."""
@@ -234,8 +443,10 @@ def test_count_launch_by_route_and_disagreement_raises():
     assert kern.launches == 0 and set(kern.launches_by_route.values()) == {0}
 
 
-@pytest.mark.parametrize("wrapper", [sg.super_gmm, fa.flash_attention],
-                         ids=["super_gmm", "flash_attention"])
+@pytest.mark.parametrize("wrapper", [sg.super_gmm, fa.flash_attention,
+                                     fa.flash_attention_bwd],
+                         ids=["super_gmm", "flash_attention",
+                              "flash_attention_bwd"])
 def test_wrappers_carry_route_counts(wrapper):
     assert set(wrapper.launches_by_route) == {"fma", "wmma", "wgmma"}
 

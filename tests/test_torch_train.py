@@ -48,13 +48,18 @@ LOSS_TOL = 1e-5
 GRAD_TOL = 1e-4
 
 # (arch, config fields): qwen3 MoE at dispatch groups 1 and 2, olmo (dense),
-# gemma3 (local windows, and a logit softcap through the backward)
+# gemma3 (local windows, and a logit softcap through the backward); the
+# backward's wide head dims: gemma3 at its published 256 (windows kept) and
+# qwen3 at deepseek_v32's 192
 CASES = {
     "qwen3_g1": (ARCH, dict(num_layers=2, num_experts=4, top_k=2)),
     "qwen3_g2": (ARCH, dict(num_layers=2, num_experts=4, top_k=2,
                             dispatch_groups=2)),
     "olmo": ("olmo_1b", dict(num_layers=2)),
     "gemma3": ("gemma3_1b", dict(logit_softcap=30.0)),
+    "gemma3_dh256": ("gemma3_1b", dict(head_dim=256)),
+    "qwen3_dh192": (ARCH, dict(num_layers=2, num_experts=4, top_k=2,
+                               head_dim=192)),
 }
 
 
@@ -229,8 +234,10 @@ def test_flash_wrapper_bh_layout_is_differentiable():
 
 
 def test_bwd_head_dims_match_the_cu():
-    """BWD_HEAD_DIMS == what flash_attention_bwd_launch instantiates on both
-    routes (fp32 fma, bf16 wmma)."""
+    """The forward's HEAD_DIMS == what flash_attention_bwd_launch
+    instantiates on the fp32 fma and bf16 wmma routes, and its
+    WGMMA_HEAD_DIMS == the backward's wgmma route's (the backward routes by
+    the forward's rule)."""
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch", "csrc", "flash_attention.cu")
@@ -240,10 +247,15 @@ def test_bwd_head_dims_match_the_cu():
         dims = tuple(int(a) for a, b in re.findall(
             r"if \(dh == (\d+)\) return bwd::launch<" + dt + r", (\d+),",
             body) if a == b)
-        assert dims == fa.BWD_HEAD_DIMS == (32, 64, 128)
+        assert dims == fa.HEAD_DIMS == (32, 64, 128, 192, 256)
+    wg = tuple(int(a) for a, b in re.findall(
+        r"if \(dh == (\d+)\) return wgb::launch<(\d+)>", body) if a == b)
+    assert wg == fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert re.search(r"constexpr int PAD = (\d+);", src).group(1) == str(
+        fa.BWD_PAD)
 
 
-@pytest.mark.parametrize("dh", [16, 192, 256])
+@pytest.mark.parametrize("dh", [16, 48, 320])
 def test_flash_bwd_refuses_other_head_dims(dh):
     """Off the CPU, a head dim without a backward kernel raises
     NotImplementedError naming it, before anything is launched or built
