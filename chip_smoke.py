@@ -11,7 +11,9 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             combine_gather against their plain PyTorch versions on the
             card: main-path shapes (bf16) and edge shapes (fp32, C=192,
             S=192, window, softcap, head dims 192 and 256 in GQA model
-            layout (S 192/2047, window 512/16, unaligned bases), every layer
+            layout (S 192/2047, window 512/16, softcap, bf16 on the
+            wide-head wgmma kernel twice torch.equal and its lse against
+            the plain one, unaligned bases on wmma), every layer
             id from one launch signature
             with no host sync between launches; d=16/4100, N=0/1, every
             pair dropped, unaligned bases); the decode MoE layer's routes:
@@ -107,10 +109,11 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             line).  `--phases device,build,examples` runs it alone
   train     (after the qwen3 model is released) training on the card:
             (a) first, the wgmma launches on threads with no current CUDA
-            context (a remat recompute of the wgmma flash forward as the
-            first op of the autograd thread, gradients torch.equal to no
-            remat; the flash forward, its backward and super_gmm each
-            alone on a new thread, torch.equal); then
+            context (a remat recompute of the wgmma flash forward at dh 256
+            and 128 as the first op of the autograd thread, gradients
+            torch.equal to no remat; the flash forward at dh 128 and 256,
+            its backward and super_gmm each alone on a new thread,
+            torch.equal); then
             flash_attention_bwd against attention_bwd_ref --
             FLASH_BWD_CASES: the main-path shape (bf16, B 1, S 2048, H 64,
             KVH 4, dh 128, causal), fp32, S 192, window 512 and 16,
@@ -136,7 +139,9 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             batch, then gemma3_1b at published width and all 26 layers on
             one [1, 4096] batch (loss falls, finite, every leaf a non-zero
             gradient, one flash_attention_bwd per attention layer and step
-            on "wgmma" for qwen3 and "wmma" for gemma3's head dim 256, no
+            on "wgmma" for qwen3 and "wmma" for gemma3's head dim 256,
+            every flash forward -- remat's recompute included -- on
+            "wgmma" for both, no
             host sync for gemma3; per step the launches, host syncs,
             forward / backward / optimizer ms, tokens/s, peak memory, model
             FLOPs share); the backward kernels timed at those steps'
@@ -155,7 +160,7 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             seamless_m4t_large_v2 (24 + 24, dh 64; [2, 16384] frame
             embeddings -> 2048 decoder tokens) -- api.prefill of [2, 2048]
             tokens (flash launches == causal attention layers: 0 / 6 / 24
-            for the last three, on wmma at dh 256, wgmma at 128 and 64; each
+            for the last three, on wgmma at dh 256, 128 and 64; each
             launch's output vs the plain version on its own q, k, v; the
             logits vs the dense attention oracle) and 32 (gemma, rwkv6) or 8
             greedy api.decode steps with no host sync (the recurrent
@@ -165,7 +170,7 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             gated in fp32 at the same width and depth, 30 GB of
             weights); then deepseek_v32 at
             published width, depth 1: lm_forward on the Super Kernel
-            (E=256, wgmma) and flash at dh 192 (wmma) vs default_gmm (tol
+            (E=256, wgmma) and flash at dh 192 (wgmma) vs default_gmm (tol
             1e-1), and its flash, dispatch, gmm and combine calls each vs
             the plain version on the path's own inputs; one {"zoo": ...}
             line.
@@ -177,7 +182,8 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             dense, flash_attention at the wave's modal (B, S) and at the one
             with the largest share of launches * B * S^2 and at the zoo's
             head dims 192, 256 and 64 (zamba2's and seamless's shapes; S
-            2048, causal), dispatch_scatter
+            2048, causal) and gemma3_1b's train shapes ([1, 4096], window
+            512 and global), each with its route, dispatch_scatter
             and combine_gather at the decode shape on the decode path's
             route and on the TPU signature; the host's cost of each step of
             a wrapper call
@@ -209,7 +215,9 @@ into the other tree's root and run it there as
     python3 chip_smoke.py --phases device,build,timing --shapes-from F
 which times super_gmm, flash_attention and flash_attention_bwd alone at
 that line's shapes, the decode MoE layer's kernel_moe_dispatch /
-kernel_moe_combine calls, and a decode step alone, with the repro_torch beside the script, and prints one
+kernel_moe_combine calls, a decode step alone and a profiled gemma3_1b
+train step (its device time by kernel, the flash forward's and backward's
+share), with the repro_torch beside the script, and prints one
 {"timing": ...} line.
 
 Without a CUDA device the script exits non-zero and prints no result.
@@ -569,29 +577,55 @@ def check_flash_attention(gen) -> float:
 
 def check_flash_wide_heads(gen, check):
     """Head dims 192 and 256 (deepseek_v32's and gemma3's heads, GQA in
-    model layout) against attention_ref on expanded heads, on the card:
-    bf16 on wmma (tol 4e-2) and fp32 on fma (tol 2e-5), causal, window 512
-    and 16, S 192 and 2047; then unaligned bases on wmma.  `check` is
-    check_flash_attention's (absolute and row-relative bounds)."""
+    model layout) against the plain version on expanded heads, on the card:
+    bf16 on wgmma (the wide-head kernel; tol 4e-2) and fp32 on fma (tol
+    2e-5), causal, window 512 and 16, softcap, S 192 and 2047; each bf16
+    case twice (torch.equal) and once more with its log-sum-exp (o the same
+    bits, lse within LSE_TOL of attention_fwd_ref's); then unaligned bases
+    on wmma.  `check` is check_flash_attention's (absolute and row-relative
+    bounds)."""
+    from repro_torch.kernels.flash_attention.flash_attention import \
+        flash_launch
+    from repro_torch.kernels.flash_attention.ref import attention_fwd_ref
+
     def rnd(shape, dtype):
         return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
-    n = 0
+    n, worst_lse = 0, 0.0
     for dtype, tol, route in ((torch.float32, 2e-5, "fma"),
-                              (torch.bfloat16, 4e-2, "wmma")):
+                              (torch.bfloat16, 4e-2, "wgmma")):
         for B, H, KVH, dh in ((1, 128, 8, 192), (2, 4, 1, 256)):
             for S in (192, 2047):
                 q = rnd((B, S, H, dh), dtype)
                 k, v = rnd((B, S, KVH, dh), dtype), rnd((B, S, KVH, dh), dtype)
-                for window in (None, 512, 16):
+                for window, cap in ((None, None), (512, None), (16, None),
+                                    (None, 30.0)):
                     what = (f"mha_flash {dtype} B={B} H={H} KVH={KVH} "
-                            f"dh={dh} S={S} window={window}")
+                            f"dh={dh} S={S} window={window} softcap={cap}")
                     routes = _routes(flash_attention)
-                    got = mha_flash(q, k, v, window=window)
+                    got = mha_flash(q, k, v, window=window, softcap=cap)
                     _took(flash_attention, routes, route, what)
-                    check(got, _mha_plain(q, k, v, window), dtype, tol, what)
-                    del got
+                    check(got, _mha_plain(q, k, v, window, cap), dtype, tol,
+                          what)
                     n += 1
+                    if dtype == torch.bfloat16:
+                        again = mha_flash(q, k, v, window=window, softcap=cap)
+                        expect(torch.equal(got, again),
+                               f"{what}: two calls differ")
+                        o, lse = flash_launch(q, k, v, causal=True,
+                                              window=window, softcap=cap,
+                                              with_lse=True)
+                        expect(torch.equal(o, got),
+                               f"{what}: o with its lse differs")
+                        lse_ref = attention_fwd_ref(
+                            q.float(), k.float(), v.float(), window=window,
+                            softcap=cap)[1]
+                        err = max_err(lse, lse_ref)
+                        expect(err <= LSE_TOL,
+                               f"{what}: lse err {err} (tol {LSE_TOL})")
+                        worst_lse = max(worst_lse, err)
+                        del again, o, lse, lse_ref
+                    del got
                 del q, k, v
     for dh, H, KVH in ((192, 16, 8), (256, 4, 1)):
         q = _unaligned((1, 300, H, dh), torch.bfloat16, gen)
@@ -612,9 +646,11 @@ def check_flash_wide_heads(gen, check):
             raise Failed(f"flash_attention took head dim 96 ({dtype}): no "
                          f"kernel is instantiated for it")
     print(f"[kernels] mha_flash at head dims 192 (H=128 KVH=8) and 256 (H=4 "
-          f"KVH=1), S 192/2047, causal / window 512 / window 16, unaligned "
-          f"bases: {n} cases, bf16 all on wmma (tol 4e-2), fp32 all on fma "
-          f"(tol 2e-5) ok; head dim 96 raises")
+          f"KVH=1), S 192/2047, causal / window 512 / window 16 / softcap "
+          f"30, unaligned bases: {n} cases, bf16 aligned all on wgmma (tol "
+          f"4e-2; two calls torch.equal; lse max err {worst_lse:.1e}, tol "
+          f"{LSE_TOL:.0e}), unaligned on wmma, fp32 all on fma (tol 2e-5) "
+          f"ok; head dim 96 raises")
 
 
 def _mha_plain(q, k, v, window=None, softcap=None):
@@ -2404,55 +2440,66 @@ def _on_fresh_thread(fn) -> dict:
 def check_fresh_threads(gen) -> dict:
     """The wgmma launches encode tensor maps, which needs a current CUDA
     context, on threads that have none: (a) a remat recompute of the wgmma
-    flash forward (torch.utils.checkpoint over mha_flash, bf16 dh 128) as
-    the first op of the process's autograd thread -- this must be the run's
-    first backward -- its gradients torch.equal to the same without remat;
-    (b) the flash forward, its backward and super_gmm, each on "wgmma",
-    alone on a new Python thread, torch.equal to the main thread's.  Each
-    thread must have begun with no context, or the check shows nothing."""
+    flash forward (torch.utils.checkpoint over mha_flash at bf16 dh 256 --
+    the wide-head kernel, recomputed first -- and then dh 128) as the first
+    op of the process's autograd thread -- this must be the run's first
+    backward -- its gradients torch.equal to the same without remat; (b)
+    the flash forward at dh 128 and 256, the backward and super_gmm, each
+    on "wgmma", alone on a new Python thread, torch.equal to the main
+    thread's.  Each thread must have begun with no context, or the check
+    shows nothing."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_launch)
     seen = []
 
     class Probe(torch.autograd.Function):  # the backward's first node
         @staticmethod
-        def forward(ctx, x):
-            return x.view_as(x)
+        def forward(ctx, x, y):
+            return x.view_as(x), y.view_as(y)
 
         @staticmethod
-        def backward(ctx, g):
+        def backward(ctx, gx, gy):
             seen.append(_current_context())
-            return g
+            return gx, gy
+
+    def both(q2, k2, v2, q, k, v):  # the wide head first, then the main one
+        return mha_flash(q2, k2, v2), mha_flash(q, k, v)
 
     q, k, v, do = _flash_inputs(gen, BF, 1, 1024, 8, 2, 128, "model")
+    q2, k2, v2, do2 = _flash_inputs(gen, BF, 1, 1024, 4, 1, 256, "model")
     fwd, bwd = _routes(flash_attention), _routes(flash_attention_bwd)
-    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    out = Probe.apply(torch.utils.checkpoint.checkpoint(
-        mha_flash, *qkv, use_reentrant=False))
-    remat = torch.autograd.grad(out, qkv, do)
+    qkv = [t.detach().requires_grad_(True) for t in (q2, k2, v2, q, k, v)]
+    out = Probe.apply(*torch.utils.checkpoint.checkpoint(
+        both, *qkv, use_reentrant=False))
+    remat = torch.autograd.grad(out, qkv, (do2, do))
     expect(seen == [None], f"train fresh threads: the autograd thread's "
            f"context at its first node was {seen}, not none: this check "
            f"must run the process's first backward")
     _took(flash_attention, fwd, "wgmma", "the remat forward and recompute")
-    _took(flash_attention_bwd, bwd, "wgmma", "the remat backward")
-    expect(flash_attention.launches_by_route["wgmma"] - fwd["wgmma"] == 2,
+    expect(flash_attention.launches_by_route["wgmma"] - fwd["wgmma"] == 4,
            "train fresh threads: the forward was not recomputed")
-    qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
-    plain = torch.autograd.grad(mha_flash(*qkv), qkv, do)
+    now = _routes(flash_attention_bwd)
+    expect({r: now[r] - bwd.get(r, 0) for r in now if now[r] != bwd.get(r)}
+           == {"wgmma": 1, "wmma": 1}, f"train fresh threads: the remat "
+           f"backward's routes {now} (before {bwd}): want dh 128 on wgmma, "
+           f"dh 256 on wmma")
+    qkv = [t.detach().requires_grad_(True) for t in (q2, k2, v2, q, k, v)]
+    plain = torch.autograd.grad(both(*qkv), qkv, (do2, do))
     expect(all(torch.equal(a, b) for a, b in zip(remat, plain)),
            "train fresh threads: the remat gradients differ")
     opts = dict(causal=True, window=None, softcap=None)
     o, lse = flash_launch(q, k, v, with_lse=True, **opts)
     lid = torch.tensor([0], dtype=torch.int32, device=DEV)
     w, x = _gmm_inputs(gen, 1, 8, 64, 1024, 512, BF)
-    calls = [(flash_attention,
+    calls = [("flash_attention", flash_attention,
               lambda: flash_launch(q, k, v, with_lse=True, **opts)),
-             (flash_attention_bwd,
+             ("flash_attention dh256", flash_attention,
+              lambda: flash_launch(q2, k2, v2, with_lse=True, **opts)),
+             ("flash_attention_bwd", flash_attention_bwd,
               lambda: flash_attention_bwd(q, k, v, o, lse, do, **opts)),
-             (super_gmm, lambda: super_gmm(lid, w, x))]
+             ("super_gmm", super_gmm, lambda: super_gmm(lid, w, x))]
     fresh = {}
-    for wrapper, fn in calls:
-        name = wrapper.__name__
+    for name, wrapper, fn in calls:
         before = _routes(wrapper)
         box = _on_fresh_thread(fn)
         _took(wrapper, before, "wgmma", f"{name} on a fresh thread")
@@ -2466,8 +2513,9 @@ def check_fresh_threads(gen) -> dict:
                f"train fresh threads: {name} on a fresh thread differs")
         fresh[name] = "wgmma"
     print("[train] tensor maps on context-less threads: a remat recompute "
-          "of the wgmma forward as the autograd thread's first op, and "
-          + ", ".join(fresh) + " each alone on a new thread, torch.equal")
+          "of the wgmma forward (dh 256, then 128) as the autograd thread's "
+          "first op, and " + ", ".join(fresh) + " each alone on a new "
+          "thread, torch.equal")
     return {"remat_first_op": True, "fresh_thread": fresh}
 
 
@@ -2814,7 +2862,8 @@ def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
     tokens/s, peak memory.  Gated: the loss falls and stays finite, every
     leaf gets a non-zero gradient, every kernel of `kernels` launches, every
     step runs one flash_attention_bwd per attention layer and all on
-    `bwd_route`, and with `no_sync` no host sync.  The inputs of the last
+    `bwd_route`, every flash forward (the recompute under remat included)
+    on "wgmma", and with `no_sync` no host sync.  The inputs of the last
     step's last call of each wrapper in `record` are kept for the timing
     rows."""
     from repro_torch.data.pipeline import pipeline_for
@@ -2882,6 +2931,7 @@ def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
             wall = time.time() - t0
         counts = _read_counts()
         routes = dict(fa.flash_attention_bwd.launches_by_route)
+        fwd_routes = dict(fa.flash_attention.launches_by_route)
         syncs = _launch.reset_host_syncs()
         total.update(counts)
         if grads is not None:
@@ -2894,6 +2944,10 @@ def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
         expect(routes == {**dict.fromkeys(routes, 0), bwd_route: n_attn},
                f"train {cfg.name}: flash_attention_bwd launches by route "
                f"{routes}, not {n_attn} on {bwd_route}")
+        expect(fwd_routes["wgmma"] == counts["flash_attention"] > 0,
+               f"train {cfg.name}: flash_attention launches by route "
+               f"{fwd_routes}, not all {counts['flash_attention']} on "
+               f"wgmma")
         expect(not no_sync or syncs == 0,
                f"train {cfg.name}: {syncs} host syncs in a step")
         rec = {"step": i + 1, "loss": float(m["loss"]),
@@ -2906,6 +2960,7 @@ def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
                "wall_s": wall, "tokens_per_s": tokens / wall,
                "host_syncs": syncs, "launches": counts,
                "flash_bwd_by_route": routes,
+               "flash_fwd_by_route": fwd_routes,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
         rec["model_flops_share"] = flops / (rec["step_ms"] / 1e3) \
             / PEAK_FLOPS[torch.bfloat16]
@@ -2916,6 +2971,7 @@ def full_width_train(seed: int, arch: str = ARCH, layers=TRAIN_LAYERS,
               f"{rec['tokens_per_s']:.0f} tokens/s, {syncs} host syncs, "
               f"peak {rec['peak_gb']:.1f} GB, model FLOPs share "
               f"{rec['model_flops_share']:.3f}, launches {counts}, "
+              f"flash_attention by route {fwd_routes}, "
               f"flash_attention_bwd by route {routes}")
     losses = [s["loss"] for s in steps]
     expect(all(np.isfinite(losses)) and all(np.isfinite(
@@ -2995,11 +3051,11 @@ def _sdpa_bwd(q, k, v, do, kw):
 
 
 def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
-    """flash_attention_bwd on these inputs (the route `route` gives them),
+    """flash_attention_bwd on these inputs (the route `bwd_route` gives them),
     timed beside its plain version, SDPA's backward and the bound
     from this call's bytes and the operations of its visible pairs."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        flash_attention_bwd, route)
+        bwd_route, flash_attention_bwd)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     B, S, H, dh = q.shape
     KVH = k.shape[2]
@@ -3016,8 +3072,9 @@ def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
          "dtype": str(q.dtype).split(".")[-1], "causal": kw["causal"],
          "window": kw.get("window")}, "flash_bwd")
     row["case"] = label
-    row["route"] = route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
-                         [t.stride()[:3] for t in (q, k, v, do)])
+    row["route"] = bwd_route(q.dtype, dh,
+                             [t.data_ptr() for t in (q, k, v, do)],
+                             [t.stride()[:3] for t in (q, k, v, do)])
     row["library_call"] = (f"scaled_dot_product_attention backward "
                            f"(expanded heads, autograd, {backend} backend)")
     return row
@@ -3102,6 +3159,8 @@ def phase_train(seed: int, gen) -> dict:
     full = full_width_train(seed)
     inputs = full.pop("inputs")
     out["full_width"] = full
+    # gemma3's head dim 256: the forward on the wide-head wgmma kernel, the
+    # backward on wmma
     gemma = full_width_train(seed, GEMMA_ARCH, None, GEMMA_S, "wmma",
                              kernels=("flash_attention",
                                       "flash_attention_bwd"),
@@ -3709,7 +3768,7 @@ def _zoo_deepseek_v32(seed: int) -> dict:
     heads, 256 experts top-8, one shared expert), depth 61 -> 1 (a layer of
     experts is 22.5 GB in bf16): lm_forward(gmm=make_super_kernel_gmm(...))
     on tokens [1, 2048] against lm_forward on default_gmm, relative
-    Frobenius error of the logits within ZOO_TOL; flash at dh 192 on wmma,
+    Frobenius error of the logits within ZOO_TOL; flash at dh 192 on wgmma,
     super_gmm 3 launches on wgmma with E = 256, dispatch "whole" and combine
     "weighted" 1 each -- counts set to 0 just before the counted call.  The
     counted call's flash, dispatch, gmm and combine calls are recorded and
@@ -3757,7 +3816,7 @@ def _zoo_deepseek_v32(seed: int) -> dict:
         expect(tuple(got.shape) == (1, ZOO_S, cfg.vocab_size)
                and bool(torch.isfinite(got.float()).all()),
                "zoo deepseek_v32: logits of the wrong shape or not finite")
-        for name, route, n in (("flash_attention", "wmma", 1),
+        for name, route, n in (("flash_attention", "wgmma", 1),
                                ("super_gmm", "wgmma", 3),
                                ("dispatch_scatter", "whole", 1),
                                ("combine_gather", "weighted", 1)):
@@ -3793,7 +3852,7 @@ def _zoo_deepseek_v32(seed: int) -> dict:
           f"{weights_gb:.1f} GB: lm_forward on the Super Kernel, tokens [1, "
           f"{ZOO_S}], {r['forward_ms']:.1f} ms; vs default_gmm relative "
           f"Frobenius err {rel:.3e} (tol {ZOO_TOL}); launches {launches} "
-          f"(flash on wmma at dh 192, super_gmm on wgmma at E=256); on the "
+          f"(flash on wgmma at dh 192, super_gmm on wgmma at E=256); on the "
           f"path's own inputs vs plain: flash max abs err "
           f"{flash['max_abs_err']:.2e} (tol 4e-2), row rel err "
           f"{flash['row_rel_err']:.2e} (tol {ROW_REL_TOL[torch.bfloat16]}); "
@@ -4194,6 +4253,66 @@ def decode_step_alone(seed: int, lengths) -> dict:
     return out
 
 
+def gemma3_step_profile(seed: int) -> dict:
+    """gemma3_1b at published width and all 26 layers, bf16, AdamW, one
+    repeated [1, GEMMA_S] batch (the train phase's run): two steps to warm
+    up, a third timed (host wall around the synchronised step, CUDA events
+    around it), a fourth under torch.profiler -- the device time summed over
+    its kernels and copies, the flash forward's and backward's share (the
+    kernels named flash, "flash_bwd" for the backward's), and the largest
+    kernels.  Only the API the port has had since its training slice, so
+    that it runs in any tree (the `--shapes-from` turns)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch.steps import TrainState, build_train_step
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(GEMMA_ARCH)
+    params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
+                            cfg, DEV)
+    opt = AdamW(lr=3e-4)
+    state = TrainState(params, opt.init(params))
+    step_fn = build_train_step(build_api(cfg), opt)
+    batch = pipeline_for(cfg, GEMMA_S, 1, seed, device=DEV).batch(0)
+    for _ in range(2):
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    state, _ = step_fn(state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+    rows = sorted(((e.key, e.device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.device_time_total > 0), key=lambda r: -r[1])
+    dev = sum(r[1] for r in rows)
+    bwd = sum(r[1] for r in rows if "flash_bwd" in r[0])
+    fwd = sum(r[1] for r in rows if "flash" in r[0]) - bwd
+    out = {"arch": cfg.name, "S": GEMMA_S, "step_wall_ms": wall,
+           "step_event_ms": e0.elapsed_time(e1), "device_ms": dev,
+           "device_share_of_wall": dev / wall if wall else None,
+           "flash_fwd_device_ms": fwd, "flash_bwd_device_ms": bwd,
+           "top": [[n[:70], ms, c] for n, ms, c in rows[:8]]}
+    print(f"[timing] {cfg.name} train step [1, {GEMMA_S}]: wall {wall:.1f} "
+          f"ms (events {out['step_event_ms']:.1f}), device time summed over "
+          f"its kernels {dev:.1f} ms, flash forward {fwd:.2f} ms, flash "
+          f"backward {bwd:.2f} ms (profiled step)")
+    for n, ms, c in rows[:8]:
+        print(f"[timing]   {ms:8.2f} ms {c:5d}x  {n[:80]}")
+    del state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def wave_shapes(serve: dict) -> dict:
     """What the timing phase times, from the serve wave: super_gmm at the
     modal capacity bucket (n_e, C) and, of the launches in it, the one with
@@ -4295,42 +4414,63 @@ def time_super_gmm_tiles(shapes: dict, gen) -> dict:
     return out
 
 
-# flash_attention at the zoo's head dims, timed beside the serve wave's
-# shapes: (case, config whose heads it takes, B); S = ZOO_S, causal
-ZOO_FLASH = (("dh192", "deepseek_v32", 1), ("dh256", "gemma3_1b", 2),
-             ("dh64_zamba", "zamba2_1p2b", 2),
-             ("dh64_seamless", "seamless_m4t_large_v2", 2))
+# flash_attention at the zoo's head dims and gemma3_1b's train shapes, timed
+# beside the serve wave's shapes: (case, config whose heads it takes, B, S,
+# window); causal
+ZOO_FLASH = (("dh192", "deepseek_v32", 1, ZOO_S, None),
+             ("dh256", "gemma3_1b", 2, ZOO_S, None),
+             ("dh64_zamba", "zamba2_1p2b", 2, ZOO_S, None),
+             ("dh64_seamless", "seamless_m4t_large_v2", 2, ZOO_S, None),
+             ("dh256_train_local", "gemma3_1b", 1, GEMMA_S, 512),
+             ("dh256_train_global", "gemma3_1b", 1, GEMMA_S, None))
 
 
 def time_flash_attention(shapes: list, gen) -> list:
     """The serve wave's (B, S) at qwen3's heads ("modal", "heaviest"), then
     the zoo's head dims 192, 256 and 64 (zamba2's shared attention,
-    seamless's decoder; ZOO_FLASH) -- each causal, in bf16."""
+    seamless's decoder) and gemma3_1b's train step's local (window 512) and
+    global layers at [1, 4096] (ZOO_FLASH) -- each causal, in bf16, each
+    with the route it took.  The bound counts the visible pairs; the
+    library call is SDPA on expanded heads (a boolean mask for a
+    window)."""
     bf = torch.bfloat16
-    specs = [("modal" if i == 0 else "heaviest", B, S, get_config(ARCH))
+    specs = [("modal" if i == 0 else "heaviest", B, S, None, get_config(ARCH))
              for i, (B, S) in enumerate(shapes)]
-    specs += [(name, B, ZOO_S, get_config(arch))
-              for name, arch, B in ZOO_FLASH]
+    specs += [(name, B, S, window, get_config(arch))
+              for name, arch, B, S, window in ZOO_FLASH]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     cases = []
-    for name, B, S, c in specs:
+    for name, B, S, window, c in specs:
         H, KVH, dh = c.num_heads, c.num_kv_heads, c.head_dim
         q = torch.randn((B, S, H, dh), generator=gen, device=DEV).to(bf)
         k = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
         v = torch.randn((B, S, KVH, dh), generator=gen, device=DEV).to(bf)
         qh, kh, vh = (_expand_kv(t, H).permute(0, 2, 1, 3).contiguous()
                       for t in (q, k, v))
+        mask = None
+        if window is not None:
+            pos = torch.arange(S, device=DEV)
+            mask = (pos[None, :] <= pos[:, None]) & (
+                pos[None, :] > pos[:, None] - window)
+        pairs = S * S / 2 if window is None else _attn_pairs(S, window)
+        before = _routes(flash_attention)
+        mha_flash(q, k, v, window=window)
+        took = [r for r, n in _routes(flash_attention).items()
+                if n != before.get(r, 0)]
         cases.append(_case(
             name, "flash",
-            lambda: mha_flash(q, k, v),
-            lambda: _mha_plain(q, k, v),
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qh, kh, vh, is_causal=True),
-            "scaled_dot_product_attention (expanded heads)",
+            lambda: mha_flash(q, k, v, window=window),
+            lambda: _mha_plain(q, k, v, window),
+            lambda: sdpa(qh, kh, vh, is_causal=True) if mask is None
+            else sdpa(qh, kh, vh, attn_mask=mask),
+            "scaled_dot_product_attention (expanded heads"
+            + (", boolean window mask)" if mask is not None else ")"),
             2 * (2 * B * S * H * dh + 2 * B * S * KVH * dh),
-            4.0 * B * H * S * S * dh / 2, bf,
+            4.0 * B * H * pairs * dh, bf,
             {"B": B, "S": S, "H": H, "KVH": KVH, "dh": dh, "dtype": "bf16",
-             "causal": True}))
-        del q, k, v, qh, kh, vh
+             "causal": True, "window": window}))
+        cases[-1]["route"] = took[0] if len(took) == 1 else took
+        del q, k, v, qh, kh, vh, mask
     return cases
 
 
@@ -4500,8 +4640,8 @@ def main() -> int:
                     help="a file holding the {\"kernels\": ...} line of a "
                     "full run: time super_gmm and flash_attention alone at "
                     "its shapes, the decode MoE layer's dispatch and "
-                    "combine calls, and a decode step alone (--phases "
-                    "device,build,timing)")
+                    "combine calls, a decode step alone and a profiled "
+                    "gemma3_1b train step (--phases device,build,timing)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device -- this script measures on the "
@@ -4533,7 +4673,8 @@ def main() -> int:
                 shapes["flash_attention_bwd"], gen),
             "moe_path": time_moe_path(gen, T),
             "decode_step": decode_step_alone(args.seed,
-                                             [int(v) for v in lengths])}}))
+                                             [int(v) for v in lengths]),
+            "gemma3_step": gemma3_step_profile(args.seed)}}))
         print(card)
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None

@@ -17,15 +17,15 @@
 //
 //   route   dtype  head dims              kernel
 //   wgmma   bf16   64, 128 (TMA-able)     flash_wgmma_kernel<DH>
+//           bf16   192, 256 (TMA-able)    flash_wgmma_wide_kernel<DH>
 //   wmma    bf16   32, 64, 128, 192, 256  flash_attention_kernel<bf16, DH,
 //                                         64, 64>
 //   fma     fp32   32, 64, 128, 192, 256  flash_attention_kernel<float, DH,
 //                                         32, 32>
 //
-// Head dims 192 (deepseek_v32) and 256 (gemma3) take wmma in bf16 whatever
-// their alignment: a wgmma kernel at those widths would hold a 96- or
-// 128-register fp32 O accumulator per consumer thread beside S, and the
-// 128-wide one already needs 240.  Any other head dim is refused (-2).
+// The wmma route takes bf16 at head dim 32 and every bf16 tensor TMA cannot
+// describe.  Any other head dim is refused (-2).  The backward's routes
+// differ (below `bwd`): it has no wgmma kernel at head dims 192 and 256.
 //
 // What bounds it on an H100: 4 * B * H * S^2 * dh / 2 operations (causal)
 // against B * (2 H + 2 KVH) * S * dh elements moved.  At the serving shapes
@@ -52,9 +52,30 @@
 // S).  setmaxnreg moves registers from the producer warpgroup (24) to the
 // consumers (240).
 //
+// bf16, head dim 192 or 256 (`flash_wgmma_wide_kernel`: deepseek_v32's
+// and gemma3's heads): the same walk and the same register-resident
+// softmax, retiled for an O accumulator of 96 or 128 fp32 registers a
+// thread.  Keys come in tiles of 64, so S is 32 registers and P 16: 144 /
+// 176 registers of fragments at head dim 192 / 256, where 128-key tiles
+// would need 224 at 256.  Two warpgroups only, with thread 0 issuing the
+// TMA ring between its warpgroup's products: a third (producer) warpgroup
+// caps every thread at 168 registers, which these consumers exceed;
+// with two each thread may hold 255 (ptxas: 211 at 192, 229 at 256, no
+// spill).  Q (128 rows) is loaded once, K and V stream through a ring of
+// 64-key stages (three at 192, two at 256: 197,712 / 197,688 bytes of
+// shared memory, static_asserted).  O += P V runs as m64n128 plus m64n64
+// (192) or two m64n128 (256) register-A products over the 64-column
+// chunks of V.  A warpgroup skips the products of a key tile none of its
+// 64 rows can see (the causal diagonal's far half, the window's near
+// edge, rows past S) but still takes part in the ring.  At 64 keys S =
+// Q K^T reads 1/16 byte of shared memory per multiply-add (Q re-read for
+// every product), the SM's whole shared-memory rate at the tensor cores'
+// peak: with the ring's TMA writes beside it, shared memory as much as
+// the tensor cores bounds this kernel.
+//
 // `flash_attention_kernel` serves the other two routes: a bf16 tensor that
 // TMA cannot describe (a base not 16-byte aligned, a stride not a multiple
-// of 16 bytes), head dim 32, 192 or 256 runs its wmma products, whose scores
+// of 16 bytes) or at head dim 32 runs its wmma products, whose scores
 // and fp32 accumulator live in shared memory; fp32 runs its plain FMA loops
 // (correctness only).  Its shared memory (`Layout`) is, in bytes: bf16 64x64
 // tiles at DH 128 / 192 / 256: 112,896 / 153,856 / 194,816; fp32 32x32
@@ -595,33 +616,316 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// ------------------------------ head dims 192 and 256 (the wide heads) --
+//
+// The same block (128 queries of one batch*head, heaviest first), the same
+// frontier and the same register-resident softmax as flash_wgmma_kernel,
+// retiled so that an O accumulator of DH / 2 fp32 registers a thread fits
+// beside S and P: 64-key tiles, two warpgroups, no producer warpgroup.
+constexpr int WIDE_BKV = 64;       // keys per tile
+constexpr int WIDE_THREADS = 256;  // two consumer warpgroups
+static_assert(BQ == 128 && WIDE_BKV == 64, "64-row warpgroup slices");
+
+template <int DH> struct SmemWide {
+  static constexpr int STAGES = DH == 192 ? 3 : 2;  // depth of the K/V ring
+  static constexpr int CH = DH / 64;
+  static constexpr int Q_CHUNK = BQ * 128;
+  static constexpr int KV_CHUNK = WIDE_BKV * 128;
+  static constexpr int KV_TILE = CH * KV_CHUNK;
+  static constexpr int OFF_K = CH * Q_CHUNK;  // Q | K ring | V ring | bars
+  static constexpr int OFF_V = OFF_K + STAGES * KV_TILE;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_TILE;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 3 * STAGES) + 1024;
+};
+static_assert(SmemWide<192>::BYTES == 197712 &&
+                  SmemWide<256>::BYTES == 197688,
+              "wide-head layout");
+static_assert(SmemWide<256>::BYTES <= MAX_SMEM &&
+                  SmemWide<192>::BYTES <= MAX_SMEM,
+              "wide-head shared memory");
+
+// O[64 x 128] or O[64 x 64] += P[64 x 16] V[16 x N]: the product of one
+// slice of the accumulator, picked by its size.
+__device__ __forceinline__ void pv_acc(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  hopper::wgmma_rs_n128(d, a, db, 1);
+}
+__device__ __forceinline__ void pv_acc(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  hopper::wgmma_rs_n64(d, a, db, 1);
+}
+
+// Key tile k0's K and V into stage s of the wide kernel's ring, each
+// completing on its own barrier (S = Q K^T need not wait for V).
+template <int DH>
+__device__ __forceinline__ void wide_fetch(unsigned char* smem,
+                                           uint64_t* k_full, uint64_t* v_full,
+                                           const CUtensorMap* tk,
+                                           const CUtensorMap* tv, int k0,
+                                           int s, int hk, int b) {
+  using L = SmemWide<DH>;
+  unsigned char* ks = smem + L::OFF_K + s * L::KV_TILE;
+  unsigned char* vs = smem + L::OFF_V + s * L::KV_TILE;
+  hopper::mbar_expect_tx(&k_full[s], L::KV_TILE);
+  for (int c = 0; c < L::CH; ++c)
+    hopper::tma_load_4d(ks + c * L::KV_CHUNK, tk, &k_full[s], 64 * c, k0, hk,
+                        b);
+  hopper::mbar_expect_tx(&v_full[s], L::KV_TILE);
+  for (int c = 0; c < L::CH; ++c)
+    hopper::tma_load_4d(vs + c * L::KV_CHUNK, tv, &v_full[s], 64 * c, k0, hk,
+                        b);
+}
+
+// The accumulator layout is flash_wgmma_kernel's; O is held as `oa`
+// (columns 0-127) and `ob` (columns 128 to DH - 1).
+template <int DH>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        bf16* __restrict__ o, float* __restrict__ lse,
+                        Strides so, int H, int KVH, int S, int causal,
+                        int window, float softcap, float sm_scale) {
+  using L = SmemWide<DH>;
+  constexpr int BKV = WIDE_BKV, ST = L::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = bars + 1 + ST;
+  uint64_t* empty = bars + 1 + 2 * ST;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);  // GQA: the KV head this query head reads
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tiles first
+  // key tiles inside the causal / window frontier of this query tile
+  const int kv_hi = causal ? min(S, q0 + BQ) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / BKV;
+  const int n_tiles = (kv_hi + BKV - 1) / BKV - t_lo;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&empty[s], WIDE_THREADS / 32);  // lane 0 of each warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q once; the ring's first tiles
+    hopper::mbar_expect_tx(q_full, L::CH * L::Q_CHUNK);
+    for (int c = 0; c < L::CH; ++c)
+      hopper::tma_load_4d(smem + c * L::Q_CHUNK, &tq, q_full, 64 * c, q0, h,
+                          b);
+    for (int i = 0; i < min(ST, n_tiles); ++i)
+      wide_fetch<DH>(smem, k_full, v_full, &tk, &tv, (t_lo + i) * BKV, i, hk,
+                     b);
+  }
+
+  const int wgi = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int qw = q0 + 64 * wgi;  // the first of this warpgroup's rows
+  const int qa = qw + (tid / 32) * 16 + lane / 4;  // rows qa, qa + 8
+  const float c2 = sm_scale * LOG2E;
+  const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+  const unsigned char* qs = smem + wgi * 64 * 128;
+
+  float sacc[BKV / 2], oa[64], ob[DH / 2 - 64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) oa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH / 2 - 64; ++i) ob[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % ST;
+    const uint32_t ph = (i / ST) & 1;
+    const int k0 = (t_lo + i) * BKV;
+    // thread 0 refills the stage of tile i - 1 once both warpgroups are
+    // done with it (so they stay within a tile of each other)
+    if (threadIdx.x == 0 && i > 0 && i - 1 + ST < n_tiles) {
+      const int sp = (i - 1) % ST;
+      hopper::mbar_wait(&empty[sp], ((i - 1) / ST) & 1);
+      wide_fetch<DH>(smem, k_full, v_full, &tk, &tv,
+                     (t_lo + i - 1 + ST) * BKV, sp, hk, b);
+    }
+    __syncwarp();
+    const unsigned char* ks = smem + L::OFF_K + s * L::KV_TILE;
+    const unsigned char* vs = smem + L::OFF_V + s * L::KV_TILE;
+    // does any of this warpgroup's 64 rows see a key of the tile?
+    const bool live = qw < S && !(causal && k0 > qw + 63) &&
+                      !(window > 0 && k0 + BKV - 1 <= qw - window);
+
+    // ---- S = Q K^T into registers ------------------------------------
+    hopper::mbar_wait(&k_full[s], ph);
+    uint32_t pa[BKV / 16][4];  // P in bf16: the A operand of P V
+    if (live) {
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint64_t da = hopper::desc_sw128(
+            qs + (kk / 4) * L::Q_CHUNK + (kk % 4) * 32, 16, 1024);
+        const uint64_t db = hopper::desc_sw128(
+            ks + (kk / 4) * L::KV_CHUNK + (kk % 4) * 32, 16, 1024);
+        hopper::wgmma_ss_n64<0>(sacc, da, db, kk > 0);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sacc);
+
+      // ---- online softmax on the registers ---------------------------
+      if (softcap > 0.f) {  // kept in raw units: c2 applies the scale
+#pragma unroll
+        for (int j = 0; j < BKV / 2; ++j)
+          sacc[j] = tanhf(sacc[j] * cap_in) * cap_out;
+      }
+      const bool edge = k0 + BKV > S;
+      const bool diag = causal && k0 + BKV - 1 > qw;
+      const bool wedge = window > 0 && k0 <= qw + 63 - window;
+      if (edge || diag || wedge) {  // only tiles where a mask bites
+#pragma unroll
+        for (int j = 0; j < BKV / 2; ++j) {
+          const int kpos = k0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+          const int qpos = qa + 8 * ((j >> 1) & 1);
+          bool ok = kpos < S;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          if (!ok) sacc[j] = -INFINITY;
+        }
+      }
+      float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int j = 0; j < BKV / 2; ++j)
+        mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], sacc[j]);
+      float bias[2], corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        // a row with no visible key so far keeps p = 0 (exp2(-inf))
+        bias[r] = mx[r] == -INFINITY ? 0.f : mx[r] * c2;
+        corr[r] = ex2(m_run[r] * c2 - bias[r]);
+        m_run[r] = mx[r];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e0 = 8 * kk + 2 * j, r = j & 1;
+          const float p0 = ex2(fmaf(sacc[e0], c2, -bias[r]));
+          const float p1 = ex2(fmaf(sacc[e0 + 1], c2, -bias[r]));
+          rs[r] += p0 + p1;
+          pa[kk][j] = pack_bf16(p0, p1);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+#pragma unroll
+      for (int j = 0; j < 64; ++j) oa[j] *= corr[(j >> 1) & 1];
+#pragma unroll
+      for (int j = 0; j < DH / 2 - 64; ++j) ob[j] *= corr[(j >> 1) & 1];
+    }
+
+    // ---- O += P V over the 64-column chunks of V ---------------------
+    hopper::mbar_wait(&v_full[s], ph);
+    if (live) {
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const unsigned char* vk = vs + kk * 16 * 128;
+        pv_acc(oa, pa[kk], hopper::desc_sw128(vk, L::KV_CHUNK, 1024));
+        pv_acc(ob, pa[kk],
+               hopper::desc_sw128(vk + 2 * L::KV_CHUNK, L::KV_CHUNK, 1024));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(oa);
+      hopper::fence_regs(ob);
+    }
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K/V stage is free
+  }
+
+  // ---- o = acc / l, rows beyond S not stored ---------------------------
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    inv[r] = 1.f / fmaxf(l, 1e-30f);
+    // the row's log-sum-exp in natural units of the scaled score (m_run is
+    // in raw units: sm_scale brings it there), for the backward
+    const int qpos = qa + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && qpos < S)
+      lse[static_cast<long long>(bh) * S + qpos] =
+          m_run[r] * sm_scale + logf(fmaxf(l, 1e-30f));
+  }
+  bf16* op = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qpos = qa + 8 * r;
+    if (qpos >= S) continue;
+    bf16* row = op + qpos * so.s + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(oa[4 * j + 2 * r] * inv[r],
+                                oa[4 * j + 2 * r + 1] * inv[r]);
+#pragma unroll
+    for (int j = 0; j < (DH / 2 - 64) / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 128 + 8 * j) =
+          __floats2bfloat162_rn(ob[4 * j + 2 * r] * inv[r],
+                                ob[4 * j + 2 * r + 1] * inv[r]);
+  }
+}
+
+// flash_wgmma_kernel at head dim 64 / 128 (one box of BQ rows serves Q, K
+// and V), flash_wgmma_wide_kernel at 192 / 256 (Q in boxes of BQ rows, K
+// and V of WIDE_BKV).
 template <int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int KVH, int S, Strides sq, Strides sk, Strides sv,
            Strides so, int causal, int window, float softcap, float sm_scale,
            cudaStream_t stream) {
+  constexpr bool wide = DH > 128;
   // 4-D maps over [B, S, heads, dh] with the real strides: (dh chunk, key
   // or query offset, head, batch) are the coordinates of a tile
-  const uint32_t box[4] = {64, BQ, 1, 1};
   auto map = [&](CUtensorMap* m, const void* base, int heads,
-                 const Strides& st) {
+                 const Strides& st, int rows) {
     const uint64_t dims[4] = {DH, static_cast<uint64_t>(S),
                               static_cast<uint64_t>(heads),
                               static_cast<uint64_t>(B)};
     const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+    const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
     return hopper::make_map(m, base, 4, dims, strides, box);
   };
-  static_assert(BQ == BKV, "one box shape serves Q, K and V");
+  constexpr int kv_rows = wide ? WIDE_BKV : BKV;
   CUtensorMap tq, tk, tv;
-  if (!map(&tq, q, H, sq) || !map(&tk, k, KVH, sk) || !map(&tv, v, KVH, sv))
+  if (!map(&tq, q, H, sq, BQ) || !map(&tk, k, KVH, sk, kv_rows) ||
+      !map(&tv, v, KVH, sv, kv_rows))
     return -3;
-  constexpr auto kern = flash_wgmma_kernel<DH>;
-  cudaError_t err = hopper::allow_smem<kern>(Smem<DH>::BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(B * H, (S + BQ - 1) / BQ);
-  kern<<<grid, THREADS, Smem<DH>::BYTES, stream>>>(
-      tq, tk, tv, reinterpret_cast<bf16*>(o), lse, so, H, KVH, S, causal,
-      window, softcap, sm_scale);
+  if constexpr (wide) {
+    constexpr auto kern = flash_wgmma_wide_kernel<DH>;
+    cudaError_t err = hopper::allow_smem<kern>(SmemWide<DH>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, WIDE_THREADS, SmemWide<DH>::BYTES, stream>>>(
+        tq, tk, tv, reinterpret_cast<bf16*>(o), lse, so, H, KVH, S, causal,
+        window, softcap, sm_scale);
+  } else {
+    static_assert(BQ == BKV, "one box shape serves Q, K and V");
+    constexpr auto kern = flash_wgmma_kernel<DH>;
+    cudaError_t err = hopper::allow_smem<kern>(Smem<DH>::BYTES);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kern<<<grid, THREADS, Smem<DH>::BYTES, stream>>>(
+        tq, tk, tv, reinterpret_cast<bf16*>(o), lse, so, H, KVH, S, causal,
+        window, softcap, sm_scale);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -647,8 +951,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // rounded to bf16 before their products, as the forward rounds P.
 //
 // Head dims and routes (flash_attention_bwd_launch below; the wrapper's
-// `route`, `HEAD_DIMS` and `WGMMA_HEAD_DIMS` pick them, as for the forward,
-// and a test reads the instantiations out of this file):
+// `bwd_route`, `HEAD_DIMS` and `BWD_WGMMA_HEAD_DIMS` pick them -- the
+// forward's rule over the backward's own wgmma head dims -- and a test
+// reads the instantiations out of this file):
 //
 //   route   dtype  head dims              kernels
 //   wgmma   bf16   64, 128 (TMA-able)     wgb:: flash_bwd_dkdv_wgmma_kernel,
@@ -1667,8 +1972,10 @@ int launch(const bwd::Args& a, cudaStream_t stream) {
 // Routes, as kernels/flash_attention/flash_attention.py::route picks them
 // by shape:
 constexpr int ROUTE_FMA = 0;    // fp32: plain FMA loops
-constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe; dh 32/192/256
-constexpr int ROUTE_WGMMA = 2;  // bf16, dh 64 or 128, TMA-describable
+constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe; dh 32
+                                // (backward: also dh 192/256)
+constexpr int ROUTE_WGMMA = 2;  // bf16, TMA-describable: dh 64/128/192/256
+                                // (backward: dh 64/128)
 
 // route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
 // q, o: [B, S, H, dh]-strided; k, v: [B, S, KVH, dh]-strided (strides in
@@ -1715,6 +2022,8 @@ extern "C" int flash_attention_launch(
       if (!aligned) return -4;
       if (dh == 64) return wg::launch<64>(FA_ARGS, s);
       if (dh == 128) return wg::launch<128>(FA_ARGS, s);
+      if (dh == 192) return wg::launch<192>(FA_ARGS, s);
+      if (dh == 256) return wg::launch<256>(FA_ARGS, s);
       return -4;
     }
     const int vec_ok = aligned ? 1 : 0;

@@ -217,19 +217,21 @@ def _cu_head_dims():
 
 def test_head_dims_match_the_cu():
     """HEAD_DIMS == what the fma and wmma routes instantiate,
-    WGMMA_HEAD_DIMS == what the wgmma route does: the two cannot drift."""
+    WGMMA_HEAD_DIMS == what the forward's wgmma route does (192 and 256 on
+    the wide-head kernel): the two cannot drift."""
     cu = _cu_head_dims()
     assert cu["fma"] == cu["wmma"] == fa.HEAD_DIMS == (32, 64, 128, 192, 256)
-    assert cu["wgmma"] == fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert cu["wgmma"] == fa.WGMMA_HEAD_DIMS == (64, 128, 192, 256)
 
 
-@pytest.mark.parametrize("arch,want", [("deepseek_v32", "wmma"),
-                                       ("gemma3_1b", "wmma"),
+@pytest.mark.parametrize("arch,want", [("deepseek_v32", "wgmma"),
+                                       ("gemma3_1b", "wgmma"),
                                        ("qwen2_1p5b", "wgmma"),
                                        ("deepseek_coder_33b", "wgmma")])
 def test_flash_route_of_the_zoo_shapes(arch, want):
-    """The model layout at each config's heads, bf16: head dims 192 and 256
-    take wmma though TMA could describe them; fp32 takes fma."""
+    """The model layout at each config's heads, bf16: every head dim here
+    (192 and 256 on the wide-head kernel, 128) takes wgmma, as TMA can
+    describe them; fp32 takes fma."""
     cfg = get_config(arch)
     B, S = 2, 2048
     q = torch.empty((B, S, cfg.q_dim), device="meta").reshape(

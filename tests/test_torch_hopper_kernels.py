@@ -163,15 +163,21 @@ _ODD_STRIDES = {  # (batch, position, head) strides, one not 16-byte aligned
     ("fp32", "fma"), ("dh32", "wmma"), ("dh64", "wgmma"),
     ("unaligned_q", "wmma"), ("unaligned_v", "wmma"),
     ("odd_head_stride", "wmma"), ("odd_pos_stride", "wmma"),
-    ("odd_batch_stride", "wmma")])
+    ("odd_batch_stride", "wmma"), ("dh192", "wgmma"), ("dh256", "wgmma"),
+    ("unaligned_q_dh192", "wmma"), ("unaligned_v_dh256", "wmma")])
 def test_flash_route_edges(case, want):
-    dh = {"dh32": 32, "dh64": 64}.get(case, 128)
+    """The forward's rule: bf16 at every wgmma head dim (192 and 256 on the
+    wide-head kernel) with TMA-describable tensors -> wgmma; an unaligned
+    base or stride, or head dim 32 -> wmma; fp32 -> fma."""
+    dh = next((d for d in (32, 64, 192, 256) if case.endswith(f"dh{d}")),
+              128)
     q, k, v = _model_qkv(2, 100, 8, 2, dh)
     if case in _ODD_STRIDES:
         q = torch.as_strided(torch.empty(10 ** 6, device="meta"),
                              (2, 100, 8, dh), (*_ODD_STRIDES[case], 1))
-    ptrs = {"unaligned_q": (2, 0, 0), "unaligned_v": (0, 0, 18)}.get(
-        case, (0, 0, 0))
+    ptrs = {"unaligned_q": (2, 0, 0), "unaligned_v": (0, 0, 18),
+            "unaligned_q_dh192": (2, 0, 0),
+            "unaligned_v_dh256": (0, 0, 18)}.get(case, (0, 0, 0))
     dtype = torch.float32 if case == "fp32" else torch.bfloat16
     assert _fa_route(q, k, v, dtype, ptrs) == want
 
@@ -182,8 +188,8 @@ _BWD_ALIGNED = (0, 0, 0, 0)  # q, k, v, dO bases
 
 
 def _bwd_route(q, k, v, do, dtype=torch.bfloat16, ptrs=_BWD_ALIGNED):
-    return fa.route(dtype, q.shape[-1], ptrs,
-                    [t.stride()[:3] for t in (q, k, v, do)])
+    return fa.bwd_route(dtype, q.shape[-1], ptrs,
+                        [t.stride()[:3] for t in (q, k, v, do)])
 
 
 def _fused_qkv(B, S, H, KVH, dh):
@@ -201,6 +207,9 @@ def _fused_qkv(B, S, H, KVH, dh):
     (torch.bfloat16, 32, "model", "wmma"),
     (torch.bfloat16, 192, "model", "wmma"),
     (torch.bfloat16, 256, "model", "wmma"),
+    (torch.bfloat16, 192, "fused", "wmma"),
+    (torch.bfloat16, 256, "fused", "wmma"),
+    (torch.bfloat16, 256, "unaligned_q", "wmma"),
     (torch.bfloat16, 128, "unaligned_q", "wmma"),
     (torch.bfloat16, 128, "unaligned_do", "wmma"),
     (torch.bfloat16, 64, "unaligned_k", "wmma"),
@@ -211,7 +220,8 @@ def _fused_qkv(B, S, H, KVH, dh):
 def test_flash_bwd_route(dtype, dh, layout, want):
     """fp32 -> fma; bf16 at head dim 64 / 128 with 16-byte-aligned q, k, v,
     dO bases and strides of 8 elements -> wgmma (slices of a fused
-    projection too); every other bf16 -> wmma."""
+    projection too); every other bf16, 192 and 256 however aligned ->
+    wmma."""
     B, S, H, KVH = 2, 100, 8, 2
     if layout == "fused":
         q, k, v = _fused_qkv(B, S, H, KVH, dh)
@@ -236,12 +246,41 @@ def test_flash_bwd_route(dtype, dh, layout, want):
 def test_flash_bwd_route_of_the_models(arch):
     """Each model's bf16 attention in model layout takes wgmma where its
     head dim has a wgmma backward, wmma where not (gemma3's 256,
-    deepseek_v32's 192)."""
+    deepseek_v32's 192); its forward takes wgmma at every one of them."""
     cfg = get_config(arch)
     q, k, v = _model_qkv(1, 4096, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
-    want = "wgmma" if cfg.head_dim in fa.WGMMA_HEAD_DIMS else "wmma"
+    want = "wgmma" if cfg.head_dim in fa.BWD_WGMMA_HEAD_DIMS else "wmma"
     assert _bwd_route(q, k, v, q) == want
+    assert _fa_route(q, k, v) == "wgmma"
+
+
+@pytest.mark.parametrize("layout", ["model", "fused", "unaligned_q",
+                                    "unaligned_do", "odd_pos_stride"])
+@pytest.mark.parametrize("dh", [192, 256])
+def test_flash_routes_split_at_the_wide_heads(dh, layout):
+    """At head dims 192 and 256 the two directions part: TMA-describable
+    bf16 runs its forward on the wide-head wgmma kernel and its backward on
+    wmma (the .cu has no wgmma backward there); a base or stride TMA cannot
+    take sends the forward to wmma too.  dO does not enter the forward's
+    rule."""
+    B, S, H, KVH = 1, 300, 8, 2
+    if layout == "fused":
+        q, k, v = _fused_qkv(B, S, H, KVH, dh)
+    else:
+        q, k, v = _model_qkv(B, S, H, KVH, dh)
+    if layout == "odd_pos_stride":
+        q = torch.as_strided(torch.empty(10 ** 6, device="meta"),
+                             (B, S, H, dh), (S * (H * dh + 4), H * dh + 4,
+                                             dh, 1))
+    do = torch.empty((B, S, H, dh), device="meta")
+    ptrs = {"unaligned_q": (2, 0, 0, 0),
+            "unaligned_do": (0, 0, 0, 8)}.get(layout, _BWD_ALIGNED)
+    fwd = "wmma" if layout in ("unaligned_q", "odd_pos_stride") else "wgmma"
+    assert _fa_route(q, k, v, ptrs=ptrs[:3]) == fwd
+    assert _bwd_route(q, k, v, do, ptrs=ptrs) == "wmma"
+    assert fa.route(torch.float32, dh, ptrs[:3],
+                    [t.stride()[:3] for t in (q, k, v)]) == "fma"
 
 
 # --------------------------------------------------- backward tile walks --
@@ -268,7 +307,7 @@ def bwd_tiles() -> dict:
                                  "dq": (int(bq), int(bkv))}
     const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
              for n in ("KV_KEYS", "KV_QS", "Q_QS", "Q_KEYS")}
-    for dh in fa.WGMMA_HEAD_DIMS:
+    for dh in fa.BWD_WGMMA_HEAD_DIMS:
         out[("wgmma", dh)] = {"dkdv": (const["KV_KEYS"], const["KV_QS"]),
                               "dq": (const["Q_QS"], const["Q_KEYS"])}
     return out
@@ -380,8 +419,81 @@ def test_bwd_tiles_of_the_cu():
         assert tiles[("fma", dh)]["dq"] == (32, 32)
         assert tiles[("wmma", dh)]["dq"] == ((64, 64) if dh <= 128
                                               else (32, 32))
-    for dh in fa.WGMMA_HEAD_DIMS:
+    for dh in fa.BWD_WGMMA_HEAD_DIMS:
         assert tiles[("wgmma", dh)] == {"dkdv": (128, 64), "dq": (192, 64)}
+
+
+# ----------------------------------------- wide-head forward tile walk --
+
+def wide_tiles() -> Tuple[int, int, dict]:
+    """flash_wgmma_wide_kernel's (queries per block, keys per tile) and its
+    ring depth by head dim, read back out of csrc/flash_attention.cu."""
+    src = _cu_src()
+    bq = int(re.search(r"constexpr int BQ = (\d+);", src).group(1))
+    bkv = int(re.search(r"constexpr int WIDE_BKV = (\d+);", src).group(1))
+    a, b = re.search(r"static constexpr int STAGES = DH == 192 \? (\d+) : "
+                     r"(\d+);", src).groups()
+    return bq, bkv, {192: int(a), 256: int(b)}
+
+
+def wide_walk(S, BQ, BKV, causal, window):
+    """Plain mirror of flash_wgmma_wide_kernel's walk: per query tile q0 (one
+    block each), its key tiles k0 in order, each as (qw, k0, live, masked)
+    for the block's two 64-row warpgroup slices qw: `live` the warpgroup
+    runs the tile's products (some row of it sees some key), `masked` it
+    applies the mask (the ragged end of S, the causal diagonal, the window
+    edge)."""
+    walk = {}
+    for q0 in range(0, S, BQ):
+        kv_hi = min(S, q0 + BQ) if causal else S
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        t_lo = kv_lo // BKV
+        visits = []
+        for t in range(t_lo, -(-kv_hi // BKV)):
+            k0 = t * BKV
+            for qw in range(q0, q0 + BQ, 64):
+                live = (qw < S and not (causal and k0 > qw + 63)
+                        and not (window and k0 + BKV - 1 <= qw - window))
+                masked = (k0 + BKV > S or (causal and k0 + BKV - 1 > qw)
+                          or bool(window and k0 <= qw + 63 - window))
+                visits.append((qw, k0, live, masked))
+        walk[q0] = visits
+    return walk
+
+
+@pytest.mark.parametrize("window", [None, 16, 512], ids=["nowin", "w16",
+                                                          "w512"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", [100, 192, 1000, 2047, 4096])
+def test_wide_forward_walk_covers_every_visible_pair_once(S, causal,
+                                                          window):
+    """At the wide-head kernel's tiles (read from the .cu: 128 queries, 64
+    keys), each 64-row warpgroup slice runs the products of every key tile
+    holding a pair it must see exactly once; a tile it skips holds no
+    visible pair of its rows; a tile it runs without the mask holds only
+    visible pairs; every block visits its key tiles in order, inside the
+    frontier, and at least one of its slices is live on each."""
+    BQ, BKV, stages = wide_tiles()
+    assert (BQ, BKV) == (128, 64) and stages == {192: 3, 256: 2}
+    vis = _visible(S, causal, window)
+    live_pairs = 0
+    seen = set()
+    for q0, visits in wide_walk(S, BQ, BKV, causal, window).items():
+        k0s = [k0 for _, k0, _, _ in visits[::BQ // 64]]
+        assert k0s == sorted(set(k0s)) and all(0 <= k < S for k in k0s)
+        for k0 in k0s:
+            assert any(live for _, kk, live, _ in visits if kk == k0)
+        for qw, k0, live, masked in visits:
+            block = vis[qw:qw + 64, k0:k0 + BKV]
+            assert (qw, k0) not in seen
+            seen.add((qw, k0))
+            if not live:
+                assert not block.any(), (qw, k0)
+                continue
+            live_pairs += int(block.sum())
+            if not masked:
+                assert k0 + BKV <= S and block.all(), (qw, k0)
+    assert live_pairs == int(vis.sum())
 
 
 def _resident_views(L, n_experts, K, N, D):

@@ -235,9 +235,10 @@ def test_flash_wrapper_bh_layout_is_differentiable():
 
 def test_bwd_head_dims_match_the_cu():
     """The forward's HEAD_DIMS == what flash_attention_bwd_launch
-    instantiates on the fp32 fma and bf16 wmma routes, and its
-    WGMMA_HEAD_DIMS == the backward's wgmma route's (the backward routes by
-    the forward's rule)."""
+    instantiates on the fp32 fma and bf16 wmma routes, and
+    BWD_WGMMA_HEAD_DIMS == the backward's wgmma route's (the backward routes
+    by the forward's rule over its own wgmma head dims: none at 192 or
+    256)."""
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch", "csrc", "flash_attention.cu")
@@ -250,7 +251,7 @@ def test_bwd_head_dims_match_the_cu():
         assert dims == fa.HEAD_DIMS == (32, 64, 128, 192, 256)
     wg = tuple(int(a) for a, b in re.findall(
         r"if \(dh == (\d+)\) return wgb::launch<(\d+)>", body) if a == b)
-    assert wg == fa.WGMMA_HEAD_DIMS == (64, 128)
+    assert wg == fa.BWD_WGMMA_HEAD_DIMS == (64, 128)
     assert re.search(r"constexpr int PAD = (\d+);", src).group(1) == str(
         fa.BWD_PAD)
 
