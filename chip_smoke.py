@@ -119,12 +119,15 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             KVH 4, dh 128, causal), fp32, S 192, window 512 and 16,
             softcap, dh 64, non-causal, an unaligned base, strided q/k/v,
             fp32 dh 32, gemma3_1b's local layer (dh 256, S 4096, H 4, KVH
-            1, window 512), dh 256 at a ragged S 1000, deepseek_v32's
+            1, window 512) and its global layer (no window), dh 256 at a ragged S 1000, deepseek_v32's
             geometry (dh 192, S 2048, H 128, KVH 8), fp32 dh 192 and 256,
-            no GQA (H = KVH 8) -- dq/dk/dv relative error within BWD_TOL,
-            two runs torch.equal, each on the route it must take (bf16 dh
-            64/128 in model layout, strided included, on "wgmma";
-            unaligned and dh 192/256 on "wmma"; fp32 on "fma"), the
+            no GQA (H = KVH 8), dh 192 and 256 at unaligned bases, dh 192
+            strided, dh 256 with a softcap and a window, dh 192 at S 129
+            (the scratch rows' PAD edge) and non-causal with a window --
+            dq/dk/dv relative error within BWD_TOL, two runs torch.equal,
+            each on the route it must take (bf16 at dh 64/128/192/256 in
+            model layout, strided included, on "wgmma"; unaligned on
+            "wmma"; fp32 on "fma"), the
             forward's o torch.equal with and without its lse and within
             the kernels phase's bars of the plain forward's at every case's
             shape, head dim 16 raising; combine_weighted_bwd at the full-width shape, dyb
@@ -139,16 +142,16 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             batch, then gemma3_1b at published width and all 26 layers on
             one [1, 4096] batch (loss falls, finite, every leaf a non-zero
             gradient, one flash_attention_bwd per attention layer and step
-            on "wgmma" for qwen3 and "wmma" for gemma3's head dim 256,
-            every flash forward -- remat's recompute included -- on
-            "wgmma" for both, no
+            on "wgmma" for both -- gemma3's head dim 256 on the wide-head
+            backward kernels --, every flash forward -- remat's recompute
+            included -- on "wgmma" for both, no
             host sync for gemma3; per step the launches, host syncs,
             forward / backward / optimizer ms, tokens/s, peak memory, model
             FLOPs share); the backward kernels timed at those steps'
-            inputs and flash_attention_bwd at deepseek_v32's geometry,
-            each beside its bound, its plain version and SDPA's backward on
-            expanded heads (the backend that ran named) (a {"train": ...}
-            line).  `--phases device,build,train` runs it alone
+            inputs, flash_attention_bwd at gemma3's global-layer shape
+            and at deepseek_v32's geometry, each beside its bound, its
+            plain version and SDPA's backward on expanded heads (the
+            backend that ran named) (a {"train": ...} line).  `--phases device,build,train` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -2353,25 +2356,39 @@ FLASH_BWD_CASES = [
     ("unaligned", BF, 1, 256, 8, 2, 128, True, None, None, "unaligned"),
     ("strided", BF, 1, 256, 8, 2, 128, True, None, None, "strided"),
     ("fp32_dh32", F32, 2, 100, 4, 4, 32, True, 16, 20.0, "model"),
-    # gemma3_1b's local layer (head dim 256, window 512), dh 256 ragged,
-    # deepseek_v32's geometry (head dim 192, H 128, KVH 8), fp32 at both,
-    # and no GQA on the wgmma route
+    # gemma3_1b's local layer (head dim 256, window 512) and its global
+    # layer (no window), dh 256 ragged, deepseek_v32's geometry (head dim
+    # 192, H 128, KVH 8), fp32 at both, and no GQA on the wgmma route
     ("gemma3_dh256", BF, 1, 4096, 4, 1, 256, True, 512, None, "model"),
+    ("gemma3_global", BF, 1, 4096, 4, 1, 256, True, None, None, "model"),
     ("dh256_S1000", BF, 1, 1000, 4, 1, 256, True, None, None, "model"),
     ("deepseek_dh192", BF, 1, 2048, 128, 8, 192, True, None, None, "model"),
     ("fp32_dh192", F32, 1, 256, 4, 2, 192, True, None, None, "model"),
     ("fp32_dh256", F32, 1, 200, 4, 1, 256, True, 64, 30.0, "model"),
     ("nogqa", BF, 1, 2048, 8, 8, 128, True, None, None, "model"),
+    # the wide-head wgmma backward's edges: unaligned bases (the wmma
+    # kernels at 32 x 32 tiles, still held against plain), fused-projection
+    # slices, softcap with a window, S 129 (a dQ block of 128 reads lse2 / D
+    # rows up to 255: the PAD edge), non-causal with a window
+    ("dh192_unaligned", BF, 1, 256, 4, 2, 192, True, None, None,
+     "unaligned"),
+    ("dh256_unaligned", BF, 1, 256, 4, 1, 256, True, 64, None, "unaligned"),
+    ("dh192_strided", BF, 1, 512, 8, 2, 192, True, None, None, "strided"),
+    ("dh256_softcap_window", BF, 1, 1024, 4, 1, 256, True, 256, 30.0,
+     "model"),
+    ("dh192_S129", BF, 2, 129, 8, 2, 192, True, None, None, "model"),
+    ("dh192_full_w128", BF, 1, 700, 4, 2, 192, False, 128, None, "model"),
 ]
 
 
 def _bwd_route_of(dt, dh, layout) -> str:
-    """The route a FLASH_BWD_CASES case must take: bf16 at head dim 64 or
-    128 in model layout (strided slices included) on wgmma, other bf16 on
-    wmma, fp32 on fma."""
+    """The route a FLASH_BWD_CASES case must take: bf16 at head dim 64, 128,
+    192 or 256 in model layout (strided slices included) on wgmma, other
+    bf16 (an unaligned base, head dim 32) on wmma, fp32 on fma."""
     if dt == F32:
         return "fma"
-    return "wgmma" if dh in (64, 128) and layout != "unaligned" else "wmma"
+    return "wgmma" if dh in (64, 128, 192, 256) and layout != "unaligned" \
+        else "wmma"
 
 
 def _bwd_wrappers():
@@ -2443,11 +2460,11 @@ def check_fresh_threads(gen) -> dict:
     flash forward (torch.utils.checkpoint over mha_flash at bf16 dh 256 --
     the wide-head kernel, recomputed first -- and then dh 128) as the first
     op of the process's autograd thread -- this must be the run's first
-    backward -- its gradients torch.equal to the same without remat; (b)
-    the flash forward at dh 128 and 256, the backward and super_gmm, each
-    on "wgmma", alone on a new Python thread, torch.equal to the main
-    thread's.  Each thread must have begun with no context, or the check
-    shows nothing."""
+    backward -- its gradients (both backwards on "wgmma") torch.equal to the
+    same without remat; (b) the flash forward at dh 128 and 256, the
+    backward at dh 128 and 256 and super_gmm, each on "wgmma", alone on a
+    new Python thread, torch.equal to the main thread's.  Each thread must
+    have begun with no context, or the check shows nothing."""
     from repro_torch.kernels.flash_attention.flash_attention import (
         flash_attention_bwd, flash_launch)
     seen = []
@@ -2480,15 +2497,15 @@ def check_fresh_threads(gen) -> dict:
            "train fresh threads: the forward was not recomputed")
     now = _routes(flash_attention_bwd)
     expect({r: now[r] - bwd.get(r, 0) for r in now if now[r] != bwd.get(r)}
-           == {"wgmma": 1, "wmma": 1}, f"train fresh threads: the remat "
-           f"backward's routes {now} (before {bwd}): want dh 128 on wgmma, "
-           f"dh 256 on wmma")
+           == {"wgmma": 2}, f"train fresh threads: the remat backward's "
+           f"routes {now} (before {bwd}): want dh 256 and 128 on wgmma")
     qkv = [t.detach().requires_grad_(True) for t in (q2, k2, v2, q, k, v)]
     plain = torch.autograd.grad(both(*qkv), qkv, (do2, do))
     expect(all(torch.equal(a, b) for a, b in zip(remat, plain)),
            "train fresh threads: the remat gradients differ")
     opts = dict(causal=True, window=None, softcap=None)
     o, lse = flash_launch(q, k, v, with_lse=True, **opts)
+    o2, lse2 = flash_launch(q2, k2, v2, with_lse=True, **opts)
     lid = torch.tensor([0], dtype=torch.int32, device=DEV)
     w, x = _gmm_inputs(gen, 1, 8, 64, 1024, 512, BF)
     calls = [("flash_attention", flash_attention,
@@ -2497,6 +2514,9 @@ def check_fresh_threads(gen) -> dict:
               lambda: flash_launch(q2, k2, v2, with_lse=True, **opts)),
              ("flash_attention_bwd", flash_attention_bwd,
               lambda: flash_attention_bwd(q, k, v, o, lse, do, **opts)),
+             ("flash_attention_bwd dh256", flash_attention_bwd,
+              lambda: flash_attention_bwd(q2, k2, v2, o2, lse2, do2,
+                                          **opts)),
              ("super_gmm", super_gmm, lambda: super_gmm(lid, w, x))]
     fresh = {}
     for name, wrapper, fn in calls:
@@ -3051,11 +3071,11 @@ def _sdpa_bwd(q, k, v, do, kw):
 
 
 def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
-    """flash_attention_bwd on these inputs (the route `bwd_route` gives them),
+    """flash_attention_bwd on these inputs (the route `route` gives them),
     timed beside its plain version, SDPA's backward and the bound
     from this call's bytes and the operations of its visible pairs."""
     from repro_torch.kernels.flash_attention.flash_attention import (
-        bwd_route, flash_attention_bwd)
+        flash_attention_bwd, route)
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
     B, S, H, dh = q.shape
     KVH = k.shape[2]
@@ -3072,9 +3092,8 @@ def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
          "dtype": str(q.dtype).split(".")[-1], "causal": kw["causal"],
          "window": kw.get("window")}, "flash_bwd")
     row["case"] = label
-    row["route"] = bwd_route(q.dtype, dh,
-                             [t.data_ptr() for t in (q, k, v, do)],
-                             [t.stride()[:3] for t in (q, k, v, do)])
+    row["route"] = route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
+                         [t.stride()[:3] for t in (q, k, v, do)])
     row["library_call"] = (f"scaled_dot_product_attention backward "
                            f"(expanded heads, autograd, {backend} backend)")
     return row
@@ -3083,8 +3102,11 @@ def _time_flash_bwd(label: str, q, k, v, o, lse, do, kw) -> dict:
 def time_bwd_kernels(inputs: dict, gemma_inputs: dict, gen) -> dict:
     """flash_attention_bwd at the inputs the full-width qwen3 step's last
     backward gave it (the main shape, wgmma), at gemma3_1b's last-step
-    inputs (head dim 256, wmma) and at deepseek_v32's attention geometry
-    (B 1, S 2048, H 128, KVH 8, head dim 192, causal, wmma; made here); and
+    inputs (head dim 256, its local layer: window 512), at gemma3_1b's
+    global-layer shape (B 1, S 4096, H 4, KVH 1, causal, no window) and at
+    deepseek_v32's attention geometry (B 1, S 2048, H 128, KVH 8, head dim
+    192, causal) -- the last two made here, all three on the wide-head
+    wgmma kernels; and
     combine_weighted_bwd at the qwen3 step's inputs.  Library yardsticks
     (timed here, used nowhere in the port): SDPA's backward (`_sdpa_bwd`),
     and embedding_bag(mode="sum", per_sample_weights) -- the weighted
@@ -3101,6 +3123,11 @@ def time_bwd_kernels(inputs: dict, gemma_inputs: dict, gen) -> dict:
     cases = [_time_flash_bwd("train qwen3 (main)", q, k, v, o, lse, do, kw)]
     (q, k, v, o, lse, do), kw = gemma_inputs["flash_attention_bwd"]
     cases.append(_time_flash_bwd("train gemma3_1b", q, k, v, o, lse, do, kw))
+    q, k, v, do = _flash_inputs(gen, BF, 1, GEMMA_S, 4, 1, 256, "model")
+    kw = dict(causal=True, window=None, softcap=None)
+    o, lse = flash_launch(q, k, v, with_lse=True, **kw)
+    cases.append(_time_flash_bwd("gemma3_1b global layer", q, k, v, o, lse,
+                                 do, kw))
     q, k, v, do = _flash_inputs(gen, BF, 1, 2048, 128, 8, 192, "model")
     kw = dict(causal=True, window=None, softcap=None)
     o, lse = flash_launch(q, k, v, with_lse=True, **kw)
@@ -3159,9 +3186,9 @@ def phase_train(seed: int, gen) -> dict:
     full = full_width_train(seed)
     inputs = full.pop("inputs")
     out["full_width"] = full
-    # gemma3's head dim 256: the forward on the wide-head wgmma kernel, the
-    # backward on wmma
-    gemma = full_width_train(seed, GEMMA_ARCH, None, GEMMA_S, "wmma",
+    # gemma3's head dim 256: the forward and the backward on the wide-head
+    # wgmma kernels
+    gemma = full_width_train(seed, GEMMA_ARCH, None, GEMMA_S, "wgmma",
                              kernels=("flash_attention",
                                       "flash_attention_bwd"),
                              record=("flash_attention_bwd",), no_sync=True)

@@ -24,8 +24,8 @@
 //                                         32, 32>
 //
 // The wmma route takes bf16 at head dim 32 and every bf16 tensor TMA cannot
-// describe.  Any other head dim is refused (-2).  The backward's routes
-// differ (below `bwd`): it has no wgmma kernel at head dims 192 and 256.
+// describe.  Any other head dim is refused (-2).  The backward (below
+// `bwd`) takes the same routes at the same head dims.
 //
 // What bounds it on an H100: 4 * B * H * S^2 * dh / 2 operations (causal)
 // against B * (2 H + 2 KVH) * S * dh elements moved.  At the serving shapes
@@ -655,6 +655,44 @@ __device__ __forceinline__ void pv_acc(float (&d)[32], const uint32_t (&a)[4],
   hopper::wgmma_rs_n64(d, a, db, 1);
 }
 
+// [a | b] (64 x DH: columns 0-127 and 128 to DH - 1) += A[64 x 16]
+// (registers) * B[16 x DH], B MN-major from `base` in 64-column chunks
+// `chunk` bytes apart.
+template <int NB>
+__device__ __forceinline__ void acc_rows(float (&a)[64], float (&b)[NB],
+                                         const uint32_t (&x)[4],
+                                         const unsigned char* base,
+                                         int chunk) {
+  pv_acc(a, x, hopper::desc_sw128(base, chunk, 1024));
+  pv_acc(b, x, hopper::desc_sw128(base + 2 * chunk, chunk, 1024));
+}
+
+// Rows r0, r0 + 8 of [a | b] (64 x DH fp32), each times its scale, to bf16
+// rows `ss` elements apart from `out`; rows at or past S not stored.
+template <int DH>
+__device__ __forceinline__ void store_bf16_rows(bf16* out, long long ss,
+                                                int r0, int S,
+                                                const float (&a)[64],
+                                                const float (&b)[DH / 2 - 64],
+                                                const float (&scale)[2],
+                                                int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= S) continue;
+    bf16* row = out + (r0 + 8 * r) * ss + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(a[4 * j + 2 * r] * scale[r],
+                                a[4 * j + 2 * r + 1] * scale[r]);
+#pragma unroll
+    for (int j = 0; j < (DH / 2 - 64) / 4; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 128 + 8 * j) =
+          __floats2bfloat162_rn(b[4 * j + 2 * r] * scale[r],
+                                b[4 * j + 2 * r + 1] * scale[r]);
+  }
+}
+
 // Key tile k0's K and V into stage s of the wide kernel's ring, each
 // completing on its own barrier (S = Q K^T need not wait for V).
 template <int DH>
@@ -836,12 +874,8 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
     if (live) {
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BKV / 16; ++kk) {
-        const unsigned char* vk = vs + kk * 16 * 128;
-        pv_acc(oa, pa[kk], hopper::desc_sw128(vk, L::KV_CHUNK, 1024));
-        pv_acc(ob, pa[kk],
-               hopper::desc_sw128(vk + 2 * L::KV_CHUNK, L::KV_CHUNK, 1024));
-      }
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        acc_rows(oa, ob, pa[kk], vs + kk * 16 * 128, L::KV_CHUNK);
       hopper::wgmma_commit();
       hopper::wgmma_wait<0>();
       hopper::fence_regs(oa);
@@ -865,23 +899,8 @@ flash_wgmma_wide_kernel(const __grid_constant__ CUtensorMap tq,
       lse[static_cast<long long>(bh) * S + qpos] =
           m_run[r] * sm_scale + logf(fmaxf(l, 1e-30f));
   }
-  bf16* op = o + b * so.b + h * so.h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qpos = qa + 8 * r;
-    if (qpos >= S) continue;
-    bf16* row = op + qpos * so.s + 2 * (lane & 3);
-#pragma unroll
-    for (int j = 0; j < 16; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-          __floats2bfloat162_rn(oa[4 * j + 2 * r] * inv[r],
-                                oa[4 * j + 2 * r + 1] * inv[r]);
-#pragma unroll
-    for (int j = 0; j < (DH / 2 - 64) / 4; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 128 + 8 * j) =
-          __floats2bfloat162_rn(ob[4 * j + 2 * r] * inv[r],
-                                ob[4 * j + 2 * r + 1] * inv[r]);
-  }
+  store_bf16_rows<DH>(o + b * so.b + h * so.h, so.s, qa, S, oa, ob, inv,
+                      lane);
 }
 
 // flash_wgmma_kernel at head dim 64 / 128 (one box of BQ rows serves Q, K
@@ -951,13 +970,14 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // rounded to bf16 before their products, as the forward rounds P.
 //
 // Head dims and routes (flash_attention_bwd_launch below; the wrapper's
-// `bwd_route`, `HEAD_DIMS` and `BWD_WGMMA_HEAD_DIMS` pick them -- the
-// forward's rule over the backward's own wgmma head dims -- and a test
-// reads the instantiations out of this file):
+// `route` asked of q, k, v and dO and its `HEAD_DIMS` pick them -- the
+// forward's rule -- and a test reads the instantiations out of this file):
 //
 //   route   dtype  head dims              kernels
 //   wgmma   bf16   64, 128 (TMA-able)     wgb:: flash_bwd_dkdv_wgmma_kernel,
 //                                         flash_bwd_dq_wgmma_kernel<DH>
+//           bf16   192, 256 (TMA-able)    wgbw:: flash_bwd_dkdv_wide_kernel,
+//                                         flash_bwd_dq_wide_kernel<DH>
 //   wmma    bf16   32, 64, 128            bwd:: flash_bwd_dkdv_kernel,
 //                  (64 x 64 tiles);       flash_bwd_dq_kernel<bf16, DH,
 //                  192, 256 (32 x 32)     BQ, BKV>
@@ -966,9 +986,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 //
 // The wmma route keeps S, dP, P, dS and its sums in shared memory (wmma
 // 16 x 16 round trips, 4 warps, plain loads) and serves what the wgmma
-// route does not: head dims 32, 192 (deepseek_v32) and 256 (gemma3), and
-// tensors TMA cannot describe.  fp32 runs plain FMA loops (correctness
-// first).  Any other head dim is refused (-2) -- the wrapper raises first.
+// route does not: head dim 32 and tensors TMA cannot describe.  fp32 runs
+// plain FMA loops (correctness first).  Any other head dim is refused (-2)
+// -- the wrapper raises first.
 //
 // What bounds it on an H100: 2.5x the forward's products (5 matrix products
 // per tile pair against 2), recomputed here (dQ and dK/dV each form S and
@@ -1393,11 +1413,11 @@ int launch(const Args& a, cudaStream_t stream) {
 //     the A operand of dQ += dS K (K the MN-major B operand).
 //
 // flash_bwd_prep_kernel forms, per (batch*head) row padded to a multiple of
-// 192 positions, D = rowsum(dO * O) and lse2 = lse * log2(e) (the forward's
-// natural-log units in exp2's), lse2 = +inf and D = 0 past S, so every tile
-// the kernels read is in bounds and a query past S has P = 0.  The GQA sum
-// of the per-head dK, dV stays the ordered `flash_bwd_reduce_kernel`: no
-// atomics, two runs give the same bits.
+// PAD (384) positions, D = rowsum(dO * O) and lse2 = lse * log2(e) (the
+// forward's natural-log units in exp2's), lse2 = +inf and D = 0 past S, so
+// every tile the kernels read is in bounds and a query past S has P = 0.
+// The GQA sum of the per-head dK, dV stays the ordered
+// `flash_bwd_reduce_kernel`: no atomics, two runs give the same bits.
 namespace wgb {
 
 // No producer warp: thread 0 feeds the rings.  The dK/dV kernel runs two
@@ -1412,8 +1432,9 @@ constexpr int KV_KEYS = 128;  // dK/dV kernel: keys per block
 constexpr int KV_QS = 64;     // ... queries per streamed tile
 constexpr int Q_QS = 192;     // dQ kernel: queries per block
 constexpr int Q_KEYS = 64;    // ... keys per streamed tile
-constexpr int PAD = 192;      // the prep kernel's rows: S rounded up to it
-// every tile a kernel reads from those rows lies inside them
+constexpr int PAD = 384;      // the prep kernel's rows: S rounded up to it
+// every tile a kernel reads from those rows lies inside them (the wide
+// kernels' tiles below are held to it too)
 static_assert(PAD % Q_QS == 0 && PAD % KV_QS == 0, "PAD");
 // the score tiles are 64 x 64 (ss_pair, four k16 steps of the A operands)
 static_assert(KV_QS == 64 && Q_KEYS == 64, "64-wide score tiles");
@@ -1504,15 +1525,14 @@ __device__ __forceinline__ float grad_elem(float s, float dp, float l2,
   return ds;
 }
 
-// Tile i's Q, dO, lse2 and D rows (queries from q0) into stage s of the
-// dK/dV kernel's ring, completing on full[s].
-template <int DH>
+// Tile i's Q, dO, lse2 and D rows (queries from q0) into stage s of a
+// dK/dV kernel's ring (layout L), completing on full[s].
+template <class L>
 __device__ __forceinline__ void kv_fetch(unsigned char* smem, uint64_t* full,
                                          const CUtensorMap* tq,
                                          const CUtensorMap* tdo,
                                          const float* lrow, const float* drow,
                                          int q0, int s, int h, int b) {
-  using L = SmemKV<DH>;
   hopper::mbar_expect_tx(&full[s], 2 * L::Q_TILE + 2 * L::ROW);
   unsigned char* qs = smem + L::OFF_Q + s * L::Q_TILE;
   unsigned char* dos = smem + L::OFF_DO + s * L::Q_TILE;
@@ -1576,8 +1596,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           64 * c, k0, hk, b);
     }
     for (int i = 0; i < min(KV_STAGES, n_tiles); ++i)
-      kv_fetch<DH>(smem, full, &tq, &tdo, lrow, drow, (qt_lo + i) * KV_QS,
-                   i, h, b);
+      kv_fetch<L>(smem, full, &tq, &tdo, lrow, drow, (qt_lo + i) * KV_QS,
+                  i, h, b);
   }
 
   const int wgi = threadIdx.x / 128;
@@ -1604,8 +1624,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0 && i > 0 && i - 1 + KV_STAGES < n_tiles) {
       const int sp = (i - 1) % KV_STAGES;
       hopper::mbar_wait(&empty[sp], ((i - 1) / KV_STAGES) & 1);
-      kv_fetch<DH>(smem, full, &tq, &tdo, lrow, drow,
-                   (qt_lo + i - 1 + KV_STAGES) * KV_QS, sp, h, b);
+      kv_fetch<L>(smem, full, &tq, &tdo, lrow, drow,
+                  (qt_lo + i - 1 + KV_STAGES) * KV_QS, sp, h, b);
     }
     __syncwarp();
     const unsigned char* qs = smem + L::OFF_Q + s * L::Q_TILE;
@@ -1696,14 +1716,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// Key tile k0's K and V into stage s of the dQ kernel's ring, completing on
-// full[s].
-template <int DH>
+// Key tile k0's K and V into stage s of a dQ kernel's ring (layout L),
+// completing on full[s].
+template <class L>
 __device__ __forceinline__ void q_fetch(unsigned char* smem, uint64_t* full,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, int k0, int s,
                                         int hk, int b) {
-  using L = SmemQ<DH>;
   hopper::mbar_expect_tx(&full[s], 2 * L::K_TILE);
   unsigned char* ks = smem + L::OFF_K + s * L::K_TILE;
   unsigned char* vs = smem + L::OFF_V + s * L::K_TILE;
@@ -1759,7 +1778,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           64 * c, q0, h, b);
     }
     for (int i = 0; i < min(STAGES, n_tiles); ++i)
-      q_fetch<DH>(smem, full, &tk, &tv, (t_lo + i) * Q_KEYS, i, hk, b);
+      q_fetch<L>(smem, full, &tk, &tv, (t_lo + i) * Q_KEYS, i, hk, b);
   }
 
   const int wgi = threadIdx.x / 128;
@@ -1789,8 +1808,8 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (threadIdx.x == 0 && i > 0 && i - 1 + STAGES < n_tiles) {
       const int sp = (i - 1) % STAGES;
       hopper::mbar_wait(&empty[sp], ((i - 1) / STAGES) & 1);
-      q_fetch<DH>(smem, full, &tk, &tv, (t_lo + i - 1 + STAGES) * Q_KEYS, sp,
-                  hk, b);
+      q_fetch<L>(smem, full, &tk, &tv, (t_lo + i - 1 + STAGES) * Q_KEYS, sp,
+                 hk, b);
     }
     __syncwarp();
     const unsigned char* ks = smem + L::OFF_K + s * L::K_TILE;
@@ -1903,23 +1922,56 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
   }
 }
 
-// a.D holds 2 * B * H * S_pad floats: D, then lse2.
+// A 4-D map over [B, S, heads, dh] with the real strides (elements): boxes
+// of 64 columns by `rows` positions.
+inline bool map_rows(CUtensorMap* m, const void* base, int dh, int S,
+                     int heads, int B, const Strides& st, int rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dh),
+                            static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(heads),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+  const uint32_t box[4] = {64, static_cast<uint32_t>(rows), 1, 1};
+  return hopper::make_map(m, base, 4, dims, strides, box);
+}
+
+// The rows of S rounded up to PAD, per (batch*head): a.D holds 2 * B * H *
+// S_pad floats, D and then lse2.
+inline int pad_rows(int S) { return (S + PAD - 1) / PAD * PAD; }
+
+// The first of a wgmma route's four launches: D and lse2 into a.D.
+inline int prep(const bwd::Args& a, int dh, cudaStream_t stream) {
+  const int S_pad = pad_rows(a.S);
+  const long long rows = static_cast<long long>(a.B) * a.H * S_pad;
+  flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + NT / 32 - 1) /
+                                                (NT / 32)),
+                          NT, 0, stream>>>(
+      reinterpret_cast<const bf16*>(a.o), reinterpret_cast<const bf16*>(a.dO),
+      a.lse, a.D, a.D + rows, a.B, a.H, a.S, S_pad, dh, a.so, a.sdo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The last: each KV head's group of per-head dK, dV summed in order.
+inline int reduce(const bwd::Args& a, int dh, cudaStream_t stream) {
+  const long long n = static_cast<long long>(a.B) * a.S * a.KVH * dh;
+  const long long blocks = (n + NT - 1) / NT;
+  bwd::flash_bwd_reduce_kernel<bf16><<<static_cast<unsigned>(
+                                           blocks < 8192 ? blocks : 8192),
+                                       NT, 0, stream>>>(
+      a.dk_part, a.dv_part, reinterpret_cast<bf16*>(a.dk),
+      reinterpret_cast<bf16*>(a.dv), a.B, a.H, a.KVH, a.S, dh, a.sdk, a.sdv,
+      a.sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int DH>
 int launch(const bwd::Args& a, cudaStream_t stream) {
-  const int S_pad = (a.S + PAD - 1) / PAD * PAD;
-  const long long rows = static_cast<long long>(a.B) * a.H * S_pad;
+  const int S_pad = pad_rows(a.S);
   float* Dp = a.D;
-  float* lse2 = a.D + rows;
-  // 4-D maps over [B, S, heads, dh] with the real strides, boxes of 64
-  // columns by `box_rows` positions
+  float* lse2 = a.D + static_cast<long long>(a.B) * a.H * S_pad;
   auto map = [&](CUtensorMap* m, const void* base, int heads,
-                 const Strides& st, int box_rows) {
-    const uint64_t dims[4] = {DH, static_cast<uint64_t>(a.S),
-                              static_cast<uint64_t>(heads),
-                              static_cast<uint64_t>(a.B)};
-    const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
-    const uint32_t box[4] = {64, static_cast<uint32_t>(box_rows), 1, 1};
-    return hopper::make_map(m, base, 4, dims, strides, box);
+                 const Strides& st, int rows) {
+    return map_rows(m, base, DH, a.S, heads, a.B, st, rows);
   };
   CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
   if (!map(&kq, a.q, a.H, a.sq, KV_QS) || !map(&kdo, a.dO, a.H, a.sdo, KV_QS) ||
@@ -1934,13 +1986,8 @@ int launch(const bwd::Args& a, cudaStream_t stream) {
   cudaError_t err = hopper::allow_smem<kdkdv>(SmemKV<DH>::BYTES);
   if (err == cudaSuccess) err = hopper::allow_smem<kdq>(SmemQ<DH>::BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_prep_kernel<<<static_cast<unsigned>((rows + NT / 32 - 1) /
-                                                (NT / 32)),
-                          NT, 0, stream>>>(
-      reinterpret_cast<const bf16*>(a.o), reinterpret_cast<const bf16*>(a.dO),
-      a.lse, Dp, lse2, a.B, a.H, a.S, S_pad, DH, a.so, a.sdo);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = prep(a, DH, stream);
+  if (rc != 0) return rc;
   kdkdv<<<dim3(a.B * a.H, (a.S + KV_KEYS - 1) / KV_KEYS), KV_THREADS,
           SmemKV<DH>::BYTES, stream>>>(kq, kk, kv, kdo, lse2, Dp, a.dk_part,
                                        a.dv_part, a.H, a.KVH, a.S, S_pad,
@@ -1954,28 +2001,566 @@ int launch(const bwd::Args& a, cudaStream_t stream) {
                   a.softcap, a.sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = static_cast<long long>(a.B) * a.S * a.KVH * DH;
-  const long long blocks = (n + NT - 1) / NT;
-  bwd::flash_bwd_reduce_kernel<bf16><<<static_cast<unsigned>(
-                                           blocks < 8192 ? blocks : 8192),
-                                       NT, 0, stream>>>(
-      a.dk_part, a.dv_part, reinterpret_cast<bf16*>(a.dk),
-      reinterpret_cast<bf16*>(a.dv), a.B, a.H, a.KVH, a.S, DH, a.sdk, a.sdv,
-      a.sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  return reduce(a, DH, stream);
 }
 
 }  // namespace wgb
 
+// ---------------- backward at head dims 192 and 256 on wgmma + TMA (sm_90a) --
+//
+// The route the wrapper picks for bf16 at head dim 192 (deepseek_v32) or 256
+// (gemma3) whose q, k, v, dO TMA can describe: `wgb`'s arithmetic, the same
+// 4-D tensor maps, prep pass, per-head fp32 scratch and ordered GQA reduce,
+// retiled so that an accumulator of DH / 2 fp32 registers a thread fits
+// beside the score tiles.  Two warpgroups a block (a third would cap every
+// thread at 168 registers), so each thread may hold 255.
+//
+//   flash_bwd_dkdv_wide_kernel: one block per (batch*head, 64-key tile),
+//     heaviest first; K and V loaded once, Q, dO and their lse2, D rows
+//     streamed through a ring of 64-query tiles (Tiles<DH>: three stages
+//     at 192, two at 256).  One thread cannot hold both dK and dV (2 x
+//     DH / 2 fp32: 256 registers at 256), so the two warpgroups split by
+//     ROLE over the same 64 keys: warpgroup 0 forms S^T = K Q^T and P^T,
+//     accumulates dV += P^T dO and hands P^T [* (1 - tanh^2)] in fp32 to
+//     warpgroup 1 through shared memory (two 16 KB buffers, each on a pair
+//     of mbarriers); warpgroup 1 forms dP^T = V dO^T, takes P^T, forms
+//     dS^T and accumulates dK += dS^T Q.  Two products a warpgroup, four a
+//     tile pair as in `wgb` (S^T formed in both warpgroups instead was ~10 %
+//     slower).  The dK warpgroup's first thread feeds the ring (it refills
+//     a stage once both warpgroups released it), so the dV warpgroup runs
+//     up to two tiles ahead and never waits on a refill.
+//   flash_bwd_dq_wide_kernel: one block per (batch*head, 128 queries),
+//     heaviest first; Q and dO loaded once, K and V streamed through a ring
+//     of key tiles (Tiles<DH>: 64 keys, two stages at 192; 32 keys, three
+//     stages at 256 -- 128 KB of Q and dO leave room for one stage of 64
+//     keys, none to overlap).  Each warpgroup owns 64 queries: S = Q K^T
+//     and dP = dO V^T into registers, dS there as the A operand of dQ += dS
+//     K; a warpgroup skips a tile none of its rows sees, as the wide
+//     forward does.
+//
+// Fragments a thread (accumulator + score tiles + packed A operand) at head
+// dim 192 / 256: dV 96 + 32 + 16 / 128 + 32 + 16, dK 96 + 32 + 16 / 128 +
+// 32 + 16, dQ 96 + 64 + 16 / 128 + 32 + 8; ptxas fits every one without a
+// spill (`--verbose-build`).  32-query tiles at 256 were slower.
+namespace wgbw {
+
+constexpr int W_THREADS = 256;  // two warpgroups, no producer warpgroup
+constexpr int W_KEYS = 64;      // dK/dV kernel: keys per block (both roles)
+constexpr int W_QS = 128;       // dQ kernel: queries per block
+constexpr int FEED = 128;       // dK/dV kernel: the thread feeding its ring
+
+// Score-tile widths and ring depths by head dim.
+template <int DH> struct Tiles;
+template <> struct Tiles<192> {
+  static constexpr int KV_QT = 64;  // dK/dV kernel: queries per tile
+  static constexpr int KV_ST = 3;   // ... stages of its Q/dO ring
+  static constexpr int Q_KT = 64;   // dQ kernel: keys per tile
+  static constexpr int Q_ST = 2;    // ... stages of its K/V ring
+};
+template <> struct Tiles<256> {
+  static constexpr int KV_QT = 64;
+  static constexpr int KV_ST = 2;
+  static constexpr int Q_KT = 32;
+  static constexpr int Q_ST = 3;
+};
+// every lse2 / D row a block reads lies below S_pad
+static_assert(wgb::PAD % W_QS == 0 && wgb::PAD % Tiles<192>::KV_QT == 0 &&
+                  wgb::PAD % Tiles<256>::KV_QT == 0,
+              "PAD");
+
+template <int DH> struct SmemKV {
+  static constexpr int QT = Tiles<DH>::KV_QT, ST = Tiles<DH>::KV_ST;
+  static constexpr int CH = DH / 64;
+  static constexpr int K_CHUNK = W_KEYS * 128;
+  static constexpr int K_TILE = CH * K_CHUNK;
+  static constexpr int Q_CHUNK = QT * 128;
+  static constexpr int Q_TILE = CH * Q_CHUNK;
+  static constexpr int ROW = QT * 4;  // one stage's lse2 (or D), bytes
+  // one tile's fp32 P^T [* (1 - tanh^2)], handed from the dV warpgroup to
+  // the dK one: QT / 2 floats of each of its 128 threads
+  static constexpr int HAND = 128 * (QT / 2) * 4;
+  static constexpr int OFF_K = 0;     // K | V | Q ring | dO ring | lse2,
+  static constexpr int OFF_V = K_TILE;  // D rings | two hand-offs | barriers
+  static constexpr int OFF_Q = 2 * K_TILE;
+  static constexpr int OFF_DO = OFF_Q + ST * Q_TILE;
+  static constexpr int OFF_L = OFF_DO + ST * Q_TILE;
+  static constexpr int OFF_D = OFF_L + ST * ROW;
+  static constexpr int OFF_P = OFF_D + ST * ROW;
+  static constexpr int OFF_BAR = OFF_P + 2 * HAND;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * ST + 4) + 1024;
+};
+
+template <int DH> struct SmemQ {
+  static constexpr int KT = Tiles<DH>::Q_KT, ST = Tiles<DH>::Q_ST;
+  static constexpr int CH = DH / 64;
+  static constexpr int Q_CHUNK = W_QS * 128;
+  static constexpr int Q_TILE = CH * Q_CHUNK;
+  static constexpr int K_CHUNK = KT * 128;
+  static constexpr int K_TILE = CH * K_CHUNK;
+  static constexpr int OFF_Q = 0;  // Q | dO | K ring | V ring | barriers
+  static constexpr int OFF_DO = Q_TILE;
+  static constexpr int OFF_K = 2 * Q_TILE;
+  static constexpr int OFF_V = OFF_K + ST * K_TILE;
+  static constexpr int OFF_BAR = OFF_V + ST * K_TILE;
+  static constexpr int BYTES = OFF_BAR + 8 * (1 + 2 * ST) + 1024;
+};
+static_assert(SmemKV<192>::BYTES == 232024 && SmemKV<256>::BYTES == 231496 &&
+                  SmemQ<192>::BYTES == 197672 && SmemQ<256>::BYTES == 230456,
+              "wide backward layouts");
+static_assert(SmemKV<192>::BYTES <= MAX_SMEM &&
+                  SmemKV<256>::BYTES <= MAX_SMEM &&
+                  SmemQ<192>::BYTES <= MAX_SMEM &&
+                  SmemQ<256>::BYTES <= MAX_SMEM,
+              "wide backward shared memory");
+
+// A score tile D[64 x N] = X Y^T over DH: both operands K-major from
+// 128-byte-swizzled tiles whose 64-column chunks lie `xc` / `yc` bytes
+// apart; N (32 or 64) the rows of Y.
+__device__ __forceinline__ void ss_step(float (&d)[32], uint64_t da,
+                                        uint64_t db, int acc) {
+  hopper::wgmma_ss_n64<0>(d, da, db, acc);
+}
+__device__ __forceinline__ void ss_step(float (&d)[16], uint64_t da,
+                                        uint64_t db, int acc) {
+  hopper::wgmma_ss_n32<0>(d, da, db, acc);
+}
+template <int DH, int R>
+__device__ __forceinline__ void scores(float (&d)[R], const unsigned char* x,
+                                       int xc, const unsigned char* y,
+                                       int yc) {
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk)
+    ss_step(d, hopper::desc_sw128(x + (kk / 4) * xc + (kk % 4) * 32, 16, 1024),
+            hopper::desc_sw128(y + (kk / 4) * yc + (kk % 4) * 32, 16, 1024),
+            kk > 0);
+}
+
+// Rows r0, r0 + 8 of [a | b] (64 x DH fp32) to `out` (row stride DH),
+// rows at or past S not stored.
+template <int DH>
+__device__ __forceinline__ void store_rows(float* out, int r0, int S,
+                                           const float (&a)[64],
+                                           const float (&b)[DH / 2 - 64],
+                                           int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r0 + 8 * r >= S) continue;
+    float* row = out + static_cast<long long>(r0 + 8 * r) * DH +
+                 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) =
+          make_float2(a[4 * j + 2 * r], a[4 * j + 2 * r + 1]);
+#pragma unroll
+    for (int j = 0; j < (DH / 2 - 64) / 4; ++j)
+      *reinterpret_cast<float2*>(row + 128 + 8 * j) =
+          make_float2(b[4 * j + 2 * r], b[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_bwd_dkdv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ Dp,
+                           float* __restrict__ dk_part,
+                           float* __restrict__ dv_part, int H, int KVH, int S,
+                           int S_pad, int causal, int window, float softcap,
+                           float sm_scale) {
+  using L = SmemKV<DH>;
+  constexpr int QT = L::QT, ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+  uint64_t* p_full = bars + 1 + 2 * ST;  // hand-off b written (dV side)
+  uint64_t* p_empty = p_full + 2;        // hand-off b read (dK side)
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);           // GQA: the KV head of this head
+  const int k0 = blockIdx.y * W_KEYS;     // the heaviest key tiles go first
+  // query tiles that see a key of this tile: from the diagonal (causal) to
+  // the last query inside the window of the tile's last key
+  const int qt_lo = causal ? k0 / QT : 0;
+  const int q_end = window > 0 ? min(S, k0 + W_KEYS - 1 + window) : S;
+  const int n_tiles = (q_end + QT - 1) / QT - qt_lo;
+  const float* lrow = lse2 + static_cast<long long>(bh) * S_pad;
+  const float* drow = Dp + static_cast<long long>(bh) * S_pad;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W_THREADS / 32);  // lane 0 of each warp
+    }
+    for (int x = 0; x < 2; ++x) {  // every thread of one warpgroup
+      hopper::mbar_init(&p_full[x], 128);
+      hopper::mbar_init(&p_empty[x], 128);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == FEED) {  // K, V once; the ring's first tiles
+    hopper::mbar_expect_tx(kv_full, 2 * L::K_TILE);
+    for (int c = 0; c < L::CH; ++c) {
+      hopper::tma_load_4d(smem + L::OFF_K + c * L::K_CHUNK, &tk, kv_full,
+                          64 * c, k0, hk, b);
+      hopper::tma_load_4d(smem + L::OFF_V + c * L::K_CHUNK, &tv, kv_full,
+                          64 * c, k0, hk, b);
+    }
+    for (int i = 0; i < min(ST, n_tiles); ++i)
+      wgb::kv_fetch<L>(smem, full, &tq, &tdo, lrow, drow, (qt_lo + i) * QT,
+                       i, h, b);
+  }
+
+  const int wgi = threadIdx.x / 128;  // 0: dV, 1: dK
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int ka = k0 + (tid / 32) * 16 + lane / 4;  // key rows ka, ka + 8
+  const float c2 = sm_scale * wg::LOG2E;
+  const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+  const unsigned char* ks = smem + L::OFF_K;
+  const unsigned char* vs = smem + L::OFF_V;
+
+  float xa[64], xb[DH / 2 - 64];  // this warpgroup's dV or dK rows
+#pragma unroll
+  for (int i = 0; i < 64; ++i) xa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH / 2 - 64; ++i) xb[i] = 0.f;
+
+  hopper::mbar_wait(kv_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % ST;
+    const uint32_t ph = (i / ST) & 1;
+    const int q0 = (qt_lo + i) * QT;
+    // the dK warpgroup refills the stage of tile i - 1 once the dV
+    // warpgroup (ahead or level with it) has released it too
+    if (threadIdx.x == FEED && i > 0 && i - 1 + ST < n_tiles) {
+      const int sp = (i - 1) % ST;
+      hopper::mbar_wait(&empty[sp], ((i - 1) / ST) & 1);
+      wgb::kv_fetch<L>(smem, full, &tq, &tdo, lrow, drow,
+                       (qt_lo + i - 1 + ST) * QT, sp, h, b);
+    }
+    __syncwarp();
+    const unsigned char* qs = smem + L::OFF_Q + s * L::Q_TILE;
+    const unsigned char* dos = smem + L::OFF_DO + s * L::Q_TILE;
+    const float* ls =
+        reinterpret_cast<const float*>(smem + L::OFF_L + s * L::ROW);
+    const float* ds =
+        reinterpret_cast<const float*>(smem + L::OFF_D + s * L::ROW);
+    // does a mask bite in this tile pair? (a query column past S has
+    // lse2 = +inf: P = 0 there without one)
+    const bool diag = causal && k0 + W_KEYS - 1 > q0;
+    const bool wedge = window > 0 && k0 <= q0 + QT - 1 - window;
+    // this tile's hand-off: thread tid's element pair (e0, e0 + 1) at
+    // float2 e0 / 2 * 128 + tid (a warp's 32 pairs side by side)
+    float2* hand = reinterpret_cast<float2*>(smem + L::OFF_P +
+                                             (i & 1) * L::HAND) + tid;
+    hopper::mbar_wait(&full[s], ph);
+    if (wgi == 0) {
+      // ---- S^T, P^T; dV += P^T dO -----------------------------------------
+      float st[QT / 2];
+      hopper::wgmma_fence();
+      scores<DH>(st, ks, L::K_CHUNK, qs, L::Q_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(st);
+      // the dK warpgroup has read tile i - 2's hand-off from this buffer
+      if (i >= 2) hopper::mbar_wait(&p_empty[i & 1], ((i >> 1) - 1) & 1);
+      uint32_t pa[QT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          // element 8 kk + 2 j + e: key row ka + 8 (j & 1), query column
+          // 16 kk + 8 (j >> 1) + 2 (lane & 3) + e of the tile
+          const int e0 = 8 * kk + 2 * j;
+          const int col = 16 * kk + 8 * (j >> 1) + 2 * (lane & 3);
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+          bool ok0 = true, ok1 = true;
+          if (diag || wedge) {
+            const int qpos = q0 + col, kpos = ka + 8 * (j & 1);
+            if (causal) {
+              ok0 = kpos <= qpos;
+              ok1 = kpos <= qpos + 1;
+            }
+            if (window > 0) {
+              ok0 = ok0 && kpos > qpos - window;
+              ok1 = ok1 && kpos > qpos + 1 - window;
+            }
+          }
+          // P and, for the dK warpgroup, P * (1 - tanh^2) (P if uncapped):
+          // grad_elem's dS at dP - D = 1
+          float p0, p1;
+          const float g0 = wgb::grad_elem(st[e0], 1.f, l2.x, 0.f, ok0, c2,
+                                          cap_in, cap_out, p0);
+          const float g1 = wgb::grad_elem(st[e0 + 1], 1.f, l2.y, 0.f, ok1,
+                                          c2, cap_in, cap_out, p1);
+          hand[(e0 / 2) * 128] = make_float2(g0, g1);
+          pa[kk][j] = wg::pack_bf16(p0, p1);
+        }
+      }
+      hopper::mbar_arrive(&p_full[i & 1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        wg::acc_rows(xa, xb, pa[kk], dos + kk * 16 * 128, L::Q_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(xa);
+      hopper::fence_regs(xb);
+    } else {
+      // ---- dP^T; dS^T = P^T (dP^T - D) from the hand-off; dK += dS^T Q ----
+      float dpt[QT / 2];
+      hopper::wgmma_fence();
+      scores<DH>(dpt, vs, L::K_CHUNK, dos, L::Q_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(dpt);
+      hopper::mbar_wait(&p_full[i & 1], (i >> 1) & 1);  // tile i's P^T
+      uint32_t sa[QT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e0 = 8 * kk + 2 * j;
+          const float2 dd = *reinterpret_cast<const float2*>(
+              ds + 16 * kk + 8 * (j >> 1) + 2 * (lane & 3));
+          const float2 pg = hand[(e0 / 2) * 128];
+          sa[kk][j] = wg::pack_bf16(pg.x * (dpt[e0] - dd.x),
+                                    pg.y * (dpt[e0 + 1] - dd.y));
+        }
+      }
+      hopper::mbar_arrive(&p_empty[i & 1]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < QT / 16; ++kk)
+        wg::acc_rows(xa, xb, sa[kk], qs + kk * 16 * 128, L::Q_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(xa);
+      hopper::fence_regs(xb);
+    }
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // the stage is free
+  }
+
+  // ---- this head's dV or dK (unscaled) rows to the fp32 scratch ---------
+  float* part = (wgi == 0 ? dv_part : dk_part) +
+                static_cast<long long>(bh) * S * DH;
+  store_rows<DH>(part, ka, S, xa, xb, lane);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse2,
+                         const float* __restrict__ Dp, bf16* __restrict__ dq,
+                         Strides sdq, int H, int KVH, int S, int S_pad,
+                         int causal, int window, float softcap,
+                         float sm_scale) {
+  using L = SmemQ<DH>;
+  constexpr int KT = L::KT, ST = L::ST;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::align1024(smem_raw);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + ST;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int hk = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * W_QS;  // heaviest first
+  // key tiles inside the causal / window frontier, as in the forward
+  const int kv_hi = causal ? min(S, q0 + W_QS) : S;
+  const int kv_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_lo = kv_lo / KT;
+  const int n_tiles = (kv_hi + KT - 1) / KT - t_lo;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], W_THREADS / 32);  // lane 0 of each warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q, dO once; the ring's first tiles
+    hopper::mbar_expect_tx(q_full, 2 * L::Q_TILE);
+    for (int c = 0; c < L::CH; ++c) {
+      hopper::tma_load_4d(smem + L::OFF_Q + c * L::Q_CHUNK, &tq, q_full,
+                          64 * c, q0, h, b);
+      hopper::tma_load_4d(smem + L::OFF_DO + c * L::Q_CHUNK, &tdo, q_full,
+                          64 * c, q0, h, b);
+    }
+    for (int i = 0; i < min(ST, n_tiles); ++i)
+      wgb::q_fetch<L>(smem, full, &tk, &tv, (t_lo + i) * KT, i, hk, b);
+  }
+
+  const int wgi = threadIdx.x / 128;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int qw = q0 + 64 * wgi;  // the first of this warpgroup's rows
+  const int qa = qw + (tid / 32) * 16 + lane / 4;  // rows qa, qa + 8
+  const float c2 = sm_scale * wg::LOG2E;
+  const float cap_in = softcap > 0.f ? sm_scale / softcap : 0.f;
+  const float cap_out = softcap > 0.f ? softcap / sm_scale : 0.f;
+  const unsigned char* qs = smem + L::OFF_Q + wgi * 64 * 128;
+  const unsigned char* dos = smem + L::OFF_DO + wgi * 64 * 128;
+  const long long row = static_cast<long long>(bh) * S_pad;
+  const float l2[2] = {lse2[row + qa], lse2[row + qa + 8]};
+  const float dd[2] = {Dp[row + qa], Dp[row + qa + 8]};
+
+  float xa[64], xb[DH / 2 - 64];  // dQ, columns 0-127 | 128 to DH - 1
+#pragma unroll
+  for (int i = 0; i < 64; ++i) xa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH / 2 - 64; ++i) xb[i] = 0.f;
+
+  hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % ST;
+    const uint32_t ph = (i / ST) & 1;
+    const int k0 = (t_lo + i) * KT;
+    // thread 0 refills the stage of tile i - 1 once both warpgroups are
+    // done with it
+    if (threadIdx.x == 0 && i > 0 && i - 1 + ST < n_tiles) {
+      const int sp = (i - 1) % ST;
+      hopper::mbar_wait(&empty[sp], ((i - 1) / ST) & 1);
+      wgb::q_fetch<L>(smem, full, &tk, &tv, (t_lo + i - 1 + ST) * KT, sp, hk,
+                      b);
+    }
+    __syncwarp();
+    const unsigned char* ks = smem + L::OFF_K + s * L::K_TILE;
+    const unsigned char* vs = smem + L::OFF_V + s * L::K_TILE;
+    // does any of this warpgroup's 64 rows see a key of the tile?
+    const bool live = qw < S && !(causal && k0 > qw + 63) &&
+                      !(window > 0 && k0 + KT - 1 <= qw - window);
+    hopper::mbar_wait(&full[s], ph);
+    if (live) {
+      // ---- S = Q K^T, dP = dO V^T into registers -------------------------
+      float sc[KT / 2], dp[KT / 2];
+      hopper::wgmma_fence();
+      scores<DH>(sc, qs, L::Q_CHUNK, ks, L::K_CHUNK);
+      scores<DH>(dp, dos, L::Q_CHUNK, vs, L::K_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      hopper::fence_regs(dp);
+
+      // ---- dS in registers: the A operand of dQ += dS K ------------------
+      const bool edge = k0 + KT > S;
+      const bool diag = causal && k0 + KT - 1 > qw;
+      const bool wedge = window > 0 && k0 <= qw + 63 - window;
+      uint32_t sa[KT / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e0 = 8 * kk + 2 * j, r = j & 1;
+          const int kpos = k0 + 16 * kk + 8 * (j >> 1) + 2 * (lane & 3);
+          bool ok0 = true, ok1 = true;
+          if (edge || diag || wedge) {
+            const int qpos = qa + 8 * r;
+            ok0 = kpos < S;
+            ok1 = kpos + 1 < S;
+            if (causal) {
+              ok0 = ok0 && kpos <= qpos;
+              ok1 = ok1 && kpos + 1 <= qpos;
+            }
+            if (window > 0) {
+              ok0 = ok0 && kpos > qpos - window;
+              ok1 = ok1 && kpos + 1 > qpos - window;
+            }
+          }
+          float p0, p1;
+          const float g0 = wgb::grad_elem(sc[e0], dp[e0], l2[r], dd[r], ok0,
+                                          c2, cap_in, cap_out, p0);
+          const float g1 = wgb::grad_elem(sc[e0 + 1], dp[e0 + 1], l2[r],
+                                          dd[r], ok1, c2, cap_in, cap_out,
+                                          p1);
+          sa[kk][j] = wg::pack_bf16(g0, g1);
+        }
+      }
+
+      // ---- dQ += dS K ------------------------------------------------------
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KT / 16; ++kk)
+        wg::acc_rows(xa, xb, sa[kk], ks + kk * 16 * 128, L::K_CHUNK);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(xa);
+      hopper::fence_regs(xb);
+    }
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // K/V stage is free
+  }
+
+  // ---- dq = dQ * sm_scale, rows beyond S not stored -----------------------
+  const float scale[2] = {sm_scale, sm_scale};
+  wg::store_bf16_rows<DH>(dq + b * sdq.b + h * sdq.h, sdq.s, qa, S, xa, xb,
+                          scale, lane);
+}
+
+// The wgmma route at head dim 192 / 256: wgb's prep, the two wide kernels
+// (each map built with its own kernel's box rows), wgb's reduce.
+template <int DH>
+int launch(const bwd::Args& a, cudaStream_t stream) {
+  using KV = SmemKV<DH>;
+  using Q = SmemQ<DH>;
+  const int S_pad = wgb::pad_rows(a.S);
+  float* Dp = a.D;
+  float* lse2 = a.D + static_cast<long long>(a.B) * a.H * S_pad;
+  auto map = [&](CUtensorMap* m, const void* base, int heads,
+                 const Strides& st, int rows) {
+    return wgb::map_rows(m, base, DH, a.S, heads, a.B, st, rows);
+  };
+  CUtensorMap kq, kk, kv, kdo, qq, qk, qv, qdo;
+  if (!map(&kq, a.q, a.H, a.sq, KV::QT) ||
+      !map(&kdo, a.dO, a.H, a.sdo, KV::QT) ||
+      !map(&kk, a.k, a.KVH, a.sk, W_KEYS) ||
+      !map(&kv, a.v, a.KVH, a.sv, W_KEYS) ||
+      !map(&qq, a.q, a.H, a.sq, W_QS) || !map(&qdo, a.dO, a.H, a.sdo, W_QS) ||
+      !map(&qk, a.k, a.KVH, a.sk, Q::KT) || !map(&qv, a.v, a.KVH, a.sv, Q::KT))
+    return -3;
+  constexpr auto kdkdv = flash_bwd_dkdv_wide_kernel<DH>;
+  constexpr auto kdq = flash_bwd_dq_wide_kernel<DH>;
+  cudaError_t err = hopper::allow_smem<kdkdv>(KV::BYTES);
+  if (err == cudaSuccess) err = hopper::allow_smem<kdq>(Q::BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int rc = wgb::prep(a, DH, stream);
+  if (rc != 0) return rc;
+  kdkdv<<<dim3(a.B * a.H, (a.S + W_KEYS - 1) / W_KEYS), W_THREADS, KV::BYTES,
+          stream>>>(kq, kk, kv, kdo, lse2, Dp, a.dk_part, a.dv_part, a.H,
+                    a.KVH, a.S, S_pad, a.causal, a.window, a.softcap,
+                    a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kdq<<<dim3(a.B * a.H, (a.S + W_QS - 1) / W_QS), W_THREADS, Q::BYTES,
+        stream>>>(qq, qk, qv, qdo, lse2, Dp, reinterpret_cast<bf16*>(a.dq),
+                  a.sdq, a.H, a.KVH, a.S, S_pad, a.causal, a.window,
+                  a.softcap, a.sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return wgb::reduce(a, DH, stream);
+}
+
+}  // namespace wgbw
+
 }  // namespace
 
 // Routes, as kernels/flash_attention/flash_attention.py::route picks them
-// by shape:
+// by shape (forward and backward alike):
 constexpr int ROUTE_FMA = 0;    // fp32: plain FMA loops
 constexpr int ROUTE_WMMA = 1;   // bf16 that TMA cannot describe; dh 32
-                                // (backward: also dh 192/256)
 constexpr int ROUTE_WGMMA = 2;  // bf16, TMA-describable: dh 64/128/192/256
-                                // (backward: dh 64/128)
 
 // route: one of ROUTE_* (fp32 tensors for FMA, bf16 for the other two).
 // q, o: [B, S, H, dh]-strided; k, v: [B, S, KVH, dh]-strided (strides in
@@ -2039,18 +2624,18 @@ extern "C" int flash_attention_launch(
 }
 
 // The backward of flash_attention_launch.  route: ROUTE_FMA (fp32),
-// ROUTE_WMMA (bf16) or ROUTE_WGMMA (bf16, head dim 64 or 128, q, k, v, dO
-// TMA-describable).  q, o, dO: [B, S, H, dh]-strided; k, v: [B, S, KVH,
-// dh]-strided; lse: [B, H, S] fp32 from the forward.  Writes dq [B, S, H,
-// dh], dk, dv [B, S, KVH, dh] (strided as given, the inputs' type) through
-// scratch the caller allocates: D, 2 * B * H * S_pad fp32 with S_pad = S
-// rounded up to a multiple of 192 (the fma and wmma routes use its first
-// B * H * S as [B, H, S]; the wgmma route its two halves as the padded D
-// and lse2 rows), and dk_part, dv_part [B, H, S, dh] fp32.  Four launches
-// on `stream`, no atomics, no synchronisation; returns cudaGetLastError(),
-// -1 for an unknown route, -2 for a head dim it does not take, -3 for a
-// tensor map that cannot be encoded and -4 for tensors the wgmma route
-// cannot take.
+// ROUTE_WMMA (bf16) or ROUTE_WGMMA (bf16, head dim 64, 128, 192 or 256,
+// q, k, v, dO TMA-describable).  q, o, dO: [B, S, H, dh]-strided; k, v:
+// [B, S, KVH, dh]-strided; lse: [B, H, S] fp32 from the forward.  Writes
+// dq [B, S, H, dh], dk, dv [B, S, KVH, dh] (strided as given, the inputs'
+// type) through scratch the caller allocates: D, 2 * B * H * S_pad fp32
+// with S_pad = S rounded up to a multiple of 384 (the fma and wmma routes
+// use its first B * H * S as [B, H, S]; the wgmma route its two halves as
+// the padded D and lse2 rows), and dk_part, dv_part [B, H, S, dh] fp32.
+// Four launches on `stream`, no atomics, no synchronisation; returns
+// cudaGetLastError(), -1 for an unknown route, -2 for a head dim it does
+// not take, -3 for a tensor map that cannot be encoded and -4 for tensors
+// the wgmma route cannot take.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv, void* D,
@@ -2088,6 +2673,8 @@ extern "C" int flash_attention_bwd_launch(
     if (!(aligned(0) && aligned(1) && aligned(2) && aligned(4))) return -4;
     if (dh == 64) return wgb::launch<64>(a, s);
     if (dh == 128) return wgb::launch<128>(a, s);
+    if (dh == 192) return wgbw::launch<192>(a, s);
+    if (dh == 256) return wgbw::launch<256>(a, s);
     return -4;
   }
   if (route == ROUTE_WMMA) {

@@ -18,11 +18,11 @@ launch and `flash_attention.launches_by_route` splits them by route.
 The gradient: `FlashAttention` (a `torch.autograd.Function`) runs the
 forward with its per-row log-sum-exp and, for the backward,
 `flash_attention_bwd` -- the CUDA kernels of the same `.cu` on a card,
-picked by `bwd_route` asked of q, k, v and dO: the forward's rule over the
-backward's own wgmma head dims `BWD_WGMMA_HEAD_DIMS` (64, 128), so bf16 at
-head dim 192 or 256 takes "wmma" there whatever its alignment; "fma" for
-fp32; the forward's `HEAD_DIMS`, another raises `NotImplementedError`),
-`attention_bwd_ref` on the CPU.  The TPU kernel has no backward; the
+picked by `route` asked of q, k, v and dO: the forward's rule at the
+forward's head dims ("wgmma" for TMA-describable bf16 at 64 and 128 and,
+on the wide-head kernels, 192 and 256; "wmma" for other bf16; "fma" for
+fp32; another head dim raises `NotImplementedError`), `attention_bwd_ref`
+on the CPU.  The TPU kernel has no backward; the
 reference trains through its plain chunked attention instead.
 `flash_attention_bwd.launches` counts its launches and
 `flash_attention_bwd.launches_by_route` splits them by route.
@@ -40,43 +40,32 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
                                                      attention_fwd_ref,
                                                      attention_ref)
 
-# head dims the .cu instantiates on the fma and wmma routes, forward and
-# backward alike, and the ones its wgmma kernels take: the forward's and the
-# backward's (a test reads each set out of the .cu)
+# head dims the .cu instantiates on the fma and wmma routes, and the ones
+# its wgmma kernels take, forward and backward alike (a test reads each set
+# out of the .cu, both directions)
 HEAD_DIMS = (32, 64, 128, 192, 256)
 WGMMA_HEAD_DIMS = (64, 128, 192, 256)
-BWD_WGMMA_HEAD_DIMS = (64, 128)
 # the backward's scratch rows: S rounded up to a multiple of this (the
 # .cu's wgb::PAD)
-BWD_PAD = 192
+BWD_PAD = 384
 
 
 def route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
-          strides: Sequence[Sequence[int]],
-          wgmma_dims: Sequence[int] = WGMMA_HEAD_DIMS) -> str:
-    """The kernel `flash_attention_launch` runs, by shape: fp32 -> "fma"
-    (head dims 32, 64, 128, 192, 256); bf16 with a head dim in `wgmma_dims`
-    (the forward's `WGMMA_HEAD_DIMS`: 64, 128, 192, 256) whose q, k, v bases
-    (`ptrs`) are 16-byte aligned and whose (batch, position, head) strides
-    (elements) are multiples of 8, i.e. of 16 bytes, as TMA needs ->
-    "wgmma"; any other bf16 (head dim 32, an unaligned base or stride) ->
-    "wmma".  `bwd_route` asks the same of q, k, v and dO over the backward's
-    head dims.  `flash_launch` and `flash_attention_bwd` refuse a head dim
-    outside `HEAD_DIMS` before this is asked."""
+          strides: Sequence[Sequence[int]]) -> str:
+    """The kernels `flash_attention_launch` and `flash_attention_bwd_launch`
+    run, by shape: fp32 -> "fma" (head dims 32, 64, 128, 192, 256); bf16
+    with a head dim in `WGMMA_HEAD_DIMS` (64, 128, 192, 256) whose bases
+    (`ptrs`: q, k, v, and dO for the backward) are 16-byte aligned and whose
+    (batch, position, head) strides (elements) are multiples of 8, i.e. of
+    16 bytes, as TMA needs -> "wgmma"; any other bf16 (head dim 32, an
+    unaligned base or stride) -> "wmma".  `flash_launch` and
+    `flash_attention_bwd` refuse a head dim outside `HEAD_DIMS` before this
+    is asked."""
     if dtype == torch.float32:
         return "fma"
-    tma = (dh in wgmma_dims and all(p % 16 == 0 for p in ptrs)
+    tma = (dh in WGMMA_HEAD_DIMS and all(p % 16 == 0 for p in ptrs)
            and all(x % 8 == 0 for st in strides for x in st))
     return "wgmma" if tma else "wmma"
-
-
-def bwd_route(dtype: torch.dtype, dh: int, ptrs: Sequence[int],
-              strides: Sequence[Sequence[int]]) -> str:
-    """The kernels `flash_attention_bwd_launch` runs: `route`'s rule asked
-    of q, k, v and dO over `BWD_WGMMA_HEAD_DIMS` (64, 128), so bf16 at head
-    dim 192 or 256 (deepseek_v32, gemma3) takes "wmma" here while its
-    forward takes "wgmma"."""
-    return route(dtype, dh, ptrs, strides, BWD_WGMMA_HEAD_DIMS)
 
 
 def _check_qkv(what: str, q: torch.Tensor, k: torch.Tensor,
@@ -136,8 +125,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradient of the forward in model layout: q, o, do [B, S, H, dh];
     k, v [B, S, KVH, dh]; lse [B, H, S] fp32 from the forward -> (dq, dk,
     dv) in q's type.  On the CPU `attention_bwd_ref`; on CUDA tensors the
-    backward kernels of `bwd_route`'s route (deterministic: no atomics), or
-    a raise -- never another route."""
+    backward kernels of the route `route` gives q, k, v and dO
+    (deterministic: no atomics), or a raise -- never another route."""
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                  window=window, softcap=softcap)
@@ -169,8 +158,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk_part = torch.empty((B, H, S, dh), **f32)
     dv_part = torch.empty((B, H, S, dh), **f32)
     strides = [x for t in (q, k, v, o, do, dq, dk, dv) for x in t.stride()[:3]]
-    r = bwd_route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
-                  [t.stride()[:3] for t in (q, k, v, do)])
+    r = route(q.dtype, dh, [t.data_ptr() for t in (q, k, v, do)],
+              [t.stride()[:3] for t in (q, k, v, do)])
     code = _build.load().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),

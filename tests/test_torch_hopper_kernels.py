@@ -15,6 +15,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import _build, _launch
 from repro_torch.kernels.flash_attention import flash_attention as fa
 from repro_torch.kernels.super_gmm import super_gmm as sg
+from repro_torch.launch import sweep_bwd_tiles
 
 
 def cu_tiles() -> List[Tuple[int, int]]:
@@ -188,8 +189,9 @@ _BWD_ALIGNED = (0, 0, 0, 0)  # q, k, v, dO bases
 
 
 def _bwd_route(q, k, v, do, dtype=torch.bfloat16, ptrs=_BWD_ALIGNED):
-    return fa.bwd_route(dtype, q.shape[-1], ptrs,
-                        [t.stride()[:3] for t in (q, k, v, do)])
+    """The backward's route: the forward's rule asked of q, k, v and dO."""
+    return fa.route(dtype, q.shape[-1], ptrs,
+                    [t.stride()[:3] for t in (q, k, v, do)])
 
 
 def _fused_qkv(B, S, H, KVH, dh):
@@ -205,10 +207,10 @@ def _fused_qkv(B, S, H, KVH, dh):
     (torch.bfloat16, 64, "fused", "wgmma"),
     (torch.bfloat16, 128, "fused", "wgmma"),
     (torch.bfloat16, 32, "model", "wmma"),
-    (torch.bfloat16, 192, "model", "wmma"),
-    (torch.bfloat16, 256, "model", "wmma"),
-    (torch.bfloat16, 192, "fused", "wmma"),
-    (torch.bfloat16, 256, "fused", "wmma"),
+    (torch.bfloat16, 192, "model", "wgmma"),
+    (torch.bfloat16, 256, "model", "wgmma"),
+    (torch.bfloat16, 192, "fused", "wgmma"),
+    (torch.bfloat16, 256, "fused", "wgmma"),
     (torch.bfloat16, 256, "unaligned_q", "wmma"),
     (torch.bfloat16, 128, "unaligned_q", "wmma"),
     (torch.bfloat16, 128, "unaligned_do", "wmma"),
@@ -218,10 +220,10 @@ def _fused_qkv(B, S, H, KVH, dh):
     (torch.float32, 128, "unaligned_q", "fma"),
 ])
 def test_flash_bwd_route(dtype, dh, layout, want):
-    """fp32 -> fma; bf16 at head dim 64 / 128 with 16-byte-aligned q, k, v,
-    dO bases and strides of 8 elements -> wgmma (slices of a fused
-    projection too); every other bf16, 192 and 256 however aligned ->
-    wmma."""
+    """fp32 -> fma; bf16 at head dim 64 / 128 / 192 / 256 with
+    16-byte-aligned q, k, v, dO bases and strides of 8 elements -> wgmma
+    (slices of a fused projection too); every other bf16 (head dim 32, an
+    unaligned base or stride) -> wmma."""
     B, S, H, KVH = 2, 100, 8, 2
     if layout == "fused":
         q, k, v = _fused_qkv(B, S, H, KVH, dh)
@@ -244,14 +246,13 @@ def test_flash_bwd_route(dtype, dh, layout, want):
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_1b",
                                   "deepseek_v32", "olmo_1b", "zamba2_1p2b"])
 def test_flash_bwd_route_of_the_models(arch):
-    """Each model's bf16 attention in model layout takes wgmma where its
-    head dim has a wgmma backward, wmma where not (gemma3's 256,
-    deepseek_v32's 192); its forward takes wgmma at every one of them."""
+    """Each model's bf16 attention in model layout takes wgmma in both
+    directions, gemma3's head dim 256 and deepseek_v32's 192 included."""
     cfg = get_config(arch)
     q, k, v = _model_qkv(1, 4096, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim)
-    want = "wgmma" if cfg.head_dim in fa.BWD_WGMMA_HEAD_DIMS else "wmma"
-    assert _bwd_route(q, k, v, q) == want
+    assert cfg.head_dim in fa.WGMMA_HEAD_DIMS
+    assert _bwd_route(q, k, v, q) == "wgmma"
     assert _fa_route(q, k, v) == "wgmma"
 
 
@@ -259,11 +260,11 @@ def test_flash_bwd_route_of_the_models(arch):
                                     "unaligned_do", "odd_pos_stride"])
 @pytest.mark.parametrize("dh", [192, 256])
 def test_flash_routes_split_at_the_wide_heads(dh, layout):
-    """At head dims 192 and 256 the two directions part: TMA-describable
-    bf16 runs its forward on the wide-head wgmma kernel and its backward on
-    wmma (the .cu has no wgmma backward there); a base or stride TMA cannot
-    take sends the forward to wmma too.  dO does not enter the forward's
-    rule."""
+    """Where the two directions split at head dims 192 and 256: only where
+    dO alone is unaligned.  dO does not enter the forward's rule, so the
+    forward takes wgmma and the backward wmma.  Everywhere else they agree:
+    TMA-describable bf16 runs both on the wide-head wgmma kernels, and a
+    base or stride TMA cannot take sends both to wmma."""
     B, S, H, KVH = 1, 300, 8, 2
     if layout == "fused":
         q, k, v = _fused_qkv(B, S, H, KVH, dh)
@@ -278,7 +279,8 @@ def test_flash_routes_split_at_the_wide_heads(dh, layout):
             "unaligned_do": (0, 0, 0, 8)}.get(layout, _BWD_ALIGNED)
     fwd = "wmma" if layout in ("unaligned_q", "odd_pos_stride") else "wgmma"
     assert _fa_route(q, k, v, ptrs=ptrs[:3]) == fwd
-    assert _bwd_route(q, k, v, do, ptrs=ptrs) == "wmma"
+    assert _bwd_route(q, k, v, do, ptrs=ptrs) == (
+        "wmma" if layout == "unaligned_do" else fwd)
     assert fa.route(torch.float32, dh, ptrs[:3],
                     [t.stride()[:3] for t in (q, k, v)]) == "fma"
 
@@ -289,12 +291,35 @@ def _cu_src() -> str:
     return (_build.CSRC / "flash_attention.cu").read_text()
 
 
+def _cu_const(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def wide_bwd_tiles() -> dict:
+    """The wide-head backward's tiles by head dim, read back out of
+    csrc/flash_attention.cu (namespace wgbw): the dK/dV kernel's keys per
+    block, queries per tile and ring depth, the dQ kernel's queries per
+    block, keys per tile and ring depth, and the prep kernel's PAD."""
+    src = _cu_src()
+    out = {}
+    for dh, body in re.findall(r"template <> struct Tiles<(\d+)> \{(.*?)\};",
+                               src, re.S):
+        t = {n: _cu_const(body, n) for n in ("KV_QT", "KV_ST", "Q_KT",
+                                             "Q_ST")}
+        out[int(dh)] = {"keys": _cu_const(src, "W_KEYS"), "qt": t["KV_QT"],
+                        "kv_stages": t["KV_ST"], "qs": _cu_const(src, "W_QS"),
+                        "kt": t["Q_KT"], "q_stages": t["Q_ST"],
+                        "pad": _cu_const(src, "PAD")}
+    return out
+
+
 def bwd_tiles() -> dict:
     """The backward's (key-side, query-side) tile shapes by (route, head
     dim), read back out of csrc/flash_attention.cu: the dK/dV kernel's
     (keys per block, queries per tile) and the dQ kernel's (queries per
     block, keys per tile).  The fma and wmma kernels use one (BQ, BKV) for
-    both; the wgmma kernels their own constants."""
+    both; the wgmma kernels their own constants (`wgb`'s at head dims 64 and
+    128, `wgbw`'s Tiles at 192 and 256)."""
     src = _cu_src()
     body = src[src.index('extern "C" int flash_attention_bwd_launch('):]
     out = {}
@@ -305,11 +330,18 @@ def bwd_tiles() -> dict:
         route = "fma" if dt == "float" else "wmma"
         out[(route, int(dh))] = {"dkdv": (int(bkv), int(bq)),
                                  "dq": (int(bq), int(bkv))}
-    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+    const = {n: _cu_const(src, n)
              for n in ("KV_KEYS", "KV_QS", "Q_QS", "Q_KEYS")}
-    for dh in fa.BWD_WGMMA_HEAD_DIMS:
-        out[("wgmma", dh)] = {"dkdv": (const["KV_KEYS"], const["KV_QS"]),
-                              "dq": (const["Q_QS"], const["Q_KEYS"])}
+    wide = wide_bwd_tiles()
+    for dh in fa.WGMMA_HEAD_DIMS:
+        if dh in wide:
+            t = wide[dh]
+            out[("wgmma", dh)] = {"dkdv": (t["keys"], t["qt"]),
+                                  "dq": (t["qs"], t["kt"])}
+        else:
+            out[("wgmma", dh)] = {"dkdv": (const["KV_KEYS"],
+                                           const["KV_QS"]),
+                                  "dq": (const["Q_QS"], const["Q_KEYS"])}
     return out
 
 
@@ -412,15 +444,128 @@ def test_bwd_walks_cover_every_visible_pair_once(S, causal, window):
 def test_bwd_tiles_of_the_cu():
     """The tiles the walks are held at: 64 x 64 on wmma up to head dim 128,
     32 x 32 at 192 and 256 (and every fma head dim), the wgmma kernels'
-    128-key (dK, dV) and 192-query (dQ) blocks over 64-row tiles, every head
-    dim of HEAD_DIMS on fma and wmma."""
+    128-key (dK, dV) and 192-query (dQ) blocks over 64-row tiles at head
+    dims 64 and 128, and at 192 / 256 64-key (dK, dV) blocks over 64-query
+    tiles and 128-query (dQ) blocks over 64 / 32-key tiles, every head dim
+    of HEAD_DIMS on fma and wmma and of WGMMA_HEAD_DIMS on wgmma."""
     tiles = bwd_tiles()
     for dh in fa.HEAD_DIMS:
         assert tiles[("fma", dh)]["dq"] == (32, 32)
         assert tiles[("wmma", dh)]["dq"] == ((64, 64) if dh <= 128
                                               else (32, 32))
-    for dh in fa.BWD_WGMMA_HEAD_DIMS:
+    for dh in (64, 128):
         assert tiles[("wgmma", dh)] == {"dkdv": (128, 64), "dq": (192, 64)}
+    assert tiles[("wgmma", 192)] == {"dkdv": (64, 64), "dq": (128, 64)}
+    assert tiles[("wgmma", 256)] == {"dkdv": (64, 64), "dq": (128, 32)}
+    assert {dh for r, dh in tiles if r == "wgmma"} == set(fa.WGMMA_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("variant", list(sweep_bwd_tiles.VARIANTS))
+def test_tile_sweep_variants_rewrite_the_cu(variant):
+    """The tile sweep's copy of the .cu carries its variant's Tiles and
+    nothing else of them changed; its "kept" variant is what the .cu ships;
+    the exact-byte layout assert goes, the shared-memory cap stays."""
+    src = _cu_src()
+    tiles = sweep_bwd_tiles.VARIANTS[variant]
+    out = sweep_bwd_tiles.with_tiles(src, tiles)
+    got = {int(dh): tuple(_cu_const(body, n)
+                          for n in sweep_bwd_tiles.FIELDS)
+           for dh, body in re.findall(
+               r"template <> struct Tiles<(\d+)> \{(.*?)\};", out, re.S)}
+    assert got == tiles
+    assert '"wide backward layouts"' in src
+    assert '"wide backward layouts"' not in out
+    assert '"wide backward shared memory"' in out
+    kept = sweep_bwd_tiles.with_tiles(src, sweep_bwd_tiles.VARIANTS["kept"])
+    assert out.count("\n") == kept.count("\n")
+    assert sweep_bwd_tiles.VARIANTS["kept"] == {
+        dh: (t["qt"], t["kv_stages"], t["kt"], t["q_stages"])
+        for dh, t in wide_bwd_tiles().items()}
+
+
+def wide_bwd_walk(S, dh, causal, window):
+    """Plain mirror of the wide-head backward's walk at head dim `dh` (tiles
+    read from the .cu).  Returns (dkdv, dq, rows): dkdv, per 64-key block
+    k0, its query tiles in order, each (role, q0, masked) for the two role
+    warpgroups ("dv", "dk") -- both run every tile, `masked` whether the
+    mask is applied (the causal diagonal, the window edge); dq, per
+    128-query block q0, its key tiles, each (qw, k0, live, masked) for the
+    two 64-row warpgroup slices qw -- `live` the slice runs the tile's
+    products, `masked` it applies the mask (also the ragged end of S); rows,
+    the end of every lse2 / D row range a block reads."""
+    t = wide_bwd_tiles()[dh]
+    keys, qt, qs, kt = t["keys"], t["qt"], t["qs"], t["kt"]
+    dkdv, dq, rows = {}, {}, []
+    for k0 in range(0, S, keys):
+        qt_lo = k0 // qt if causal else 0
+        q_end = min(S, k0 + keys - 1 + window) if window else S
+        visits = []
+        for q0 in range(qt_lo * qt, -(-q_end // qt) * qt, qt):
+            masked = bool((causal and k0 + keys - 1 > q0)
+                          or (window and k0 <= q0 + qt - 1 - window))
+            visits += [("dv", q0, masked), ("dk", q0, masked)]
+            rows.append(q0 + qt)  # the stage's bulk copy of lse2, D
+        dkdv[k0] = visits
+    for q0 in range(0, S, qs):
+        kv_hi = min(S, q0 + qs) if causal else S
+        kv_lo = max(0, q0 - window + 1) if window else 0
+        visits = []
+        for k0 in range(kv_lo // kt * kt, -(-kv_hi // kt) * kt, kt):
+            for qw in range(q0, q0 + qs, 64):
+                live = (qw < S and not (causal and k0 > qw + 63)
+                        and not (window and k0 + kt - 1 <= qw - window))
+                masked = bool(k0 + kt > S or (causal and k0 + kt - 1 > qw)
+                              or (window and k0 <= qw + 63 - window))
+                visits.append((qw, k0, live, masked))
+        dq[q0] = visits
+        rows.append(q0 + qs)  # each thread's two rows, qw + 0..63
+    return dkdv, dq, rows
+
+
+@pytest.mark.parametrize("window", [None, 16, 512], ids=["nowin", "w16",
+                                                          "w512"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S", [100, 129, 1000, 2047, 4096])
+def test_wide_bwd_walk_sums_every_visible_pair_once(S, causal, window):
+    """At head dims 192 and 256 (the wgbw kernels' tiles, read from the
+    .cu): per 64-key block, each role warpgroup sums every visible (q, k)
+    pair exactly once -- the dV one into dV, the dK one into dK -- and per
+    128-query block, each 64-row slice every visible pair of its rows once
+    into dQ; a tile summed without the mask holds only visible pairs (rows
+    and keys below S); a tile a dQ slice skips holds none of its visible
+    pairs; every lse2 / D row a block reads lies below S_pad (S rounded up
+    to PAD)."""
+    vis = _visible(S, causal, window)
+    assert set(wide_bwd_tiles()) == {192, 256}
+    for dh, t in wide_bwd_tiles().items():
+        assert t["pad"] == fa.BWD_PAD
+        s_pad = -(-S // t["pad"]) * t["pad"]
+        dkdv, dq, rows = wide_bwd_walk(S, dh, causal, window)
+        assert max(rows) <= s_pad, (dh, max(rows), s_pad)
+        summed = {"dv": np.zeros((S, S), np.int64),
+                  "dk": np.zeros((S, S), np.int64),
+                  "dq": np.zeros((S, S), np.int64)}
+        for k0, visits in dkdv.items():
+            q0s = [q0 for role, q0, _ in visits if role == "dk"]
+            assert q0s == sorted(set(q0s))
+            assert q0s == [q0 for role, q0, _ in visits if role == "dv"]
+            for role, q0, masked in visits:
+                block = vis[q0:q0 + t["qt"], k0:k0 + t["keys"]]
+                if not masked:
+                    assert block.all(), (dh, role, k0, q0)
+                summed[role][q0:q0 + t["qt"], k0:k0 + t["keys"]] += block
+        for q0, visits in dq.items():
+            for qw, k0, live, masked in visits:
+                block = vis[qw:qw + 64, k0:k0 + t["kt"]]
+                if not live:
+                    assert not block.any(), (dh, qw, k0)
+                    continue
+                if not masked:
+                    assert k0 + t["kt"] <= S and block.all(), (dh, qw, k0)
+                summed["dq"][qw:qw + 64, k0:k0 + t["kt"]] += block
+        for role, got in summed.items():
+            np.testing.assert_array_equal(got, vis.astype(np.int64),
+                                          err_msg=f"dh {dh} {role}")
 
 
 # ----------------------------------------- wide-head forward tile walk --

@@ -235,10 +235,10 @@ def test_flash_wrapper_bh_layout_is_differentiable():
 
 def test_bwd_head_dims_match_the_cu():
     """The forward's HEAD_DIMS == what flash_attention_bwd_launch
-    instantiates on the fp32 fma and bf16 wmma routes, and
-    BWD_WGMMA_HEAD_DIMS == the backward's wgmma route's (the backward routes
-    by the forward's rule over its own wgmma head dims: none at 192 or
-    256)."""
+    instantiates on the fp32 fma and bf16 wmma routes, and WGMMA_HEAD_DIMS
+    == its wgmma route's (`wgb` at 64 and 128, `wgbw` at 192 and 256: the
+    backward routes by the forward's rule), and BWD_PAD == the .cu's
+    PAD."""
     import os
     path = os.path.join(os.path.dirname(__file__), "..", "src",
                         "repro_torch", "csrc", "flash_attention.cu")
@@ -250,10 +250,12 @@ def test_bwd_head_dims_match_the_cu():
             body) if a == b)
         assert dims == fa.HEAD_DIMS == (32, 64, 128, 192, 256)
     wg = tuple(int(a) for a, b in re.findall(
-        r"if \(dh == (\d+)\) return wgb::launch<(\d+)>", body) if a == b)
-    assert wg == fa.BWD_WGMMA_HEAD_DIMS == (64, 128)
+        r"if \(dh == (\d+)\) return wgbw?::launch<(\d+)>", body) if a == b)
+    assert wg == fa.WGMMA_HEAD_DIMS == (64, 128, 192, 256)
+    assert re.findall(r"return (wgbw?)::launch<", body) == [
+        "wgb", "wgb", "wgbw", "wgbw"]
     assert re.search(r"constexpr int PAD = (\d+);", src).group(1) == str(
-        fa.BWD_PAD)
+        fa.BWD_PAD) == "384"
 
 
 @pytest.mark.parametrize("dh", [16, 48, 320])
