@@ -36,6 +36,21 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             out_len lognormal mean 16 cv 0.5 capped at 64, decode width 8
             over a 2112-token cache, KV handoff priced on the H100 link;
             counts of all four kernels set to 0 just before, read just after
+  analysis  the port's asaplint (`repro_torch.analysis`) on this checkout's
+            src/repro_torch with stale suppressions failing: no
+            unsuppressed finding; every `extern "C"` launch function the
+            launch-contract pass parsed from csrc/*.cu is a symbol of the
+            library just built, with as many `argtypes` as C parameters,
+            each of the mapped type, and restype c_int; ptxas's report:
+            every kernel's registers and spill bytes, no C7520 warning
+            anywhere and 0 spill bytes in the wgmma kernels; then (after
+            the serve executor is released) the serve wave -- the serve
+            phase's model, requests and set-up wave -- with the port's
+            runtime lockdep installed before the executor and engine are
+            built, raising at any violation: 8/8 served, no violation,
+            super_gmm and flash_attention launched inside it (all wgmma),
+            its wall time and learned lock-order edges beside the serve
+            phase's wall.  `--phases device,build,analysis` runs it alone
   batching  (after the serve and pd executors are released) continuous
             MoE batching at full width: 8 pinned jobs of 256 tokens through
             a per-region and a batched executor (D=4 E=4, window 10 ms),
@@ -230,9 +245,11 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import ctypes
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -1142,7 +1159,7 @@ def phase_serve(cfg, params, seed: int) -> dict:
     expect(not ex.errors, "executor worker failed")
     ttft = [r.ttft for r in results]
     return {"launches": launches, "by_route": by_route, "by_tile": by_tile,
-            "ttft_mean_s": float(np.mean(ttft)),
+            "wall_s": out["wall"], "ttft_mean_s": float(np.mean(ttft)),
             "ttft_max_s": float(np.max(ttft)),
             "shapes": out["shapes"], "buckets": out["buckets"],
             "counts": out["counts"], "lengths": lengths, "kw": kw}
@@ -1317,6 +1334,205 @@ def phase_pd(cfg, params, serve: dict, seed: int) -> dict:
 
 
 # ------------------------------------------------ batching and lm gmm --
+
+
+# kernels on the wgmma route: ptxas must spill nothing in them
+WGMMA_KERNELS = ("super_gmm_wgmma_kernel", "flash_wgmma_kernel",
+                 "flash_wgmma_wide_kernel", "flash_bwd_dkdv_wgmma_kernel",
+                 "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wide_kernel",
+                 "flash_bwd_dq_wide_kernel")
+
+
+def _demangle(name: str) -> str:
+    """A readable key for an Itanium-mangled kernel name: its namespaces
+    and base name, and its integer template arguments
+    (`_ZN2wg18flash_wgmma_kernelILi128EEEv...` -> `wg::flash_wgmma_kernel<128>`;
+    anonymous namespaces dropped)."""
+    if not name.startswith("_Z"):
+        return name
+    nested = name.startswith("_ZN")
+    rest, i, parts = name[2 + nested:], 0, []
+    while i < len(rest) and rest[i].isdigit():
+        j = i
+        while j < len(rest) and rest[j].isdigit():
+            j += 1
+        parts.append(rest[j:j + int(rest[i:j])])
+        i = j + int(rest[i:j])
+        if not nested:
+            break
+    ints = re.findall(r"L[ijlb](\d+)E", rest[i:].split("EEv")[0] + "E")
+    parts = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    return "::".join(parts) + (f"<{', '.join(ints)}>" if ints else "")
+
+
+def ptxas_kernels(report: str) -> dict:
+    """Registers and spill bytes (stores + loads) of every entry function
+    in ptxas's `-v` report, by demangled name."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = _demangle(m.group(1))
+            out.setdefault(fn, {})
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            fn = _demangle(m.group(1))
+            out.setdefault(fn, {})
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[fn]["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def phase_analysis_static() -> dict:
+    """The card-side checks that need no model: the port's static pass on
+    this checkout, the launch functions' ABI against the built library,
+    and ptxas's registers and spills."""
+    from repro_torch.analysis import run_static
+    from repro_torch.analysis.kernelcheck import (C_TO_CTYPES, parse_declare,
+                                                  parse_externs)
+    from repro_torch.analysis.model import build_models, collect_files
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src",
+                       "repro_torch")
+    t0 = time.time()
+    res = run_static([src], strict_suppressions=True)
+    lint_s = time.time() - t0
+    for f in res.unsuppressed:
+        print(f"[analysis] {f.format()}")
+    expect(res.unsuppressed == [], f"analysis: {len(res.unsuppressed)} "
+           f"unsuppressed finding(s) in {src}")
+    print(f"[analysis] asaplint over {len(res.files)} files of {src}: "
+          f"{len(res.findings)} findings, all suppressed with a reason "
+          f"({collections.Counter(f.rule for f in res.suppressed)}), "
+          f"{len(res.lock_edges)} static lock-order edges, {lint_s:.1f}s")
+    # (b) every extern "C" the pass parsed is a symbol of the built library
+    models = build_models(collect_files([src]))
+    externs = [s for fm in models.values() if fm.lang == "cu"
+               for s in parse_externs(fm)]
+    n_declared = sum(len(parse_declare(fm)) for fm in models.values()
+                     if fm.lang == "py")
+    expect(len(externs) == n_declared == 8,
+           f"analysis: {len(externs)} extern \"C\" functions, "
+           f"{n_declared} _declare entries (8 expected)")
+    lib = _build.load()
+    for sig in externs:
+        fn = getattr(lib, sig.name, None)  # ctypes: None if no such symbol
+        expect(fn is not None, f"analysis: {sig.name} is no symbol of "
+               f"{_build.library_path()}")
+        got = list(fn.argtypes or ())
+        expect(len(got) == len(sig.params),
+               f"analysis: {sig.name} argtypes {len(got)} != C arity "
+               f"{len(sig.params)}")
+        # by identity: c_longlong is c_long where both are 8 bytes
+        want = [getattr(ctypes, C_TO_CTYPES.get(p, ""), None)
+                for p in sig.params]
+        expect(all(g is w for g, w in zip(got, want)),
+               f"analysis: {sig.name} argtypes {got} vs C {sig.params}")
+        expect(fn.restype is ctypes.c_int,
+               f"analysis: {sig.name} restype {fn.restype}")
+    print(f"[analysis] ABI: {len(externs)} extern \"C\" launch functions "
+          f"of csrc/*.cu are symbols of {_build.library_path().name}, each "
+          f"with its C arity and types in argtypes and restype c_int: "
+          + ", ".join(f"{s.name}({len(s.params)})" for s in externs))
+    # (c) ptxas: registers and spills of every kernel; no serialized wgmma
+    report = _build.ptxas_report()
+    expect(report != "", "analysis: no ptxas report beside the library")
+    kernels = ptxas_kernels(report)
+    for name, k in sorted(kernels.items()):
+        print(f"[analysis] ptxas {name}: {k.get('registers')} registers, "
+              f"{k.get('spill')} spill bytes")
+    expect("C7520" not in report, "analysis: ptxas serialized a wgmma "
+           "(C7520):\n" + "\n".join(line for line in report.splitlines()
+                                     if "C7520" in line))
+    wg = {n: k for n, k in kernels.items()
+          if any(base in n for base in WGMMA_KERNELS)}
+    expect({base for base in WGMMA_KERNELS if any(base in n for n in wg)}
+           == set(WGMMA_KERNELS), f"analysis: wgmma kernels missing from "
+           f"the ptxas report: {sorted(wg)}")
+    spilled = {n: k for n, k in wg.items() if k.get("spill") != 0}
+    expect(not spilled, f"analysis: wgmma kernels spill: {spilled}")
+    print(f"[analysis] ptxas: {len(kernels)} entry functions, no C7520, "
+          f"0 spill bytes in all {len(wg)} wgmma kernels (registers "
+          + ", ".join(f"{n} {k['registers']}" for n, k in sorted(wg.items()))
+          + ")")
+    return {"findings": len(res.findings), "files": len(res.files),
+            "lint_s": lint_s, "externs": [s.name for s in externs],
+            "ptxas": kernels}
+
+
+def phase_analysis_wave(cfg, params, seed: int, serve=None) -> dict:
+    """The serve phase's wave (model, requests, set-up wave) with the
+    port's lockdep installed before the executor and engine are built,
+    raising at the offending acquire or wait."""
+    from repro_torch.analysis import lockdep
+    from repro_torch.launch.serve import serve_requests
+    rng = np.random.default_rng(seed)
+    lengths = [int(x) for x in rng.integers(256, 2049, size=8)]
+    kw = dict(rps=8.0, time_scale=1.0, seed=seed, device=DEV,
+              max_batch_tokens=4096)
+    kernels = _pd_kernels()
+    lockdep.reset()
+    with lockdep.lockdep_active(raise_on_violation=True):
+        # set-up, as in the serve phase: the executor built and warmed by
+        # one wave, every worker's first calls made on its own stream
+        ex = serve_requests(cfg, params,
+                            lengths=[1900, 1500, 700, 900, 300, 400],
+                            **kw)["executor"]
+        kw["executor"] = ex
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            _launch.reset_launches(k)
+        out = serve_requests(cfg, params, lengths=lengths, **kw)
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        by_route = {"super_gmm": _routes(super_gmm),
+                    "flash_attention": _routes(flash_attention)}
+        violations = lockdep.violations()
+        edges = lockdep.learned_edges()
+        covered = sorted(lockdep.instrumented_sites())
+        expect(not ex.errors, f"analysis: executor worker failed: "
+               f"{ex.errors}")
+    lockdep.reset()
+    kw.pop("executor")
+    del ex
+    _free()
+    results = out["results"]
+    expect(len(results) == 8 and all(r.ok for r in results),
+           "analysis: not every request of the sanitized wave served")
+    expect(violations == [], f"analysis: lockdep violations {violations}")
+    expect(launches["super_gmm"] > 0 and launches["flash_attention"] > 0,
+           f"analysis: a kernel was never launched in the sanitized wave: "
+           f"{launches}")
+    for name in by_route:
+        expect(by_route[name]["wgmma"] == launches[name],
+               f"analysis: {name} launches by route {by_route[name]}")
+    sites = sorted({s for pair in edges for s in pair})
+    expect(len(covered) > 0, "analysis: lockdep instrumented no lock")
+    print(f"[analysis] serve wave under the port's lockdep: 8/8 served in "
+          f"{out['wall']:.2f}s wall, mean TTFT "
+          f"{np.mean([r.ttft for r in results]):.3f}s (the unsanitized serve "
+          "phase: " + (f"{serve['wall_s']:.2f}s, {serve['ttft_mean_s']:.3f}s"
+                       if serve else "not run")
+          + f"), 0 violations; {len(covered)} lock creation sites "
+          f"instrumented, {len(edges)} learned lock-order edges over "
+          f"{len(sites)} of them; launches {launches}, by route {by_route}")
+    print("[analysis] instrumented sites: " + ", ".join(covered))
+    for (a, b), wit in sorted(edges.items()):
+        print(f"[analysis]   {a} -> {b}   ({wit})")
+    return {"wall_s": out["wall"],
+            "serve_wall_s": serve["wall_s"] if serve else None,
+            "edges": len(edges), "edge_sites": len(sites),
+            "instrumented_sites": len(covered),
+            "violations": 0, "launches": launches, "by_route": by_route,
+            "ttft_mean_s": float(np.mean([r.ttft for r in results]))}
 
 
 def _pinned(tokens, D):
@@ -4570,7 +4786,7 @@ def time_flash_bwd_alone(shapes: list, gen) -> list:
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
                  rebalance=None, zoo=None, tuned=None,
-                 examples=None, train=None) -> dict:
+                 examples=None, train=None, analysis=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -4594,6 +4810,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["batching"] = batching["bitwise"]["batched"]["launches"]
     if gmm:
         by_path["gmm"] = gmm["launches"]
+    if analysis:
+        by_path["analysis"] = analysis["launches"]
     if faults:
         by_path["faults"] = faults["launches"]
     if rebalance:
@@ -4655,7 +4873,7 @@ def _bwd_routes(train) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
-                    "serve,pd,batching,gmm,faults,rebalance,tuning,"
+                    "serve,pd,analysis,batching,gmm,faults,rebalance,tuning,"
                     "examples,train,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
@@ -4706,9 +4924,11 @@ def main() -> int:
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = batching = gmm = faults = rebalance = zoo = None
-    tuned = examples = train = None
+    tuned = examples = train = analysis = None
+    if "analysis" in phases:
+        analysis = phase_analysis_static()
     if {"executor", "serve", "batching", "gmm", "faults",
-            "rebalance", "tuning"} & set(phases):
+            "rebalance", "tuning", "analysis"} & set(phases):
         cfg, params = build_model(SERVE_LAYERS, args.seed)
         if "executor" in phases:
             phase_executor(cfg, params)
@@ -4726,6 +4946,10 @@ def main() -> int:
             # near the card's limit
             serve["kw"].pop("executor")
             _free()
+        if "analysis" in phases:
+            analysis.update(phase_analysis_wave(cfg, params, args.seed,
+                                                serve))
+            print(json.dumps({"analysis": analysis}))
         if "batching" in phases:
             batching = phase_batching(cfg, params, args.seed)
             print(json.dumps({"batching": batching}))
@@ -4756,7 +4980,7 @@ def main() -> int:
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
                                       faults, rebalance, zoo, tuned,
-                                      examples, train)))
+                                      examples, train, analysis)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -734,6 +734,7 @@ class DisaggregatedExecutor:
                     C *= 2
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            _launch.note_host_sync()
 
     def _record_launch(self, e: int, C: int, n_regions: int, n_rows: int,
                        counts: np.ndarray):
@@ -1285,11 +1286,12 @@ class DisaggregatedExecutor:
         load the replica routing balances on."""
         if self._started:
             raise RuntimeError("reset_stats() while the workers run")
+        # race-ok: no worker threads are running (checked above)
         for cell in (self.moe_busy, self.group_busy, self.moe_launches,
                      self.moe_launch_regions, self.moe_launch_rows,
                      self.moe_launch_slots, self.bucket_hits,
                      self.bucket_misses):
-            cell[:] = 0  # race-ok: no worker threads are running
+            cell[:] = 0
         with self._log_lock:
             self.log.clear()
         self._t_serving_start = None
@@ -1377,7 +1379,7 @@ class DisaggregatedExecutor:
                 # e dead, so a dead thread of a live device is a new death)
                 down = [e for e in range(self.E)
                         if e not in self.placement.dead
-                        and not self._moe_threads[e].is_alive()]  # race-ok: see above
+                        and not self._moe_threads[e].is_alive()]
                 if down:
                     raise SwapAborted(
                         f"apply_placement during {phase}: moe device(s) "
@@ -1437,8 +1439,9 @@ class DisaggregatedExecutor:
             for e in affected:
                 self.resident[e] = resident[e]
                 # n_e changed: every capacity buffer is a new shape, and its
-                # first launch counts as a bucket miss
-                self._seen_buckets[e] = set()  # race-ok: workers for `affected` are quiesced behind the frozen gate
+                # first launch counts as a bucket miss (workers for
+                # `affected` are quiesced behind the frozen gate)
+                self._seen_buckets[e] = set()
         finally:
             with self._gate_cv:
                 self._gate_frozen = False
@@ -1609,6 +1612,8 @@ class DisaggregatedExecutor:
                         if self.stop.is_set():
                             return  # shutdown, not a fault
                         if self._moe_restarts[e] >= self.max_worker_restarts:  # race-ok: supervisor single-writer
+                            # race-ok: supervisor single-writer (_moe_restarts);
+                            # _moe_fail_exc read after the worker was seen dead
                             raise RuntimeError(
                                 f"moe device {e} "
                                 f"{'died' if dead else 'stalled'} with "
@@ -1644,6 +1649,7 @@ class DisaggregatedExecutor:
             # params and resident stacks were written on the caller's
             # stream; the workers read them on their own
             torch.cuda.synchronize(self.device)
+            _launch.note_host_sync()
         if self._t_serving_start is None:
             self._t_serving_start = self.clock()
         now = self.clock()

@@ -161,6 +161,9 @@ def unpack_capacity_multi(yb: torch.Tensor, order: torch.Tensor,
                           ) -> List[torch.Tensor]:
     """Split merged expert outputs back into per-region row blocks (inverse
     of `pack_capacity_multi`), in the region order the packer was given."""
+    # sync-ok: bounds lies on the host (pack_capacity_multi sums the
+    # regions' Python lengths): reading it waits on no device
     sizes = torch.diff(bounds, prepend=bounds.new_zeros(1)).tolist()
+    # sync-ok: the same host tensor
     out = unpack_capacity(yb, order, slots, int(bounds[-1]))
     return list(torch.split(out, sizes))

@@ -18,6 +18,7 @@ import torch
 
 from _torch_port import smoke_setup
 from repro.analysis import lockdep
+from repro_torch.analysis import lockdep as port_lockdep
 from repro.core.cost_model import Placement as JaxPlacement
 from repro.models.lm import lm_backbone as jax_lm_backbone
 from repro_torch.core import executor as executor_mod
@@ -101,24 +102,32 @@ def _crash(ex, device=1):
                                         device=device)]))
 
 
-@pytest.mark.parametrize("window,sanitized", [
-    (0.0, False), (0.02, False), (0.0, True), (0.02, True)])
-def test_crash_mid_wave_fails_over_exactly_once(model, window, sanitized):
+@pytest.mark.parametrize("window,sanitizer", [
+    pytest.param(0.0, None, id="0.0-False"),
+    pytest.param(0.02, None, id="0.02-False"),
+    pytest.param(0.0, lockdep, id="0.0-True"),
+    pytest.param(0.02, lockdep, id="0.02-True"),
+    pytest.param(0.0, port_lockdep, id="0.0-port"),
+    pytest.param(0.02, port_lockdep, id="0.02-port")])
+def test_crash_mid_wave_fails_over_exactly_once(model, window, sanitizer):
     """A crash of MoE device 1 once the wave is under way: every pinned job
     completes torch.equal to the fault-free run (per-region and batched),
     with one failover, device 1 dead, the reference's post-failover table,
     and one "failover" migration whose bytes are the 2 experts device 1
-    held, over every layer.  With `sanitized` the reference's lockdep
-    sanitizer wraps every lock the executor creates."""
-    ctx = lockdep.lockdep_active(raise_on_violation=True) if sanitized \
+    held, over every layer.  With a `sanitizer` (the reference's lockdep,
+    or the port's own) it wraps every lock the executor creates."""
+    ctx = sanitizer.lockdep_active(raise_on_violation=True) if sanitizer \
         else contextlib.nullcontext()
-    lockdep.reset()
+    for ld in (lockdep, port_lockdep):
+        ld.reset()
     with ctx:
         ex = _ex(model, moe_batch_window=window, region_timeout=3.0)
         done = _run_during(ex, model[4], lambda: _crash(ex))
-        if sanitized:
-            assert lockdep.violations() == []
-    lockdep.reset()
+        if sanitizer:
+            assert sanitizer.violations() == []
+            assert sanitizer.learned_edges()  # it saw the executor's locks
+    for ld in (lockdep, port_lockdep):
+        ld.reset()
     _same(done, model[5])
     assert ex.failovers == 1 and not ex.errors
     assert ex.placement.dead == (1,)
