@@ -167,6 +167,28 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             and at deepseek_v32's geometry, each beside its bound, its
             plain version and SDPA's backward on expanded heads (the
             backend that ran named) (a {"train": ...} line).  `--phases device,build,train` runs it alone
+  spmd      the mesh steps on one card: a one-rank NCCL process group
+            (rendezvous through a FileStore under build/), the (1, 1)
+            (data, model) mesh, the param specs; (a) gemma3_1b at published
+            width and all 26 layers, [1, 4096], bf16, AdamW lr 3e-4: 2
+            build_train_step and 2 build_sharded_train_step steps from the
+            same init in turns (plain, sharded, sharded, plain), params and
+            moments torch.equal, losses equal, 52 flash forward and 26 backward launches a sharded step,
+            all on "wgmma"; (b) the same gate at qwen3_moe_235b_a22b's
+            published width, depth 1, [1, 2048] (the plain step's state
+            waits on the host: two states do not fit), the dispatch /
+            combine kernels launched; (c) build_compressed_dp_step at
+            gemma3_1b, 3 steps, torch.equal to the same steps composed in
+            one process (compress_with_feedback, AdamW.update), one
+            all-reduce per leaf and step (and one for the loss), the loss
+            falls, the residuals finite; (d) CheckpointManager.save of the
+            sharded gemma3 params and restore(mesh=, specs=) torch.equal.
+            Per step: ms of sharded beside plain, tokens/s, peak memory,
+            the bytes allocated in the step (the sharded step's extra is
+            what the gather and the reduce copy at world size 1); a
+            {"spmd": ...} line.  Everything it allocates is freed and the
+            group destroyed before the next phase.  `--phases
+            device,build,spmd` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -224,8 +246,8 @@ Every super_gmm and flash_attention launch of the serve wave must take the
 wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
 counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
-rebalance, tuning -- the tuned wave --, zoo, and each example twin's whole
-run) stand in the {"kernels": ...} line under "launches_by_path".
+rebalance, tuning -- the tuned wave --, train, spmd -- the sharded steps
+--, zoo, and each example twin's whole run) stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -3419,6 +3441,351 @@ def phase_train(seed: int, gen) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# spmd: the mesh steps on a (1, 1) mesh over one NCCL rank
+# ---------------------------------------------------------------------------
+
+SPMD_STEPS = 2
+COMPRESSED_STEPS = 3
+# qwen3 at published width: depth 1 holds one state (params + fp32 moments,
+# 58-62 GB peak with a step's temporaries); the plain step's result waits on
+# the host while the sharded step runs
+SPMD_QWEN_LAYERS = 1
+
+
+def _spmd_step(step_fn, state, batch, i: int):
+    """One call of step_fn(state, batch): (state, its record) -- ms (CUDA
+    events), tokens/s, peak and cumulative allocated bytes, launches
+    (counts set to 0 just before, read just after), flash routes, host
+    syncs."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0 = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
+    _reset_counts()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    e0.record()
+    state, m = step_fn(state, batch)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    return state, {
+        "step": i + 1, "loss": float(m["loss"]),
+        "grad_norm": float(m["grad_norm"]),
+        "step_ms": e0.elapsed_time(e1), "wall_s": wall,
+        "tokens_per_s": batch["tokens"].numel() / wall,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "allocated_gb": (torch.cuda.memory_stats()[
+            "allocated_bytes.all.allocated"] - alloc0) / 1e9,
+        "launches": _read_counts(),
+        "flash_fwd_by_route": dict(fa.flash_attention.launches_by_route),
+        "flash_bwd_by_route": dict(fa.flash_attention_bwd.launches_by_route),
+        "host_syncs": _launch.reset_host_syncs()}
+
+
+def _spmd_copies(state, mesh, specs) -> dict:
+    """Bytes the sharded step copies on `mesh` to gather the params and to
+    reduce the gradients: a param's `full_tensor()` that is not its local
+    tensor, a gradient's `reduce_to_shard` that is not the gradient (each
+    leaf's taken on a stand-in gradient, one leaf at a time)."""
+    from repro_torch.launch.steps import reduce_to_shard
+    from repro_torch.tree import leaves
+    out = {"gather_bytes": 0, "reduce_bytes": 0}
+    with torch.no_grad():
+        for p, spec in zip(leaves(state.params), leaves(specs)):
+            local = p.to_local()
+            n = local.numel() * local.element_size()
+            if p.full_tensor().data_ptr() != local.data_ptr():
+                out["gather_bytes"] += n
+            g = torch.empty_like(local)
+            if reduce_to_shard(g, mesh, spec).data_ptr() != g.data_ptr():
+                out["reduce_bytes"] += n
+            del g
+    return out
+
+
+def _spmd_sharded_vs_plain(arch: str, layers, S: int, seed: int, mesh,
+                           kernels, interleave: bool) -> dict:
+    """`arch` at published width (depth `layers`, None for all), bf16,
+    AdamW lr 3e-4, one [1, S] batch: SPMD_STEPS plain build_train_step steps
+    and as many build_sharded_train_step steps from the same init on
+    `mesh` -- in turns plain, sharded, sharded, plain where both states fit
+    (`interleave`), else all plain steps first --; params and moments
+    torch.equal.  Every kernel of `kernels` launches in the sharded steps,
+    every flash launch on "wgmma"."""
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import (TrainState,
+                                          build_sharded_train_step,
+                                          build_train_step, state_specs)
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.tree import leaves, tree_map
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    api = build_api(cfg)
+    opt = AdamW(lr=3e-4)
+    batch = pipeline_for(cfg, S, 1, seed, device=DEV).batch(0)
+
+    def fresh():
+        params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
+                                cfg, DEV)
+        return TrainState(params, opt.init(params))
+
+    def sharded_state():
+        state = fresh()
+        pspecs = SH.param_specs(state.params, cfg, mesh)
+        return SH.distribute_tree(state, mesh, state_specs(pspecs)), pspecs
+
+    plain_fn = build_train_step(api, opt)
+    plain, sharded = [], []
+    if interleave:  # in turns: plain, sharded, sharded, plain
+        p_state, (state, pspecs) = fresh(), sharded_state()
+        sharded_fn = build_sharded_train_step(api, opt, mesh, pspecs)
+        for arm in ["plain", "sharded", "sharded", "plain"]:
+            if arm == "plain":
+                p_state, rec = _spmd_step(plain_fn, p_state, batch,
+                                          len(plain))
+                plain.append(rec)
+            else:
+                state, rec = _spmd_step(sharded_fn, state, batch,
+                                        len(sharded))
+                sharded.append(rec)
+    else:  # one state at a time: the plain one waits on the host
+        p_state = fresh()
+        for i in range(SPMD_STEPS):
+            p_state, rec = _spmd_step(plain_fn, p_state, batch, i)
+            plain.append(rec)
+        p_state = tree_map(lambda t: t.to("cpu", copy=True), p_state)
+        _free()
+        state, pspecs = sharded_state()
+        sharded_fn = build_sharded_train_step(api, opt, mesh, pspecs)
+        for i in range(SPMD_STEPS):
+            state, rec = _spmd_step(sharded_fn, state, batch, i)
+            sharded.append(rec)
+    want = leaves(p_state)
+    copies = _spmd_copies(state, mesh, pspecs)
+    got = leaves(SH.full_tree(state))
+    diff = [i for i, (g, w) in enumerate(zip(got, want))
+            if not torch.equal(g, w.to(g.device))]
+    n_leaves = len(want)
+    del got, want
+    expect(not diff, f"spmd {cfg.name}: {len(diff)} of {n_leaves} params / "
+           f"moments differ from the plain step's (leaves {diff[:8]})")
+    total = collections.Counter()
+    for rec in sharded:
+        total.update(rec["launches"])
+        fwd, bwd = rec["flash_fwd_by_route"], rec["flash_bwd_by_route"]
+        expect(fwd.get("wgmma", 0) == rec["launches"]["flash_attention"]
+               and bwd.get("wgmma", 0) == rec["launches"][
+                   "flash_attention_bwd"],
+               f"spmd {cfg.name}: flash launches off wgmma: {fwd} {bwd}")
+    for name in kernels:
+        expect(total[name] > 0, f"spmd {cfg.name}: {name} never launched "
+               f"in the sharded steps ({dict(total)})")
+    expect([r["loss"] for r in sharded] == [r["loss"] for r in plain],
+           f"spmd {cfg.name}: losses {[r['loss'] for r in sharded]} vs "
+           f"{[r['loss'] for r in plain]}")
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "S": S,
+           "leaves": n_leaves, "plain": plain, "sharded": sharded,
+           "copies": copies, "launches": dict(total), "state": state}
+    p, s = plain[-1], sharded[-1]
+    print(f"[spmd] {cfg.name} ({cfg.num_layers} layers, [1, {S}]): sharded "
+          f"== plain after {SPMD_STEPS} steps ({n_leaves} leaves "
+          f"torch.equal); step {SPMD_STEPS}: plain {p['step_ms']:.1f} ms, "
+          f"sharded {s['step_ms']:.1f} ms; {p['tokens_per_s']:.0f} / "
+          f"{s['tokens_per_s']:.0f} tokens/s; peak {p['peak_gb']:.1f} / "
+          f"{s['peak_gb']:.1f} GB; allocated in the step "
+          f"{p['allocated_gb']:.2f} / {s['allocated_gb']:.2f} GB (extra "
+          f"{s['allocated_gb'] - p['allocated_gb']:.2f} GB; the gather "
+          f"copies {copies['gather_bytes'] / 1e9:.2f} GB, the reduce "
+          f"{copies['reduce_bytes'] / 1e9:.2f} GB); launches "
+          f"{s['launches']}; host syncs {p['host_syncs']} / "
+          f"{s['host_syncs']}", flush=True)
+    return out
+
+
+def _spmd_compressed(seed: int, mesh) -> dict:
+    """build_compressed_dp_step at gemma3_1b's published width and depth,
+    COMPRESSED_STEPS steps on one [1, GEMMA_S] batch, against the same steps
+    composed in one process (compress_with_feedback, the dequantized
+    values / 1, AdamW.update): params, moments, residuals and losses
+    torch.equal; one all-reduce per leaf and step (and one for the loss);
+    the loss falls, the residuals are finite."""
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.launch.steps import (TrainState,
+                                          build_compressed_dp_step,
+                                          value_and_grad)
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.compress import (compress_with_feedback,
+                                            dequantize_int8, init_residuals)
+    from repro_torch.tree import leaves, unflatten
+    cfg = get_config(GEMMA_ARCH)
+    api = build_api(cfg)
+    opt = AdamW(lr=3e-4)
+    batch = pipeline_for(cfg, GEMMA_S, 1, seed, device=DEV).batch(0)
+
+    def fresh():
+        params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
+                                cfg, DEV)
+        return TrainState(params, opt.init(params)), init_residuals(params)
+
+    calls = [0]
+    real = dist.all_reduce
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    step = build_compressed_dp_step(api, opt, mesh, "data")
+    state, res = fresh()
+    losses, per_step, ms = [], [], []
+    dist.all_reduce = counted
+    try:
+        for _ in range(COMPRESSED_STEPS):
+            calls[0] = 0
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, res, loss = step(state, res, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            ms.append(e0.elapsed_time(e1))
+            losses.append(float(loss))
+            per_step.append(calls[0])
+    finally:
+        dist.all_reduce = real
+    n = len(leaves(state.params))
+    expect(per_step == [n + 1] * COMPRESSED_STEPS,
+           f"spmd compressed: all-reduces per step {per_step}, not "
+           f"{n} leaves + the loss")
+    expect(losses[-1] < losses[0] and all(np.isfinite(losses)),
+           f"spmd compressed: loss did not fall: {losses}")
+    expect(all(bool(torch.isfinite(r).all()) for r in leaves(res)),
+           "spmd compressed: non-finite residuals")
+    # the same steps composed in one process
+    state2, res2 = fresh()
+    losses2 = []
+    for _ in range(COMPRESSED_STEPS):
+        (loss, _), grads = value_and_grad(api.loss, state2.params, batch)
+        red, new = [], []
+        for g, r in zip(leaves(grads), leaves(res2)):
+            q, scale, nr = compress_with_feedback(g, r)
+            red.append((dequantize_int8(q, scale) / 1.0).to(g.dtype))
+            new.append(nr)
+        del grads
+        opt.update(unflatten(state2.params, red), state2.opt, state2.params)
+        res2 = unflatten(res2, new)
+        losses2.append(float(loss))
+    torch.cuda.synchronize()
+    diff = [i for i, (a, b) in enumerate(zip(leaves((state, res)),
+                                             leaves((state2, res2))))
+            if not torch.equal(a, b)]
+    expect(not diff and losses == losses2,
+           f"spmd compressed: {len(diff)} leaves differ from the composed "
+           f"steps (leaves {diff[:8]}); losses {losses} vs {losses2}")
+    del state, res, state2, res2
+    _free()
+    print(f"[spmd] compressed DP step, {GEMMA_ARCH} ({cfg.num_layers} "
+          f"layers, [1, {GEMMA_S}]): torch.equal to the composed steps over "
+          f"{COMPRESSED_STEPS} steps; losses {losses}; {per_step[0]} "
+          f"all-reduces a step ({n} leaves + the loss); step ms {ms}",
+          flush=True)
+    return {"losses": losses, "all_reduces_per_step": per_step,
+            "leaves": n, "step_ms": ms}
+
+
+def _spmd_restore(state, cfg_name: str, mesh) -> dict:
+    """CheckpointManager.save of a sharded params tree and restore(mesh=,
+    specs=) onto the mesh: torch.equal leaf by leaf."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config as cfg_of
+    from repro_torch.launch import sharding as SH
+    from repro_torch.tree import leaves
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "spmd_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.time()
+    ckpt = CheckpointManager(d)
+    ckpt.save(1, state.params, {"step": 1})
+    specs = SH.param_specs(state.params, cfg_of(cfg_name), mesh)
+    back = ckpt.restore(state.params, 1, mesh=mesh, specs=specs)
+    same = all(torch.equal(a, b) for a, b in zip(
+        leaves(SH.full_tree(back)), leaves(SH.full_tree(state.params))))
+    wall = time.time() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(back))
+    del back
+    shutil.rmtree(d, ignore_errors=True)
+    expect(same, f"spmd restore(mesh=, specs=): {cfg_name} params differ "
+           f"from the saved ones")
+    print(f"[spmd] CheckpointManager.restore(mesh=, specs=): {cfg_name} "
+          f"params ({nbytes / 1e9:.2f} GB) torch.equal to the saved ones; "
+          f"save + restore {wall:.1f}s", flush=True)
+    return {"equal": same, "gb": nbytes / 1e9, "wall_s": wall}
+
+
+def phase_spmd(seed: int, card: str) -> dict:
+    """The mesh steps on one card: a one-rank NCCL process group (a
+    FileStore under build/), the (1, 1) mesh, the param specs.  (a)
+    build_sharded_train_step == build_train_step (params and moments
+    torch.equal) at gemma3_1b's published width and depth, [1, 4096], the
+    flash kernels on wgmma inside it (52 forward and 26 backward launches a
+    step), the arms in turns; (b) the same gate at qwen3's published width,
+    depth 1, [1, 2048] (the dispatch / combine kernels; the plain arm first,
+    its state then waiting on the host); (c) build_compressed_dp_step
+    against its one-process composition; (d) restore(mesh=, specs=)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.time()
+    store = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                         "spmd_store")
+    os.makedirs(os.path.dirname(store), exist_ok=True)
+    if os.path.exists(store):
+        os.remove(store)
+    torch.cuda.set_device(0)  # before the mesh: its NCCL groups bind to it
+    dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                            world_size=1, device_id=torch.device(DEV, 0))
+    try:
+        mesh = make_host_mesh(1, 1)
+        gemma = _spmd_sharded_vs_plain(
+            GEMMA_ARCH, None, GEMMA_S, seed, mesh,
+            ("flash_attention", "flash_attention_bwd"), interleave=True)
+        for rec in gemma["sharded"]:
+            expect(rec["launches"]["flash_attention"] == 52
+                   and rec["launches"]["flash_attention_bwd"] == 26,
+                   f"spmd gemma3: flash launches {rec['launches']}, not 52 "
+                   f"forward (remat's recompute included) and 26 backward")
+        restore = _spmd_restore(gemma.pop("state"), GEMMA_ARCH, mesh)
+        _free()
+        qwen = _spmd_sharded_vs_plain(
+            ARCH, SPMD_QWEN_LAYERS, TRAIN_S, seed, mesh,
+            ("flash_attention", "flash_attention_bwd", "dispatch_scatter",
+             "combine_gather", "combine_weighted_bwd"), interleave=False)
+        del qwen["state"]
+        _free()
+        compressed = _spmd_compressed(seed, mesh)
+    finally:
+        dist.destroy_process_group()
+        os.remove(store)
+        _free()
+    launches = collections.Counter()
+    for run in (gemma, qwen):
+        launches.update(run["launches"])
+    out = {"gemma3": gemma, "qwen3": qwen, "compressed": compressed,
+           "restore": restore, "launches": dict(launches),
+           "card": card, "wall_s": time.time() - t0}
+    print(f"[spmd] phase done in {out['wall_s']:.1f}s on {card}")
+    return out
+
+
 def phase_gmm(cfg, params, seed: int, gen) -> dict:
     """lm_forward with the Super Kernel as its gmm (make_super_kernel_gmm):
     in fp32 at the reference's test config against the einsum path (tol
@@ -4786,7 +5153,8 @@ def time_flash_bwd_alone(shapes: list, gen) -> list:
 def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
                  rebalance=None, zoo=None, tuned=None,
-                 examples=None, train=None, analysis=None) -> dict:
+                 examples=None, train=None, analysis=None,
+                 spmd=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -4828,6 +5196,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
     if train:
         by_path["train"] = train["full_width"]["launches"]
         by_path["train_gemma3"] = train["gemma3"]["launches"]
+    if spmd:
+        by_path["spmd"] = spmd["launches"]
     rows[0]["launches_by_tile"] = serve["by_tile"]
     rows[0]["device_ms_by_tile"] = time_super_gmm_tiles(
         shapes["super_gmm"], gen)
@@ -4874,7 +5244,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
                     "serve,pd,analysis,batching,gmm,faults,rebalance,tuning,"
-                    "examples,train,zoo,timing")
+                    "examples,train,spmd,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -4924,7 +5294,7 @@ def main() -> int:
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = batching = gmm = faults = rebalance = zoo = None
-    tuned = examples = train = analysis = None
+    tuned = examples = train = analysis = spmd = None
     if "analysis" in phases:
         analysis = phase_analysis_static()
     if {"executor", "serve", "batching", "gmm", "faults",
@@ -4972,6 +5342,9 @@ def main() -> int:
     if "train" in phases:  # after the serving model is released
         train = phase_train(args.seed, gen)
         print(json.dumps({"train": train}))
+    if "spmd" in phases:  # one NCCL rank; freed before the zoo
+        spmd = phase_spmd(args.seed, card)
+        print(json.dumps({"spmd": spmd}))
     if "zoo" in phases:  # after the qwen3 model is released
         zoo = phase_zoo(args.seed, card)
         print(json.dumps({"zoo": zoo}))
@@ -4980,7 +5353,7 @@ def main() -> int:
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
                                       faults, rebalance, zoo, tuned,
-                                      examples, train, analysis)))
+                                      examples, train, analysis, spmd)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

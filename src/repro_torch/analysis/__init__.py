@@ -20,7 +20,10 @@ CUDA sources (none needs nvcc or a card):
                 `lib.<name>_launch` checked (`_launch.check`) and counted
                 (`_launch.count_launch`).  Suppression: `# kernel-ok:
                 <reason>` (`// kernel-ok:` in a `.cu`).
-  shardcheck  — the dtype policy: float64 in the port's code, bf16
+  shardcheck  — partition specs and the dtype policy: spec literals
+                against the declared mesh axes, FSDP_ARCHS against the
+                configs, `pshard.constrain` names against
+                KNOWN_LOGICAL_AXES; float64 in the port's code, bf16
                 accumulators.  Suppression: `# shard-ok: <reason>`.
   lockdep     — RUNTIME sanitizer: wraps `threading.Lock` / `RLock` /
                 `Condition` for locks created inside this repo, learns the
@@ -31,6 +34,8 @@ CLI: `python -m repro_torch.analysis [paths...] [--json out.json]
 [--order] [--strict-suppressions]` — exits non-zero on any unsuppressed
 static finding; `--strict-suppressions` also fails on suppression comments
 that no longer match any finding, so annotations cannot rot.
+`--contracts` / `--update-contracts` check the cost contracts instead
+(`analysis.contracts`).
 """
 from repro_torch.analysis.report import Finding, AnalysisResult
 from repro_torch.analysis.model import build_models

@@ -8,8 +8,10 @@ Writes go to a temporary directory that is fsync'd and then atomically
 renamed: a killed writer never corrupts the latest checkpoint.
 
 `restore(like)` places each leaf on the device and in the dtype of the
-matching leaf of `like`.  The reference's `mesh=`/`specs=` resharding
-belongs to the multi-device slice.
+matching leaf of `like`; `restore(like, mesh=, specs=)` places it sharded
+onto `mesh` as a DTensor, which may be another mesh than the writer's (the
+elastic restart).  A tree of DTensors is saved whole: every rank of their
+mesh calls `save` (the gather is a collective) and global rank 0 writes.
 """
 from __future__ import annotations
 
@@ -60,6 +62,21 @@ class CheckpointManager:
     # ------------------------------------------------------------------ save
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None):
         final = self._step_dir(step)
+        meshes = _meshes(tree)
+        if meshes:
+            from repro_torch.launch.sharding import full_tree
+            tree = full_tree(tree)
+            if any(meshes[0].get_coordinate()):  # the origin rank writes
+                _barrier(meshes)
+                return final
+        try:
+            return self._write(step, tree, metadata, final)
+        finally:
+            if meshes:
+                _barrier(meshes)
+
+    def _write(self, step: int, tree: Any, metadata: Optional[dict],
+               final: str):
         tmp = tempfile.mkdtemp(dir=self.directory, prefix=".tmp_ckpt_")
         try:
             names, shapes, dtypes = [], [], []
@@ -108,10 +125,14 @@ class CheckpointManager:
         with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
             return json.load(f)
 
-    def restore(self, like: Any, step: Optional[int] = None) -> Any:
+    def restore(self, like: Any, step: Optional[int] = None, mesh=None,
+                specs=None) -> Any:
         """A tree of `like`'s structure read from `step` (the latest by
-        default), each leaf on the device and in the dtype of `like`'s leaf.
-        Raises where the leaf count or a shape does not match."""
+        default), each leaf on the device and in the dtype of `like`'s leaf
+        (and placed as it, where it is a DTensor); with `mesh` and `specs`
+        (a spec tree of `like`'s structure), each leaf a DTensor sharded
+        onto `mesh`.  Raises where the leaf count or
+        a shape does not match."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -128,10 +149,44 @@ class CheckpointManager:
                 raise ValueError(f"shape mismatch for {fname}: "
                                  f"{tuple(arr.shape)} vs "
                                  f"{tuple(proto.shape)}")
-            out.append(_from_numpy(arr, dtype).to(device=proto.device,
-                                                  dtype=proto.dtype))
-        return unflatten(like, out)
+            t = _from_numpy(arr, dtype).to(device=proto.device,
+                                           dtype=proto.dtype)
+            out.append(_placed_like(t, proto) if mesh is None else t)
+        tree = unflatten(like, out)
+        if mesh is not None and specs is not None:
+            from repro_torch.launch.sharding import distribute_tree
+            tree = distribute_tree(tree, mesh, specs)
+        return tree
 
     def metadata(self, step: Optional[int] = None) -> dict:
         step = step if step is not None else self.latest_step()
         return self._manifest(step)["metadata"]
+
+
+def _meshes(tree) -> list:
+    """The distinct meshes of a tree's DTensor leaves."""
+    from torch.distributed.tensor import DTensor
+    out = []
+    for t in leaves(tree):
+        if isinstance(t, DTensor) and all(m is not t.device_mesh
+                                          for m in out):
+            out.append(t.device_mesh)
+    return out
+
+
+def _placed_like(t: torch.Tensor, proto):
+    """`t` (whole) placed as the DTensor `proto` is, by local slicing."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if not isinstance(proto, DTensor):
+        return t
+    return distribute_tensor(t, proto.device_mesh, proto.placements,
+                             src_data_rank=None)
+
+
+def _barrier(meshes):
+    """Every rank of the meshes waits until the writer has published: a sum
+    over each mesh (a barrier over the mesh's ranks only, so ranks outside
+    it, dead ones included, are not waited for)."""
+    from repro_torch.launch.mesh import sum_over
+    for mesh in meshes:
+        sum_over(torch.zeros(1, device=mesh.device_type), mesh)

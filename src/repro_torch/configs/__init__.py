@@ -5,10 +5,14 @@ reduced same-family config for CPU tests.  The port carries every
 architecture of the reference's registry, in its order: the MoE
 architectures the executor serves, the dense decoder families, the
 recurrent (rwkv6), hybrid (zamba2) and encoder-decoder (seamless_m4t) ones.
+`SHAPES` is the assigned input-shape set; `cells()` enumerates the
+(arch x shape) dry-run grid with the reference's skips.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
+from typing import Optional
 
 from repro_torch.models.common import ModelConfig
 
@@ -49,3 +53,39 @@ def get_config(arch: str) -> ModelConfig:
                          f"{ARCHS + EXTRA_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+# long_500k needs sub-quadratic attention
+LONG_CONTEXT_ARCHS = {"zamba2_1p2b", "rwkv6_7b", "gemma3_1b"}
+
+
+def cell_supported(arch: str, shape: str) -> tuple[bool, Optional[str]]:
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, ("pure full-attention arch; long_500k needs "
+                       "sub-quadratic attention")
+    return True, None
+
+
+def cells(include_extra: bool = False):
+    """All (arch, shape) dry-run cells, with skips applied."""
+    out = []
+    for arch in ARCHS + (EXTRA_ARCHS if include_extra else []):
+        for shape in SHAPES:
+            if cell_supported(arch, shape)[0]:
+                out.append((arch, shape))
+    return out

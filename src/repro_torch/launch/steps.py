@@ -3,18 +3,38 @@
 
 `train_step` CONSUMES its state, as the optimizer does: the params and the
 moments are updated in place and the same objects come back (the
-reference's step is functional).  The reference's `build_compressed_dp_step`
-(a shard_map data-parallel step with an int8-compressed all-reduce) belongs
-to the multi-device slice.
+reference's step is functional).  The two steps over a mesh consume theirs
+the same way:
+
+  * `build_sharded_train_step` -- the counterpart of the reference's
+    `jax.jit(build_train_step(...), in_shardings=...)`.  The state is
+    stored as DTensors placed by the param specs (`state_specs`); each
+    step gathers the params whole, runs the one-device loss and backward
+    (the kernels unchanged) on the rank's batch shard, reduces each
+    gradient to its owner's shard (reduce-scatter where the spec shards
+    over a batch axis, all-reduce otherwise, then the local slice),
+    clips by the norm of the whole gradient and updates the local shards.
+    The "model" axis shards storage, not compute: the ranks of one data
+    row compute the same batch shard.
+  * `build_compressed_dp_step` -- the reference's shard_map step:
+    replicated state, a per-rank error-feedback residual, the gradients
+    all-reduced int8-compressed (`optim.compress.compressed_psum`), the
+    loss averaged over the axis.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.launch.mesh import axis_names, batch_axes, dp_size, sum_over
+from repro_torch.launch.sharding import (P, _axes, batch_specs, full_tree,
+                                         local_shard, placements)
+from repro_torch.models import pshard
 from repro_torch.models.api import ModelAPI
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
+from repro_torch.optim.compress import compressed_psum
 from repro_torch.tree import leaves, tree_map, unflatten
 
 
@@ -49,40 +69,46 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return (loss.detach(), metrics), unflatten(params, grads)
 
 
+def _loss_and_grads(api: ModelAPI, params, batch, accum_steps: int):
+    """(loss, metrics, grads) of `api.loss` on `batch`.  accum_steps > 1:
+    gradient accumulation over microbatches, as the reference's `scan` --
+    the batch's leading axis split into `accum_steps` microbatches, fp32
+    gradient sums, loss and gradients averaged over them, metrics
+    averaged."""
+    if accum_steps == 1:
+        (loss, metrics), grads = value_and_grad(api.loss, params, batch)
+        return loss, dict(metrics), grads
+    micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                           + tuple(v.shape[1:]))[i]
+              for k, v in batch.items()}
+             for i in range(accum_steps)]
+    g_acc = tree_map(lambda p: torch.zeros(
+        p.shape, dtype=torch.float32, device=p.device), params)
+    loss = torch.zeros((), device=leaves(params)[0].device)
+    mstack = []
+    for mb in micro:
+        (l_mb, m_mb), g_mb = value_and_grad(api.loss, params, mb)
+        for a, g in zip(leaves(g_acc), leaves(g_mb)):
+            a.add_(g.float())
+        loss = loss + l_mb
+        mstack.append(m_mb)
+        del g_mb
+    loss = loss / accum_steps
+    grads = tree_map(lambda g: g / accum_steps, g_acc)
+    metrics = {k: torch.mean(torch.stack([m[k] for m in mstack]), 0)
+               for k in mstack[0]}
+    return loss, metrics, grads
+
+
 def build_train_step(api: ModelAPI, optimizer: AdamW,
                      accum_steps: int = 1) -> Callable:
-    """accum_steps > 1: gradient accumulation over microbatches, as the
-    reference's `scan` -- the batch's leading axis split into
-    `accum_steps` microbatches, fp32 gradient sums, loss and gradients
-    averaged over them, metrics averaged."""
+    """accum_steps > 1: gradient accumulation over microbatches
+    (`_loss_and_grads`)."""
 
     def train_step(state: TrainState, batch):
-        if accum_steps == 1:
-            (loss, metrics), grads = value_and_grad(api.loss, state.params,
-                                                    batch)
-        else:
-            micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                   + tuple(v.shape[1:]))[i]
-                      for k, v in batch.items()}
-                     for i in range(accum_steps)]
-            g_acc = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), state.params)
-            loss = torch.zeros((), device=leaves(state.params)[0].device)
-            mstack = []
-            for mb in micro:
-                (l_mb, m_mb), g_mb = value_and_grad(api.loss, state.params,
-                                                    mb)
-                for a, g in zip(leaves(g_acc), leaves(g_mb)):
-                    a.add_(g.float())
-                loss = loss + l_mb
-                mstack.append(m_mb)
-                del g_mb
-            loss = loss / accum_steps
-            grads = tree_map(lambda g: g / accum_steps, g_acc)
-            metrics = {k: torch.mean(torch.stack([m[k] for m in mstack]), 0)
-                       for k in mstack[0]}
+        loss, metrics, grads = _loss_and_grads(api, state.params, batch,
+                                               accum_steps)
         optimizer.update(grads, state.opt, state.params)
-        metrics = dict(metrics)
         metrics["loss"] = loss
         metrics["grad_norm"] = global_norm(grads)
         return state, metrics
@@ -102,3 +128,135 @@ def build_decode_step(api: ModelAPI) -> Callable:
         return api.decode(params, caches, batch)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Steps over a mesh
+# ---------------------------------------------------------------------------
+
+
+def state_specs(pspecs) -> TrainState:
+    """Specs of a TrainState: the moments shard like their params, the step
+    count is replicated."""
+    return TrainState(pspecs, OptState(P(), pspecs, pspecs))
+
+
+def _local(t):
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _batch_shard(batch: dict, mesh, specs: dict) -> dict:
+    """This rank's shard of a batch of whole tensors (or of DTensors)."""
+    from torch.distributed.tensor import DTensor
+    return {k: v.to_local() if isinstance(v, DTensor)
+            else local_shard(v, specs[k], mesh) for k, v in batch.items()}
+
+
+def sharded_global_norm(grads: list, specs: list, mesh) -> torch.Tensor:
+    """The norm of the whole gradient from its local shards: each rank adds
+    the squares of the leaves it owns a distinct shard of (coordinate 0 on
+    every mesh dim the leaf is replicated over), then one sum over the
+    mesh, so no replicated copy counts twice."""
+    names = axis_names(mesh)
+    coord = mesh.get_coordinate()
+    total = None
+    for g, spec in zip(grads, specs):
+        sharded = {names.index(a) for e in spec if e is not None
+                   for a in _axes(e)}
+        sq = torch.sum(torch.square(g.float()))
+        if any(c for i, c in enumerate(coord) if i not in sharded):
+            sq = torch.zeros_like(sq)
+        total = sq if total is None else total + sq
+    return torch.sqrt(sum_over(total, mesh))
+
+
+def reduce_to_shard(g: torch.Tensor, mesh, spec: P) -> torch.Tensor:
+    """This rank's shard (under `spec`) of the sum of `g` over the batch
+    axes: reduce-scatter where `spec` shards a dim over a batch axis,
+    all-reduce otherwise, then the local slice over "model"."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    ba = batch_axes(mesh)
+    src = [Partial() if a in ba else Replicate() for a in axis_names(mesh)]
+    d = DTensor.from_local(g, mesh, src, run_check=False)
+    return d.redistribute(mesh, placements(spec, mesh)).to_local()
+
+
+def build_sharded_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
+                             accum_steps: int = 1) -> Callable:
+    """`specs`: the param specs (`launch.sharding.param_specs`).  The state
+    is `distribute_tree(state, mesh, state_specs(specs))`; the batch holds
+    whole tensors (the same on every rank) or DTensors, sharded over the
+    batch axes by `batch_specs` and replicated over "model".  Returns
+    (state, metrics), the metrics those of the global batch."""
+    names = axis_names(mesh)
+    dp = dp_size(mesh)
+    ba_dims = [names.index(a) for a in batch_axes(mesh)]
+    groups = [mesh.get_group(i) for i in ba_dims]
+    spec_list = leaves(specs)
+
+    def mean_shard(g, spec):
+        out = reduce_to_shard(g, mesh, spec)
+        return out if dp == 1 else out.div_(dp)
+
+    def train_step(state: TrainState, batch):
+        local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+        with torch.no_grad():
+            full = full_tree(state.params)
+        ctx = pshard.data_parallel(groups, dp) if dp > 1 \
+            else contextlib.nullcontext()
+        with ctx:
+            loss, metrics, grads = _loss_and_grads(api, full, local_batch,
+                                                   accum_steps)
+        del full
+        with torch.no_grad():
+            g_local = [mean_shard(g, s)
+                       for g, s in zip(leaves(grads), spec_list)]
+            del grads
+            gn = sharded_global_norm(g_local, spec_list, mesh)
+            local = tree_map(_local, state)
+            optimizer.update(unflatten(state.params, g_local), local.opt,
+                             local.params, grad_norm=gn)
+        metrics["loss"] = loss
+        if dp > 1:  # the global batch's: the mean over equal shards
+            keys = list(metrics)
+            vals = torch.stack([metrics[k].float() for k in keys])
+            vals = sum_over(vals, mesh, ba_dims) / dp
+            metrics = dict(zip(keys, vals.unbind()))
+        metrics["grad_norm"] = gn
+        return state, metrics
+
+    return train_step
+
+
+def build_compressed_dp_step(api: ModelAPI, optimizer: AdamW, mesh,
+                             axis: str = "data") -> Callable:
+    """Explicit-collective data-parallel train step: per-shard backward,
+    int8 + error-feedback all-reduce of the gradients over `axis`,
+    replicated update.  step(state, residuals, batch) -> (state, residuals,
+    loss): the state plain tensors, the same on every rank (consumed in
+    place); `residuals` this rank's own error-feedback tree
+    (`optim.compress.init_residuals`; the reference stacks the ranks'
+    residuals on a leading axis sharded over `axis`); the batch whole, its
+    leading axis sharded over `axis`; the loss averaged over `axis`."""
+    import torch.distributed as dist
+    group = mesh.get_group(axis)
+    n = dist.get_world_size(group)
+
+    def step(state: TrainState, residuals, batch):
+        local_batch = _batch_shard(batch, mesh, {
+            k: P(axis, *((None,) * (v.dim() - 1))) for k, v in batch.items()})
+        (loss, _), grads = value_and_grad(api.loss, state.params,
+                                          local_batch)
+        reduced, new_res = [], []
+        for g, r in zip(leaves(grads), leaves(residuals)):
+            m, nr = compressed_psum(g, r, group)
+            reduced.append(m.to(g.dtype))
+            new_res.append(nr)
+        del grads
+        optimizer.update(unflatten(state.params, reduced), state.opt,
+                         state.params)
+        dist.all_reduce(loss, group=group)
+        return state, unflatten(residuals, new_res), loss / n
+
+    return step

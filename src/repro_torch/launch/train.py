@@ -1,19 +1,27 @@
-"""Training launcher on one device -- the twin of `repro.launch.train`.
+"""Training launcher -- the twin of `repro.launch.train`.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_moe_235b_a22b \
       --smoke --steps 20 --batch 8 --seq 128 --ckpt-dir build/ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2 ...
 
 The reference's flags, plus `--device` (the card by default; `cpu` runs
-the kernels' plain versions).  One deliberate difference: no mesh and no
-shardings -- one H100 is the reference's 1-device mesh, on which every
-partition spec places the whole tree on the one device.  The step is
-`build_train_step` (AdamW, gradients through the kernels on the card), the
-loop `ResilientTrainer` when `--ckpt-dir` is given.
+the kernels' plain versions), `--mesh DATAxMODEL` and `--init-method`.
+With `--mesh` the process joins a process group (NCCL on the card, gloo on
+`--device cpu`; `env://` as torchrun sets it, or `--init-method
+file:///path` with RANK and WORLD_SIZE in the environment), builds the
+reference's (data, model) mesh over its ranks, shards the state by
+`param_specs` and runs `build_sharded_train_step`; a MoE config's dispatch
+groups are set by `dispatch_groups_for`, as the reference's dry-run sets
+them (one rank must hold whole groups).  Without a process group it keeps
+the one-device path: one H100 is the reference's 1-device mesh, on which
+every partition spec places the whole tree on the one device.  The loop is
+`ResilientTrainer` when `--ckpt-dir` is given.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
@@ -21,7 +29,9 @@ import torch
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import pipeline_for
-from repro_torch.launch.steps import TrainState, build_train_step
+from repro_torch.launch import sharding as SH
+from repro_torch.launch.steps import (TrainState, build_sharded_train_step,
+                                      build_train_step, state_specs)
 from repro_torch.models.api import build_api
 from repro_torch.models.common import param_count
 from repro_torch.optim.adamw import AdamW
@@ -44,7 +54,31 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the kernels' plain "
                          "versions (use with --smoke)")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="train over a (data, model) mesh of this shape "
+                         "(one process per rank)")
+    ap.add_argument("--init-method", default="env://",
+                    help="process-group rendezvous with --mesh")
     return ap
+
+
+def _join_mesh(args, dev: torch.device):
+    """(mesh, device of this rank) for `--mesh DATAxMODEL`."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    data, model = (int(x) for x in args.mesh.lower().split("x"))
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    if world != data * model:
+        raise SystemExit(f"--mesh {args.mesh} needs {data * model} ranks, "
+                         f"got WORLD_SIZE={world}")
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", rank)))
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=args.init_method, rank=rank,
+                            world_size=world)
+    return make_host_mesh(data, model, device_type=dev.type), dev
 
 
 def main(argv=None):
@@ -52,16 +86,30 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    api = build_api(cfg)
     dev = torch.device(args.device)
-    print(f"arch={cfg.name} device={dev} (one device: no mesh)")
+    mesh = None
+    if args.mesh:
+        mesh, dev = _join_mesh(args, dev)
+        if cfg.num_experts:
+            cfg = cfg.replace(dispatch_groups=SH.dispatch_groups_for(
+                mesh, args.batch * args.seq))
+        print(f"arch={cfg.name} device={dev} "
+              f"mesh={SH.mesh_shape(mesh)}")
+    else:
+        print(f"arch={cfg.name} device={dev} (one device: no mesh)")
+    api = build_api(cfg)
 
     opt = AdamW(lr=args.lr)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = api.init(gen)
     print(f"params: {param_count(params) / 1e6:.2f}M")
     state = TrainState(params, opt.init(params))
-    step_fn = build_train_step(api, opt)
+    if mesh is None:
+        step_fn = build_train_step(api, opt)
+    else:
+        pspecs = SH.param_specs(params, cfg, mesh)
+        state = SH.distribute_tree(state, mesh, state_specs(pspecs))
+        step_fn = build_sharded_train_step(api, opt, mesh, pspecs)
     pipe = pipeline_for(cfg, args.seq, args.batch, args.seed, device=dev)
 
     class _Pipe:  # the model's own inputs where it takes no token stream
@@ -91,6 +139,9 @@ def main(argv=None):
             state, metrics = step_fn(state, _Pipe().batch(step))
             on_step(step + 1, metrics)
     print("final loss:", float(metrics["loss"]))
+    if mesh is not None:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import _expand_kv, mha_flash
+from repro_torch.models import pshard
 from repro_torch.models.common import (ModelConfig, apply_rope, dense_init,
                                        rms_norm)
 
@@ -135,13 +136,18 @@ def chunked_causal_attention(q, k, v, cfg: ModelConfig,
     expanded here, or grouped when `cfg.gqa_grouped`).  Query chunks of
     `chunk` (default `cfg.attn_chunk`) rows each run an online softmax over
     the key chunks: all of them, or with `cfg.causal_block_skip` only those
-    inside the causal (and window) frontier.  The reference's sharding and
-    remat knobs change nothing here."""
+    inside the causal (and window) frontier.  The `attn_dp_constraint`
+    hints sit where the reference's do; its remat knobs change nothing
+    here."""
     B, S, H, hd = q.shape
     if cfg.gqa_grouped and q.shape[2] != k.shape[2]:
         return _grouped_chunked_attention(q, k, v, cfg, window, chunk)
     k = _expand_kv(k, H)
     v = _expand_kv(v, H)
+    if cfg.attn_dp_constraint:
+        q = pshard.constrain(q, "batch", None, "heads", None)
+        k = pshard.constrain(k, "batch", None, "heads", None)
+        v = pshard.constrain(v, "batch", None, "heads", None)
     C = min(chunk or cfg.attn_chunk, S)
     if S % C != 0:
         q, k, v = (_pad_to_chunk(t, C) for t in (q, k, v))
@@ -193,6 +199,10 @@ def _grouped_chunked_attention(q, k, v, cfg: ModelConfig,
     if S % C != 0:
         q, k, v = (_pad_to_chunk(t, C) for t in (q, k, v))
         return _grouped_chunked_attention(q, k, v, cfg, window, C)[:, :S]
+    if cfg.attn_dp_constraint:
+        q = pshard.constrain(q, "batch", None, "heads", None)
+        k = pshard.constrain(k, "batch", None, None, None)
+        v = pshard.constrain(v, "batch", None, None, None)
     nq = S // C
     q5 = q.reshape(B, S, KVH, G, hd)
     kc = k.reshape(B, nq, C, KVH, hd)

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.kernels.dispatch_combine.ops import (kernel_moe_combine,
                                                       kernel_moe_dispatch)
+from repro_torch.models import pshard
 from repro_torch.models.common import ModelConfig, act_fn, dense_init
 
 
@@ -76,12 +77,14 @@ def router_topk(p_router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig):
 def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
                       num_experts: int):
     """Switch-style auxiliary loss: E * sum_e f_e * P_e, f by scatter-add
-    (exact integer counts, no [T, K, E] one-hot and no host read)."""
+    (exact integer counts, no [T, K, E] one-hot and no host read).  Inside
+    a data-parallel step (`pshard.data_parallel`) f and P are the means over
+    the group's equal batch shards, so the loss is the global batch's."""
     flat = idx.reshape(-1).long()
     counts = torch.zeros(num_experts, dtype=torch.float32, device=idx.device)
     counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
-    f = counts / max(idx.shape[0], 1)
-    P = torch.mean(probs, dim=0)
+    f = pshard.all_reduce_mean(counts / max(idx.shape[0], 1))
+    P = pshard.all_reduce_mean(torch.mean(probs, dim=0))
     return num_experts * torch.sum(f * P), f / max(idx.shape[1], 1)
 
 
@@ -219,27 +222,42 @@ def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     tokens (the reference vmaps over groups; here a loop); one expert matmul
     runs over all groups' buffers.  The payload moves through the
     dispatch/combine kernels; `combine_via_gather` selects how the combine
-    un-permutes, as in the reference."""
-    if cfg.moe_shard_constraints:
-        raise NotImplementedError(
-            "moe_shard_constraints: multi-device sharding of the capacity "
-            "layer is not ported")
+    un-permutes, as in the reference.  Inside a data-parallel step of n
+    ranks x holds 1/n of the batch and so `dispatch_groups / n` whole
+    groups: the capacity sees the reference's per-group token count.  The
+    `moe_shard_constraints` hints sit where the reference's do."""
     T, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
     weights, idx, probs = router_topk(p["router"], x, cfg)
-    G = cfg.dispatch_groups if T % max(cfg.dispatch_groups, 1) == 0 else 1
+    G = _local_groups(cfg.dispatch_groups)
+    G = G if T % G == 0 else 1
     Tg = T // G
     C = capacity or expert_capacity(Tg, cfg)
     xg, idxg, wg = (a.reshape(G, Tg, -1) for a in (x, idx, weights))
+    if cfg.moe_shard_constraints:
+        xg = pshard.constrain(xg, "moe_group", None, None)
+        idxg = pshard.constrain(idxg, "moe_group", None, None)
     xbs, infos = zip(*(kernel_moe_dispatch(xg[g], idxg[g], cfg, C)
                        for g in range(G)))
-    # [G, E, C, d] -> [E, G*C, d]: one matmul per expert over all groups
-    xb2 = torch.stack(xbs, 1).reshape(E, G * C, d)
-    yb = (gmm or default_gmm)(xb2, p["experts"], cfg).reshape(E, G, C, d)
+    # [E, G, C, d] -> [E, G*C, d]: one matmul per expert over all groups
+    xb = torch.stack(xbs, 1)
+    if cfg.moe_shard_constraints:
+        xb = pshard.constrain(xb, None, "moe_group", None, None)
+    xb2 = xb.reshape(E, G * C, d)
+    if cfg.moe_shard_constraints:
+        xb2 = pshard.constrain(xb2, "experts", "moe_rows", None)
+    yb2 = (gmm or default_gmm)(xb2, p["experts"], cfg)
+    if cfg.moe_shard_constraints:
+        yb2 = pshard.constrain(yb2, "experts", "moe_rows", None)
+    yb = yb2.reshape(E, G, C, d)
+    if cfg.moe_shard_constraints:
+        yb = pshard.constrain(yb, None, "moe_group", None, None)
     ys = [kernel_moe_combine(yb[:, g].contiguous(), infos[g], wg[g], Tg,
                              via_gather=cfg.combine_via_gather)
           for g in range(G)]
     y = ys[0] if G == 1 else torch.cat(ys, 0)
+    if cfg.moe_shard_constraints:
+        y = pshard.constrain(y, "moe_tokens", None)
     lb, load = load_balance_loss(probs, idx, E)
     kept = sum(info["valid"].sum() for info in infos)
     aux = MoEAux(lb, 1.0 - kept / (T * K), load)
@@ -247,6 +265,19 @@ def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
         y = y + gated_ffn(x, p["shared"]["w_gate"], p["shared"]["w_up"],
                           p["shared"]["w_down"], act_fn(cfg.act))
     return y, aux
+
+
+def _local_groups(groups: int) -> int:
+    """The dispatch groups of this rank's batch shard."""
+    n = pshard.data_parallel_size()
+    if n == 1:
+        return max(groups, 1)
+    if groups % n:
+        raise ValueError(
+            f"dispatch_groups={groups} over {n} data-parallel ranks: a rank "
+            f"must hold whole groups (set it with "
+            f"launch.sharding.dispatch_groups_for)")
+    return groups // n
 
 
 def moe_forward(p, x: torch.Tensor, cfg: ModelConfig, *,

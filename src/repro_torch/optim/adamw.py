@@ -55,12 +55,14 @@ class AdamW:
         return lr
 
     @torch.no_grad()
-    def update(self, grads, state: OptState, params):
+    def update(self, grads, state: OptState, params, grad_norm=None):
         """(params, OptState) after one step, both updated in place.  grads:
         a tree of params' structure (unused leaves' gradients as zeros, as
-        jax gives them)."""
+        jax gives them).  `grad_norm`: the global norm to clip by when the
+        leaves are shards of a larger gradient (the sharded step); taken
+        over `grads` otherwise."""
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads) if grad_norm is None else grad_norm
             scale = torch.clamp(self.clip_norm / (gn + 1e-12), max=1.0)
         step = state.step + 1
         t = step.float()

@@ -2,10 +2,11 @@
 `repro.optim.compress`), as tensor functions.
 
 Per-tensor symmetric int8 quantization plus an error-feedback residual that
-carries each step's quantization error into the next.  The reference uses
-it inside a data-parallel all-reduce (`compressed_psum`); that collective
-waits for the port's multi-device slice, so here are the pieces it is built
-from.
+carries each step's quantization error into the next.  `compressed_psum`
+is the data-parallel all-reduce of the compressed gradients
+(`launch.steps.build_compressed_dp_step`).  As in the reference, the sum
+runs over the dequantized fp32 values: the int8 codes and their scale are
+the wire format it models, not the one it sends.
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ def compress_with_feedback(grad: torch.Tensor, residual: torch.Tensor):
     g = grad.float() + residual
     q, scale = quantize_int8(g)
     return q, scale, g - dequantize_int8(q, scale)
+
+
+def compressed_psum(grad: torch.Tensor, residual: torch.Tensor, group):
+    """All-reduce the int8-compressed `grad` over the process group `group`:
+    quantize grad + residual, sum the dequantized values over the group,
+    divide by its size.  Returns (mean_grad fp32, new_residual)."""
+    import torch.distributed as dist
+    q, scale, new_residual = compress_with_feedback(grad, residual)
+    total = dequantize_int8(q, scale)
+    dist.all_reduce(total, group=group)
+    return total / float(dist.get_world_size(group)), new_residual
 
 
 def init_residuals(params) -> Any:

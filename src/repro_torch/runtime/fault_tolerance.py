@@ -9,13 +9,17 @@ wrongly).
 One deliberate difference: the reference treats every `RuntimeError` as a
 node failure; here only `NodeFailure` is one.  On the card a CUDA error or
 a kernel that fails to build or launch is a `RuntimeError` too, and a
-restore would hide it: it propagates.  The reference's `elastic_mesh` and
-`reshard_onto` belong to the multi-device slice.
+restore would hide it: it propagates.
+
+`elastic_mesh` rebuilds a (data, model) mesh over the ranks still alive and
+`reshard_onto` re-places a (restored) tree onto it: the elastic path
+(launch on fewer or more cards, same checkpoint).  The alive set is
+injectable for tests, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, List, Optional
 
 from repro_torch.checkpoint.manager import CheckpointManager
 
@@ -64,3 +68,35 @@ class ResilientTrainer:
                 state = self.ckpt.restore(state, restored_step)
                 step = self.ckpt.metadata(restored_step)["step"]
         return state, step, metrics
+
+
+# ---------------------------------------------------------------------------
+# Elastic mesh
+# ---------------------------------------------------------------------------
+
+
+def elastic_mesh(alive_ranks: Optional[List[int]] = None,
+                 model_axis: int = 2, device_type: str = "cuda"):
+    """Largest (data x model) mesh over the alive ranks (every rank of the
+    default group by default), a DeviceMesh whose process groups hold only
+    those ranks: only they call this."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import _device_mesh
+    ranks = list(alive_ranks) if alive_ranks is not None \
+        else list(range(dist.get_world_size()))
+    n = len(ranks)
+    model = 1
+    for m in range(min(model_axis, n), 0, -1):
+        if n % m == 0:
+            model = m
+            break
+    data = n // model
+    return _device_mesh(device_type, (data, model), ("data", "model"),
+                        ranks[:data * model])
+
+
+def reshard_onto(tree, mesh, specs):
+    """Re-place a tree onto `mesh` under `specs`: each leaf gathered whole
+    (a DTensor on a live mesh) or taken as it is, then sliced."""
+    from repro_torch.launch.sharding import distribute_tree, full_tree
+    return distribute_tree(full_tree(tree), mesh, specs)

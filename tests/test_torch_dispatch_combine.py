@@ -327,11 +327,14 @@ def test_moe_mode_defaults_are_the_references():
 
 
 def test_moe_shard_constraints_not_ported():
+    """The flag once raised here; its hints are ported now (`pshard`) and,
+    as hints, change no output: off a mesh they return their input."""
     _, _, cfg, params = smoke_setup(num_layers=1)
-    with pytest.raises(NotImplementedError):
-        moe.moe_forward(lm.layer_slice(params["stages"][0], 0)["ffn"],
-                        torch.zeros(4, cfg.d_model),
-                        cfg.replace(moe_shard_constraints=True))
+    p = lm.layer_slice(params["stages"][0], 0)["ffn"]
+    x = torch.randn(4, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    on, _ = moe.moe_forward(p, x, cfg.replace(moe_shard_constraints=True))
+    off, _ = moe.moe_forward(p, x, cfg)
+    assert torch.equal(on, off)
 
 
 def _cu_whole_max_experts() -> int:

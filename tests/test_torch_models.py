@@ -185,13 +185,16 @@ def test_lm_backbone_dense_matches(shared):
 
 
 def test_lm_backbone_rejects_capacity_mode():
-    """The capacity mode is ported; what it still rejects is the
-    reference's multi-device sharding of it (`moe_shard_constraints`)."""
+    """The capacity mode is ported, and since the SPMD slice so are the
+    reference's sharding hints of it (`moe_shard_constraints`): nothing is
+    rejected any more, and the hints change no output."""
     _, _, cfg, params = smoke_setup(num_layers=1)
-    with pytest.raises(NotImplementedError):
-        lm_backbone(params, cfg.replace(moe_shard_constraints=True),
-                    torch.zeros((1, 4), dtype=torch.long),
-                    moe_mode="capacity")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 4),
+                           generator=torch.Generator().manual_seed(4))
+    on, _ = lm_backbone(params, cfg.replace(moe_shard_constraints=True),
+                        tokens, moe_mode="capacity")
+    off, _ = lm_backbone(params, cfg, tokens, moe_mode="capacity")
+    assert torch.equal(on, off)
 
 
 def test_bridge_round_trip_and_dtypes():
