@@ -184,11 +184,42 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             falls, the residuals finite; (d) CheckpointManager.save of the
             sharded gemma3 params and restore(mesh=, specs=) torch.equal.
             Per step: ms of sharded beside plain, tokens/s, peak memory,
-            the bytes allocated in the step (the sharded step's extra is
-            what the gather and the reduce copy at world size 1); a
+            the bytes allocated in the step, the bytes the per-layer
+            gathers made (pshard.GATHER_BYTES: none at world size 1); a
             {"spmd": ...} line.  Everything it allocates is freed and the
             group destroyed before the next phase.  `--phases
             device,build,spmd` runs it alone
+  tp        tensor / expert parallel over "model" on one card: the plain
+            one-device steps first, in a process of their own (records and
+            the fp32 run's params kept on the host, then freed); then two
+            ranks of a gloo group (NCCL
+            refuses two ranks on one device; a FileStore under build/),
+            each a process spawned beside the plain one and waiting for
+            its results, a join timeout that kills all three, the (1, 2)
+            (data, model) mesh, build_sharded_train_step:
+            (a) gemma3_1b at published width and all 26 layers, [1, 4096],
+            bf16 -- 2 local q heads, K / V whole (KVH 1), the FFN's and the
+            vocab's halves --, 52 flash forward and 26 backward launches a
+            step, all on "wgmma"; (b) qwen3_moe_235b_a22b at published
+            width, depth 1, [1, 2048], bf16 -- 32 heads and 64 experts a
+            rank --, dispatch_scatter, combine_gather and
+            combine_weighted_bwd launched; 2 steps each, losses and grad
+            norms within TP_BF16_BAND of the plain step's, every leaf
+            finite; each distinct flash call of (a) and (b) (the local
+            heads as the main path gave them: gemma3 q [1, 4096, 2, 256], k
+            [1, 4096, 1, 256] at window 512 and global; qwen3 q [1, 2048,
+            32, 128], k [1, 2048, 2, 128]) run again, forward and backward,
+            on "wgmma" against the plain versions at the kernels' bf16
+            bars; (c) gemma3_1b's first superblock (6 layers) in fp32,
+            [1, 2048]: the losses, grad norms and every leaf after 2 steps
+            within TP_FP32_TOL (relative Frobenius, each rank's shards
+            against the plain step's); qwen3's MoE layer in fp32 at
+            published width on each rank's 64 experts: its output
+            torch.equal to the one-device layer's, its gradients (x, the
+            router, the rank's experts) within TP_FP32_TOL.  Per rank:
+            peak allocated beside the plain step's, step ms, the bytes the
+            per-layer gathers made; a {"tp": ...} line.  `--phases
+            device,build,tp` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -247,7 +278,7 @@ wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
 counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
 rebalance, tuning -- the tuned wave --, train, spmd -- the sharded steps
---, zoo, and each example twin's whole run) stand in the {"kernels": ...} line under "launches_by_path".
+--, tp -- both ranks' sharded steps --, zoo, and each example twin's whole run) stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -3457,12 +3488,16 @@ def _spmd_step(step_fn, state, batch, i: int):
     """One call of step_fn(state, batch): (state, its record) -- ms (CUDA
     events), tokens/s, peak and cumulative allocated bytes, launches
     (counts set to 0 just before, read just after), flash routes, host
-    syncs."""
+    syncs, and the bytes of the params the step's per-layer gathers made
+    and of the gradient shards their backwards made (pshard.GATHER_BYTES,
+    also set to 0 just before)."""
     from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import pshard
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     alloc0 = torch.cuda.memory_stats()["allocated_bytes.all.allocated"]
     _reset_counts()
+    pshard.reset_gather_bytes()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.time()
@@ -3482,28 +3517,8 @@ def _spmd_step(step_fn, state, batch, i: int):
         "launches": _read_counts(),
         "flash_fwd_by_route": dict(fa.flash_attention.launches_by_route),
         "flash_bwd_by_route": dict(fa.flash_attention_bwd.launches_by_route),
-        "host_syncs": _launch.reset_host_syncs()}
-
-
-def _spmd_copies(state, mesh, specs) -> dict:
-    """Bytes the sharded step copies on `mesh` to gather the params and to
-    reduce the gradients: a param's `full_tensor()` that is not its local
-    tensor, a gradient's `reduce_to_shard` that is not the gradient (each
-    leaf's taken on a stand-in gradient, one leaf at a time)."""
-    from repro_torch.launch.steps import reduce_to_shard
-    from repro_torch.tree import leaves
-    out = {"gather_bytes": 0, "reduce_bytes": 0}
-    with torch.no_grad():
-        for p, spec in zip(leaves(state.params), leaves(specs)):
-            local = p.to_local()
-            n = local.numel() * local.element_size()
-            if p.full_tensor().data_ptr() != local.data_ptr():
-                out["gather_bytes"] += n
-            g = torch.empty_like(local)
-            if reduce_to_shard(g, mesh, spec).data_ptr() != g.data_ptr():
-                out["reduce_bytes"] += n
-            del g
-    return out
+        "host_syncs": _launch.reset_host_syncs(),
+        "gathers": pshard.reset_gather_bytes()}
 
 
 def _spmd_sharded_vs_plain(arch: str, layers, S: int, seed: int, mesh,
@@ -3568,7 +3583,6 @@ def _spmd_sharded_vs_plain(arch: str, layers, S: int, seed: int, mesh,
             state, rec = _spmd_step(sharded_fn, state, batch, i)
             sharded.append(rec)
     want = leaves(p_state)
-    copies = _spmd_copies(state, mesh, pspecs)
     got = leaves(SH.full_tree(state))
     diff = [i for i, (g, w) in enumerate(zip(got, want))
             if not torch.equal(g, w.to(g.device))]
@@ -3592,7 +3606,7 @@ def _spmd_sharded_vs_plain(arch: str, layers, S: int, seed: int, mesh,
            f"{[r['loss'] for r in plain]}")
     out = {"arch": cfg.name, "layers": cfg.num_layers, "S": S,
            "leaves": n_leaves, "plain": plain, "sharded": sharded,
-           "copies": copies, "launches": dict(total), "state": state}
+           "launches": dict(total), "state": state}
     p, s = plain[-1], sharded[-1]
     print(f"[spmd] {cfg.name} ({cfg.num_layers} layers, [1, {S}]): sharded "
           f"== plain after {SPMD_STEPS} steps ({n_leaves} leaves "
@@ -3601,9 +3615,10 @@ def _spmd_sharded_vs_plain(arch: str, layers, S: int, seed: int, mesh,
           f"{s['tokens_per_s']:.0f} tokens/s; peak {p['peak_gb']:.1f} / "
           f"{s['peak_gb']:.1f} GB; allocated in the step "
           f"{p['allocated_gb']:.2f} / {s['allocated_gb']:.2f} GB (extra "
-          f"{s['allocated_gb'] - p['allocated_gb']:.2f} GB; the gather "
-          f"copies {copies['gather_bytes'] / 1e9:.2f} GB, the reduce "
-          f"{copies['reduce_bytes'] / 1e9:.2f} GB); launches "
+          f"{s['allocated_gb'] - p['allocated_gb']:.2f} GB; the per-layer "
+          f"gathers made {s['gathers']['gather'] / 1e9:.2f} GB of params and "
+          f"{s['gathers']['reduce'] / 1e9:.2f} GB of gradient shards); "
+          f"launches "
           f"{s['launches']}; host syncs {p['host_syncs']} / "
           f"{s['host_syncs']}", flush=True)
     return out
@@ -3783,6 +3798,473 @@ def phase_spmd(seed: int, card: str) -> dict:
            "restore": restore, "launches": dict(launches),
            "card": card, "wall_s": time.time() - t0}
     print(f"[spmd] phase done in {out['wall_s']:.1f}s on {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tp: tensor / expert parallel over "model", two ranks on one card
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 2
+# the fp32 run: gemma3_1b at published width, its first superblock (5
+# local layers + 1 global), [1, 2048], TF32 off
+TP_FP32_LAYERS = 6
+TP_FP32_S = 2048
+# |loss - plain loss| / plain loss, each of 2 steps: bf16, where each
+# rank's row-parallel output is rounded to bf16 before the sum over
+# "model"; fp32 (loss, and each leaf's relative Frobenius error after 2
+# steps)
+TP_BF16_BAND = 2e-2
+TP_FP32_TOL = 1e-4
+TP_TIMEOUT = 600  # each process's join timeout: both ranks killed at it
+
+
+def _tp_runs():
+    """(name, arch, layers (None: all), S, dtype) of the tp phase's runs."""
+    return [("gemma3", GEMMA_ARCH, None, GEMMA_S, BF),
+            ("qwen3", ARCH, SPMD_QWEN_LAYERS, TRAIN_S, BF),
+            ("gemma3_fp32", GEMMA_ARCH, TP_FP32_LAYERS, TP_FP32_S, F32)]
+
+
+def _tp_setup(name, arch, layers, S, dtype, seed):
+    from repro_torch.data.pipeline import pipeline_for
+    from repro_torch.models.api import build_api
+    from repro_torch.models.lm import init_lm_params
+    from repro_torch.optim.adamw import AdamW
+    cfg = get_config(arch).replace(dtype=dtype)
+    if layers is not None:
+        cfg = cfg.replace(num_layers=layers)
+    params = init_lm_params(torch.Generator(device=DEV).manual_seed(seed),
+                            cfg, DEV)
+    batch = pipeline_for(cfg, S, 1, seed, device=DEV).batch(0)
+    return cfg, build_api(cfg), params, AdamW(lr=3e-4), batch
+
+
+def _tp_moe_layer(seed: int):
+    """qwen3's MoE layer at published width in fp32 (128 experts, d 4096,
+    expert d_ff 1536), its input x and an output cotangent dy, each
+    [2048, 4096], from the seed."""
+    from repro_torch.models.moe import init_moe_params
+    cfg = get_config(ARCH).replace(dtype=F32)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    p = init_moe_params(gen, cfg)
+    x = torch.randn((TRAIN_S, cfg.d_model), generator=gen, device=DEV)
+    dy = torch.randn((TRAIN_S, cfg.d_model), generator=gen, device=DEV)
+    return cfg, p, x, dy
+
+
+def _tp_moe_grads(p, x, dy, cfg):
+    """The capacity MoE layer's output y and the gradients of
+    sum(y * dy) + its load-balance loss with respect to x, the router and
+    the experts' weights (those `p` holds: all, or one rank's)."""
+    from repro_torch.models.moe import moe_forward_capacity
+    ins = {"x": x, "router": p["router"],
+           **{f"experts/{k}": v for k, v in p["experts"].items()}}
+    ins = {k: v.detach().requires_grad_(True) for k, v in ins.items()}
+    q = dict(p, router=ins["router"],
+             experts={k: ins[f"experts/{k}"] for k in p["experts"]})
+    y, aux = moe_forward_capacity(q, ins["x"], cfg)
+    g = torch.autograd.grad((y * dy).sum() + aux.load_balance_loss,
+                            list(ins.values()))
+    return y.detach(), dict(zip(ins, g))
+
+
+class _FirstOfEach(list):
+    """A `_recording` list that keeps only the first call of each distinct
+    (tensor shapes and strides, keyword options), its tensors detached."""
+
+    def __init__(self):
+        super().__init__()
+        self.keys = set()
+
+    def append(self, call):
+        args, kw, out = call
+        key = (tuple((tuple(a.shape), a.stride()) for a in args
+                     if torch.is_tensor(a)), tuple(sorted(kw.items())))
+        if key not in self.keys:
+            self.keys.add(key)
+            super().append((tuple(a.detach() if torch.is_tensor(a) else a
+                                  for a in args), kw, out.detach()))
+
+
+def _tp_check_flash(calls, gen) -> list:
+    """Each distinct mha_flash call a rank's bf16 steps made (its local
+    heads: the q, k, v the main path gave the kernel, window, softcap),
+    again on the card: the forward against attention_fwd_ref (o within
+    FWD_TOL and ROW_REL_TOL, the lse within LSE_TOL) and the backward, with
+    a dO from the seed, against attention_bwd_ref (dq, dk, dv within
+    BWD_TOL, relative Frobenius); the routes each direction took."""
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_bwd, flash_launch)
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         attention_fwd_ref)
+
+    def took(wrapper, before):
+        now = _routes(wrapper)
+        return {r: now[r] - before.get(r, 0) for r in now
+                if now[r] != before.get(r, 0)}
+
+    out = []
+    for (q, k, v), kw, _ in calls:
+        opts = dict(causal=kw.get("causal", True), window=kw.get("window"),
+                    softcap=kw.get("softcap"))
+        do = torch.randn(q.shape, generator=gen, device=DEV).to(q.dtype)
+        fwd, bwd = _routes(flash_attention), _routes(flash_attention_bwd)
+        o, lse = flash_launch(q, k, v, with_lse=True, **opts)
+        fwd = took(flash_attention, fwd)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **opts)
+        bwd = took(flash_attention_bwd, bwd)
+        o_ref, lse_ref = attention_fwd_ref(q.float(), k.float(), v.float(),
+                                           **opts)
+        want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                                 lse, do.float(), **opts)
+        rel = [_rel_fro(a, b) for a, b in zip(got, want)]
+        out.append({"q": list(q.shape), "k": list(k.shape),
+                    "window": opts["window"], "softcap": opts["softcap"],
+                    "fwd_routes": fwd, "bwd_routes": bwd,
+                    "o_err": max_err(o, o_ref),
+                    "o_row_rel_err": row_rel_err(o, o_ref),
+                    "lse_err": max_err(lse, lse_ref), "rel_dq": rel[0],
+                    "rel_dk": rel[1], "rel_dv": rel[2]})
+        del o, lse, got, o_ref, lse_ref, want, do
+    return out
+
+
+def _tp_plain(seed: int, out_dir: str):
+    """The plain one-device steps of the tp phase's runs, in a process of
+    their own: their records and the fp32 run's params kept on the host
+    (torch.save), then freed."""
+    from repro_torch.launch.steps import TrainState, build_train_step
+    from repro_torch.tree import leaves
+    recs, keep = {}, {}
+    for name, arch, layers, S, dtype in _tp_runs():
+        cfg, api, params, opt, batch = _tp_setup(name, arch, layers, S,
+                                                 dtype, seed)
+        state = TrainState(params, opt.init(params))
+        step = build_train_step(api, opt)
+        recs[name] = []
+        for i in range(TP_STEPS):
+            state, rec = _spmd_step(step, state, batch, i)
+            recs[name].append(rec)
+        if dtype == F32:
+            keep[name] = [p.cpu() for p in leaves(state.params)]
+        del state, params
+        _free()
+    torch.save(keep, os.path.join(out_dir, "plain.pt"))
+    del keep
+    # written last, whole: the ranks wait for this file
+    tmp = os.path.join(out_dir, "plain.json.tmp")
+    with open(tmp, "w") as f:
+        json.dump(recs, f)
+    os.replace(tmp, os.path.join(out_dir, "plain.json"))
+
+
+def _tp_state(params, opt, mesh, pspecs):
+    """The train state over `mesh`: the params placed by their specs (the
+    whole tree freed), the moments made on the local shards alone."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.tree import tree_map
+    dparams = SH.distribute_tree(params, mesh, pspecs)
+    local = opt.init(tree_map(lambda t: t.to_local(), dparams))
+
+    def wrap(t, s):
+        return DTensor.from_local(t, mesh, SH.placements(s, mesh),
+                                  run_check=False)
+
+    return TrainState(dparams, OptState(local.step,
+                                        tree_map(wrap, local.m, pspecs),
+                                        tree_map(wrap, local.v, pspecs)))
+
+
+def _tp_rank(rank: int, seed: int, out_dir: str):
+    """One of the two ranks: a gloo group over a FileStore (two ranks on
+    one card: NCCL refuses them), the (1, 2) mesh, each run's
+    build_sharded_train_step steps (on the local heads, FFN columns,
+    experts and vocab rows), the fp32 run's local shards against the plain
+    step's, the bf16 runs' flash calls at their local shapes against the
+    plain versions (`_tp_check_flash`), the fp32 MoE layer's output and
+    gradients on this rank's 64 experts against the one-device layer's."""
+    import torch.distributed as dist
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_sharded_train_step
+    from repro_torch.models import pshard
+    from repro_torch.tree import leaves
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(out_dir, "store"), 2), rank=rank, world_size=2)
+    # started beside the plain process: the card is its until it is done
+    done = os.path.join(out_dir, "plain.json")
+    while not os.path.exists(done):
+        time.sleep(0.1)
+    plain = torch.load(os.path.join(out_dir, "plain.pt"))
+    out = {"rank": rank}
+    try:
+        mesh = make_host_mesh(1, 2, device_type=DEV)
+        for name, arch, layers, S, dtype in _tp_runs():
+            cfg, api, params, opt, batch = _tp_setup(name, arch, layers, S,
+                                                     dtype, seed)
+            pspecs = SH.param_specs(params, cfg, mesh)
+            cspecs = SH.compute_specs(params, cfg, mesh)
+            state = _tp_state(params, opt, mesh, pspecs)
+            del params
+            _free()
+            step = build_sharded_train_step(api, opt, mesh, pspecs)
+            recs, flash_calls = [], _FirstOfEach()
+            with contextlib.ExitStack() as stack:
+                if dtype == BF:  # the kernel's inputs at the local shapes
+                    stack.enter_context(_recording(attn_mod, "mha_flash",
+                                                   flash_calls))
+                for i in range(TP_STEPS):
+                    state, rec = _spmd_step(step, state, batch, i)
+                    recs.append(rec)
+            local = [p.to_local() for p in leaves(state.params)]
+            run = {"steps": recs, "layers": cfg.num_layers,
+                   "finite": all(bool(torch.isfinite(p).all())
+                                 for p in local),
+                   "leaves": len(local),
+                   "model_sharded_leaves": sum(
+                       any(e is not None for e in c)
+                       for c in leaves(cspecs))}
+            if name in plain:
+                errs = []
+                for p, w, s in zip(local, plain[name], leaves(pspecs)):
+                    w = SH.local_shard(w, s, mesh).to(DEV)
+                    errs.append(float(torch.linalg.vector_norm(
+                        (p - w).double()) / max(float(
+                            torch.linalg.vector_norm(w.double())), 1e-30)))
+                run["param_rel_err"] = errs
+            out[name] = run
+            del state, local
+            _free()
+            if dtype == BF:
+                run["flash_checks"] = _tp_check_flash(
+                    flash_calls, torch.Generator(device=DEV).manual_seed(
+                        seed + 11))
+            del flash_calls
+            _free()
+        # the MoE layer: one device (all 128 experts) first, this rank's
+        # share of its gradients kept, then this rank's 64 experts
+        cfg, p, x, dy = _tp_moe_layer(seed)
+        E = cfg.num_experts // 2
+        mine = slice(rank * E, (rank + 1) * E)
+        y_one, g_one = _tp_moe_grads(p, x, dy, cfg)
+        g_one = {k: (g[mine] if k.startswith("experts/") else g).clone()
+                 for k, g in g_one.items()}
+        p["experts"] = {k: v[mine].contiguous()
+                        for k, v in p["experts"].items()}
+        _free()
+        group = mesh.get_group(mesh.mesh_dim_names.index("model"))
+        with pshard.model_parallel(group, 2, rank):
+            y, g = _tp_moe_grads(p, x, dy, cfg)
+        out["moe_equal"] = bool(torch.equal(y, y_one))
+        out["moe_grad_rel_err"] = {k: _rel_fro(g[k], w)
+                                   for k, w in g_one.items()}
+        out["moe_grad_equal"] = {k: bool(torch.equal(g[k], w))
+                                 for k, w in g_one.items()}
+        out["moe_local_experts"] = E
+        del p, x, dy, y, y_one, g, g_one
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_spawn(args: list, out_dir: str, tag: str):
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__)] + args
+        + ["--tp-dir", out_dir],
+        stdout=open(os.path.join(out_dir, f"{tag}.log"), "w"),
+        stderr=subprocess.STDOUT)
+
+
+def _tp_join(procs: dict, out_dir: str):
+    """Wait for every process (TP_TIMEOUT each from now); at the timeout,
+    or when one fails, kill them all and fail with their logs' tails."""
+    end = time.time() + TP_TIMEOUT
+    bad = []
+    for tag, p in procs.items():
+        try:
+            rc = p.wait(timeout=max(1.0, end - time.time()))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            bad.append((tag, rc))
+            for q in procs.values():
+                q.kill()
+    for p in procs.values():
+        p.wait()
+    if bad:
+        tails = []
+        for tag, rc in bad:
+            with open(os.path.join(out_dir, f"{tag}.log")) as f:
+                tails.append(f"{tag} rc={rc}:\n{f.read()[-3000:]}")
+        expect(False, "tp: " + "\n".join(tails))
+
+
+def _tp_gate_flash(name: str, rank: int, checks: list, cfg):
+    """The gates on `_tp_check_flash`'s records of one rank's bf16 run:
+    every call on the local heads (H / 2 q heads), each of the model's
+    windows seen, both directions on "wgmma" and within the bf16 bars."""
+    what = f"tp {name} rank {rank}"
+    windows = {c["window"] for c in checks}
+    expect(windows == set(_layer_windows(cfg)), f"{what}: flash calls at "
+           f"windows {windows}, the model's are {set(_layer_windows(cfg))}")
+    for c in checks:
+        at = f"{what}: flash q {c['q']} k {c['k']} window {c['window']}"
+        expect(c["q"][2] == cfg.num_heads // 2, f"{at}: not the local "
+               f"{cfg.num_heads // 2} q heads")
+        expect(c["fwd_routes"] == {"wgmma": 1} and c["bwd_routes"] ==
+               {"wgmma": 1}, f"{at}: routes {c['fwd_routes']} / "
+               f"{c['bwd_routes']}, not one launch each on wgmma")
+        expect(c["o_err"] <= FWD_TOL[BF] and c["o_row_rel_err"] <=
+               ROW_REL_TOL[BF] and c["lse_err"] <= LSE_TOL,
+               f"{at}: forward o err {c['o_err']} (tol {FWD_TOL[BF]}), row "
+               f"rel {c['o_row_rel_err']} (tol {ROW_REL_TOL[BF]}), lse err "
+               f"{c['lse_err']} (tol {LSE_TOL})")
+        rel = [c["rel_dq"], c["rel_dk"], c["rel_dv"]]
+        expect(max(rel) <= BWD_TOL[BF], f"{at}: dq / dk / dv rel err {rel} "
+               f"> {BWD_TOL[BF]}")
+
+
+def phase_tp(seed: int, card: str) -> dict:
+    """Tensor / expert parallel over "model" on one card: the plain steps
+    in a process of their own first (their records and the fp32 run's
+    params kept on the host, then freed), then two ranks of a gloo group
+    on the same card (spawned beside it, waiting for its results; all
+    three killed at the join timeout), the (1, 2) mesh.  gemma3_1b whole,
+    bf16, [1, 4096] (2 local heads, K / V whole, FFN and vocab halves): 52
+    flash forward and 26 backward launches a step on "wgmma"; qwen3 at
+    depth 1, bf16, [1, 2048] (64 experts and 32 heads a rank): the
+    dispatch / combine kernels and the combine's backward launched; both
+    runs' losses and grad norms within TP_BF16_BAND of the plain step's,
+    every leaf finite, their flash calls at the local shapes against the
+    plain versions (`_tp_gate_flash`).  gemma3_1b's first superblock in
+    fp32: loss, grad norm and each leaf within TP_FP32_TOL; qwen3's MoE
+    layer in fp32 on each rank's 64 experts: output torch.equal to the
+    one-device layer's, gradients within TP_FP32_TOL."""
+    import shutil
+    t0 = time.time()
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    # the ranks start beside the plain process and wait for its results
+    # before they touch the card beyond their context
+    procs = {"plain": _tp_spawn(["--tp-child", "plain", "--seed",
+                                 str(seed)], out_dir, "plain")}
+    procs.update({f"rank{r}": _tp_spawn(["--tp-child", str(r), "--seed",
+                                         str(seed)], out_dir, f"rank{r}")
+                  for r in range(2)})
+    _tp_join(procs, out_dir)
+    t_plain = os.path.getmtime(os.path.join(out_dir, "plain.json")) - t0
+    with open(os.path.join(out_dir, "plain.json")) as f:
+        plain = json.load(f)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches = collections.Counter()
+    for rr in ranks:
+        for name, *_ in _tp_runs():
+            for rec in rr[name]["steps"]:
+                launches.update(rec["launches"])
+    out = {"plain": plain, "ranks": ranks, "launches": dict(launches),
+           "card": card}
+    for name, arch, layers, S, dtype in _tp_runs():
+        band = TP_BF16_BAND if dtype == BF else TP_FP32_TOL
+        for rr in ranks:
+            run = rr[name]
+            expect(run["finite"], f"tp {name} rank {rr['rank']}: a "
+                   f"non-finite leaf")
+            for key in ("loss", "grad_norm"):
+                want = [rec[key] for rec in plain[name]]
+                got = [rec[key] for rec in run["steps"]]
+                rel = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+                run[f"{key}_rel_err"] = rel
+                expect(max(rel) <= band, f"tp {name} rank {rr['rank']}: "
+                       f"{key} {got} vs plain {want} (rel {rel} > {band})")
+            if dtype == BF:
+                _tp_gate_flash(name, rr["rank"], run["flash_checks"],
+                               get_config(arch))
+            if "param_rel_err" in run:
+                worst = max(run["param_rel_err"])
+                expect(worst <= TP_FP32_TOL, f"tp {name} rank "
+                       f"{rr['rank']}: a leaf {worst:.3g} from the plain "
+                       f"step's (> {TP_FP32_TOL})")
+            for rec in run["steps"]:
+                fwd, bwd = rec["flash_fwd_by_route"], \
+                    rec["flash_bwd_by_route"]
+                if dtype == BF:
+                    expect(fwd.get("wgmma", 0) == rec["launches"][
+                        "flash_attention"] and bwd.get("wgmma", 0) ==
+                        rec["launches"]["flash_attention_bwd"],
+                        f"tp {name}: flash launches off wgmma: {fwd} {bwd}")
+                if name == "gemma3":
+                    expect(rec["launches"]["flash_attention"] == 52
+                           and rec["launches"]["flash_attention_bwd"] == 26,
+                           f"tp gemma3: flash launches {rec['launches']}, "
+                           f"not 52 forward (remat's recompute included) "
+                           f"and 26 backward")
+            if name == "qwen3":
+                total = collections.Counter()
+                for rec in run["steps"]:
+                    total.update(rec["launches"])
+                for k in ("flash_attention", "flash_attention_bwd",
+                          "dispatch_scatter", "combine_gather",
+                          "combine_weighted_bwd"):
+                    expect(total[k] > 0, f"tp qwen3 rank {rr['rank']}: {k} "
+                           f"never launched ({dict(total)})")
+        p, s = plain[name][-1], ranks[0][name]["steps"][-1]
+        print(f"[tp] {name} ({ranks[0][name]['layers']} layers, [1, {S}], "
+              f"{str(dtype).replace('torch.', '')}, mesh (1, 2), "
+              f"{ranks[0][name]['model_sharded_leaves']} of "
+              f"{ranks[0][name]['leaves']} leaves computed over \"model\"): "
+              f"losses plain {[r['loss'] for r in plain[name]]}, ranks "
+              f"{[[r['loss'] for r in rr[name]['steps']] for rr in ranks]} "
+              f"(rel {[rr[name]['loss_rel_err'] for rr in ranks]}); step "
+              f"{TP_STEPS}: plain {p['step_ms']:.1f} ms, ranks "
+              f"{[round(rr[name]['steps'][-1]['step_ms'], 1) for rr in ranks]}"
+              f" ms; peak plain {p['peak_gb']:.2f} GB, ranks "
+              f"{[round(rr[name]['steps'][-1]['peak_gb'], 2) for rr in ranks]}"
+              f" GB; grad norm rel {[rr[name]['grad_norm_rel_err'] for rr in ranks]}"
+              f"; the per-layer gathers made {s['gathers']['gather'] / 1e9:.2f}"
+              f" GB of params and {s['gathers']['reduce'] / 1e9:.2f} GB of "
+              f"gradient shards a rank; launches a rank {s['launches']}"
+              + (f"; worst leaf {max(max(rr[name]['param_rel_err']) for rr in ranks):.3g}"
+                 if "param_rel_err" in ranks[0][name] else ""), flush=True)
+        for c in ranks[0][name].get("flash_checks", []):
+            print(f"[tp] {name} flash at the local shapes q {c['q']} k "
+                  f"{c['k']} window {c['window']} softcap {c['softcap']}: "
+                  f"forward {c['fwd_routes']} o err {c['o_err']:.2e} row rel "
+                  f"{c['o_row_rel_err']:.2e} lse err {c['lse_err']:.2e}; "
+                  f"backward {c['bwd_routes']} rel dq {c['rel_dq']:.2e} dk "
+                  f"{c['rel_dk']:.2e} dv {c['rel_dv']:.2e} (tols "
+                  f"{FWD_TOL[BF]}, {ROW_REL_TOL[BF]}, {LSE_TOL}, "
+                  f"{BWD_TOL[BF]})", flush=True)
+    for rr in ranks:
+        expect(rr["moe_equal"], f"tp: qwen3's fp32 MoE layer on rank "
+               f"{rr['rank']}'s {rr['moe_local_experts']} experts differs "
+               f"from the one-device layer")
+        worst = max(rr["moe_grad_rel_err"].values())
+        expect(worst <= TP_FP32_TOL, f"tp: qwen3's fp32 MoE layer's "
+               f"gradients on rank {rr['rank']} vs the one-device layer's: "
+               f"{rr['moe_grad_rel_err']} (> {TP_FP32_TOL})")
+    print(f"[tp] qwen3 MoE layer, fp32, [{TRAIN_S}, "
+          f"{get_config(ARCH).d_model}], {ranks[0]['moe_local_experts']} "
+          f"experts a rank: output torch.equal to the one-device layer on "
+          f"both ranks; gradients of sum(y * dy) + the load-balance loss "
+          f"(x, router, the rank's experts) rel err "
+          f"{[rr['moe_grad_rel_err'] for rr in ranks]} (tol {TP_FP32_TOL}), "
+          f"torch.equal {[rr['moe_grad_equal'] for rr in ranks]}", flush=True)
+    out["wall_s"] = time.time() - t0
+    out["plain_s"] = t_plain
+    print(f"[tp] phase done in {out['wall_s']:.1f}s (the plain process's "
+          f"results after {t_plain:.1f}s) on {card}")
     return out
 
 
@@ -4005,12 +4487,13 @@ class _Recorder:
 
 
 @contextlib.contextmanager
-def _recording(module, name: str):
+def _recording(module, name: str, calls=None):
     """Replaces module.name by a `_Recorder` of it: the main path's own
     inputs and outputs of a kernel's wrapper, held against the plain
-    version after the counted run.  Yields the list of calls; restores
-    module.name on exit."""
-    fn, calls = getattr(module, name), []
+    version after the counted run.  Yields the list of calls (`calls`, a
+    new list if None); restores module.name on exit."""
+    fn = getattr(module, name)
+    calls = [] if calls is None else calls
     setattr(module, name, _Recorder(fn, calls))
     try:
         yield calls
@@ -5154,7 +5637,7 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
                  batching=None, gmm=None, faults=None,
                  rebalance=None, zoo=None, tuned=None,
                  examples=None, train=None, analysis=None,
-                 spmd=None) -> dict:
+                 spmd=None, tp=None) -> dict:
     """Each kernel at the shapes its path launched it with: super_gmm and
     flash_attention from the serve phase, dispatch_scatter and
     combine_gather from the pd phase (and the dispatch at the gmm phase's
@@ -5198,6 +5681,8 @@ def phase_timing(serve: dict, pd: dict, errs: dict, gen,
         by_path["train_gemma3"] = train["gemma3"]["launches"]
     if spmd:
         by_path["spmd"] = spmd["launches"]
+    if tp:
+        by_path["tp"] = tp["launches"]
     rows[0]["launches_by_tile"] = serve["by_tile"]
     rows[0]["device_ms_by_tile"] = time_super_gmm_tiles(
         shapes["super_gmm"], gen)
@@ -5244,7 +5729,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default="device,build,kernels,executor,"
                     "serve,pd,analysis,batching,gmm,faults,rebalance,tuning,"
-                    "examples,train,spmd,zoo,timing")
+                    "examples,train,spmd,tp,zoo,timing")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="profile phase: also write the chrome trace here")
@@ -5257,6 +5742,8 @@ def main() -> int:
                     "its shapes, the decode MoE layer's dispatch and "
                     "combine calls, a decode step alone and a profiled "
                     "gemma3_1b train step (--phases device,build,timing)")
+    ap.add_argument("--tp-child", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device -- this script measures on the "
@@ -5265,6 +5752,12 @@ def main() -> int:
     phases = args.phases.split(",")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.tp_child is not None:  # a process of the tp phase
+        if args.tp_child == "plain":
+            _tp_plain(args.seed, args.tp_dir)
+        else:
+            _tp_rank(int(args.tp_child), args.seed, args.tp_dir)
+        return 0
     gen = torch.Generator(device=DEV).manual_seed(args.seed)
     card = phase_device()
     if "build" in phases:
@@ -5294,7 +5787,7 @@ def main() -> int:
         return 0
     errs = phase_kernels(gen) if "kernels" in phases else None
     serve = pd = batching = gmm = faults = rebalance = zoo = None
-    tuned = examples = train = analysis = spmd = None
+    tuned = examples = train = analysis = spmd = tp = None
     if "analysis" in phases:
         analysis = phase_analysis_static()
     if {"executor", "serve", "batching", "gmm", "faults",
@@ -5345,6 +5838,9 @@ def main() -> int:
     if "spmd" in phases:  # one NCCL rank; freed before the zoo
         spmd = phase_spmd(args.seed, card)
         print(json.dumps({"spmd": spmd}))
+    if "tp" in phases:  # two ranks on the card, each a process of its own
+        tp = phase_tp(args.seed, card)
+        print(json.dumps({"tp": tp}))
     if "zoo" in phases:  # after the qwen3 model is released
         zoo = phase_zoo(args.seed, card)
         print(json.dumps({"zoo": zoo}))
@@ -5353,7 +5849,8 @@ def main() -> int:
                "timing needs the kernels, serve and pd phases")
         print(json.dumps(phase_timing(serve, pd, errs, gen, batching, gmm,
                                       faults, rebalance, zoo, tuned,
-                                      examples, train, analysis, spmd)))
+                                      examples, train, analysis, spmd,
+                                      tp)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,7 @@ or 512 ranks (`torch.testing._internal.distributed.fake_pg`: every
 collective completes at once, this process is rank 0), the state, batch
 and caches are fake tensors (`FakeTensorMode`: shapes, no data), and
 `launch.op_analysis` records every op the step dispatches -- the port's
-own program: gather, compute on the rank's batch shard, reduce.  On fake
+own program.  On fake
 CPU tensors the kernels' wrappers take their plain versions, as the
 reference's host-mesh lowering takes its jnp path.  The fake group is
 process-global: run this module as its own process (the tests do).
@@ -32,8 +32,11 @@ The record's keys are the reference's; what the port fills them with:
                          inside temp, aliased ones are arguments)
 The roofline constants are one H100 SXM's, from its data sheet
 (`core.cost_model.H100`): dense bf16 peak, HBM rate, NVLink 4 one way.
-The "model" axis shards storage only (`launch.steps`), so the memory and
-FLOPs are those of what the port does, not of GSPMD's TP/EP compute.
+The train cells lower `build_sharded_train_step`: the dense and MoE
+families compute over "model" (heads, FFN columns, experts, vocab) and
+gather each layer over the batch axes inside the layer, the other families
+gather the whole tree.  The prefill and decode cells still gather the whole
+tree on every rank and compute on the batch shard (`full_tree`).
 """
 from __future__ import annotations
 
@@ -124,7 +127,7 @@ def _nbytes(tree) -> int:
 
 def _batch_local(tree, specs, mesh):
     """Each DTensor leaf gathered over every mesh axis but the batch axes
-    (the "model" axis shards storage, not compute), as a plain tensor."""
+    (the decode step computes whole over "model"), as a plain tensor."""
     ba = SH.P(batch_axes(mesh))[0]
 
     def local(t, spec):

@@ -144,7 +144,10 @@ class OpAnalysis(TorchDispatchMode):
                                       f"{_shapes(outs)}"))
         if ns in ("c10d", "_c10d_functional") and name in _COLLECTIVES:
             op = _COLLECTIVES[name]
-            res = outs if ns == "_c10d_functional" else ins
+            # the result: a functional op's output, an in-place op's first
+            # argument (the tensors it writes: the gathered or scattered
+            # output, the all-reduced tensors)
+            res = outs if ns == "_c10d_functional" else _tensors(args[0])
             b = sum(_nbytes(t) for t in res) * COLLECTIVE_FACTOR[op]
             self.c.collective_bytes += b
             self.c.collective_by_op[op] += b

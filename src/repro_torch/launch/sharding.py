@@ -175,6 +175,59 @@ def param_specs(params, cfg: ModelConfig, mesh) -> Any:
     return unflatten(params, specs)
 
 
+#: the families whose mesh step computes over "model" (tensor / expert
+#: parallel); the others gather every param over it (`launch.steps`)
+TP_FAMILIES = ("dense", "moe")
+
+_HEAD_LEAVES = {"wq": "q", "bq": "q", "wo": "q",
+                "wk": "kv", "bk": "kv", "wv": "kv", "bv": "kv"}
+
+
+def _computes_over_model(names: Sequence[str], cfg: ModelConfig,
+                         model: int) -> bool:
+    """Whether the model code computes this leaf on a "model" shard: whole
+    heads (q heads for wq / bq / wo, kv heads for wk / wv / bk / bv, and
+    the kv side only where the q side is sharded too), and the FFN hidden
+    columns, experts and vocab rows the spec's divisibility already makes
+    whole.  Anything else (RWKV / Mamba leaves, cross attention) is
+    gathered."""
+    name, parents = names[-1], set(names[:-1])
+    if cfg.family not in TP_FAMILIES or "cross" in parents:
+        return False
+    if name in _HEAD_LEAVES and "attn" in parents:
+        if cfg.num_heads % model:
+            return False
+        return _HEAD_LEAVES[name] == "q" or cfg.num_kv_heads % model == 0
+    if name in ("embed", "lm_head"):
+        return True
+    return name in ("w_gate", "w_up", "w_down") and (
+        "ffn" in parents or "experts" in parents or "shared" in parents)
+
+
+def compute_specs(params, cfg: ModelConfig, mesh) -> Any:
+    """The spec each leaf is COMPUTED with in the mesh step: its
+    `param_specs` entry with every batch axis dropped (the step gathers it
+    over them, a stacked layer's inside the layer) and "model" kept only
+    where the model code computes on whole units of it
+    (`_computes_over_model`); elsewhere the leaf is gathered over "model"
+    too.  Storage stays `param_specs`."""
+    return compute_specs_of(param_specs(params, cfg, mesh), cfg, mesh)
+
+
+def compute_specs_of(pspecs, cfg: ModelConfig, mesh) -> Any:
+    """`compute_specs` from the param specs' tree (the leaves' paths are
+    all the rule reads)."""
+    model = mesh_shape(mesh).get("model", 1)
+
+    def spec(path, stored):
+        keep = _computes_over_model(_path_names(path), cfg, model)
+        return P(*("model" if keep and e is not None and "model" in _axes(e)
+                   else None for e in stored))
+
+    return unflatten(pspecs, [spec(path, s)
+                              for path, s in leaves_with_paths(pspecs)])
+
+
 # ---------------------------------------------------------------------------
 # Inputs
 # ---------------------------------------------------------------------------

@@ -9,13 +9,22 @@ the same way:
   * `build_sharded_train_step` -- the counterpart of the reference's
     `jax.jit(build_train_step(...), in_shardings=...)`.  The state is
     stored as DTensors placed by the param specs (`state_specs`); each
-    step gathers the params whole, runs the one-device loss and backward
-    (the kernels unchanged) on the rank's batch shard, reduces each
-    gradient to its owner's shard (reduce-scatter where the spec shards
-    over a batch axis, all-reduce otherwise, then the local slice),
+    rank computes on its batch shard and, over "model", on the shards
+    GSPMD would partition by those specs (`launch.sharding.
+    compute_specs`): its attention heads, FFN hidden columns, experts and
+    vocab rows, on plain local tensors through the same kernels, the ranks
+    exchanging what the math needs (`pshard`'s four TP operators).  Each
+    param is gathered over the batch axes (and over "model" where the
+    compute spec drops it) by a `pshard.LeafGather` -- a stacked layer's
+    inside the layer's (rematerialized) body, the rest at the step's start
+    --, whose backward leaves the gradient already reduced to the rank's
+    stored shard (reduce-scatter where the spec shards a batch axis,
+    all-reduce otherwise, divided by the batch axes' size).  The step
     clips by the norm of the whole gradient and updates the local shards.
-    The "model" axis shards storage, not compute: the ranks of one data
-    row compute the same batch shard.
+    The recurrent and encoder-decoder families keep the gather-everything
+    program: every param gathered whole at the start, the one-device loss
+    and backward on the batch shard, each gradient then reduced to its
+    shard; the ranks of a data row compute the same shard there.
   * `build_compressed_dp_step` -- the reference's shard_map step:
     replicated state, a per-rank error-feedback residual, the gradients
     all-reduced int8-compressed (`optim.compress.compressed_psum`), the
@@ -28,8 +37,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.launch.mesh import axis_names, batch_axes, dp_size, sum_over
-from repro_torch.launch.sharding import (P, _axes, batch_specs, full_tree,
+from repro_torch.launch.mesh import (axis_names, batch_axes, dp_size,
+                                     mesh_shape, sum_over)
+from repro_torch.launch.sharding import (TP_FAMILIES, P, _axes, batch_specs,
+                                         compute_specs_of, full_tree,
                                          local_shard, placements)
 from repro_torch.models import pshard
 from repro_torch.models.api import ModelAPI
@@ -69,14 +80,14 @@ def value_and_grad(loss_fn: Callable, params, batch):
     return (loss.detach(), metrics), unflatten(params, grads)
 
 
-def _loss_and_grads(api: ModelAPI, params, batch, accum_steps: int):
-    """(loss, metrics, grads) of `api.loss` on `batch`.  accum_steps > 1:
+def _loss_and_grads(loss_fn: Callable, params, batch, accum_steps: int):
+    """(loss, metrics, grads) of `loss_fn` on `batch`.  accum_steps > 1:
     gradient accumulation over microbatches, as the reference's `scan` --
     the batch's leading axis split into `accum_steps` microbatches, fp32
     gradient sums, loss and gradients averaged over them, metrics
     averaged."""
     if accum_steps == 1:
-        (loss, metrics), grads = value_and_grad(api.loss, params, batch)
+        (loss, metrics), grads = value_and_grad(loss_fn, params, batch)
         return loss, dict(metrics), grads
     micro = [{k: v.reshape((accum_steps, v.shape[0] // accum_steps)
                            + tuple(v.shape[1:]))[i]
@@ -87,7 +98,7 @@ def _loss_and_grads(api: ModelAPI, params, batch, accum_steps: int):
     loss = torch.zeros((), device=leaves(params)[0].device)
     mstack = []
     for mb in micro:
-        (l_mb, m_mb), g_mb = value_and_grad(api.loss, params, mb)
+        (l_mb, m_mb), g_mb = value_and_grad(loss_fn, params, mb)
         for a, g in zip(leaves(g_acc), leaves(g_mb)):
             a.add_(g.float())
         loss = loss + l_mb
@@ -106,7 +117,7 @@ def build_train_step(api: ModelAPI, optimizer: AdamW,
     (`_loss_and_grads`)."""
 
     def train_step(state: TrainState, batch):
-        loss, metrics, grads = _loss_and_grads(api, state.params, batch,
+        loss, metrics, grads = _loss_and_grads(api.loss, state.params, batch,
                                                accum_steps)
         optimizer.update(grads, state.opt, state.params)
         metrics["loss"] = loss
@@ -182,13 +193,127 @@ def reduce_to_shard(g: torch.Tensor, mesh, spec: P) -> torch.Tensor:
     return d.redistribute(mesh, placements(spec, mesh)).to_local()
 
 
+def leaf_gather(stored: P, computed: P, mesh) -> pshard.LeafGather:
+    """The LeafGather from a leaf's shard under `stored` to its shard under
+    `computed`: an all-gather over every mesh axis of `stored` that
+    `computed` drops (a dim's minor axis first; none over an axis of size
+    1), and in the backward an all-reduce over the batch axes that shard
+    no dim of `stored`."""
+    names, sizes = axis_names(mesh), mesh_shape(mesh)
+    coord = mesh.get_coordinate()
+    ba = batch_axes(mesh)
+    steps, sharding = [], set()
+    for dim, e in enumerate(stored):
+        kept = set(_axes(computed[dim])) if computed[dim] is not None \
+            else set()
+        for a in reversed(_axes(e) if e is not None else ()):
+            sharding.add(a)
+            if a in kept or sizes[a] == 1:
+                continue
+            i = names.index(a)
+            steps.append((dim, mesh.get_group(i), sizes[a], coord[i],
+                          a in ba))
+    reduce = [mesh.get_group(names.index(a)) for a in ba
+              if a not in sharding and sizes[a] > 1]
+    return pshard.LeafGather(steps, reduce, dp_size(mesh),
+                             any(e is not None for e in computed))
+
+
+def gather_plan(specs, cfg, mesh):
+    """A tree of `leaf_gather`s shaped like the params: from each leaf's
+    stored shard (`specs`, the param specs) to its computed one
+    (`compute_specs_of`)."""
+    return unflatten(specs, [
+        leaf_gather(s, c, mesh) for s, c in
+        zip(leaves(specs), leaves(compute_specs_of(specs, cfg, mesh)))])
+
+
+def _metrics_over_batch(metrics: dict, mesh, ba_dims, dp: int) -> dict:
+    """The global batch's metrics: the mean over equal shards."""
+    if dp == 1:
+        return metrics
+    keys = list(metrics)
+    vals = torch.stack([metrics[k].float() for k in keys])
+    vals = sum_over(vals, mesh, ba_dims) / dp
+    return dict(zip(keys, vals.unbind()))
+
+
 def build_sharded_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
                              accum_steps: int = 1) -> Callable:
     """`specs`: the param specs (`launch.sharding.param_specs`).  The state
     is `distribute_tree(state, mesh, state_specs(specs))`; the batch holds
     whole tensors (the same on every rank) or DTensors, sharded over the
     batch axes by `batch_specs` and replicated over "model".  Returns
-    (state, metrics), the metrics those of the global batch."""
+    (state, metrics), the metrics those of the global batch.  The dense and
+    MoE families compute over "model" (`sharded_value_and_grad`), the
+    others gather every param whole (`_gather_all_train_step`)."""
+    if api.cfg.family not in TP_FAMILIES:
+        return _gather_all_train_step(api, optimizer, mesh, specs,
+                                      accum_steps)
+    names = axis_names(mesh)
+    dp = dp_size(mesh)
+    ba_dims = [names.index(a) for a in batch_axes(mesh)]
+    spec_list = leaves(specs)
+    grads_of = sharded_value_and_grad(api, mesh, specs, accum_steps)
+
+    def train_step(state: TrainState, batch):
+        with torch.no_grad():
+            local = tree_map(_local, state)
+        loss, metrics, grads = grads_of(local.params, batch)
+        with torch.no_grad():
+            gn = sharded_global_norm(leaves(grads), spec_list, mesh)
+            optimizer.update(grads, local.opt, local.params, grad_norm=gn)
+        metrics["loss"] = loss
+        metrics = _metrics_over_batch(metrics, mesh, ba_dims, dp)
+        metrics["grad_norm"] = gn
+        return state, metrics
+
+    return train_step
+
+
+def sharded_value_and_grad(api: ModelAPI, mesh, specs,
+                           accum_steps: int = 1) -> Callable:
+    """fn(local params, batch) -> (loss, metrics, grads) of the mesh step's
+    tensor- and expert-parallel program, this rank's: `local params` the
+    plain local shards of the params stored under `specs`, the batch as
+    `build_sharded_train_step` takes it, the loss and metrics this rank's
+    batch shard's, each gradient this rank's stored shard of the global
+    batch's gradient (already reduced by the LeafGathers' backward:
+    accumulation reduces once per microbatch)."""
+    names = axis_names(mesh)
+    dp = dp_size(mesh)
+    ba_dims = [names.index(a) for a in batch_axes(mesh)]
+    groups = [mesh.get_group(i) for i in ba_dims]
+    model = mesh_shape(mesh).get("model", 1)
+    plan = gather_plan(specs, api.cfg, mesh)
+    top = {k: v for k, v in plan.items() if k != "stages"}
+
+    def loss_fn(params, batch):
+        full = {k: pshard.gather_tree(params[k], p) for k, p in top.items()}
+        full["stages"] = params["stages"]
+        return api.loss(full, batch)
+
+    def grads_of(params, batch):
+        local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+        with contextlib.ExitStack() as stack:
+            if dp > 1:
+                stack.enter_context(pshard.data_parallel(groups, dp))
+            if model > 1:
+                i = names.index("model")
+                stack.enter_context(pshard.model_parallel(
+                    mesh.get_group(i), model, mesh.get_coordinate()[i]))
+            stack.enter_context(pshard.gathered(plan["stages"]))
+            return _loss_and_grads(loss_fn, params, local_batch, accum_steps)
+
+    return grads_of
+
+
+def _gather_all_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
+                           accum_steps: int = 1) -> Callable:
+    """The gather-everything mesh step (the recurrent and encoder-decoder
+    families): every param gathered whole, the one-device loss and
+    backward on the batch shard, each gradient reduced to its shard
+    (`reduce_to_shard`) and divided by the batch axes' size."""
     names = axis_names(mesh)
     dp = dp_size(mesh)
     ba_dims = [names.index(a) for a in batch_axes(mesh)]
@@ -206,8 +331,8 @@ def build_sharded_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
         ctx = pshard.data_parallel(groups, dp) if dp > 1 \
             else contextlib.nullcontext()
         with ctx:
-            loss, metrics, grads = _loss_and_grads(api, full, local_batch,
-                                                   accum_steps)
+            loss, metrics, grads = _loss_and_grads(api.loss, full,
+                                                   local_batch, accum_steps)
         del full
         with torch.no_grad():
             g_local = [mean_shard(g, s)
@@ -218,11 +343,7 @@ def build_sharded_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
             optimizer.update(unflatten(state.params, g_local), local.opt,
                              local.params, grad_norm=gn)
         metrics["loss"] = loss
-        if dp > 1:  # the global batch's: the mean over equal shards
-            keys = list(metrics)
-            vals = torch.stack([metrics[k].float() for k in keys])
-            vals = sum_over(vals, mesh, ba_dims) / dp
-            metrics = dict(zip(keys, vals.unbind()))
+        metrics = _metrics_over_batch(metrics, mesh, ba_dims, dp)
         metrics["grad_norm"] = gn
         return state, metrics
 

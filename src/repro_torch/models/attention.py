@@ -62,23 +62,63 @@ def init_attention_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _project_qkv(p, x, x_kv, cfg: ModelConfig, positions, kv_positions):
+    """q [B, S, H, hd], k / v [B, S_kv, KVH, hd].  H and KVH are read off
+    the leaves: inside a tensor-parallel step (`pshard.model_parallel`)
+    `wq` may hold this rank's heads only (whole heads, `launch.sharding.
+    compute_specs`), and then `wk` / `wv` this rank's kv heads, or all of
+    them where the kv heads do not split: K / V are then computed whole
+    and each local q head reads its global group's kv head
+    (`_local_kv_heads`)."""
     B, S, _ = x.shape
-    q = x @ p["wq"]
-    k = x_kv @ p["wk"]
-    v = x_kv @ p["wv"]
+    hd = cfg.head_dim
+    H, KVH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+    tp = H != cfg.num_heads
+    kv_whole = tp and KVH == cfg.num_kv_heads
+    xq = pshard.copy_to_model(x) if tp else x
+    xk = x_kv if kv_whole or not tp else \
+        (xq if x_kv is x else pshard.copy_to_model(x_kv))
+    q = xq @ p["wq"]
+    k = xk @ p["wk"]
+    v = xk @ p["wv"]
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(B, x_kv.shape[1], cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(B, x_kv.shape[1], cfg.num_kv_heads, cfg.head_dim)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, x_kv.shape[1], KVH, hd)
+    v = v.reshape(B, x_kv.shape[1], KVH, hd)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+        # a replicated norm scale on local heads: its gradient is partial
+        q_norm = pshard.copy_to_model(p["q_norm"]) if tp else p["q_norm"]
+        k_norm = pshard.copy_to_model(p["k_norm"]) \
+            if tp and not kv_whole else p["k_norm"]
+        q = rms_norm(q, q_norm, cfg.norm_eps)
+        k = rms_norm(k, k_norm, cfg.norm_eps)
     if positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_positions is not None:
         k = apply_rope(k, kv_positions, cfg.rope_theta)
+    if kv_whole:
+        k, v = _local_kv_heads(k, v, H, cfg)
     return q, k, v
+
+
+def _local_kv_heads(k, v, H: int, cfg: ModelConfig):
+    """The kv heads this rank's H q heads read, out of K / V computed whole
+    on every rank of "model": each local head's global group, one kv head
+    per group where the local heads cover whole groups or lie in one,
+    else one per local head.  The selection's gradient is partial (each
+    rank's heads' share), so it is summed over "model" first
+    (`copy_to_model` before the selection)."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = pshard.model_parallel_rank() * H
+    idx = [(first + i) // G for i in range(H)]
+    uniq = sorted(set(idx))
+    per = H // len(uniq)
+    k, v = pshard.copy_to_model(k), pshard.copy_to_model(v)
+    if per * len(uniq) == H and idx == [u for u in uniq for _ in range(per)]:
+        return (k.narrow(2, uniq[0], len(uniq)).contiguous(),
+                v.narrow(2, uniq[0], len(uniq)).contiguous())
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(2, sel), v.index_select(2, sel)
 
 
 def dense_causal_attention(q, k, v, cfg: ModelConfig,
@@ -274,7 +314,10 @@ def attention_forward(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
     o = _causal(q, k, v, cfg, window, use_dense)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    out = o.reshape(B, S, q.shape[2] * cfg.head_dim) @ p["wo"]
+    # local heads: `wo` holds their rows, the ranks' partial outputs add up
+    return pshard.reduce_from_model(out) if q.shape[2] != cfg.num_heads \
+        else out
 
 
 def cross_attention_forward(p, x, memory, cfg: ModelConfig) -> torch.Tensor:

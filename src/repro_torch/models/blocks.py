@@ -27,7 +27,8 @@ from repro_torch.models.common import (ModelConfig, act_fn, apply_norm,
                                        make_norm_params)
 from repro_torch.models.mamba2 import (MambaState, init_mamba_params,
                                        mamba_decode, mamba_forward)
-from repro_torch.models.moe import init_moe_params, moe_forward
+from repro_torch.models.moe import (gated_ffn, init_moe_params,
+                                   moe_forward)
 from repro_torch.models.rwkv6 import (RWKVState, channel_mix_forward,
                                       init_rwkv_params, time_mix_forward)
 
@@ -45,8 +46,11 @@ def init_ffn_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 def ffn_forward(p, x, cfg: ModelConfig):
-    act = act_fn(cfg.act)
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    """The gated FFN; inside a tensor-parallel step the leaves may hold this
+    rank's hidden columns (gate / up) and rows (down): column-parallel in,
+    row-parallel out, the partial outputs added over "model"."""
+    return gated_ffn(x, p["w_gate"], p["w_up"], p["w_down"], act_fn(cfg.act),
+                     cfg.d_ff)
 
 
 # ---------------------------------------------------------------------------

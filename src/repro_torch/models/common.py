@@ -298,3 +298,25 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         nll = nll * mask
         return torch.sum(nll) / torch.sum(mask).to(nll.dtype).clamp(min=1.0)
     return torch.mean(nll)
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 vocab_start: int) -> torch.Tensor:
+    """Mean token CE of logits [..., V_local]: this rank's vocab rows
+    `vocab_start:vocab_start + V_local` of a vocab split over "model"
+    (`pshard.model_parallel`).  The max and the sum of exponentials go
+    through the group; each target's logit comes from the rank that owns
+    it (zero elsewhere, then summed).  The shift is a constant to autograd,
+    as it cancels in the loss's value."""
+    from repro_torch.models import pshard
+    logits32 = logits.float()
+    V = logits32.shape[-1]
+    m = pshard.max_over_model(logits32.detach().amax(dim=-1))
+    sumexp = torch.sum(torch.exp(logits32 - m[..., None]), dim=-1)
+    lse = m + torch.log(pshard.reduce_from_model(sumexp))
+    ids = labels.long() - vocab_start
+    mine = (ids >= 0) & (ids < V)
+    gold = torch.gather(logits32, -1, ids.clamp(0, V - 1)[..., None])[..., 0]
+    gold = pshard.reduce_from_model(torch.where(mine, gold,
+                                                torch.zeros_like(gold)))
+    return torch.mean(lse - gold)

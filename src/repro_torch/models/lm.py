@@ -27,10 +27,12 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.models import blocks as B
+from repro_torch.models import pshard
 from repro_torch.models.attention import KVCache
 from repro_torch.models.common import (ModelConfig, apply_norm,
                                        cross_entropy_loss, dense_init,
-                                       embed_init, make_norm_params)
+                                       embed_init, make_norm_params,
+                                       vocab_parallel_cross_entropy)
 from repro_torch.models.mamba2 import init_mamba_state
 from repro_torch.models.moe import MoEAux
 from repro_torch.models.rwkv6 import init_rwkv_state
@@ -119,11 +121,31 @@ def init_lm_params(gen: torch.Generator, cfg: ModelConfig, device=None):
 # ---------------------------------------------------------------------------
 
 
+def _vocab_start(w_rows: int, cfg: ModelConfig) -> Optional[int]:
+    """The first vocab id of this rank's rows where the embedding (or the
+    head) holds a vocab shard over "model" (`pshard.model_parallel`), else
+    None."""
+    if w_rows == cfg.vocab_size:
+        return None
+    return pshard.model_parallel_rank() * w_rows
+
+
 def embed_tokens(params, tokens, embeddings, cfg: ModelConfig):
+    """The token embeddings; a vocab shard looks up the ids it owns, zeros
+    for the others, and the ranks' rows add up over "model"."""
     if embeddings is not None:
         h = embeddings.to(cfg.dtype)
     else:
-        h = params["embed"][tokens.long()]
+        w = params["embed"]
+        start = _vocab_start(w.shape[0], cfg)
+        if start is None:
+            h = w[tokens.long()]
+        else:
+            ids = tokens.long() - start
+            mine = (ids >= 0) & (ids < w.shape[0])
+            rows = w[ids.clamp(0, w.shape[0] - 1)]
+            h = pshard.reduce_from_model(
+                torch.where(mine[..., None], rows, torch.zeros_like(rows)))
     if cfg.scale_embeddings:
         # sqrt(d_model) rounded to the model's dtype first, as the reference
         # multiplies by it (a host float: no device copy, no sync)
@@ -131,9 +153,16 @@ def embed_tokens(params, tokens, embeddings, cfg: ModelConfig):
     return h
 
 
+def _head_weight(params, cfg: ModelConfig):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def lm_head(params, h, cfg: ModelConfig):
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ w
+    """Logits [..., V]; a vocab shard's logits are gathered over "model"."""
+    w = _head_weight(params, cfg)
+    if _vocab_start(w.shape[-1], cfg) is None:
+        return h @ w
+    return pshard.gather_from_model(pshard.copy_to_model(h) @ w, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -191,13 +220,28 @@ def _maybe_remat(body: Callable, cfg: ModelConfig, remat: bool) -> Callable:
     return recomputed
 
 
-def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense):
-    for lp in local:
-        h, _ = B.decoder_block_forward(lp, h, cfg, window=cfg.window_size,
+def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense, plan=None):
+    """One superblock; `plan`: the LeafGathers of its local and global
+    layers (`_gathered`), each layer gathered just before it runs."""
+    lplans, gplan = plan if plan is not None else ([None] * len(local), None)
+    for lp, pl in zip(local, lplans):
+        h, _ = B.decoder_block_forward(pshard.gather_tree(lp, pl), h, cfg,
+                                       window=cfg.window_size,
                                        use_dense=use_dense)
-    h, _ = B.decoder_block_forward(glob, h, cfg, window=None,
-                                   use_dense=use_dense)
+    h, _ = B.decoder_block_forward(pshard.gather_tree(glob, gplan), h, cfg,
+                                   window=None, use_dense=use_dense)
     return h
+
+
+def _gathered(block: Callable) -> Callable:
+    """`block` taking one layer's stored shards and their LeafGathers
+    (`pshard.stage_gathers`) first: the layer is gathered inside the body
+    `_maybe_remat` wraps, so remat's recompute gathers it again in the
+    backward and no gathered layer outlives its use."""
+    def body(lp, plan, *args, **kwargs):
+        return block(pshard.gather_tree(lp, plan), *args, **kwargs)
+
+    return body
 
 
 def _zamba_block(mambas, shared, h, emb, cfg: ModelConfig, use_dense):
@@ -207,7 +251,11 @@ def _zamba_block(mambas, shared, h, emb, cfg: ModelConfig, use_dense):
 
 
 def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
-                   use_dense, gmm, emb, shared, remat=False):
+                   use_dense, gmm, emb, shared, remat=False, plan=None):
+    """`plan`: the stage's tree of LeafGathers inside a mesh step that
+    gathers per layer (decoder and gemma stages only)."""
+    if plan is not None and kind not in ("gemma", "decoder"):
+        raise ValueError(f"no per-layer gathering for a {kind} stage")
     if kind in ("rwkv", "mamba"):
         block = _maybe_remat(B.rwkv_block_forward if kind == "rwkv"
                              else B.mamba_block_forward, cfg, remat)
@@ -221,18 +269,22 @@ def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
         return h, _zero_aux(cfg, h.device)
     if kind == "gemma":
         block = _maybe_remat(_gemma_block, cfg, remat)
-        for local, glob in _gemma_blocks(sp, n, opts["lpg"]):
-            h = block(local, glob, h, cfg, use_dense)
+        plans = _gemma_blocks(plan, n, opts["lpg"]) if plan is not None \
+            else [None] * n
+        for (local, glob), pl in zip(_gemma_blocks(sp, n, opts["lpg"]),
+                                     plans):
+            h = block(local, glob, h, cfg, use_dense, pl)
         return h, _zero_aux(cfg, h.device)
     lids = torch.arange(n, dtype=torch.int32, device=h.device) \
         if gmm is not None else None
-    block = _maybe_remat(B.decoder_block_forward, cfg, remat)
+    kw = dict(window=opts.get("window"), moe=opts["moe"], moe_mode=moe_mode,
+              use_dense=use_dense, gmm=gmm)
+    block = _maybe_remat(_gathered(B.decoder_block_forward), cfg, remat)
     auxs = []
     for l in range(n):
-        h, aux = block(
-            layer_slice(sp, l), h, cfg, window=opts.get("window"),
-            moe=opts["moe"], moe_mode=moe_mode, use_dense=use_dense,
-            gmm=gmm, layer_id=None if lids is None else lids[l:l + 1])
+        lid = None if lids is None else lids[l:l + 1]
+        h, aux = block(layer_slice(sp, l), layer_slice(plan, l), h, cfg,
+                       layer_id=lid, **kw)
         auxs.append(aux if aux is not None else _zero_aux(cfg, h.device))
     return h, _mean_aux(auxs)
 
@@ -252,10 +304,13 @@ def lm_backbone(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     h = embed_tokens(params, tokens, embeddings, cfg)
     emb0 = h
     auxs = []
-    for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
+    plans = pshard.stage_gathers() or [None] * len(params["stages"])
+    for sp, (kind, n, opts), plan in zip(params["stages"], lm_stages(cfg),
+                                         plans):
         h, aux = _stage_forward(sp, h, kind, n, opts, cfg, moe_mode=moe_mode,
                                 use_dense=use_dense, gmm=gmm, emb=emb0,
-                                shared=params.get("shared_attn"), remat=remat)
+                                shared=params.get("shared_attn"), remat=remat,
+                                plan=plan)
         auxs.append(aux)
     return apply_norm(h, params["final_norm"], cfg), _mean_aux(auxs)
 
@@ -275,11 +330,15 @@ def lm_forward(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
 
 
 def blocked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
-               ce_block: int) -> torch.Tensor:
+               ce_block: int, vocab_start: Optional[int] = None
+               ) -> torch.Tensor:
     """Mean token CE of logits h @ w over `ce_block`-position blocks (one
     block where S is not a multiple).  With several blocks each is
     recomputed in the backward, as the reference checkpoints its scan body,
-    so no block's [B, C, V] logits outlive it."""
+    so no block's [B, C, V] logits outlive it (and a vocab shard's
+    collectives run again there).  `vocab_start`: `w` holds the vocab
+    columns from there on, this rank's shard over "model"
+    (`vocab_parallel_cross_entropy`)."""
     Bsz, S, _ = h.shape
     C = min(ce_block, S)
     if S % C:
@@ -287,7 +346,10 @@ def blocked_ce(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     nb = S // C
 
     def blk(hb, lb):
-        return cross_entropy_loss(hb @ w, lb) * (Bsz * C)
+        if vocab_start is None:
+            return cross_entropy_loss(hb @ w, lb) * (Bsz * C)
+        return vocab_parallel_cross_entropy(
+            pshard.copy_to_model(hb) @ w, lb, vocab_start) * (Bsz * C)
 
     if nb > 1:
         blk = functools.partial(torch.utils.checkpoint.checkpoint, blk,
@@ -309,8 +371,8 @@ def lm_loss(params, cfg: ModelConfig, tokens=None, labels=None,
     layer in the backward per `cfg.remat_policy` (`_maybe_remat`)."""
     h, aux = lm_backbone(params, cfg, tokens, embeddings, moe_mode=moe_mode,
                          gmm=gmm, remat=remat)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    ce = blocked_ce(h, w, labels, ce_block)
+    w = _head_weight(params, cfg)
+    ce = blocked_ce(h, w, labels, ce_block, _vocab_start(w.shape[-1], cfg))
     loss = ce + aux_coef * aux.load_balance_loss
     metrics = {"ce": ce, "load_balance": aux.load_balance_loss,
                "dropped_fraction": aux.dropped_fraction}

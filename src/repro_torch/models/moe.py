@@ -93,12 +93,18 @@ def load_balance_loss(probs: torch.Tensor, idx: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def gated_ffn(x, w_gate, w_up, w_down, act):
+def gated_ffn(x, w_gate, w_up, w_down, act, width: Optional[int] = None):
     """One gated FFN: act(x @ w_gate) * (x @ w_up) @ w_down -- the shared-
     expert / single-expert building block (also used by the threaded executor
-    for shared-expert compute on the attention device)."""
+    for shared-expert compute on the attention device).  `width`: the
+    FFN's whole hidden width; where the weights hold fewer columns they are
+    this rank's share over "model" (column-parallel gate / up, row-parallel
+    down), and the ranks' partial outputs are added up."""
+    tp = width is not None and w_gate.shape[-1] != width
+    if tp:
+        x = pshard.copy_to_model(x)
     h = act(x @ w_gate) * (x @ w_up)
-    return h @ w_down
+    return pshard.reduce_from_model(h @ w_down) if tp else h @ w_down
 
 
 def default_gmm(xb: torch.Tensor, experts: dict,
@@ -225,9 +231,19 @@ def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     un-permutes, as in the reference.  Inside a data-parallel step of n
     ranks x holds 1/n of the batch and so `dispatch_groups / n` whole
     groups: the capacity sees the reference's per-group token count.  The
-    `moe_shard_constraints` hints sit where the reference's do."""
+    `moe_shard_constraints` hints sit where the reference's do.
+
+    Expert parallel (`pshard.model_parallel`, `p["experts"]` holding this
+    rank's whole experts): the router runs replicated and every rank of
+    "model" dispatches the same tokens (they share its data shard), keeps
+    its experts' rows of the buffer (`scatter_to_model`), runs the expert
+    matmul on them and all-gathers the outputs before the combine; each
+    capacity row is its own chain of dots, so the output equals the one-
+    device layer's.  The shared expert is tensor parallel as the dense
+    FFN."""
     T, d = x.shape
     E, K = cfg.num_experts, cfg.top_k
+    ep = p["experts"]["w_gate"].shape[0] != E
     weights, idx, probs = router_topk(p["router"], x, cfg)
     G = _local_groups(cfg.dispatch_groups)
     G = G if T % G == 0 else 1
@@ -246,7 +262,11 @@ def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     xb2 = xb.reshape(E, G * C, d)
     if cfg.moe_shard_constraints:
         xb2 = pshard.constrain(xb2, "experts", "moe_rows", None)
+    if ep:
+        xb2 = pshard.scatter_to_model(xb2, 0)
     yb2 = (gmm or default_gmm)(xb2, p["experts"], cfg)
+    if ep:
+        yb2 = pshard.gather_from_model(yb2, 0)
     if cfg.moe_shard_constraints:
         yb2 = pshard.constrain(yb2, "experts", "moe_rows", None)
     yb = yb2.reshape(E, G, C, d)
@@ -263,7 +283,8 @@ def moe_forward_capacity(p, x: torch.Tensor, cfg: ModelConfig,
     aux = MoEAux(lb, 1.0 - kept / (T * K), load)
     if "shared" in p:
         y = y + gated_ffn(x, p["shared"]["w_gate"], p["shared"]["w_up"],
-                          p["shared"]["w_down"], act_fn(cfg.act))
+                          p["shared"]["w_down"], act_fn(cfg.act),
+                          cfg.expert_d_ff * cfg.num_shared_experts)
     return y, aux
 
 

@@ -16,6 +16,33 @@ batch-global statistics that are not linear in the tokens (the MoE router's
 load-balance fractions) are averaged over the process groups of the batch
 axes with `all_reduce_mean`, which autograd differentiates.  Outside it
 (one device) nothing changes.
+
+`model_parallel(group, size, rank)` marks the span of a step whose ranks of
+one data row compute over the `"model"` axis (tensor / expert parallel, the
+compute GSPMD partitions by the param specs).  The model then computes on
+the local shards it is handed (heads, FFN columns, experts, vocab rows, read
+off the leaves' shapes) and crosses ranks only through the four operators of
+Megatron-style TP, each an autograd Function:
+
+  copy_to_model      forward identity,        backward all-reduce
+  reduce_from_model  forward all-reduce,      backward identity
+  scatter_to_model   forward the local slice, backward all-gather
+  gather_from_model  forward all-gather,      backward the local slice
+
+The loss is the same on every rank of the group, so a reduction's backward
+is the identity and a slice's an all-gather: an autograd-differentiated
+all-reduce (`_AllReduceSum`, right for the data axis, where each rank's
+loss differs) would scale the gradient by the group's size here.  Outside
+the context, or at size 1, every operator is the identity.
+
+`gathered(plans)` hands the model the per-layer gathers of a mesh step:
+`stage_gathers()` is, per stage, a tree of `LeafGather`s shaped like the
+stage's params; the LM core applies a layer's inside the (rematerialized)
+layer body (`gather_tree`), so no gathered layer outlives its use.  A
+`LeafGather` turns a stored shard into the tensor the step computes with
+(all-gathers over the axes the compute spec drops) and its backward turns
+the gradient into the stored shard's, already summed over the batch axes
+and divided by their size.
 """
 from __future__ import annotations
 
@@ -26,6 +53,12 @@ import torch
 
 _RULES: Dict[str, Any] = {}
 _DP: Optional[tuple] = None  # (process groups, size) inside data_parallel
+_MP: Optional[tuple] = None  # (process group, size, rank) in model_parallel
+_GATHERS: Optional[list] = None  # per stage, a tree of LeafGathers
+#: bytes of the tensors the per-layer gathers made since the last
+#: `reset_gather_bytes()`: "gather", the forward's gathered params;
+#: "reduce", the backward's gradient shards
+GATHER_BYTES = {"gather": 0, "reduce": 0}
 
 #: every logical axis name the model code may pass to `constrain` -- the
 #: universe shardcheck (sc-unknown-logical-axis) validates call sites
@@ -142,3 +175,246 @@ def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
         return x
     groups, size = _DP
     return _AllReduceSum.apply(x, groups) / size
+
+
+# ---------------------------------------------------------------------------
+# Tensor / expert parallelism over "model"
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def model_parallel(group, size: int, rank: int):
+    global _MP
+    old, _MP = _MP, (group, size, rank)
+    try:
+        yield
+    finally:
+        _MP = old
+
+
+def model_parallel_size() -> int:
+    return _MP[1] if _MP is not None else 1
+
+
+def model_parallel_rank() -> int:
+    return _MP[2] if _MP is not None else 0
+
+
+def _tp():
+    """The model group, or None where the operators are the identity."""
+    return _MP[0] if _MP is not None and _MP[1] > 1 else None
+
+
+def _all_gather(t: torch.Tensor, dim: int, group, size: int) -> torch.Tensor:
+    """`t`'s shards of every rank of `group`, concatenated along `dim` in
+    rank order (the list form: gloo has it on CUDA tensors too)."""
+    import torch.distributed as dist
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(size)]
+    dist.all_gather(parts, t, group=group)
+    return torch.cat(parts, dim)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group,
+                    size: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of the sum of `t` over `group`."""
+    import torch.distributed as dist
+    # newer torch deprecates reduce_scatter_tensor for reduce_scatter_single
+    rs = getattr(dist, "reduce_scatter_single", None) \
+        or dist.reduce_scatter_tensor
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // size,) + tuple(src.shape[1:]))
+    rs(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _chunk(t: torch.Tensor, dim: int, size: int, rank: int) -> torch.Tensor:
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_over(g.clone(), [ctx.group]), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x.clone(), [group])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        ctx.args = (dim, group, size)
+        return _chunk(x, dim, size, rank).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_all_gather(g, *ctx.args),) + (None,) * 4
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, size, rank):
+        ctx.args = (dim, size, rank)
+        return _all_gather(x, dim, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_chunk(g, *ctx.args).contiguous(),) + (None,) * 4
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Enters a parallel region: `x` replicated over "model" is used on
+    local shards, so its gradient is summed over the group."""
+    group = _tp()
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """Leaves a parallel region: the ranks' partial sums added."""
+    group = _tp()
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def scatter_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's chunk along `dim` of `x` replicated over "model"."""
+    group = _tp()
+    if group is None:
+        return x
+    return _ScatterToModel.apply(x, dim, group, _MP[1], _MP[2])
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' chunks along `dim` concatenated, in rank order."""
+    group = _tp()
+    if group is None:
+        return x
+    return _GatherFromModel.apply(x, dim, group, _MP[1], _MP[2])
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max over "model" of a tensor no gradient flows through
+    (the cross entropy's shift)."""
+    import torch.distributed as dist
+    group = _tp()
+    if group is None:
+        return x
+    x = x.detach().clone()
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Per-layer gathering of a mesh step's params
+# ---------------------------------------------------------------------------
+
+
+class LeafGather:
+    """From one leaf's stored shard to the tensor the step computes with.
+
+    `steps`: (dim, group, size, rank, over_batch) in the order the forward
+    all-gathers them (each along one dim; a dim sharded over several axes
+    minor axis first); `reduce`: the batch axes' groups that shard no dim,
+    over which the backward all-reduces; `dp`: the batch axes' size, the
+    backward's divisor.  Indexing drops leading (stacked layer) dims, so a
+    stage's tree of LeafGathers slices like its params (`lm.layer_slice`).
+    `model_sharded`: whether the computed tensor is a shard over "model"."""
+    __slots__ = ("steps", "reduce", "dp", "model_sharded")
+
+    def __init__(self, steps, reduce, dp: int, model_sharded: bool):
+        self.steps, self.reduce, self.dp = tuple(steps), tuple(reduce), dp
+        self.model_sharded = model_sharded
+
+    def __getitem__(self, idx) -> "LeafGather":
+        n = len(idx) if isinstance(idx, tuple) else 1
+        if any(s[0] < n for s in self.steps):
+            raise IndexError("a stacked layer dim is sharded")
+        return LeafGather([(s[0] - n,) + s[1:] for s in self.steps],
+                          self.reduce, self.dp, self.model_sharded)
+
+    @property
+    def identity(self) -> bool:
+        return not self.steps and not self.reduce and self.dp == 1
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.identity else _GatherParam.apply(t, self)
+
+
+class _GatherParam(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, lg: LeafGather):
+        ctx.lg = lg
+        for dim, group, size, _, _ in lg.steps:
+            t = _all_gather(t, dim, group, size)
+        if lg.steps:
+            GATHER_BYTES["gather"] += t.numel() * t.element_size()
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        lg = ctx.lg
+        fresh = False  # g a tensor of this backward's own, not autograd's
+        for dim, group, size, rank, over_batch in reversed(lg.steps):
+            if over_batch:  # summed over the batch shards' gradients
+                g = _reduce_scatter(g, dim, group, size)
+                fresh = True
+            else:  # the same full gradient on every model rank
+                g = _chunk(g, dim, size, rank)
+        if lg.reduce:
+            g = _sum_over(g.contiguous() if fresh else
+                          g.clone(memory_format=torch.contiguous_format),
+                          lg.reduce)
+        else:
+            g = g.contiguous()
+        g = g / lg.dp if lg.dp > 1 else g
+        GATHER_BYTES["reduce"] += g.numel() * g.element_size()
+        return g, None
+
+
+def reset_gather_bytes() -> dict:
+    """GATHER_BYTES as it stood, then both counts set to 0."""
+    out = dict(GATHER_BYTES)
+    GATHER_BYTES.update(gather=0, reduce=0)
+    return out
+
+
+def gather_tree(tree, plan):
+    """`tree` (one layer's params, or a whole subtree) with each leaf through
+    its LeafGather in `plan` (a tree of the same shape); `tree` itself
+    without a plan."""
+    if plan is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, plan[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(gather_tree(v, p) for v, p in zip(tree, plan))
+    return None if tree is None else plan(tree)
+
+
+@contextmanager
+def gathered(plans: list):
+    global _GATHERS
+    old, _GATHERS = _GATHERS, plans
+    try:
+        yield
+    finally:
+        _GATHERS = old
+
+
+def stage_gathers() -> Optional[list]:
+    """Per stage of the LM, the tree of LeafGathers of its stacked params
+    (None outside a mesh step that gathers per layer)."""
+    return _GATHERS
