@@ -218,8 +218,26 @@ Phases (each prints its own lines; any failure is a non-zero exit):
             torch.equal to the one-device layer's, its gradients (x, the
             router, the rank's experts) within TP_FP32_TOL.  Per rank:
             peak allocated beside the plain step's, step ms, the bytes the
-            per-layer gathers made; a {"tp": ...} line.  `--phases
-            device,build,tp` runs it alone
+            per-layer gathers made.  Then each rank serves on the same
+            mesh (build_sharded_prefill_step, build_sharded_decode_step
+            fed the plain run's greedy tokens): gemma3_1b whole in bf16,
+            its one kv head putting the caches over the sequence (split-K
+            decode), prefill [1, 4096] into 4128 slots and 32 decode
+            steps; qwen3 depth 1 in bf16, its caches over the kv heads (2
+            kv and 32 q heads a rank), [1, 2048] and 16 steps; gemma3's
+            first superblock and qwen3 depth 1 in fp32, 8 steps each.
+            Every step's logits within TP_SERVE_BANDS of the plain
+            api.prefill / api.decode (fp32: TP_FP32_TOL; bf16: qwen3
+            TP_BF16_BAND, gemma3's 26 layers TP_BF16_BAND_GEMMA3); the
+            plain bf16 run's distance from the same run in fp32, and for
+            qwen3 from one routed as the bf16 run was, and the greedy
+            tokens that agree (reported, not gated);
+            flash on "wgmma" at the local heads, one launch a layer, each
+            distinct call against the plain versions; dispatch_scatter
+            and combine_gather in qwen3's prefill and every decode step;
+            no host sync counted in the decode steps; prefill ms, decode
+            ms a step and peak allocated beside the plain run's.  A
+            {"tp": ...} line.  `--phases device,build,tp` runs it alone
   zoo       (after the qwen3 model is released) the model families
             behind build_api: first fp32 at each family's smoke config
             (every greedy token == the argmax of api.forward over prompt +
@@ -278,7 +296,7 @@ wgmma route, and every dispatch_scatter / combine_gather launch of the pd
 wave's decode steps the "whole" / "weighted" route (the per-route launch
 counts say so).  Each path's launches (serve, pd, batching, gmm, faults,
 rebalance, tuning -- the tuned wave --, train, spmd -- the sharded steps
---, tp -- both ranks' sharded steps --, zoo, and each example twin's whole run) stand in the {"kernels": ...} line under "launches_by_path".
+--, tp -- both ranks' sharded train steps and mesh serving runs --, zoo, and each example twin's whole run) stand in the {"kernels": ...} line under "launches_by_path".
 
 To time another tree's kernels at the same shapes (a parent commit, say):
 with the {"kernels": ...} line of a full run in the file F, copy this script
@@ -3817,6 +3835,19 @@ TP_FP32_S = 2048
 TP_BF16_BAND = 2e-2
 TP_FP32_TOL = 1e-4
 TP_TIMEOUT = 600  # each process's join timeout: both ranks killed at it
+# Serving logits, rank vs plain (relative Frobenius, every step).  qwen3
+# (depth 1, bf16) keeps TP_BF16_BAND (worst reading 9.4e-3 on an H100).
+# gemma3_1b's 26 bf16 layers read 2.86e-2-3.48e-2 there, as far as its
+# plain bf16 run lies from the same run in fp32 (3.2e-2): 5e-2 has room
+# above that and lies well below a missing sum over the ranks (p.v, the
+# partial outputs of wo, a rank's slots stored by another: 0.24-0.28 on
+# the CPU at its widths and 6 layers, tests/_torch_tp_serve_faults.py).
+# Subtler faults (a slot off by one, the new token left unwritten, no
+# shared max: 1.4e-2-7.5e-2 there in fp32) are held by the fp32 runs at
+# TP_FP32_TOL.
+TP_BF16_BAND_GEMMA3 = 5e-2
+TP_SERVE_BANDS = {"gemma3": TP_BF16_BAND_GEMMA3, "qwen3": TP_BF16_BAND,
+                  "gemma3_fp32": TP_FP32_TOL, "qwen3_fp32": TP_FP32_TOL}
 
 
 def _tp_runs():
@@ -3824,6 +3855,18 @@ def _tp_runs():
     return [("gemma3", GEMMA_ARCH, None, GEMMA_S, BF),
             ("qwen3", ARCH, SPMD_QWEN_LAYERS, TRAIN_S, BF),
             ("gemma3_fp32", GEMMA_ARCH, TP_FP32_LAYERS, TP_FP32_S, F32)]
+
+
+def _tp_serve_runs():
+    """(name, arch, layers (None: all), S, decode steps, dtype) of the tp
+    phase's serving runs: the prompt [1, S] prefilled into caches of
+    S + steps slots, then `steps` decode steps.  gemma3_1b's one kv head
+    puts its caches over the sequence (split-K decode); qwen3's 4 split
+    over heads (2 kv and 32 q heads a rank)."""
+    return [("gemma3", GEMMA_ARCH, None, GEMMA_S, 32, BF),
+            ("qwen3", ARCH, SPMD_QWEN_LAYERS, TRAIN_S, 16, BF),
+            ("gemma3_fp32", GEMMA_ARCH, TP_FP32_LAYERS, TP_FP32_S, 8, F32),
+            ("qwen3_fp32", ARCH, SPMD_QWEN_LAYERS, TRAIN_S, 8, F32)]
 
 
 def _tp_setup(name, arch, layers, S, dtype, seed):
@@ -3930,6 +3973,190 @@ def _tp_check_flash(calls, gen) -> list:
     return out
 
 
+def _timed(fn):
+    """(fn(), its ms between CUDA events around it, after a sync)."""
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def _tp_serve(prefill, decode, batch, steps: int, tokens=None) -> dict:
+    """prefill(batch), then `steps` decode(caches, {"token": t}) steps fed
+    `tokens` (the plain run's greedy tokens) or, where None, the run's own
+    greedy tokens: the logits of every step (on the host, fp32), the
+    tokens fed, prefill ms and each decode step's ms (CUDA events), the
+    launches of the prefill and of the decode steps (counts set to 0 just
+    before each, read just after), the host syncs counted in the decode
+    steps, the peak allocated."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    (logits, caches), pre_ms = _timed(lambda: prefill(batch))
+    rec = {"prefill_launches": _read_counts(), "prefill_ms": pre_ms,
+           "prefill_flash_routes": dict(flash_attention.launches_by_route),
+           "decode_ms": [], "logits": [logits.float().cpu()], "tokens": []}
+    _reset_counts()
+    for i in range(steps):
+        tok = tokens[i].to(DEV) if tokens is not None \
+            else logits.argmax(-1).to(torch.int32)
+        (logits, caches), ms = _timed(lambda: decode(caches, {"token": tok}))
+        rec["decode_ms"].append(ms)
+        rec["logits"].append(logits.float().cpu())
+        rec["tokens"].append(tok.cpu())
+    rec["decode_launches"] = _read_counts()
+    rec["decode_host_syncs"] = _launch.reset_host_syncs()
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del caches, logits
+    return rec
+
+
+@contextlib.contextmanager
+def _routing(forced=None):
+    """moe.router_topk recording each call's expert choices (idx [T, K],
+    kept on the card), or, given `forced` (such a record), taking its
+    choices call by call, weighted by this run's own probabilities: a run
+    routed as another was.  Yields the record."""
+    import repro_torch.models.moe as moe_mod
+    fn, calls, it = moe_mod.router_topk, [], iter(forced or ())
+
+    def route(p, x, cfg):
+        w, idx, probs = fn(p, x, cfg)
+        if forced is None:
+            calls.append(idx.clone())
+            return w, idx, probs
+        idx = next(it)
+        w = probs.gather(-1, idx.long())
+        if cfg.router_renorm:
+            w = w / torch.sum(w, dim=-1, keepdim=True)
+        return w, idx, probs
+
+    moe_mod.router_topk = route
+    try:
+        yield calls
+    finally:
+        moe_mod.router_topk = fn
+
+
+def _route_flips(a: list, b: list) -> float:
+    """The share of the (token, choice) pairs of record `a` (`_routing`)
+    whose expert record `b` did not choose for that token, every call."""
+    moved = total = 0
+    for x, y in zip(a, b):
+        hit = (x.long()[:, :, None] == y.long()[:, None, :]).any(-1)
+        moved += int((~hit).sum())
+        total += hit.numel()
+    return moved / total
+
+
+def _tp_serve_plain(seed: int) -> dict:
+    """The plain one-device serving runs (`api.prefill`, `api.decode` on
+    their own greedy tokens); a bf16 run again in fp32 on its params cast
+    up, fed the same tokens: its logits ("fp32_logits") measure how far
+    bf16's own rounding moves the plain run's ("rel_err_fp32").  An MoE
+    run once more in fp32 routed as the bf16 run was ("rel_err_fp32_routed")
+    beside the share of expert choices fp32 makes otherwise ("route_flips"):
+    how much of that distance the routing makes."""
+    from repro_torch.models.api import build_api
+    from repro_torch.tree import tree_map
+    out = {}
+    for name, arch, layers, S, steps, dtype in _tp_serve_runs():
+        cfg, api, params, _, batch = _tp_setup(name, arch, layers, S, dtype,
+                                               seed)
+        batch = {"tokens": batch["tokens"]}
+        moe = dtype == BF and bool(cfg.num_experts)
+        with torch.no_grad():
+            with _routing() if moe else contextlib.nullcontext() as routes:
+                rec = _tp_serve(
+                    lambda b, a=api, p=params: a.prefill(p, dict(
+                        b, max_len=S + steps)),
+                    lambda c, t, a=api, p=params: a.decode(p, c, t),
+                    batch, steps)
+            if dtype == BF:
+                api32 = build_api(cfg.replace(dtype=F32))
+                params = tree_map(lambda t: t.float()
+                                  if t.is_floating_point() else t, params)
+                _free()
+
+                def up():
+                    return _tp_serve(
+                        lambda b: api32.prefill(params, dict(
+                            b, max_len=S + steps)),
+                        lambda c, t: api32.decode(params, c, t), batch,
+                        steps, rec["tokens"])["logits"]
+
+                with _routing() if moe else contextlib.nullcontext() as r32:
+                    rec["fp32_logits"] = up()
+                rec["rel_err_fp32"] = [_rel_fro(g, w) for g, w in zip(
+                    rec["logits"], rec["fp32_logits"])]
+                if moe:
+                    rec["route_flips"] = _route_flips(routes, r32)
+                    with _routing(routes):
+                        routed = up()
+                    rec["rel_err_fp32_routed"] = [_rel_fro(g, w) for g, w in
+                                                  zip(rec["logits"], routed)]
+                    del routes, r32, routed
+        out[name] = rec
+        del params
+        _free()
+    return out
+
+
+def _tp_serve_rank(mesh, seed: int, plain: dict) -> dict:
+    """This rank's mesh serving runs: build_sharded_prefill_step, then
+    build_sharded_decode_step fed the plain run's greedy tokens; each
+    step's logits against the plain run's (relative Frobenius), the greedy
+    tokens that agree; in bf16 each distinct flash call of the prefill
+    (its local heads) against the plain versions (`_tp_check_flash`)."""
+    import repro_torch.models.attention as attn_mod
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch.steps import (build_sharded_decode_step,
+                                          build_sharded_prefill_step,
+                                          prefill_cache_specs)
+    out = {}
+    for name, arch, layers, S, steps, dtype in _tp_serve_runs():
+        cfg, api, params, _, batch = _tp_setup(name, arch, layers, S, dtype,
+                                               seed)
+        batch = {"tokens": batch["tokens"]}
+        pspecs = SH.param_specs(params, cfg, mesh)
+        dparams = SH.distribute_tree(params, mesh, pspecs)
+        del params
+        _free()
+        prefill = build_sharded_prefill_step(api, mesh, pspecs, S + steps)
+        decode = build_sharded_decode_step(
+            api, mesh, pspecs, prefill_cache_specs(api, mesh, batch,
+                                                   S + steps))
+        want = plain[name]
+        calls = _FirstOfEach()
+        with contextlib.ExitStack() as stack:
+            if dtype == BF:  # the kernel's inputs at the local shapes
+                stack.enter_context(_recording(attn_mod, "mha_flash", calls))
+            rec = _tp_serve(lambda b: prefill(dparams, b),
+                            lambda c, t: decode(dparams, c, t), batch, steps,
+                            want["tokens"])
+        rec["rel_err"] = [_rel_fro(g, w) for g, w in zip(rec["logits"],
+                                                          want["logits"])]
+        if want["fp32_logits"] is not None:
+            rec["rel_err_fp32"] = [_rel_fro(g, w) for g, w in zip(
+                rec["logits"], want["fp32_logits"])]
+        rec["greedy_agree"] = sum(
+            int(torch.equal(g.argmax(-1), w.argmax(-1)))
+            for g, w in zip(rec["logits"][1:], want["logits"][1:]))
+        del rec["logits"], rec["tokens"], dparams
+        _free()
+        if dtype == BF:
+            rec["flash_checks"] = _tp_check_flash(
+                calls, torch.Generator(device=DEV).manual_seed(seed + 13))
+        del calls
+        _free()
+        out[name] = rec
+    return out
+
+
 def _tp_plain(seed: int, out_dir: str):
     """The plain one-device steps of the tp phase's runs, in a process of
     their own: their records and the fp32 run's params kept on the host
@@ -3950,6 +4177,11 @@ def _tp_plain(seed: int, out_dir: str):
             keep[name] = [p.cpu() for p in leaves(state.params)]
         del state, params
         _free()
+    serve = _tp_serve_plain(seed)
+    keep["serve"] = {k: {"logits": r.pop("logits"), "tokens": r.pop("tokens"),
+                         "fp32_logits": r.pop("fp32_logits", None)}
+                     for k, r in serve.items()}
+    recs["serve"] = serve
     torch.save(keep, os.path.join(out_dir, "plain.pt"))
     del keep
     # written last, whole: the ranks wait for this file
@@ -4068,6 +4300,8 @@ def _tp_rank(rank: int, seed: int, out_dir: str):
                                  for k, w in g_one.items()}
         out["moe_local_experts"] = E
         del p, x, dy, y, y_one, g, g_one
+        _free()
+        out["serve"] = _tp_serve_rank(mesh, seed, plain["serve"])
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4131,6 +4365,82 @@ def _tp_gate_flash(name: str, rank: int, checks: list, cfg):
                f"> {BWD_TOL[BF]}")
 
 
+def _tp_gate_serve(plain: dict, ranks: list):
+    """The lines of the mesh serving runs, then their gates: every step's
+    logits within the run's band of TP_SERVE_BANDS of the plain run's,
+    relative Frobenius; in bf16 every flash launch of the prefill
+    on "wgmma" (gemma3: one a layer), each distinct call at the local
+    heads against the plain versions (`_tp_gate_flash`); qwen3's dispatch
+    and combine launched in the prefill and in every decode step; no host
+    sync counted in the decode steps."""
+    gates = []
+    for name, arch, layers, S, steps, dtype in _tp_serve_runs():
+        cfg = get_config(arch)
+        cfg = cfg if layers is None else cfg.replace(num_layers=layers)
+        band = TP_SERVE_BANDS[name]
+        p = plain[name]
+        runs = [rr["serve"][name] for rr in ranks]
+        dec_ms = [sorted(r["decode_ms"])[steps // 2] for r in runs]
+        fp32 = "" if "rel_err_fp32" not in p else (
+            f"; bf16 against the same run in fp32 (worst step): plain "
+            f"{max(p['rel_err_fp32']):.4g}, ranks "
+            f"{[round(max(r['rel_err_fp32']), 4) for r in runs]}") + (
+            "" if "route_flips" not in p else
+            f"; the plain run in fp32 routed as the bf16 run: "
+            f"{max(p['rel_err_fp32_routed']):.4g} (expert choices that "
+            f"differ in fp32: {p['route_flips']:.4%})")
+        print(f"[tp] serve {name} ({cfg.num_layers} layers, prefill [1, {S}]"
+              f" into {S + steps} slots, {steps} decode steps, "
+              f"{str(dtype).replace('torch.', '')}, mesh (1, 2)): logits rel "
+              f"err vs plain, worst step a rank "
+              f"{[max(r['rel_err']) for r in runs]} (prefill "
+              f"{[r['rel_err'][0] for r in runs]}; band {band}){fp32}; "
+              f"greedy tokens agreeing with plain "
+              f"{[r['greedy_agree'] for r in runs]} of {steps}; prefill ms "
+              f"plain {p['prefill_ms']:.2f}, ranks "
+              f"{[round(r['prefill_ms'], 2) for r in runs]}; decode ms a "
+              f"step (median) plain {sorted(p['decode_ms'])[steps // 2]:.2f}"
+              f", ranks {[round(x, 2) for x in dec_ms]}; peak allocated "
+              f"plain {p['peak_gb']:.2f} GB, ranks "
+              f"{[round(r['peak_gb'], 2) for r in runs]} GB; launches a "
+              f"rank, prefill {runs[0]['prefill_launches']}, decode "
+              f"{runs[0]['decode_launches']}; host syncs in the decode "
+              f"steps {[r['decode_host_syncs'] for r in runs]}", flush=True)
+        for c in runs[0].get("flash_checks", []):
+            print(f"[tp] serve {name} flash at the local shapes q {c['q']} k "
+                  f"{c['k']} window {c['window']}: forward "
+                  f"{c['fwd_routes']} o err {c['o_err']:.2e} row rel "
+                  f"{c['o_row_rel_err']:.2e} lse err {c['lse_err']:.2e}",
+                  flush=True)
+        gates.append((name, cfg, steps, dtype, band))
+    for name, cfg, steps, dtype, band in gates:
+        for rr in ranks:
+            rec, what = rr["serve"][name], f"tp serve {name} rank {rr['rank']}"
+            expect(len(rec["rel_err"]) == steps + 1 and max(rec["rel_err"])
+                   <= band, f"{what}: logits vs plain rel {rec['rel_err']} "
+                   f"(band {band})")
+            expect(rec["decode_host_syncs"] == 0, f"{what}: "
+                   f"{rec['decode_host_syncs']} host syncs in the decode "
+                   f"steps")
+            pre, dec = rec["prefill_launches"], rec["decode_launches"]
+            if dtype == BF:
+                routes = {k: n for k, n in
+                          rec["prefill_flash_routes"].items() if n}
+                expect(routes == {"wgmma": pre["flash_attention"]} and
+                       pre["flash_attention"] == cfg.num_layers,
+                       f"{what}: flash launches {pre['flash_attention']} by "
+                       f"route {routes}, not one a layer ({cfg.num_layers}) "
+                       f"on wgmma")
+                _tp_gate_flash(f"serve {name}", rr["rank"],
+                               rec["flash_checks"], cfg)
+            if cfg.num_experts:
+                for k in ("dispatch_scatter", "combine_gather"):
+                    expect(pre[k] >= cfg.num_layers and
+                           dec[k] >= steps * cfg.num_layers,
+                           f"{what}: {k} launches prefill {pre[k]}, decode "
+                           f"{dec[k]} (< one a layer and step)")
+
+
 def phase_tp(seed: int, card: str) -> dict:
     """Tensor / expert parallel over "model" on one card: the plain steps
     in a process of their own first (their records and the fp32 run's
@@ -4146,7 +4456,9 @@ def phase_tp(seed: int, card: str) -> dict:
     plain versions (`_tp_gate_flash`).  gemma3_1b's first superblock in
     fp32: loss, grad norm and each leaf within TP_FP32_TOL; qwen3's MoE
     layer in fp32 on each rank's 64 experts: output torch.equal to the
-    one-device layer's, gradients within TP_FP32_TOL."""
+    one-device layer's, gradients within TP_FP32_TOL.  Then the serving
+    runs (`_tp_serve_runs`, gated by `_tp_gate_serve`): the mesh prefill
+    and decode steps against the plain api.prefill / api.decode."""
     import shutil
     t0 = time.time()
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4173,6 +4485,9 @@ def phase_tp(seed: int, card: str) -> dict:
         for name, *_ in _tp_runs():
             for rec in rr[name]["steps"]:
                 launches.update(rec["launches"])
+        for rec in rr["serve"].values():
+            launches.update(rec["prefill_launches"])
+            launches.update(rec["decode_launches"])
     out = {"plain": plain, "ranks": ranks, "launches": dict(launches),
            "card": card}
     for name, arch, layers, S, dtype in _tp_runs():
@@ -4261,6 +4576,7 @@ def phase_tp(seed: int, card: str) -> dict:
           f"(x, router, the rank's experts) rel err "
           f"{[rr['moe_grad_rel_err'] for rr in ranks]} (tol {TP_FP32_TOL}), "
           f"torch.equal {[rr['moe_grad_equal'] for rr in ranks]}", flush=True)
+    _tp_gate_serve(plain["serve"], ranks)
     out["wall_s"] = time.time() - t0
     out["plain_s"] = t_plain
     print(f"[tp] phase done in {out['wall_s']:.1f}s (the plain process's "

@@ -10,10 +10,10 @@ inflates communication volume or FLOPs (a dropped sharding rule, an
 accidental gather, a duplicated matmul) fails here.
 
 The goldens are the port's own (`contracts_golden/` beside this module):
-the port's program (eager ops and explicit collectives: the train cells'
-tensor- and expert-parallel step, the prefill cell's whole-tree gather) is
-not the reference's GSPMD HLO, so its numbers are not held to the
-reference's.
+the port's program (eager ops and explicit collectives: the train and
+prefill cells' tensor- and expert-parallel steps, each layer gathered over
+the batch axes inside the layer) is not the reference's GSPMD HLO, so its
+numbers are not held to the reference's.
 They are deterministic for a given torch: the gate compares counts of the
 dispatched ops, not wall-clock.
 

@@ -32,11 +32,15 @@ The record's keys are the reference's; what the port fills them with:
                          inside temp, aliased ones are arguments)
 The roofline constants are one H100 SXM's, from its data sheet
 (`core.cost_model.H100`): dense bf16 peak, HBM rate, NVLink 4 one way.
-The train cells lower `build_sharded_train_step`: the dense and MoE
-families compute over "model" (heads, FFN columns, experts, vocab) and
-gather each layer over the batch axes inside the layer, the other families
-gather the whole tree.  The prefill and decode cells still gather the whole
-tree on every rank and compute on the batch shard (`full_tree`).
+The train cells lower `build_sharded_train_step`, the prefill cells
+`build_sharded_prefill_step` and the decode cells
+`build_sharded_decode_step`: the dense and MoE families compute over
+"model" (heads, FFN columns, experts, vocab) and gather each layer over the
+batch axes inside the layer, the other families gather the whole tree.
+The params are stored under their param specs and the decode caches under
+`cache_specs` (a KV cache split over heads, or over the sequence where the
+kv heads are fewer than "model" or the batch does not shard: flash-decoding
+split-K); argument_mb counts those shards.
 """
 from __future__ import annotations
 
@@ -53,12 +57,14 @@ from repro_torch.core.cost_model import H100
 from repro_torch.launch import sharding as SH
 from repro_torch.launch.mesh import batch_axes, make_production_mesh
 from repro_torch.launch.op_analysis import OpAnalysis
-from repro_torch.launch.steps import (TrainState, build_sharded_train_step,
-                                      state_specs)
+from repro_torch.launch.steps import (TrainState,
+                                      build_sharded_decode_step,
+                                      build_sharded_prefill_step,
+                                      build_sharded_train_step, state_specs)
 from repro_torch.models.api import build_api
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adamw import AdamW
-from repro_torch.tree import leaves, leaves_with_paths, tree_map
+from repro_torch.tree import leaves, leaves_with_paths
 
 # One H100 SXM, data-sheet peaks (core/cost_model.py H100)
 PEAK_FLOPS = H100.peak_flops
@@ -125,18 +131,6 @@ def _nbytes(tree) -> int:
                * t.element_size() for t in leaves(tree))
 
 
-def _batch_local(tree, specs, mesh):
-    """Each DTensor leaf gathered over every mesh axis but the batch axes
-    (the decode step computes whole over "model"), as a plain tensor."""
-    ba = SH.P(batch_axes(mesh))[0]
-
-    def local(t, spec):
-        keep = SH.P(*[e if e == ba else None for e in spec])
-        return t.redistribute(mesh, SH.placements(keep, mesh)).to_local()
-
-    return tree_map(local, tree, specs)
-
-
 def build_cell(arch: str, shape_name: str, mesh, opts: Optional[dict] = None,
                smoke: bool = False):
     """(cfg, fn, args, meta): `fn(*args)` is rank 0's step on fake tensors.
@@ -176,21 +170,14 @@ def build_step(cfg: ModelConfig, kind: str, B: int, S: int, mesh,
         args, alias, toks = (state, batch), state, B * S
     elif kind == "prefill":
         params = SH.distribute_tree(params, mesh, pspecs)
-
-        def fn(params, batch):
-            return api.prefill(SH.full_tree(params),
-                               {k: v.to_local() for k, v in batch.items()})
+        fn = build_sharded_prefill_step(api, mesh, pspecs)
         args, alias, toks = (params, batch), None, B * S
     else:  # decode
         params = SH.distribute_tree(params, mesh, pspecs)
         caches = api.make_caches(B, S, S - 1, device="cpu")
         cspecs = SH.cache_specs(caches, cfg, B, mesh)
         caches = SH.distribute_tree(caches, mesh, cspecs)
-
-        def fn(params, caches, batch):
-            return api.decode(SH.full_tree(params),
-                              _batch_local(caches, cspecs, mesh),
-                              {k: v.to_local() for k, v in batch.items()})
+        fn = build_sharded_decode_step(api, mesh, pspecs, cspecs)
         args, alias, toks = (params, caches, batch), caches, B
     meta = dict(tokens=toks, kind=kind, argument_bytes=_nbytes(args),
                 alias_bytes=_nbytes(alias) if alias is not None else 0)

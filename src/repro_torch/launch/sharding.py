@@ -270,9 +270,13 @@ def _kv_spec(ndim: int, batch: int, kvh: int, mesh) -> P:
     return P(*lead, b_ax, seq_ax, head_ax, None)
 
 
-def cache_specs(caches, cfg: ModelConfig, batch: int, mesh) -> Any:
+def cache_specs(caches, cfg: ModelConfig, batch: int, mesh,
+                with_batch_dims: bool = False) -> Any:
     """Spec tree matching `api.make_caches` (the typed nodes KVCache /
-    MambaState / RWKVState, lists and tuples of them, encoder memory)."""
+    MambaState / RWKVState, lists and tuples of them, encoder memory).
+    `with_batch_dims`: (specs, a tree like `caches` of each leaf's batch
+    dim, None for the lengths) -- the dim the specs shard over the batch
+    axes where the batch divides them."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.mamba2 import MambaState
     from repro_torch.models.rwkv6 import RWKVState
@@ -286,20 +290,22 @@ def cache_specs(caches, cfg: ModelConfig, batch: int, mesh) -> Any:
         """[*, B, H, ...]: batch over data if possible, heads over model."""
         lead = (None,) * (nd - 4)
         h_ax = "model" if shape[-3] % model_n == 0 else None
-        return P(*lead, b_ax, h_ax, None, None)
+        return P(*lead, b_ax, h_ax, None, None), nd - 4
 
-    def walk(node):
+    def walk(node):  # (spec, batch dim) a leaf
         if isinstance(node, KVCache):
-            kv = _kv_spec(node.k.dim(), batch, node.k.shape[-2], mesh)
-            return KVCache(kv, kv, P(*((None,) * node.length.dim())))
+            nd = node.k.dim()
+            kv = (_kv_spec(nd, batch, node.k.shape[-2], mesh), nd - 4)
+            return KVCache(kv, kv, (P(*((None,) * node.length.dim())), None))
         if isinstance(node, MambaState):
             nd_c = node.conv.dim()
             c_ax = "model" if node.conv.shape[-1] % model_n == 0 else None
             return MambaState(
                 state_spec(tuple(node.ssm.shape), node.ssm.dim()),
-                P(*((None,) * (nd_c - 3)), b_ax, None, c_ax))
+                (P(*((None,) * (nd_c - 3)), b_ax, None, c_ax), nd_c - 3))
         if isinstance(node, RWKVState):
-            sh = P(*((None,) * (node.shift_tm.dim() - 2)), b_ax, None)
+            nd = node.shift_tm.dim()
+            sh = (P(*((None,) * (nd - 2)), b_ax, None), nd - 2)
             return RWKVState(
                 state_spec(tuple(node.wkv.shape), node.wkv.dim()), sh, sh)
         if isinstance(node, dict):
@@ -309,11 +315,47 @@ def cache_specs(caches, cfg: ModelConfig, batch: int, mesh) -> Any:
         # plain tensor leaf (e.g. enc-dec memory [B, S_enc, d])
         nd = node.dim()
         if nd >= 2:
-            return P(b_ax, *((None,) * (nd - 1)))
-        return P(*((None,) * nd))
+            return P(b_ax, *((None,) * (nd - 1))), 0
+        return P(*((None,) * nd)), None
 
-    return tree_map(lambda leaf, s: _validate_spec(s, tuple(leaf.shape), mesh),
-                    caches, walk(caches))
+    laid = walk(caches)
+    specs = tree_map(lambda leaf, sd: _validate_spec(sd[0], tuple(leaf.shape),
+                                                     mesh), caches, laid)
+    if not with_batch_dims:
+        return specs
+    return specs, tree_map(lambda leaf, sd: sd[1], caches, laid)
+
+
+def kv_seq_shard(spec: P, mesh, slots: int, whole: bool):
+    """The `pshard.SeqShard` of a KV leaf [*lead, B, S, kvh, hd] stored
+    under `spec` (its validated `cache_specs` entry: any axis that did not
+    divide its dim is already dropped, so heads and sequence may both be
+    sharded, or neither), at this rank's mesh coordinate; None where the
+    sequence is whole.  `slots`: the leaf's S, whole (`whole`) or this
+    rank's shard's.  The kv heads split over "model" or not at all."""
+    from repro_torch.models.pshard import SeqShard
+    names, sizes = axis_names(mesh), mesh_shape(mesh)
+    seq, heads = spec[-3], spec[-2]
+    if heads not in (None, "model"):
+        raise ValueError(f"{spec}: kv heads sharded over {heads!r}")
+    live = [a for a in (_axes(seq) if seq is not None else ())
+            if sizes[a] > 1]  # major to minor
+    if not live:
+        return None
+    coord, index = mesh.get_coordinate(), 0
+    for a in live:
+        index = index * sizes[a] + coord[names.index(a)]
+    count = math.prod(sizes[a] for a in live)
+    local = slots // count if whole else slots
+    return SeqShard(tuple(mesh.get_group(names.index(a)) for a in live),
+                    tuple(sizes[a] for a in live), index * local,
+                    "model" in live)
+
+
+def batch_only(spec: P, batch_dim: Optional[int]) -> P:
+    """`spec` with every entry but the batch dim's dropped: the leaf whole
+    but for its batch shard."""
+    return P(*(e if i == batch_dim else None for i, e in enumerate(spec)))
 
 
 def dispatch_groups_for(mesh, tokens: int) -> int:

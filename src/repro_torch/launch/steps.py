@@ -1,10 +1,10 @@
 """Step builders: train_step / prefill_step / decode_step -- the reference's
-`repro.launch.steps`, on one device.
+`repro.launch.steps`, on one device and over a mesh.
 
 `train_step` CONSUMES its state, as the optimizer does: the params and the
 moments are updated in place and the same objects come back (the
-reference's step is functional).  The two steps over a mesh consume theirs
-the same way:
+reference's step is functional).  The train and decode steps over a mesh
+consume theirs the same way:
 
   * `build_sharded_train_step` -- the counterpart of the reference's
     `jax.jit(build_train_step(...), in_shardings=...)`.  The state is
@@ -25,6 +25,12 @@ the same way:
     program: every param gathered whole at the start, the one-device loss
     and backward on the batch shard, each gradient then reduced to its
     shard; the ranks of a data row compute the same shard there.
+  * `build_sharded_prefill_step` / `build_sharded_decode_step` -- the
+    counterparts of the reference's `jax.jit(api.prefill / api.decode,
+    in_shardings=...)` with `cache_specs`: the same compute over "model"
+    in inference, a layer gathered at a time; each KV cache stored as its
+    spec shards it (kv heads, or the sequence: split-K decode).  The
+    decode step consumes its caches.
   * `build_compressed_dp_step` -- the reference's shard_map step:
     replicated state, a per-rank error-feedback residual, the gradients
     all-reduced int8-compressed (`optim.compress.compressed_psum`), the
@@ -33,15 +39,17 @@ the same way:
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.launch.mesh import (axis_names, batch_axes, dp_size,
                                      mesh_shape, sum_over)
-from repro_torch.launch.sharding import (TP_FAMILIES, P, _axes, batch_specs,
+from repro_torch.launch.sharding import (TP_FAMILIES, P, _axes, batch_only,
+                                         batch_specs, cache_specs,
                                          compute_specs_of, full_tree,
-                                         local_shard, placements)
+                                         kv_seq_shard, local_shard,
+                                         placements)
 from repro_torch.models import pshard
 from repro_torch.models.api import ModelAPI
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
@@ -348,6 +356,233 @@ def _gather_all_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
         return state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Serving steps over a mesh
+# ---------------------------------------------------------------------------
+
+
+def _batch_size(batch: dict) -> int:
+    return next(iter(batch.values())).shape[0]
+
+
+def _data_parallel(mesh, B: int):
+    """`pshard.data_parallel` over the batch axes where a batch of B rows
+    shards over them (`batch_specs`, `cache_specs`; a rank then holds whole
+    dispatch groups, `dispatch_groups_for`); else none: every rank
+    computes the whole batch."""
+    names, dp = axis_names(mesh), dp_size(mesh)
+    if dp == 1 or B % dp or B < dp:
+        return contextlib.nullcontext()
+    return pshard.data_parallel(
+        [mesh.get_group(names.index(a)) for a in batch_axes(mesh)], dp)
+
+
+def prefill_caches_like(api: ModelAPI, batch: dict,
+                        max_len: Optional[int] = None):
+    """Zero-size stand-ins ("meta" tensors) of the caches `api.prefill`
+    makes of `batch` (whole tensors or DTensors): their shapes alone."""
+    from repro_torch.models.encdec import init_encdec_caches
+    from repro_torch.models.lm import init_caches
+    cfg, B = api.cfg, _batch_size(batch)
+    if cfg.family == "encdec":
+        S, S_enc = batch["dec_tokens"].shape[1], \
+            batch["enc_embeddings"].shape[1]
+        return init_encdec_caches(cfg, B, max_len or S, S_enc,
+                                  device="meta")
+    S = (batch["tokens"] if "tokens" in batch
+         else batch["embeddings"]).shape[1]
+    return init_caches(cfg, B, max_len or S, device="meta", ring="window")
+
+
+def prefill_cache_specs(api: ModelAPI, mesh, batch: dict,
+                        max_len: Optional[int] = None):
+    """`cache_specs` of the caches `api.prefill` makes of `batch`: what the
+    mesh prefill step stores and the decode step consumes."""
+    return cache_specs(prefill_caches_like(api, batch, max_len), api.cfg,
+                       _batch_size(batch), mesh)
+
+
+def _seq_plans(caches, cspecs, mesh, whole_shapes: bool) -> list:
+    """Per stage, the stage's caches' tree with a `pshard.SeqShard` (or
+    None where the sequence is whole) in place of each KVCache, read off
+    its spec (`kv_seq_shard`); `caches` has the whole shapes
+    (`whole_shapes`) or the rank's."""
+    from repro_torch.models.attention import KVCache
+
+    def walk(node, spec):
+        if isinstance(node, KVCache):
+            return kv_seq_shard(spec.k, mesh, node.k.shape[-3], whole_shapes)
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, sp) for v, sp in zip(node, spec)]
+        return None
+
+    return walk(caches, cspecs)
+
+
+@contextlib.contextmanager
+def _serving(mesh, B: int, stage_plans, seq_plans):
+    """The contexts of a mesh serving step of a B-row batch: the batch
+    axes' (`_data_parallel`), the model group's, the per-layer gathers and
+    the caches' sequence shards."""
+    names = axis_names(mesh)
+    model = mesh_shape(mesh).get("model", 1)
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(_data_parallel(mesh, B))
+        if model > 1:
+            i = names.index("model")
+            stack.enter_context(pshard.model_parallel(
+                mesh.get_group(i), model, mesh.get_coordinate()[i]))
+        stack.enter_context(pshard.gathered(stage_plans))
+        stack.enter_context(pshard.sequence_plans(seq_plans))
+        yield
+
+
+def _top_gathered(params, top: dict) -> dict:
+    """The params with every top-level leaf (embedding, head, final norm)
+    through its LeafGather; the stages as stored (gathered per layer)."""
+    full = {k: pshard.gather_tree(params[k], p) for k, p in top.items()}
+    full["stages"] = params["stages"]
+    return full
+
+
+def build_sharded_prefill_step(api: ModelAPI, mesh, specs,
+                               max_len: Optional[int] = None) -> Callable:
+    """The prefill step over `mesh`: prefill_step(params, batch) ->
+    (logits, caches).  `params`: `distribute_tree(params, mesh, specs)`
+    (`specs` the param specs); the batch whole tensors or DTensors under
+    `batch_specs`.  Returns this rank's batch shard of the last position's
+    logits (the whole vocab) and its shards of the caches under
+    `prefill_cache_specs` -- plain tensors, what
+    `build_sharded_decode_step` consumes.  The dense and MoE families
+    compute as the TP train step does (heads, FFN columns, experts and
+    vocab rows over "model", each layer gathered over the batch axes
+    inside the layer) and store each KV cache as its spec shards it: the
+    rank's kv heads, and its slots of the sequence (`pshard.
+    sequence_parallel`).  The others gather every param whole
+    (`_gather_all_prefill_step`)."""
+    if api.cfg.family not in TP_FAMILIES:
+        return _gather_all_prefill_step(api, mesh, max_len)
+    plan = gather_plan(specs, api.cfg, mesh)
+    top = {k: v for k, v in plan.items() if k != "stages"}
+
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            B = _batch_size(batch)
+            like = prefill_caches_like(api, batch, max_len)
+            seq = _seq_plans(like, cache_specs(like, api.cfg, B, mesh), mesh,
+                             whole_shapes=True)
+            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+            local_batch["max_len"] = max_len
+            local = tree_map(_local, params)
+            with _serving(mesh, B, plan["stages"], seq):
+                return api.prefill(_top_gathered(local, top), local_batch)
+
+    return prefill_step
+
+
+def build_sharded_decode_step(api: ModelAPI, mesh, specs,
+                              cspecs) -> Callable:
+    """The decode step over `mesh`: decode_step(params, caches, batch) ->
+    (logits, caches).  `params` as `build_sharded_prefill_step` takes them;
+    `caches` this rank's shards under `cspecs` (`cache_specs`; plain
+    tensors, as the prefill step returns them, or DTensors); `batch`
+    {"token": [B]}, whole or a DTensor.  The caches are CONSUMED, as on
+    one device: written and advanced in place, the same objects returned;
+    the logits are this rank's batch shard's.  Where a KV cache is split
+    over the sequence, the rank owning the new token's slot writes it and
+    the attention merges the ranks' partial softmaxes (flash-decoding
+    split-K, `models.attention.attention_decode`).  The families outside
+    `TP_FAMILIES` take `_gather_all_decode_step`."""
+    if api.cfg.family not in TP_FAMILIES:
+        return _gather_all_decode_step(api, mesh, cspecs)
+    plan = gather_plan(specs, api.cfg, mesh)
+    top = {k: v for k, v in plan.items() if k != "stages"}
+
+    def decode_step(params, caches, batch):
+        with torch.no_grad():
+            B = _batch_size(batch)
+            local_caches = tree_map(_local, caches)
+            seq = _seq_plans(local_caches, cspecs, mesh, whole_shapes=False)
+            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+            local = tree_map(_local, params)
+            with _serving(mesh, B, plan["stages"], seq):
+                logits, _ = api.decode(_top_gathered(local, top),
+                                       local_caches, local_batch)
+        return logits, caches
+
+    return decode_step
+
+
+def _gather_leaf(t: torch.Tensor, stored: P, computed: P, mesh):
+    """`t`, a shard under `stored`, all-gathered to its shard under
+    `computed` (plain collectives: no autograd)."""
+    for dim, group, size, _, _ in leaf_gather(stored, computed, mesh).steps:
+        t = pshard._all_gather(t, dim, group, size)
+    return t
+
+
+def _within_batch_shard(t: torch.Tensor, spec: P, batch_dim, mesh):
+    """This rank's shard under `spec` of `t`, which holds the rank's batch
+    shard whole in every other dim (a copy, so `t` can go)."""
+    return local_shard(t, P(*(None if i == batch_dim else e
+                              for i, e in enumerate(spec))), mesh).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _gather_all_prefill_step(api: ModelAPI, mesh,
+                             max_len: Optional[int] = None) -> Callable:
+    """The gather-everything prefill (the recurrent, hybrid and
+    encoder-decoder families): every param gathered whole, the one-device
+    prefill on the batch shard, then each cache leaf cut to the rank's
+    shard under `prefill_cache_specs`."""
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            B = _batch_size(batch)
+            like = prefill_caches_like(api, batch, max_len)
+            cspecs, dims = cache_specs(like, api.cfg, B, mesh,
+                                       with_batch_dims=True)
+            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+            local_batch["max_len"] = max_len
+            full = full_tree(params)
+            with _data_parallel(mesh, B):
+                logits, caches = api.prefill(full, local_batch)
+            del full
+            caches = tree_map(
+                lambda t, s, d: _within_batch_shard(t, s, d, mesh), caches,
+                cspecs, dims)
+        return logits, caches
+
+    return prefill_step
+
+
+def _gather_all_decode_step(api: ModelAPI, mesh, cspecs) -> Callable:
+    """The gather-everything decode: every param gathered whole, each cache
+    leaf gathered over every axis but its batch dim's batch axes, the
+    one-device decode on the batch shard, then the rank's shards written
+    back into the stored caches (consumed, as on one device)."""
+    def decode_step(params, caches, batch):
+        with torch.no_grad():
+            B = _batch_size(batch)
+            stored = tree_map(_local, caches)
+            _, dims = cache_specs(stored, api.cfg, B, mesh,
+                                  with_batch_dims=True)
+            work = tree_map(lambda t, s, d: _gather_leaf(
+                t, s, batch_only(s, d), mesh), stored, cspecs, dims)
+            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
+            full = full_tree(params)
+            with _data_parallel(mesh, B):
+                logits, _ = api.decode(full, work, local_batch)
+            del full
+            tree_map(lambda t, w, s, d: w is t or t.copy_(
+                _within_batch_shard(w, s, d, mesh)), stored, work, cspecs,
+                dims)
+        return logits, caches
+
+    return decode_step
 
 
 def build_compressed_dp_step(api: ModelAPI, optimizer: AdamW, mesh,

@@ -67,8 +67,9 @@ def _project_qkv(p, x, x_kv, cfg: ModelConfig, positions, kv_positions):
     `wq` may hold this rank's heads only (whole heads, `launch.sharding.
     compute_specs`), and then `wk` / `wv` this rank's kv heads, or all of
     them where the kv heads do not split: K / V are then computed whole
-    and each local q head reads its global group's kv head
-    (`_local_kv_heads`)."""
+    (a KV cache stores every kv head where they do not split), and the
+    caller narrows them to the kv heads its local q heads read
+    (`_kv_for_heads`)."""
     B, S, _ = x.shape
     hd = cfg.head_dim
     H, KVH = p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
@@ -96,9 +97,43 @@ def _project_qkv(p, x, x_kv, cfg: ModelConfig, positions, kv_positions):
         q = apply_rope(q, positions, cfg.rope_theta)
     if kv_positions is not None:
         k = apply_rope(k, kv_positions, cfg.rope_theta)
-    if kv_whole:
-        k, v = _local_kv_heads(k, v, H, cfg)
     return q, k, v
+
+
+def _kv_whole(H: int, KVH: int, cfg: ModelConfig) -> bool:
+    """Whether H local q heads read K / V computed whole (KVH of them): a
+    tensor-parallel step whose kv heads do not split over "model"."""
+    return H != cfg.num_heads and KVH == cfg.num_kv_heads
+
+
+def _kv_for_heads(k, v, H: int, cfg: ModelConfig):
+    """K / V as `_project_qkv` gives them, narrowed to the kv heads H local
+    q heads read where they were computed whole (`_local_kv_heads`)."""
+    return _local_kv_heads(k, v, H, cfg) if _kv_whole(H, k.shape[2], cfg) \
+        else (k, v)
+
+
+def _kv_head_select(H: int, cfg: ModelConfig):
+    """The kv heads this rank's H q heads read: (first, n), n consecutive
+    kv heads, where the local heads cover whole groups or lie in one
+    (each group's heads in a row), else the list of one kv head per local
+    head."""
+    G = cfg.num_heads // cfg.num_kv_heads
+    first = pshard.model_parallel_rank() * H
+    idx = [(first + i) // G for i in range(H)]
+    uniq = sorted(set(idx))
+    per = H // len(uniq)
+    if per * len(uniq) == H and idx == [u for u in uniq for _ in range(per)]:
+        return uniq[0], len(uniq)
+    return idx
+
+
+def _select_heads(t: torch.Tensor, sel) -> torch.Tensor:
+    """`t`'s kv heads (dim 2) picked by `_kv_head_select`: a view where
+    they are consecutive."""
+    if isinstance(sel, tuple):
+        return t.narrow(2, *sel)
+    return t.index_select(2, torch.tensor(sel, device=t.device))
 
 
 def _local_kv_heads(k, v, H: int, cfg: ModelConfig):
@@ -108,17 +143,10 @@ def _local_kv_heads(k, v, H: int, cfg: ModelConfig):
     else one per local head.  The selection's gradient is partial (each
     rank's heads' share), so it is summed over "model" first
     (`copy_to_model` before the selection)."""
-    G = cfg.num_heads // cfg.num_kv_heads
-    first = pshard.model_parallel_rank() * H
-    idx = [(first + i) // G for i in range(H)]
-    uniq = sorted(set(idx))
-    per = H // len(uniq)
+    sel = _kv_head_select(H, cfg)
     k, v = pshard.copy_to_model(k), pshard.copy_to_model(v)
-    if per * len(uniq) == H and idx == [u for u in uniq for _ in range(per)]:
-        return (k.narrow(2, uniq[0], len(uniq)).contiguous(),
-                v.narrow(2, uniq[0], len(uniq)).contiguous())
-    sel = torch.tensor(idx, device=k.device)
-    return k.index_select(2, sel), v.index_select(2, sel)
+    return (_select_heads(k, sel).contiguous(),
+            _select_heads(v, sel).contiguous())
 
 
 def dense_causal_attention(q, k, v, cfg: ModelConfig,
@@ -313,6 +341,7 @@ def attention_forward(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
+    k, v = _kv_for_heads(k, v, q.shape[2], cfg)
     o = _causal(q, k, v, cfg, window, use_dense)
     out = o.reshape(B, S, q.shape[2] * cfg.head_dim) @ p["wo"]
     # local heads: `wo` holds their rows, the ranks' partial outputs add up
@@ -360,23 +389,59 @@ def attention_prefill(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
     decode.  Windowed layers keep a ring buffer of the last `window` tokens
     (keys stored post-RoPE, so ring order is irrelevant); full layers keep
     all S, padded to `max_len` if given.  Takes the flash kernel whenever
-    `attention_forward` would."""
+    `attention_forward` would.
+
+    Inside a mesh serving step the attention runs on the rank's local
+    heads (as `attention_forward`, the partial outputs added over "model")
+    and the cache keeps the rank's shard: its kv heads where they split,
+    else all of them (K / V before `_local_kv_heads` narrows them for the
+    kernel), and, inside `pshard.sequence_parallel`, only its slots of the
+    padded buffer or of the ring."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
+    q, kc, vc = _project_qkv(p, x, x, cfg, positions, positions)
+    H = q.shape[2]
+    k, v = _kv_for_heads(kc, vc, H, cfg)
     o = _causal(q, k, v, cfg, window, use_dense)
-    if window is not None and S >= window:
+    del k, v
+    sp = pshard.sequence_shard()
+    if sp is not None:
+        size = window if window is not None else (max_len or S)
+        ck, cv = (_slot_shard(t, S, size, window, sp) for t in (kc, vc))
+    elif window is not None and S >= window:
         slots = torch.arange(S - window, S, device=x.device) % window
-        ck = k.new_zeros((B, window) + tuple(k.shape[2:]))
-        cv = v.new_zeros((B, window) + tuple(v.shape[2:]))
-        ck[:, slots] = k[:, S - window:]
-        cv[:, slots] = v[:, S - window:]
+        ck = kc.new_zeros((B, window) + tuple(kc.shape[2:]))
+        cv = vc.new_zeros((B, window) + tuple(vc.shape[2:]))
+        ck[:, slots] = kc[:, S - window:]
+        cv[:, slots] = vc[:, S - window:]
     else:
         size = window if window is not None else (max_len or S)
-        ck, cv = _pad_seq(k, size), _pad_seq(v, size)
+        ck, cv = _pad_seq(kc, size), _pad_seq(vc, size)
     cache = KVCache(ck, cv, torch.tensor(S, dtype=torch.int32,
                                          device=x.device))
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"], cache
+    out = o.reshape(B, S, H * cfg.head_dim) @ p["wo"]
+    # local heads: `wo` holds their rows, the ranks' partial outputs add up
+    return (pshard.reduce_from_model(out) if H != cfg.num_heads else out,
+            cache)
+
+
+def _slot_shard(t: torch.Tensor, S: int, size: int, window: Optional[int],
+                sp) -> torch.Tensor:
+    """This rank's slots [offset, offset + size / count) of the cache
+    `attention_prefill` would store whole from t [B, S, KVH, hd]: slot j
+    holds position j of a full layer (zeros from S on), and of a ring of
+    `window` slots the one of the last `window` positions congruent to j
+    (zeros from S on where S < window)."""
+    local = size // sp.count
+    j = torch.arange(sp.offset, sp.offset + local, device=t.device)
+    if window is not None and S >= window:
+        pos = S - window + torch.remainder(j - S, window)
+    else:
+        pos = j
+    held = pos < S
+    rows = t.index_select(1, torch.clamp(pos, max=S - 1))
+    return torch.where(held[None, :, None, None], rows,
+                       torch.zeros_like(rows))
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -403,33 +468,102 @@ def attention_decode(p, x, cache: KVCache, cfg: ModelConfig, *,
     IN PLACE (a copy of the cache per layer and step would multiply the
     step's traffic), through `index_copy_` with a one-element index on the
     device, so the step reads nothing back to the host.  Returns (out
-    [B, 1, d], cache) -- the same KVCache, so no stale copy is left."""
+    [B, 1, d], cache) -- the same KVCache, so no stale copy is left.
+
+    Inside a mesh serving step the cache is the rank's shard, in one of
+    three layouts: its kv heads (local q heads read them; the partial
+    outputs of `wo`'s rows added over "model"); all kv heads whole (as on
+    one device, over the local q heads); or its slots of the sequence
+    (`pshard.sequence_parallel`, flash-decoding split-K): the rank owning
+    the new token's slot writes it (`_owner_write`), each rank scores every
+    q head it needs -- all of them, gathered over "model", where "model"
+    shards the sequence -- against its keys, masked by global slot, and
+    the partial softmaxes merge by their max and sum (`_merge_split_k`)."""
     B = x.shape[0]
-    KVH, hd = cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     length = cache.length
     pos = length.reshape(1, 1).expand(B, 1)
     q, k, v = _project_qkv(p, x, x, cfg, pos, pos)
-    size = cache.k.shape[1]
+    H = q.shape[2]
+    sp = pshard.sequence_shard()
+    local = cache.k.shape[1]
+    size = local * (sp.count if sp is not None else 1)
     if window is not None:
         slot = length % size  # ring buffer
     else:
         slot = torch.clamp(length, max=size - 1)  # append
-    idx = slot.reshape(1).long()
-    cache.k.index_copy_(1, idx, k)
-    cache.v.index_copy_(1, idx, v)
-    qg = q.reshape(B, KVH, cfg.num_heads // KVH, hd)
-    s = torch.einsum("bhgd,bshd->bhgs", qg.float(), cache.k.float())
-    s = s * (hd ** -0.5)
-    if cfg.logit_softcap is not None:
-        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
-    i = torch.arange(size, device=x.device)
+    i = torch.arange(local, device=x.device)
+    if sp is None:
+        idx = slot.reshape(1).long()
+        cache.k.index_copy_(1, idx, k)
+        cache.v.index_copy_(1, idx, v)
+    else:
+        _owner_write(cache.k, k, slot - sp.offset)
+        _owner_write(cache.v, v, slot - sp.offset)
+        i = i + sp.offset  # global slot indices
     valid = i <= torch.clamp(length, max=size - 1) if window is None \
         else i < torch.clamp(length + 1, max=size)
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    pr = torch.softmax(s, dim=-1).to(cache.v.dtype)
-    o = torch.einsum("bhgs,bshd->bhgd", pr, cache.v)
+    ck, cv = cache.k, cache.v
+    gathered = sp is not None and sp.model and H != cfg.num_heads
+    if gathered:  # every head against this rank's slots
+        q = pshard.gather_from_model(q, 2)
+    elif _kv_whole(H, ck.shape[2], cfg):
+        sel = _kv_head_select(H, cfg)
+        ck, cv = _select_heads(ck, sel), _select_heads(cv, sel)
+    KVH = ck.shape[2]
+    qg = q.reshape(B, KVH, q.shape[2] // KVH, hd)
+    s = _decode_scores(qg, ck, valid, cfg)
+    if sp is None:
+        pr = torch.softmax(s, dim=-1).to(cv.dtype)
+        o = torch.einsum("bhgs,bshd->bhgd", pr, cv)
+    else:
+        o = _merge_split_k(s, cv, pshard.seq_max, pshard.seq_sum).to(cv.dtype)
+    o = o.reshape(B, 1, q.shape[2], hd)
+    if gathered:  # this rank's heads, for its rows of wo
+        o = o.narrow(2, pshard.model_parallel_rank() * H, H)
     length.add_(1)  # last: pos, slot and valid above read the old length
-    return o.reshape(B, 1, cfg.q_dim) @ p["wo"], cache
+    out = o.reshape(B, 1, H * hd) @ p["wo"]
+    return (pshard.reduce_from_model(out) if H != cfg.num_heads else out,
+            cache)
+
+
+def _owner_write(buf: torch.Tensor, new: torch.Tensor,
+                 local_slot: torch.Tensor):
+    """buf[:, local_slot] = new where 0 <= local_slot < buf.shape[1], else
+    nothing: the shard owning a global slot writes it.  The test is device
+    data (the slot is clamped into the shard and the old row written back
+    where the shard does not own it), so no rank reads `length` back."""
+    n = buf.shape[1]
+    mine = (local_slot >= 0) & (local_slot < n)
+    idx = torch.clamp(local_slot, 0, n - 1).reshape(1).long()
+    buf.index_copy_(1, idx, torch.where(mine, new, buf.index_select(1, idx)))
+
+
+def _decode_scores(qg, k, valid, cfg: ModelConfig) -> torch.Tensor:
+    """fp32 scores [..., B, KVH, G, S] of grouped queries qg [..., B, KVH,
+    G, hd] against k [..., B, S, KVH, hd], softcapped, NEG_INF where
+    `valid` [..., S] is False."""
+    s = torch.einsum("...bhgd,...bshd->...bhgs", qg.float(), k.float())
+    s = s * (cfg.head_dim ** -0.5)
+    if cfg.logit_softcap is not None:
+        s = torch.tanh(s / cfg.logit_softcap) * cfg.logit_softcap
+    valid = valid[..., None, None, None, :]
+    return torch.where(valid, s, torch.full_like(s, NEG_INF))
+
+
+def _merge_split_k(s, v, reduce_max, reduce_sum) -> torch.Tensor:
+    """softmax(s) v over a sequence split across shards, fp32: s [..., B,
+    KVH, G, S_shard] this shard's scores, v [..., B, S_shard, KVH, hd] its
+    values.  The max over every shard first, then the sum of exp(s - max);
+    the probabilities are rounded to v's dtype before the product, as the
+    one-device softmax's are, and the shards' products summed
+    (`reduce_max` / `reduce_sum`: elementwise over the shards)."""
+    m = reduce_max(s.amax(-1, keepdim=True))
+    e = torch.exp(s - m)
+    l = reduce_sum(e.sum(-1, keepdim=True))
+    pr = (e / l).to(v.dtype)
+    return reduce_sum(torch.einsum("...bhgs,...bshd->...bhgd", pr.float(),
+                                   v.float()))
 
 
 def attention_decode_ragged(p, x, k_cache, v_cache, lengths,

@@ -220,10 +220,26 @@ def _maybe_remat(body: Callable, cfg: ModelConfig, remat: bool) -> Callable:
     return recomputed
 
 
-def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense, plan=None):
+def _gemma_plans(plan, n: int, lpg: int) -> list:
+    """`_gemma_blocks` of a stage's LeafGathers, or Nones without them."""
+    if plan is None:
+        return [([None] * lpg, None)] * n
+    return list(_gemma_blocks(plan, n, lpg))
+
+
+def _plan_check(kind: str, plan, seq=None):
+    """Per-layer gathers and sequence shards are the decoder and gemma
+    stages' only."""
+    if (plan is not None or seq is not None) \
+            and kind not in ("gemma", "decoder"):
+        raise ValueError(f"no per-layer gathering or sequence sharding "
+                         f"for a {kind} stage")
+
+
+def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense, plan):
     """One superblock; `plan`: the LeafGathers of its local and global
-    layers (`_gathered`), each layer gathered just before it runs."""
-    lplans, gplan = plan if plan is not None else ([None] * len(local), None)
+    layers (`_gemma_plans`), each layer gathered just before it runs."""
+    lplans, gplan = plan
     for lp, pl in zip(local, lplans):
         h, _ = B.decoder_block_forward(pshard.gather_tree(lp, pl), h, cfg,
                                        window=cfg.window_size,
@@ -254,8 +270,7 @@ def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
                    use_dense, gmm, emb, shared, remat=False, plan=None):
     """`plan`: the stage's tree of LeafGathers inside a mesh step that
     gathers per layer (decoder and gemma stages only)."""
-    if plan is not None and kind not in ("gemma", "decoder"):
-        raise ValueError(f"no per-layer gathering for a {kind} stage")
+    _plan_check(kind, plan)
     if kind in ("rwkv", "mamba"):
         block = _maybe_remat(B.rwkv_block_forward if kind == "rwkv"
                              else B.mamba_block_forward, cfg, remat)
@@ -269,10 +284,8 @@ def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
         return h, _zero_aux(cfg, h.device)
     if kind == "gemma":
         block = _maybe_remat(_gemma_block, cfg, remat)
-        plans = _gemma_blocks(plan, n, opts["lpg"]) if plan is not None \
-            else [None] * n
         for (local, glob), pl in zip(_gemma_blocks(sp, n, opts["lpg"]),
-                                     plans):
+                                     _gemma_plans(plan, n, opts["lpg"])):
             h = block(local, glob, h, cfg, use_dense, pl)
         return h, _zero_aux(cfg, h.device)
     lids = torch.arange(n, dtype=torch.int32, device=h.device) \
@@ -391,7 +404,12 @@ def _stack(caches):
 
 
 def _stage_prefill(sp, h, kind, n, opts, cfg: ModelConfig, *, max_len,
-                   use_dense, emb, shared):
+                   use_dense, emb, shared, plan=None, seq=None):
+    """`plan`: the stage's tree of LeafGathers and `seq` its caches' tree of
+    SeqShards inside a mesh serving step (decoder and gemma stages only):
+    each layer gathered just before it runs, each cache kept as the
+    rank's shard of its sequence (`pshard.sequence_parallel`)."""
+    _plan_check(kind, plan, seq)
     if kind in ("rwkv", "mamba"):
         block = B.rwkv_block_prefill if kind == "rwkv" \
             else B.mamba_block_prefill
@@ -413,24 +431,31 @@ def _stage_prefill(sp, h, kind, n, opts, cfg: ModelConfig, *, max_len,
             ac.append(c)
         return h, {"mamba": _stack(mc), "shared": _stack(ac)}
     if kind == "gemma":
+        seq = seq or {"local": None, "global": None}
         local, glob = [], []
-        for lps, gp in _gemma_blocks(sp, n, opts["lpg"]):
+        for (lps, gp), (lpl, gpl) in zip(_gemma_blocks(sp, n, opts["lpg"]),
+                                         _gemma_plans(plan, n, opts["lpg"])):
             lc = []
-            for lp in lps:
-                h, c = B.decoder_block_prefill(lp, h, cfg,
-                                               window=cfg.window_size,
-                                               use_dense=use_dense)
+            for lp, pl in zip(lps, lpl):
+                with pshard.sequence_parallel(seq["local"]):
+                    h, c = B.decoder_block_prefill(
+                        pshard.gather_tree(lp, pl), h, cfg,
+                        window=cfg.window_size, use_dense=use_dense)
                 lc.append(c)
             local.append(_stack(lc))
-            h, c = B.decoder_block_prefill(gp, h, cfg, max_len=max_len,
-                                           use_dense=use_dense)
+            with pshard.sequence_parallel(seq["global"]):
+                h, c = B.decoder_block_prefill(pshard.gather_tree(gp, gpl), h,
+                                               cfg, max_len=max_len,
+                                               use_dense=use_dense)
             glob.append(c)
         return h, {"local": _stack(local), "global": _stack(glob)}
     layer = []
     for l in range(n):
-        h, cache = B.decoder_block_prefill(
-            layer_slice(sp, l), h, cfg, window=opts.get("window"),
-            moe=opts["moe"], max_len=max_len, use_dense=use_dense)
+        with pshard.sequence_parallel(seq):
+            h, cache = B.decoder_block_prefill(
+                pshard.gather_tree(layer_slice(sp, l), layer_slice(plan, l)),
+                h, cfg, window=opts.get("window"), moe=opts["moe"],
+                max_len=max_len, use_dense=use_dense)
         layer.append(cache)
     return h, _stack(layer)
 
@@ -445,14 +470,21 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     hd]}; an rwkv stage's `RWKVState` [L, ...]; a zamba stage's {"mamba":
     MambaState [n, every, ...], "shared": KVCache [n, ...] (one per
     application of the shared block)}; a mamba stage's `MambaState`
-    [L, ...]."""
+    [L, ...].  Inside a mesh serving step (`launch.steps.
+    build_sharded_prefill_step`) each decoder and gemma layer is gathered
+    per `pshard.stage_gathers()` and each KV cache is the rank's shard
+    (`pshard.stage_sequences()`)."""
     h = embed_tokens(params, tokens, embeddings, cfg)
     emb0 = h
     caches = []
-    for sp, (kind, n, opts) in zip(params["stages"], lm_stages(cfg)):
+    none = [None] * len(params["stages"])
+    for sp, (kind, n, opts), plan, seq in zip(
+            params["stages"], lm_stages(cfg), pshard.stage_gathers() or none,
+            pshard.stage_sequences() or none):
         h, cache = _stage_prefill(sp, h, kind, n, opts, cfg, max_len=max_len,
                                   use_dense=use_dense, emb=emb0,
-                                  shared=params.get("shared_attn"))
+                                  shared=params.get("shared_attn"),
+                                  plan=plan, seq=seq)
         caches.append(cache)
     h = apply_norm(h, params["final_norm"], cfg)
     logits = lm_head(params, h[:, -1:], cfg)[:, 0]
@@ -472,7 +504,9 @@ def _cache_at(cache, l):
 
 
 def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig, *, emb,
-                  shared):
+                  shared, plan=None, seq=None):
+    """`plan` and `seq` as in `_stage_prefill`."""
+    _plan_check(kind, plan, seq)
     if kind in ("rwkv", "mamba"):
         block = B.rwkv_block_decode if kind == "rwkv" \
             else B.mamba_block_decode
@@ -489,19 +523,27 @@ def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig, *, emb,
                                         _cache_at(cache["shared"], i), cfg)
         return h
     if kind == "gemma":
-        for i, (lps, gp) in enumerate(_gemma_blocks(sp, n, opts["lpg"])):
-            for j, lp in enumerate(lps):
-                h, _ = B.decoder_block_decode(
-                    lp, h, _cache_at(cache["local"], (i, j)), cfg,
-                    window=cfg.window_size)
-            h, _ = B.decoder_block_decode(gp, h, _cache_at(cache["global"], i),
-                                          cfg)
+        seq = seq or {"local": None, "global": None}
+        for i, ((lps, gp), (lpl, gpl)) in enumerate(zip(
+                _gemma_blocks(sp, n, opts["lpg"]),
+                _gemma_plans(plan, n, opts["lpg"]))):
+            for j, (lp, pl) in enumerate(zip(lps, lpl)):
+                with pshard.sequence_parallel(seq["local"]):
+                    h, _ = B.decoder_block_decode(
+                        pshard.gather_tree(lp, pl), h,
+                        _cache_at(cache["local"], (i, j)), cfg,
+                        window=cfg.window_size)
+            with pshard.sequence_parallel(seq["global"]):
+                h, _ = B.decoder_block_decode(pshard.gather_tree(gp, gpl), h,
+                                              _cache_at(cache["global"], i),
+                                              cfg)
         return h
     for l in range(n):
-        h, _ = B.decoder_block_decode(layer_slice(sp, l), h,
-                                      _cache_at(cache, l), cfg,
-                                      window=opts.get("window"),
-                                      moe=opts["moe"])
+        with pshard.sequence_parallel(seq):
+            h, _ = B.decoder_block_decode(
+                pshard.gather_tree(layer_slice(sp, l), layer_slice(plan, l)),
+                h, _cache_at(cache, l), cfg, window=opts.get("window"),
+                moe=opts["moe"])
     return h
 
 
@@ -516,10 +558,13 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, *,
     h = embed_tokens(params, token[:, None] if token is not None else None,
                      embeddings, cfg)
     emb0 = h
-    for sp, cache, (kind, n, opts) in zip(params["stages"], caches,
-                                          lm_stages(cfg)):
+    none = [None] * len(params["stages"])
+    for sp, cache, (kind, n, opts), plan, seq in zip(
+            params["stages"], caches, lm_stages(cfg),
+            pshard.stage_gathers() or none, pshard.stage_sequences() or none):
         h = _stage_decode(sp, h, cache, kind, n, opts, cfg, emb=emb0,
-                          shared=params.get("shared_attn"))
+                          shared=params.get("shared_attn"), plan=plan,
+                          seq=seq)
     h = apply_norm(h, params["final_norm"], cfg)
     return lm_head(params, h, cfg)[:, 0], caches
 
@@ -530,12 +575,15 @@ def lm_decode_step(params, cfg: ModelConfig, caches, token, *,
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
-                prefilled: int = 0, device="cuda"):
+                prefilled: int = 0, device="cuda", ring: str = "min"):
     """The decode caches, zeros, with the sizes `lm_prefill` gives (a
-    windowed layer's ring holds min(max_len, window) slots), each layer's
-    length `prefilled`.  On the card unless `device` says otherwise."""
+    windowed layer's ring holds min(max_len, window) slots; `ring="window"`:
+    `window` slots, as `lm_prefill` leaves it whatever `max_len`), each
+    layer's length `prefilled`.  On the card unless `device` says
+    otherwise ("meta": the shapes alone)."""
     def kv(lead: tuple, window=None):
-        size = min(max_len, window) if window else max_len
+        size = (window if ring == "window" else min(max_len, window)) \
+            if window else max_len
         shape = lead + (batch, size, cfg.num_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=cfg.dtype, device=device),
                        torch.zeros(shape, dtype=cfg.dtype, device=device),

@@ -35,6 +35,14 @@ all-reduce (`_AllReduceSum`, right for the data axis, where each rank's
 loss differs) would scale the gradient by the group's size here.  Outside
 the context, or at size 1, every operator is the identity.
 
+`sequence_parallel(shard)` marks one layer's attention in a mesh serving
+step whose KV cache is split over the sequence (flash-decoding split-K):
+`shard` (a `SeqShard`) holds the groups and sizes of the axes that split
+it and the rank's first slot; `seq_max` / `seq_sum` reduce plain tensors
+over those groups, axis by axis (no autograd: serving only).  The steps
+hand the LM core a `SeqShard` per KV cache and stage through
+`sequence_plans(plans)` / `stage_sequences()`.
+
 `gathered(plans)` hands the model the per-layer gathers of a mesh step:
 `stage_gathers()` is, per stage, a tree of `LeafGather`s shaped like the
 stage's params; the LM core applies a layer's inside the (rematerialized)
@@ -46,8 +54,9 @@ and divided by their size.
 """
 from __future__ import annotations
 
+import math
 from contextlib import contextmanager
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
@@ -315,6 +324,88 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
     x = x.detach().clone()
     dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
+
+
+# ---------------------------------------------------------------------------
+# The sequence of a sharded KV cache (serving over a mesh)
+# ---------------------------------------------------------------------------
+
+
+class SeqShard(NamedTuple):
+    """This rank's share of a KV cache's sequence in a mesh serving step:
+    `groups` / `sizes` the process groups and sizes of the mesh axes that
+    shard it (major to minor; axes of size 1 left out), `offset` the first
+    global slot of the rank's shard, `model` whether "model" is one of the
+    axes (its ranks then hold different slots of the same heads)."""
+    groups: tuple
+    sizes: tuple
+    offset: int
+    model: bool
+
+    @property
+    def count(self) -> int:
+        """The number of shards of the sequence."""
+        return math.prod(self.sizes)
+
+
+_SP: Optional[SeqShard] = None  # inside sequence_parallel
+_SEQ: Optional[list] = None  # per stage, a tree of SeqShards (or None)
+
+
+@contextmanager
+def sequence_parallel(shard: Optional[SeqShard]):
+    """Marks the span of one layer's attention whose KV cache is split over
+    the sequence (flash-decoding split-K); `shard` None leaves it whole."""
+    global _SP
+    old, _SP = _SP, shard
+    try:
+        yield
+    finally:
+        _SP = old
+
+
+def sequence_shard() -> Optional[SeqShard]:
+    return _SP
+
+
+def _seq_reduce(x: torch.Tensor, op) -> torch.Tensor:
+    import torch.distributed as dist
+    x = x.contiguous().clone()
+    for group in _SP.groups:  # axis by axis
+        dist.all_reduce(x, op=op, group=group)
+    return x
+
+
+def seq_max(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise max of `x` over the ranks sharing the sequence (`x`
+    itself outside `sequence_parallel`).  Plain tensors: the serving
+    steps run no autograd, so neither reduction has a backward."""
+    import torch.distributed as dist
+    return x if _SP is None else _seq_reduce(x, dist.ReduceOp.MAX)
+
+
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Elementwise sum of `x` over the ranks sharing the sequence (`x`
+    itself outside `sequence_parallel`); no backward, as `seq_max`."""
+    import torch.distributed as dist
+    return x if _SP is None else _seq_reduce(x, dist.ReduceOp.SUM)
+
+
+@contextmanager
+def sequence_plans(plans: Optional[list]):
+    """Hands the LM core, per stage, a tree shaped like the stage's caches
+    with a SeqShard (or None) in place of each KVCache: the mesh serving
+    steps' layouts (`launch.steps`)."""
+    global _SEQ
+    old, _SEQ = _SEQ, plans
+    try:
+        yield
+    finally:
+        _SEQ = old
+
+
+def stage_sequences() -> Optional[list]:
+    return _SEQ
 
 
 # ---------------------------------------------------------------------------

@@ -179,10 +179,52 @@ _FAKE = textwrap.dedent("""
 """)
 
 
+# the serving cells at smoke size on the fake 16x16 mesh, with `full_tree`
+# made to raise: the prefill and decode cells lower the mesh steps, which
+# gather no whole tree for the dense and MoE families
+_SERVE = textwrap.dedent("""
+    import json
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as SH
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.dryrun import (_fake_mode, build_step,
+                                           fake_world, run_cell)
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.tree import leaves
+
+    def no_full_tree(tree):
+        raise AssertionError("full_tree on a serving cell's path")
+
+    SH.full_tree = ST.full_tree = no_full_tree
+    MOE = {"num_layers": 1, "top_k": 2}
+    out = {}
+    for arch, shape, opts in (("qwen3_moe_235b_a22b", "prefill_32k", MOE),
+                              ("qwen3_moe_235b_a22b", "decode_32k", MOE),
+                              ("gemma3_1b", "decode_32k", {}),
+                              ("gemma3_1b", "long_500k", {})):
+        out[f"{arch}/{shape}"] = run_cell(arch, shape, False, opts=opts,
+                                          smoke=True)
+    # the params a rank holds in a decode cell: its stored shards
+    fake_world(256)
+    mesh = make_production_mesh(device_type="cpu")
+    for arch in ("qwen3_moe_235b_a22b", "gemma3_1b"):
+        cfg = get_config(arch).smoke()
+        with _fake_mode():
+            _, args, meta = build_step(cfg, "decode", 128, 1024, mesh)
+        nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+        out[f"{arch}/param_bytes"] = [
+            nbytes(t.to_local() for t in leaves(args[0])),
+            nbytes(leaves(args[0])), meta["argument_bytes"]]
+    print("RESULT " + json.dumps(out))
+""")
+
+
 @pytest.fixture(scope="module")
 def fake_runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("dryrun")
     (d / "fake.py").write_text(_FAKE)
+    (d / "serve.py").write_text(_SERVE)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2")
     procs = [subprocess.Popen(args, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -190,7 +232,8 @@ def fake_runs(tmp_path_factory):
                  [sys.executable, str(d / "fake.py")],
                  [sys.executable, "-m", "repro_torch.launch.dryrun",
                   "--arch", "gemma3_1b", "--shape", "train_4k",
-                  "--single-pod", "--out", str(d / "cell.jsonl")])]
+                  "--single-pod", "--out", str(d / "cell.jsonl")],
+                 [sys.executable, str(d / "serve.py")])]
     outs = []
     try:
         for p in procs:
@@ -200,11 +243,14 @@ def fake_runs(tmp_path_factory):
             p.kill()
     assert all(p.returncode == 0 for p in procs), "\n\n".join(
         o[-3000:] for o in outs)
-    line = [ln for ln in outs[0].splitlines() if ln.startswith("RESULT ")]
-    assert line, outs[0][-3000:]
+    res = []
+    for out in (outs[0], outs[2]):
+        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+        assert line, out[-3000:]
+        res.append(json.loads(line[-1][len("RESULT "):]))
     with open(d / "cell.jsonl") as f:
         cli = json.loads(f.readlines()[-1])
-    return json.loads(line[-1][len("RESULT "):]), cli, outs[1]
+    return res[0], cli, outs[1], res[1]
 
 
 def test_collectives_priced_by_the_reference_factors(fake_runs):
@@ -239,7 +285,7 @@ def test_long_500k_is_skipped_for_a_full_attention_arch(fake_runs):
 
 def test_dryrun_cli_prices_at_the_h100(fake_runs):
     from repro_torch.core.cost_model import H100
-    _, rec, printed = fake_runs
+    _, rec, printed, _ = fake_runs
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["arch"] == "gemma3_1b" and rec["mesh"] == "16x16"
     assert rec["compute_s"] == rec["flops_per_device"] / H100.peak_flops
@@ -248,6 +294,33 @@ def test_dryrun_cli_prices_at_the_h100(fake_runs):
         rec["collective_bytes_per_device"] / H100.ici_bw
     assert H100.peak_flops == 989e12  # the data sheet's, not a TPU's
     assert json.loads(printed.splitlines()[-1])["status"] == "ok"
+
+
+@pytest.mark.parametrize("cell", ["qwen3_moe_235b_a22b/prefill_32k",
+                                  "qwen3_moe_235b_a22b/decode_32k",
+                                  "gemma3_1b/decode_32k",
+                                  "gemma3_1b/long_500k"])
+def test_serving_cells_lower_the_mesh_steps(fake_runs, cell):
+    """The prefill and decode cells run `build_sharded_prefill_step` /
+    `build_sharded_decode_step` (`full_tree` raises in that process): the
+    model's collectives over "model" are there, and a decode cell's
+    caches are what the step consumes in place."""
+    rec = fake_runs[3][cell]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["flops_per_device"] > 0
+    assert rec["collective_counts"]["all-reduce"] > 0
+    if rec["kind"] == "decode":
+        assert 0 < rec["mem"]["alias_mb"] <= rec["mem"]["argument_mb"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_1b"])
+def test_decode_cell_holds_the_stored_param_shards(fake_runs, arch):
+    """A rank's params in a decode cell are its shards under the param
+    specs: a sixteenth of the tree or less (every matrix splits over
+    "model" at 16, qwen3's over "data" too), all counted in argument_mb."""
+    local, whole, argument = fake_runs[3][f"{arch}/param_bytes"]
+    assert 0 < local * 8 < whole
+    assert local < argument
 
 
 # ---------------------------------------------------------------------------

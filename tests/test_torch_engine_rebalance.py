@@ -177,11 +177,30 @@ def test_failover_placement_parity_executor_and_both_simulators(model):
         == jsim.load_model.placement.table(fr, E)
 
 
-def _wait(pred, what):
+def _wait(pred, what, ex=None, e=None):
     deadline = time.monotonic() + TIMEOUT
     while not pred():
-        assert time.monotonic() < deadline, what
+        assert time.monotonic() < deadline, what + (
+            "" if ex is None else _waiting_on(ex, e))
         time.sleep(0.001)
+
+
+def _waiting_on(ex, e) -> str:
+    """What a wait on MoE worker `e` is waiting on: the thread's liveness
+    and stack, its fence generation, the injector's pending and fired
+    events, the worker's idle backoff and in-flight regions."""
+    import sys
+    import traceback
+    th = ex._moe_threads[e]
+    frame = sys._current_frames().get(th.ident)
+    inj = ex.fault_injector
+    return (f"\nworker {e}: alive {th.is_alive()}, _moe_gen {ex._moe_gen[e]}"
+            f", idle_backoff {ex.idle_backoff}, current "
+            f"{ex._moe_current[e]!r:.200}, injector pending "
+            f"{inj.pending_events() if inj else None} fired "
+            f"{inj.fired_events() if inj else None}, failovers "
+            f"{ex.failovers}, errors {ex.errors}\nstack:\n"
+            + ("".join(traceback.format_stack(frame)) if frame else "-"))
 
 
 @pytest.mark.parametrize("order", ["swap_first", "failover_first"])
@@ -200,9 +219,14 @@ def test_crash_during_a_rebalance_tick(model, order, monkeypatch):
     fired = []
 
     def crash_and_wait_dead():
+        # the worker thread itself, not the slot: once it is failed over,
+        # the supervisor puts a new (live) thread in _moe_threads[3], so a
+        # failover that completes between two polls of the slot would hide
+        # the death from the wait for good
+        worker = ex._moe_threads[3]
         ex.arm_faults(FaultPlan([FaultEvent(t=0.0, kind="crash_moe",
                                             device=3)]))
-        _wait(lambda: not ex._moe_threads[3].is_alive(), "no crash")
+        _wait(lambda: not worker.is_alive(), "no crash", ex, 3)
 
     aborted = []
     if order == "swap_first":
@@ -227,7 +251,7 @@ def test_crash_during_a_rebalance_tick(model, order, monkeypatch):
             if not fired:
                 fired.append(placement)
                 crash_and_wait_dead()
-                _wait(lambda: ex.failovers >= 1, "no failover")
+                _wait(lambda: ex.failovers >= 1, "no failover", ex, 3)
             return real_apply(placement, **kw)
         ex.apply_placement = apply
 
