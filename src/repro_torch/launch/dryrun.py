@@ -34,13 +34,14 @@ The roofline constants are one H100 SXM's, from its data sheet
 (`core.cost_model.H100`): dense bf16 peak, HBM rate, NVLink 4 one way.
 The train cells lower `build_sharded_train_step`, the prefill cells
 `build_sharded_prefill_step` and the decode cells
-`build_sharded_decode_step`: the dense and MoE families compute over
-"model" (heads, FFN columns, experts, vocab) and gather each layer over the
-batch axes inside the layer, the other families gather the whole tree.
-The params are stored under their param specs and the decode caches under
-`cache_specs` (a KV cache split over heads, or over the sequence where the
-kv heads are fewer than "model" or the batch does not shard: flash-decoding
-split-K); argument_mb counts those shards.
+`build_sharded_decode_step`: every family computes over "model" (attention
+heads, RWKV and Mamba heads and channels, FFN columns, experts, vocab) and
+gathers each layer over the batch axes inside the layer.  The params are
+stored under their param specs and the decode caches under `cache_specs`
+(a KV cache split over heads, or over the sequence where the kv heads are
+fewer than "model" or the batch does not shard: flash-decoding split-K; a
+recurrent state over its heads, a conv ring over its channels);
+argument_mb counts those shards.
 """
 from __future__ import annotations
 

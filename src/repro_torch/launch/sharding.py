@@ -175,26 +175,46 @@ def param_specs(params, cfg: ModelConfig, mesh) -> Any:
     return unflatten(params, specs)
 
 
-#: the families whose mesh step computes over "model" (tensor / expert
-#: parallel); the others gather every param over it (`launch.steps`)
-TP_FAMILIES = ("dense", "moe")
-
 _HEAD_LEAVES = {"wq": "q", "bq": "q", "wo": "q",
                 "wk": "kv", "bk": "kv", "wv": "kv", "bv": "kv"}
+_TIME_MIX_LEAVES = ("wr", "wk", "wv", "wg", "wo", "w_lora_b")
+_MAMBA_LEAVES = ("in_proj", "conv_w", "conv_b", "out_norm", "out_proj")
+
+
+def rwkv_splits(cfg: ModelConfig, model: int) -> bool:
+    """Whether RWKV's time mix computes over "model": its wkv heads split
+    into whole heads (as `cache_specs` splits the wkv state)."""
+    return (cfg.d_model // cfg.ssm_head_dim) % model == 0
+
+
+def mamba_splits(cfg: ModelConfig, model: int) -> bool:
+    """Whether a Mamba2 mixer computes over "model": its SSD heads split
+    into whole heads and its conv channels (x, B, C) into equal chunks (as
+    `cache_specs` splits the ssm state and the conv ring)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    heads = d_inner // cfg.ssm_head_dim
+    return heads % model == 0 and (d_inner + 2 * cfg.ssm_state) % model == 0
 
 
 def _computes_over_model(names: Sequence[str], cfg: ModelConfig,
                          model: int) -> bool:
     """Whether the model code computes this leaf on a "model" shard: whole
-    heads (q heads for wq / bq / wo, kv heads for wk / wv / bk / bv, and
-    the kv side only where the q side is sharded too), and the FFN hidden
-    columns, experts and vocab rows the spec's divisibility already makes
-    whole.  Anything else (RWKV / Mamba leaves, cross attention) is
-    gathered."""
+    heads of attention (self, encoder and cross: q heads for wq / bq / wo,
+    kv heads for wk / wv / bk / bv, the kv side only where the q side is
+    sharded too) and of RWKV's time mix (`rwkv_splits`); a Mamba2 mixer's
+    projection columns, conv channels and inner channels where its heads
+    split (`mamba_splits`); and the FFN hidden columns (RWKV's channel mix
+    too), experts and vocab rows the spec's divisibility already makes
+    whole.  Anything else is gathered over "model" -- among them zamba's
+    shared `in_proj` [2d, d], whose output is the residual."""
     name, parents = names[-1], set(names[:-1])
-    if cfg.family not in TP_FAMILIES or "cross" in parents:
-        return False
-    if name in _HEAD_LEAVES and "attn" in parents:
+    if "time_mix" in parents:
+        return name in _TIME_MIX_LEAVES and rwkv_splits(cfg, model)
+    if "channel_mix" in parents:
+        return name in ("wk", "wv")
+    if "mamba" in parents:
+        return name in _MAMBA_LEAVES and mamba_splits(cfg, model)
+    if name in _HEAD_LEAVES and parents & {"attn", "cross"}:
         if cfg.num_heads % model:
             return False
         return _HEAD_LEAVES[name] == "q" or cfg.num_kv_heads % model == 0
@@ -270,13 +290,9 @@ def _kv_spec(ndim: int, batch: int, kvh: int, mesh) -> P:
     return P(*lead, b_ax, seq_ax, head_ax, None)
 
 
-def cache_specs(caches, cfg: ModelConfig, batch: int, mesh,
-                with_batch_dims: bool = False) -> Any:
+def cache_specs(caches, cfg: ModelConfig, batch: int, mesh) -> Any:
     """Spec tree matching `api.make_caches` (the typed nodes KVCache /
-    MambaState / RWKVState, lists and tuples of them, encoder memory).
-    `with_batch_dims`: (specs, a tree like `caches` of each leaf's batch
-    dim, None for the lengths) -- the dim the specs shard over the batch
-    axes where the batch divides them."""
+    MambaState / RWKVState, lists and tuples of them, encoder memory)."""
     from repro_torch.models.attention import KVCache
     from repro_torch.models.mamba2 import MambaState
     from repro_torch.models.rwkv6 import RWKVState
@@ -290,22 +306,20 @@ def cache_specs(caches, cfg: ModelConfig, batch: int, mesh,
         """[*, B, H, ...]: batch over data if possible, heads over model."""
         lead = (None,) * (nd - 4)
         h_ax = "model" if shape[-3] % model_n == 0 else None
-        return P(*lead, b_ax, h_ax, None, None), nd - 4
+        return P(*lead, b_ax, h_ax, None, None)
 
-    def walk(node):  # (spec, batch dim) a leaf
+    def walk(node):
         if isinstance(node, KVCache):
-            nd = node.k.dim()
-            kv = (_kv_spec(nd, batch, node.k.shape[-2], mesh), nd - 4)
-            return KVCache(kv, kv, (P(*((None,) * node.length.dim())), None))
+            kv = _kv_spec(node.k.dim(), batch, node.k.shape[-2], mesh)
+            return KVCache(kv, kv, P(*((None,) * node.length.dim())))
         if isinstance(node, MambaState):
             nd_c = node.conv.dim()
             c_ax = "model" if node.conv.shape[-1] % model_n == 0 else None
             return MambaState(
                 state_spec(tuple(node.ssm.shape), node.ssm.dim()),
-                (P(*((None,) * (nd_c - 3)), b_ax, None, c_ax), nd_c - 3))
+                P(*((None,) * (nd_c - 3)), b_ax, None, c_ax))
         if isinstance(node, RWKVState):
-            nd = node.shift_tm.dim()
-            sh = (P(*((None,) * (nd - 2)), b_ax, None), nd - 2)
+            sh = P(*((None,) * (node.shift_tm.dim() - 2)), b_ax, None)
             return RWKVState(
                 state_spec(tuple(node.wkv.shape), node.wkv.dim()), sh, sh)
         if isinstance(node, dict):
@@ -315,15 +329,12 @@ def cache_specs(caches, cfg: ModelConfig, batch: int, mesh,
         # plain tensor leaf (e.g. enc-dec memory [B, S_enc, d])
         nd = node.dim()
         if nd >= 2:
-            return P(b_ax, *((None,) * (nd - 1))), 0
-        return P(*((None,) * nd)), None
+            return P(b_ax, *((None,) * (nd - 1)))
+        return P(*((None,) * nd))
 
-    laid = walk(caches)
-    specs = tree_map(lambda leaf, sd: _validate_spec(sd[0], tuple(leaf.shape),
-                                                     mesh), caches, laid)
-    if not with_batch_dims:
-        return specs
-    return specs, tree_map(lambda leaf, sd: sd[1], caches, laid)
+    return tree_map(lambda leaf, spec: _validate_spec(spec, tuple(leaf.shape),
+                                                      mesh), caches,
+                    walk(caches))
 
 
 def kv_seq_shard(spec: P, mesh, slots: int, whole: bool):
@@ -350,12 +361,6 @@ def kv_seq_shard(spec: P, mesh, slots: int, whole: bool):
     return SeqShard(tuple(mesh.get_group(names.index(a)) for a in live),
                     tuple(sizes[a] for a in live), index * local,
                     "model" in live)
-
-
-def batch_only(spec: P, batch_dim: Optional[int]) -> P:
-    """`spec` with every entry but the batch dim's dropped: the leaf whole
-    but for its batch shard."""
-    return P(*(e if i == batch_dim else None for i, e in enumerate(spec)))
 
 
 def dispatch_groups_for(mesh, tokens: int) -> int:

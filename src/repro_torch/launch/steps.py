@@ -11,25 +11,23 @@ consume theirs the same way:
     stored as DTensors placed by the param specs (`state_specs`); each
     rank computes on its batch shard and, over "model", on the shards
     GSPMD would partition by those specs (`launch.sharding.
-    compute_specs`): its attention heads, FFN hidden columns, experts and
-    vocab rows, on plain local tensors through the same kernels, the ranks
-    exchanging what the math needs (`pshard`'s four TP operators).  Each
-    param is gathered over the batch axes (and over "model" where the
-    compute spec drops it) by a `pshard.LeafGather` -- a stacked layer's
-    inside the layer's (rematerialized) body, the rest at the step's start
-    --, whose backward leaves the gradient already reduced to the rank's
-    stored shard (reduce-scatter where the spec shards a batch axis,
-    all-reduce otherwise, divided by the batch axes' size).  The step
-    clips by the norm of the whole gradient and updates the local shards.
-    The recurrent and encoder-decoder families keep the gather-everything
-    program: every param gathered whole at the start, the one-device loss
-    and backward on the batch shard, each gradient then reduced to its
-    shard; the ranks of a data row compute the same shard there.
+    compute_specs`): its attention heads (self, encoder and cross), RWKV
+    and Mamba heads and channels, FFN hidden columns, experts and vocab
+    rows, on plain local tensors through the same kernels, the ranks
+    exchanging what the math needs (`pshard`'s operators).  Each param is
+    gathered over the batch axes (and over "model" where the compute spec
+    drops it) by a `pshard.LeafGather` -- a stacked layer's inside the
+    layer's (rematerialized) body, the rest at the step's start --, whose
+    backward leaves the gradient already reduced to the rank's stored
+    shard (reduce-scatter where the spec shards a batch axis, all-reduce
+    otherwise, divided by the batch axes' size).  The step clips by the
+    norm of the whole gradient and updates the local shards.
   * `build_sharded_prefill_step` / `build_sharded_decode_step` -- the
     counterparts of the reference's `jax.jit(api.prefill / api.decode,
     in_shardings=...)` with `cache_specs`: the same compute over "model"
-    in inference, a layer gathered at a time; each KV cache stored as its
-    spec shards it (kv heads, or the sequence: split-K decode).  The
+    in inference, a layer gathered at a time; each cache stored as its
+    spec shards it (a KV cache's kv heads, or its sequence: split-K
+    decode; a recurrent state's heads; a conv ring's channels).  The
     decode step consumes its caches.
   * `build_compressed_dp_step` -- the reference's shard_map step:
     replicated state, a per-rank error-feedback residual, the gradients
@@ -45,11 +43,9 @@ import torch
 
 from repro_torch.launch.mesh import (axis_names, batch_axes, dp_size,
                                      mesh_shape, sum_over)
-from repro_torch.launch.sharding import (TP_FAMILIES, P, _axes, batch_only,
-                                         batch_specs, cache_specs,
-                                         compute_specs_of, full_tree,
-                                         kv_seq_shard, local_shard,
-                                         placements)
+from repro_torch.launch.sharding import (P, _axes, batch_specs,
+                                         cache_specs, compute_specs_of,
+                                         kv_seq_shard, local_shard)
 from repro_torch.models import pshard
 from repro_torch.models.api import ModelAPI
 from repro_torch.optim.adamw import AdamW, OptState, global_norm
@@ -190,17 +186,6 @@ def sharded_global_norm(grads: list, specs: list, mesh) -> torch.Tensor:
     return torch.sqrt(sum_over(total, mesh))
 
 
-def reduce_to_shard(g: torch.Tensor, mesh, spec: P) -> torch.Tensor:
-    """This rank's shard (under `spec`) of the sum of `g` over the batch
-    axes: reduce-scatter where `spec` shards a dim over a batch axis,
-    all-reduce otherwise, then the local slice over "model"."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-    ba = batch_axes(mesh)
-    src = [Partial() if a in ba else Replicate() for a in axis_names(mesh)]
-    d = DTensor.from_local(g, mesh, src, run_check=False)
-    return d.redistribute(mesh, placements(spec, mesh)).to_local()
-
-
 def leaf_gather(stored: P, computed: P, mesh) -> pshard.LeafGather:
     """The LeafGather from a leaf's shard under `stored` to its shard under
     `computed`: an all-gather over every mesh axis of `stored` that
@@ -246,18 +231,35 @@ def _metrics_over_batch(metrics: dict, mesh, ba_dims, dp: int) -> dict:
     return dict(zip(keys, vals.unbind()))
 
 
+def _split_plan(api: ModelAPI, plan) -> tuple:
+    """(top, stacked) of a `gather_plan`: the LeafGathers of the top-level
+    leaves (embedding, head, norms, zamba's shared block), gathered at the
+    step's start, and those of the layers stacked on leading axes, which
+    `pshard.gathered` hands the model to gather a layer at a time (the
+    LM's list of stages; the encoder-decoder's dict of its two stacks)."""
+    if api.cfg.family == "encdec":
+        keys = ("encoder", "decoder")
+        stacked = {k: plan[k] for k in keys}
+    else:
+        keys, stacked = ("stages",), plan["stages"]
+    return {k: v for k, v in plan.items() if k not in keys}, stacked
+
+
+def _top_gathered(params, top: dict) -> dict:
+    """The params with every top-level leaf through its LeafGather; the
+    stacked layers as stored (gathered per layer)."""
+    return {k: pshard.gather_tree(v, top[k]) if k in top else v
+            for k, v in params.items()}
+
+
 def build_sharded_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
                              accum_steps: int = 1) -> Callable:
     """`specs`: the param specs (`launch.sharding.param_specs`).  The state
     is `distribute_tree(state, mesh, state_specs(specs))`; the batch holds
     whole tensors (the same on every rank) or DTensors, sharded over the
     batch axes by `batch_specs` and replicated over "model".  Returns
-    (state, metrics), the metrics those of the global batch.  The dense and
-    MoE families compute over "model" (`sharded_value_and_grad`), the
-    others gather every param whole (`_gather_all_train_step`)."""
-    if api.cfg.family not in TP_FAMILIES:
-        return _gather_all_train_step(api, optimizer, mesh, specs,
-                                      accum_steps)
+    (state, metrics), the metrics those of the global batch; the program
+    each rank runs is `sharded_value_and_grad`'s."""
     names = axis_names(mesh)
     dp = dp_size(mesh)
     ba_dims = [names.index(a) for a in batch_axes(mesh)]
@@ -293,13 +295,10 @@ def sharded_value_and_grad(api: ModelAPI, mesh, specs,
     ba_dims = [names.index(a) for a in batch_axes(mesh)]
     groups = [mesh.get_group(i) for i in ba_dims]
     model = mesh_shape(mesh).get("model", 1)
-    plan = gather_plan(specs, api.cfg, mesh)
-    top = {k: v for k, v in plan.items() if k != "stages"}
+    top, stacked = _split_plan(api, gather_plan(specs, api.cfg, mesh))
 
     def loss_fn(params, batch):
-        full = {k: pshard.gather_tree(params[k], p) for k, p in top.items()}
-        full["stages"] = params["stages"]
-        return api.loss(full, batch)
+        return api.loss(_top_gathered(params, top), batch)
 
     def grads_of(params, batch):
         local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
@@ -310,52 +309,10 @@ def sharded_value_and_grad(api: ModelAPI, mesh, specs,
                 i = names.index("model")
                 stack.enter_context(pshard.model_parallel(
                     mesh.get_group(i), model, mesh.get_coordinate()[i]))
-            stack.enter_context(pshard.gathered(plan["stages"]))
+            stack.enter_context(pshard.gathered(stacked))
             return _loss_and_grads(loss_fn, params, local_batch, accum_steps)
 
     return grads_of
-
-
-def _gather_all_train_step(api: ModelAPI, optimizer: AdamW, mesh, specs,
-                           accum_steps: int = 1) -> Callable:
-    """The gather-everything mesh step (the recurrent and encoder-decoder
-    families): every param gathered whole, the one-device loss and
-    backward on the batch shard, each gradient reduced to its shard
-    (`reduce_to_shard`) and divided by the batch axes' size."""
-    names = axis_names(mesh)
-    dp = dp_size(mesh)
-    ba_dims = [names.index(a) for a in batch_axes(mesh)]
-    groups = [mesh.get_group(i) for i in ba_dims]
-    spec_list = leaves(specs)
-
-    def mean_shard(g, spec):
-        out = reduce_to_shard(g, mesh, spec)
-        return out if dp == 1 else out.div_(dp)
-
-    def train_step(state: TrainState, batch):
-        local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
-        with torch.no_grad():
-            full = full_tree(state.params)
-        ctx = pshard.data_parallel(groups, dp) if dp > 1 \
-            else contextlib.nullcontext()
-        with ctx:
-            loss, metrics, grads = _loss_and_grads(api.loss, full,
-                                                   local_batch, accum_steps)
-        del full
-        with torch.no_grad():
-            g_local = [mean_shard(g, s)
-                       for g, s in zip(leaves(grads), spec_list)]
-            del grads
-            gn = sharded_global_norm(g_local, spec_list, mesh)
-            local = tree_map(_local, state)
-            optimizer.update(unflatten(state.params, g_local), local.opt,
-                             local.params, grad_norm=gn)
-        metrics["loss"] = loss
-        metrics = _metrics_over_batch(metrics, mesh, ba_dims, dp)
-        metrics["grad_norm"] = gn
-        return state, metrics
-
-    return train_step
 
 
 # ---------------------------------------------------------------------------
@@ -404,11 +361,13 @@ def prefill_cache_specs(api: ModelAPI, mesh, batch: dict,
                        _batch_size(batch), mesh)
 
 
-def _seq_plans(caches, cspecs, mesh, whole_shapes: bool) -> list:
-    """Per stage, the stage's caches' tree with a `pshard.SeqShard` (or
-    None where the sequence is whole) in place of each KVCache, read off
-    its spec (`kv_seq_shard`); `caches` has the whole shapes
-    (`whole_shapes`) or the rank's."""
+def _seq_plans(caches, cspecs, mesh, whole_shapes: bool):
+    """The caches' tree with a `pshard.SeqShard` (or None where the
+    sequence is whole) in place of each KVCache, read off its spec
+    (`kv_seq_shard`), and None in place of any other leaf or recurrent
+    state: per stage for the LM, `(memory, decoder)` for the
+    encoder-decoder.  `caches` has the whole shapes (`whole_shapes`) or
+    the rank's."""
     from repro_torch.models.attention import KVCache
 
     def walk(node, spec):
@@ -416,15 +375,16 @@ def _seq_plans(caches, cspecs, mesh, whole_shapes: bool) -> list:
             return kv_seq_shard(spec.k, mesh, node.k.shape[-3], whole_shapes)
         if isinstance(node, dict):
             return {k: walk(v, spec[k]) for k, v in node.items()}
-        if isinstance(node, list):
-            return [walk(v, sp) for v, sp in zip(node, spec)]
+        if isinstance(node, list) or (isinstance(node, tuple)
+                                      and not hasattr(node, "_fields")):
+            return type(node)(walk(v, sp) for v, sp in zip(node, spec))
         return None
 
     return walk(caches, cspecs)
 
 
 @contextlib.contextmanager
-def _serving(mesh, B: int, stage_plans, seq_plans):
+def _serving(mesh, B: int, stacked, seq_plans):
     """The contexts of a mesh serving step of a B-row batch: the batch
     axes' (`_data_parallel`), the model group's, the per-layer gathers and
     the caches' sequence shards."""
@@ -436,17 +396,9 @@ def _serving(mesh, B: int, stage_plans, seq_plans):
             i = names.index("model")
             stack.enter_context(pshard.model_parallel(
                 mesh.get_group(i), model, mesh.get_coordinate()[i]))
-        stack.enter_context(pshard.gathered(stage_plans))
+        stack.enter_context(pshard.gathered(stacked))
         stack.enter_context(pshard.sequence_plans(seq_plans))
         yield
-
-
-def _top_gathered(params, top: dict) -> dict:
-    """The params with every top-level leaf (embedding, head, final norm)
-    through its LeafGather; the stages as stored (gathered per layer)."""
-    full = {k: pshard.gather_tree(params[k], p) for k, p in top.items()}
-    full["stages"] = params["stages"]
-    return full
 
 
 def build_sharded_prefill_step(api: ModelAPI, mesh, specs,
@@ -457,17 +409,13 @@ def build_sharded_prefill_step(api: ModelAPI, mesh, specs,
     `batch_specs`.  Returns this rank's batch shard of the last position's
     logits (the whole vocab) and its shards of the caches under
     `prefill_cache_specs` -- plain tensors, what
-    `build_sharded_decode_step` consumes.  The dense and MoE families
-    compute as the TP train step does (heads, FFN columns, experts and
-    vocab rows over "model", each layer gathered over the batch axes
-    inside the layer) and store each KV cache as its spec shards it: the
-    rank's kv heads, and its slots of the sequence (`pshard.
-    sequence_parallel`).  The others gather every param whole
-    (`_gather_all_prefill_step`)."""
-    if api.cfg.family not in TP_FAMILIES:
-        return _gather_all_prefill_step(api, mesh, max_len)
-    plan = gather_plan(specs, api.cfg, mesh)
-    top = {k: v for k, v in plan.items() if k != "stages"}
+    `build_sharded_decode_step` consumes.  Computes as the train step does
+    (heads, channels, FFN columns, experts and vocab rows over "model",
+    each layer gathered over the batch axes inside the layer) and stores
+    each cache as its spec shards it: a KV cache's kv heads and its slots
+    of the sequence (`pshard.sequence_parallel`), a recurrent state's
+    heads, a conv ring's stored channels."""
+    top, stacked = _split_plan(api, gather_plan(specs, api.cfg, mesh))
 
     def prefill_step(params, batch):
         with torch.no_grad():
@@ -478,7 +426,7 @@ def build_sharded_prefill_step(api: ModelAPI, mesh, specs,
             local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
             local_batch["max_len"] = max_len
             local = tree_map(_local, params)
-            with _serving(mesh, B, plan["stages"], seq):
+            with _serving(mesh, B, stacked, seq):
                 return api.prefill(_top_gathered(local, top), local_batch)
 
     return prefill_step
@@ -491,16 +439,13 @@ def build_sharded_decode_step(api: ModelAPI, mesh, specs,
     `caches` this rank's shards under `cspecs` (`cache_specs`; plain
     tensors, as the prefill step returns them, or DTensors); `batch`
     {"token": [B]}, whole or a DTensor.  The caches are CONSUMED, as on
-    one device: written and advanced in place, the same objects returned;
-    the logits are this rank's batch shard's.  Where a KV cache is split
-    over the sequence, the rank owning the new token's slot writes it and
-    the attention merges the ranks' partial softmaxes (flash-decoding
-    split-K, `models.attention.attention_decode`).  The families outside
-    `TP_FAMILIES` take `_gather_all_decode_step`."""
-    if api.cfg.family not in TP_FAMILIES:
-        return _gather_all_decode_step(api, mesh, cspecs)
-    plan = gather_plan(specs, api.cfg, mesh)
-    top = {k: v for k, v in plan.items() if k != "stages"}
+    one device: written and advanced in place, the same objects returned
+    (a recurrent state's shard overwritten, never gathered); the logits
+    are this rank's batch shard's.  Where a KV cache is split over the
+    sequence, the rank owning the new token's slot writes it and the
+    attention merges the ranks' partial softmaxes (flash-decoding split-K,
+    `models.attention.attention_decode`)."""
+    top, stacked = _split_plan(api, gather_plan(specs, api.cfg, mesh))
 
     def decode_step(params, caches, batch):
         with torch.no_grad():
@@ -509,77 +454,9 @@ def build_sharded_decode_step(api: ModelAPI, mesh, specs,
             seq = _seq_plans(local_caches, cspecs, mesh, whole_shapes=False)
             local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
             local = tree_map(_local, params)
-            with _serving(mesh, B, plan["stages"], seq):
+            with _serving(mesh, B, stacked, seq):
                 logits, _ = api.decode(_top_gathered(local, top),
                                        local_caches, local_batch)
-        return logits, caches
-
-    return decode_step
-
-
-def _gather_leaf(t: torch.Tensor, stored: P, computed: P, mesh):
-    """`t`, a shard under `stored`, all-gathered to its shard under
-    `computed` (plain collectives: no autograd)."""
-    for dim, group, size, _, _ in leaf_gather(stored, computed, mesh).steps:
-        t = pshard._all_gather(t, dim, group, size)
-    return t
-
-
-def _within_batch_shard(t: torch.Tensor, spec: P, batch_dim, mesh):
-    """This rank's shard under `spec` of `t`, which holds the rank's batch
-    shard whole in every other dim (a copy, so `t` can go)."""
-    return local_shard(t, P(*(None if i == batch_dim else e
-                              for i, e in enumerate(spec))), mesh).clone(
-        memory_format=torch.contiguous_format)
-
-
-def _gather_all_prefill_step(api: ModelAPI, mesh,
-                             max_len: Optional[int] = None) -> Callable:
-    """The gather-everything prefill (the recurrent, hybrid and
-    encoder-decoder families): every param gathered whole, the one-device
-    prefill on the batch shard, then each cache leaf cut to the rank's
-    shard under `prefill_cache_specs`."""
-    def prefill_step(params, batch):
-        with torch.no_grad():
-            B = _batch_size(batch)
-            like = prefill_caches_like(api, batch, max_len)
-            cspecs, dims = cache_specs(like, api.cfg, B, mesh,
-                                       with_batch_dims=True)
-            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
-            local_batch["max_len"] = max_len
-            full = full_tree(params)
-            with _data_parallel(mesh, B):
-                logits, caches = api.prefill(full, local_batch)
-            del full
-            caches = tree_map(
-                lambda t, s, d: _within_batch_shard(t, s, d, mesh), caches,
-                cspecs, dims)
-        return logits, caches
-
-    return prefill_step
-
-
-def _gather_all_decode_step(api: ModelAPI, mesh, cspecs) -> Callable:
-    """The gather-everything decode: every param gathered whole, each cache
-    leaf gathered over every axis but its batch dim's batch axes, the
-    one-device decode on the batch shard, then the rank's shards written
-    back into the stored caches (consumed, as on one device)."""
-    def decode_step(params, caches, batch):
-        with torch.no_grad():
-            B = _batch_size(batch)
-            stored = tree_map(_local, caches)
-            _, dims = cache_specs(stored, api.cfg, B, mesh,
-                                  with_batch_dims=True)
-            work = tree_map(lambda t, s, d: _gather_leaf(
-                t, s, batch_only(s, d), mesh), stored, cspecs, dims)
-            local_batch = _batch_shard(batch, mesh, batch_specs(batch, mesh))
-            full = full_tree(params)
-            with _data_parallel(mesh, B):
-                logits, _ = api.decode(full, work, local_batch)
-            del full
-            tree_map(lambda t, w, s, d: w is t or t.copy_(
-                _within_batch_shard(w, s, d, mesh)), stored, work, cspecs,
-                dims)
         return logits, caches
 
     return decode_step

@@ -342,22 +342,28 @@ def attention_forward(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _project_qkv(p, x, x, cfg, positions, positions)
     k, v = _kv_for_heads(k, v, q.shape[2], cfg)
-    o = _causal(q, k, v, cfg, window, use_dense)
-    out = o.reshape(B, S, q.shape[2] * cfg.head_dim) @ p["wo"]
-    # local heads: `wo` holds their rows, the ranks' partial outputs add up
-    return pshard.reduce_from_model(out) if q.shape[2] != cfg.num_heads \
-        else out
+    return _out_proj(_causal(q, k, v, cfg, window, use_dense), p["wo"], cfg)
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor,
+              cfg: ModelConfig) -> torch.Tensor:
+    """o [B, S, H, hd] @ wo; local heads: `wo` holds their rows, the
+    ranks' partial outputs add up over "model"."""
+    B, S, H, hd = o.shape
+    out = o.reshape(B, S, H * hd) @ wo
+    return pshard.reduce_from_model(out) if H != cfg.num_heads else out
 
 
 def cross_attention_forward(p, x, memory, cfg: ModelConfig) -> torch.Tensor:
     """Cross attention (decoder -> encoder memory). No RoPE on the cross
     path, no mask; dense, as in the reference (no kernel there either).
-    x: [B, S, d], memory: [B, S_enc, d]."""
-    B, S, _ = x.shape
+    x: [B, S, d], memory: [B, S_enc, d].  On the heads `wq` holds, as
+    `attention_forward`."""
     q, k, v = _project_qkv(p, x, memory, cfg, None, None)
-    o = unmasked_attention(q, _expand_kv(k, cfg.num_heads),
-                           _expand_kv(v, cfg.num_heads), cfg)
-    return o.reshape(B, S, cfg.q_dim) @ p["wo"]
+    H = q.shape[2]
+    k, v = _kv_for_heads(k, v, H, cfg)
+    o = unmasked_attention(q, _expand_kv(k, H), _expand_kv(v, H), cfg)
+    return _out_proj(o, p["wo"], cfg)
 
 
 def unmasked_attention(q, k, v, cfg: ModelConfig) -> torch.Tensor:
@@ -419,10 +425,7 @@ def attention_prefill(p, x, cfg: ModelConfig, *, window: Optional[int] = None,
         ck, cv = _pad_seq(kc, size), _pad_seq(vc, size)
     cache = KVCache(ck, cv, torch.tensor(S, dtype=torch.int32,
                                          device=x.device))
-    out = o.reshape(B, S, H * cfg.head_dim) @ p["wo"]
-    # local heads: `wo` holds their rows, the ranks' partial outputs add up
-    return (pshard.reduce_from_model(out) if H != cfg.num_heads else out,
-            cache)
+    return _out_proj(o, p["wo"], cfg), cache
 
 
 def _slot_shard(t: torch.Tensor, S: int, size: int, window: Optional[int],
@@ -522,9 +525,7 @@ def attention_decode(p, x, cache: KVCache, cfg: ModelConfig, *,
     if gathered:  # this rank's heads, for its rows of wo
         o = o.narrow(2, pshard.model_parallel_rank() * H, H)
     length.add_(1)  # last: pos, slot and valid above read the old length
-    out = o.reshape(B, 1, H * hd) @ p["wo"]
-    return (pshard.reduce_from_model(out) if H != cfg.num_heads else out,
-            cache)
+    return _out_proj(o, p["wo"], cfg), cache
 
 
 def _owner_write(buf: torch.Tensor, new: torch.Tensor,

@@ -15,7 +15,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels.flash_attention.ops import _expand_kv
-from repro_torch.models.attention import (KVCache, _project_qkv,
+from repro_torch.models.attention import (KVCache, _kv_for_heads,
+                                          _out_proj, _project_qkv,
                                           attention_decode,
                                           attention_decode_ragged,
                                           attention_forward, attention_prefill,
@@ -182,20 +183,23 @@ def encoder_block_forward(p, h, cfg: ModelConfig):
     """Bidirectional attention, dense without a mask (the reference runs no
     kernel here): over query blocks of `attn_chunk` rows when the sequence
     is a multiple of it and longer, to bound the scores' memory, else all
-    at once -- the reference's rule."""
+    at once -- the reference's rule.  On the heads `wq` holds (the rank's,
+    inside a tensor-parallel step: `wo`'s rows then sum over "model")."""
     B, S, d = h.shape
     x = apply_norm(h, p["ln_attn"], cfg)
     pos = torch.arange(S, device=h.device).expand(B, S)
     q, k, v = _project_qkv(p["attn"], x, x, cfg, pos, pos)
-    k = _expand_kv(k, cfg.num_heads).float()
-    v = _expand_kv(v, cfg.num_heads)
+    H = q.shape[2]
+    k, v = _kv_for_heads(k, v, H, cfg)
+    k = _expand_kv(k, H).float()
+    v = _expand_kv(v, H)
     C = min(cfg.attn_chunk, S)
     if S % C == 0 and S > C:
         o = torch.cat([unmasked_attention(q[:, i:i + C], k, v, cfg)
                        for i in range(0, S, C)], dim=1)
     else:
         o = unmasked_attention(q, k, v, cfg)
-    h = h + o.reshape(B, S, cfg.q_dim) @ p["attn"]["wo"]
+    h = h + _out_proj(o, p["attn"]["wo"], cfg)
     return h + ffn_forward(p["ffn"], apply_norm(h, p["ln_ffn"], cfg), cfg)
 
 
@@ -314,6 +318,8 @@ def shared_attn_forward(p, h, emb, cfg: ModelConfig, *,
 
 def shared_attn_prefill(p, h, emb, cfg: ModelConfig, max_len=None, *,
                         use_dense: Optional[bool] = None):
+    """The cache as `attention_prefill` keeps it (the rank's shard inside a
+    mesh serving step)."""
     x = torch.cat([h, emb], dim=-1) @ p["in_proj"]
     a, cache = attention_prefill(p["attn"], apply_norm(x, p["ln"], cfg), cfg,
                                  max_len=max_len, use_dense=use_dense)

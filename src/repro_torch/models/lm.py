@@ -227,15 +227,6 @@ def _gemma_plans(plan, n: int, lpg: int) -> list:
     return list(_gemma_blocks(plan, n, lpg))
 
 
-def _plan_check(kind: str, plan, seq=None):
-    """Per-layer gathers and sequence shards are the decoder and gemma
-    stages' only."""
-    if (plan is not None or seq is not None) \
-            and kind not in ("gemma", "decoder"):
-        raise ValueError(f"no per-layer gathering or sequence sharding "
-                         f"for a {kind} stage")
-
-
 def _gemma_block(local, glob, h, cfg: ModelConfig, use_dense, plan):
     """One superblock; `plan`: the LeafGathers of its local and global
     layers (`_gemma_plans`), each layer gathered just before it runs."""
@@ -260,27 +251,39 @@ def _gathered(block: Callable) -> Callable:
     return body
 
 
-def _zamba_block(mambas, shared, h, emb, cfg: ModelConfig, use_dense):
-    for lp in mambas:
-        h = B.mamba_block_forward(lp, h, cfg)
+def _zamba_plans(plan, n: int, every: int) -> list:
+    """`_zamba_blocks` of a stage's LeafGathers, or Nones without them."""
+    if plan is None:
+        return [[None] * every] * n
+    return list(_zamba_blocks(plan, n, every))
+
+
+def _zamba_block(mambas, shared, h, emb, cfg: ModelConfig, use_dense,
+                 plans):
+    """One superblock; `plans`: its mamba layers' LeafGathers, each layer
+    gathered just before it runs (the shared block is gathered once, with
+    the step's top-level params)."""
+    for lp, pl in zip(mambas, plans):
+        h = B.mamba_block_forward(pshard.gather_tree(lp, pl), h, cfg)
     return B.shared_attn_forward(shared, h, emb, cfg, use_dense=use_dense)
 
 
 def _stage_forward(sp, h, kind, n, opts, cfg: ModelConfig, *, moe_mode,
                    use_dense, gmm, emb, shared, remat=False, plan=None):
     """`plan`: the stage's tree of LeafGathers inside a mesh step that
-    gathers per layer (decoder and gemma stages only)."""
-    _plan_check(kind, plan)
+    gathers per layer."""
     if kind in ("rwkv", "mamba"):
-        block = _maybe_remat(B.rwkv_block_forward if kind == "rwkv"
-                             else B.mamba_block_forward, cfg, remat)
+        block = _maybe_remat(_gathered(
+            B.rwkv_block_forward if kind == "rwkv"
+            else B.mamba_block_forward), cfg, remat)
         for l in range(n):
-            h = block(layer_slice(sp, l), h, cfg)
+            h = block(layer_slice(sp, l), layer_slice(plan, l), h, cfg)
         return h, _zero_aux(cfg, h.device)
     if kind == "zamba":
         block = _maybe_remat(_zamba_block, cfg, remat)
-        for mambas in _zamba_blocks(sp, n, opts["every"]):
-            h = block(mambas, shared, h, emb, cfg, use_dense)
+        for mambas, pl in zip(_zamba_blocks(sp, n, opts["every"]),
+                              _zamba_plans(plan, n, opts["every"])):
+            h = block(mambas, shared, h, emb, cfg, use_dense, pl)
         return h, _zero_aux(cfg, h.device)
     if kind == "gemma":
         block = _maybe_remat(_gemma_block, cfg, remat)
@@ -406,28 +409,34 @@ def _stack(caches):
 def _stage_prefill(sp, h, kind, n, opts, cfg: ModelConfig, *, max_len,
                    use_dense, emb, shared, plan=None, seq=None):
     """`plan`: the stage's tree of LeafGathers and `seq` its caches' tree of
-    SeqShards inside a mesh serving step (decoder and gemma stages only):
-    each layer gathered just before it runs, each cache kept as the
-    rank's shard of its sequence (`pshard.sequence_parallel`)."""
-    _plan_check(kind, plan, seq)
+    SeqShards inside a mesh serving step: each layer gathered just before
+    it runs, each KV cache kept as the rank's shard of its sequence
+    (`pshard.sequence_parallel`); a recurrent state is the rank's shard
+    as the layer computes it (its heads and stored conv channels)."""
     if kind in ("rwkv", "mamba"):
         block = B.rwkv_block_prefill if kind == "rwkv" \
             else B.mamba_block_prefill
         states = []
         for l in range(n):
-            h, st = block(layer_slice(sp, l), h, cfg)
+            h, st = block(pshard.gather_tree(layer_slice(sp, l),
+                                             layer_slice(plan, l)), h, cfg)
             states.append(st)
         return h, _stack(states)
     if kind == "zamba":
         mc, ac = [], []
-        for mambas in _zamba_blocks(sp, n, opts["every"]):
+        shared_seq = seq["shared"] if seq else None
+        for mambas, pls in zip(_zamba_blocks(sp, n, opts["every"]),
+                               _zamba_plans(plan, n, opts["every"])):
             states = []
-            for lp in mambas:
-                h, st = B.mamba_block_prefill(lp, h, cfg)
+            for lp, pl in zip(mambas, pls):
+                h, st = B.mamba_block_prefill(pshard.gather_tree(lp, pl), h,
+                                              cfg)
                 states.append(st)
             mc.append(_stack(states))
-            h, c = B.shared_attn_prefill(shared, h, emb, cfg, max_len=max_len,
-                                         use_dense=use_dense)
+            with pshard.sequence_parallel(shared_seq):
+                h, c = B.shared_attn_prefill(shared, h, emb, cfg,
+                                             max_len=max_len,
+                                             use_dense=use_dense)
             ac.append(c)
         return h, {"mamba": _stack(mc), "shared": _stack(ac)}
     if kind == "gemma":
@@ -471,9 +480,9 @@ def lm_prefill(params, cfg: ModelConfig, tokens=None, embeddings=None, *,
     MambaState [n, every, ...], "shared": KVCache [n, ...] (one per
     application of the shared block)}; a mamba stage's `MambaState`
     [L, ...].  Inside a mesh serving step (`launch.steps.
-    build_sharded_prefill_step`) each decoder and gemma layer is gathered
-    per `pshard.stage_gathers()` and each KV cache is the rank's shard
-    (`pshard.stage_sequences()`)."""
+    build_sharded_prefill_step`) each layer is gathered per
+    `pshard.stage_gathers()` and each cache is the rank's shard (a KV
+    cache's sequence per `pshard.stage_sequences()`)."""
     h = embed_tokens(params, tokens, embeddings, cfg)
     emb0 = h
     caches = []
@@ -506,21 +515,27 @@ def _cache_at(cache, l):
 def _stage_decode(sp, h, cache, kind, n, opts, cfg: ModelConfig, *, emb,
                   shared, plan=None, seq=None):
     """`plan` and `seq` as in `_stage_prefill`."""
-    _plan_check(kind, plan, seq)
     if kind in ("rwkv", "mamba"):
         block = B.rwkv_block_decode if kind == "rwkv" \
             else B.mamba_block_decode
         for l in range(n):
-            h, _ = block(layer_slice(sp, l), h, _cache_at(cache, l), cfg)
+            h, _ = block(pshard.gather_tree(layer_slice(sp, l),
+                                            layer_slice(plan, l)), h,
+                         _cache_at(cache, l), cfg)
         return h
     if kind == "zamba":
-        for i, mambas in enumerate(_zamba_blocks(sp, n, opts["every"])):
-            for j, lp in enumerate(mambas):
-                h, _ = B.mamba_block_decode(lp, h,
+        shared_seq = seq["shared"] if seq else None
+        for i, (mambas, pls) in enumerate(zip(
+                _zamba_blocks(sp, n, opts["every"]),
+                _zamba_plans(plan, n, opts["every"]))):
+            for j, (lp, pl) in enumerate(zip(mambas, pls)):
+                h, _ = B.mamba_block_decode(pshard.gather_tree(lp, pl), h,
                                             _cache_at(cache["mamba"], (i, j)),
                                             cfg)
-            h, _ = B.shared_attn_decode(shared, h, emb,
-                                        _cache_at(cache["shared"], i), cfg)
+            with pshard.sequence_parallel(shared_seq):
+                h, _ = B.shared_attn_decode(shared, h, emb,
+                                            _cache_at(cache["shared"], i),
+                                            cfg)
         return h
     if kind == "gemma":
         seq = seq or {"local": None, "global": None}

@@ -7,6 +7,19 @@ shared (B, C) projections (single group).  Prefill uses the chunked algorithm
 (intra-chunk quadratic + inter-chunk scan); decode carries [B, H, P, N]
 state.  The reference runs it as plain array ops (no Pallas kernel), and so
 does the port.
+
+Inside a tensor-parallel step (`pshard.model_parallel`), where `in_proj`
+holds the rank's contiguous chunk of its columns [z | x | B | C | dt] (read
+off its shape), the mixer runs on the rank's SSD heads.  The chunks do not
+fall on the five parts' borders, so the projection is gathered whole over
+"model" (`pshard.gather_to_model`): each rank reads its heads' z, x and dt
+and the B and C every head shares.  The causal conv runs on the channels of
+(x, B, C) the rank stores (`conv_w` / `conv_b` and the decode's conv ring
+split as `cache_specs` splits them, in chunks that are not the heads'
+either), and its output is gathered the same way.  The gated norm's sum of
+squares over the whole d_inner is summed over "model"; `out_proj` holds the
+rank's rows and the partial outputs add up.  The ssm state holds the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -16,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import pshard
 from repro_torch.models.common import ModelConfig, dense_init, rms_norm
 
 
@@ -70,11 +84,57 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return (out + b.float()).to(x.dtype)
 
 
-def _split_proj(p, u, cfg: ModelConfig):
+class _Split(NamedTuple):
+    """How the mixer's channels lie on this rank: `tp` whether it computes
+    over "model" (`in_proj` holds a chunk of its columns), and then the
+    rank's first SSD head `h0` of `H` local heads (`P` channels each) and
+    its first stored conv channel `c0` of `C` stored ones; `tp` False: all
+    of them, from 0."""
+    tp: bool
+    h0: int
+    H: int
+    c0: int
+    C: int
+
+
+def _split(p, cfg: ModelConfig) -> _Split:
     d_inner, H, P, N = _dims(cfg)
-    zxbcdt = u @ p["in_proj"]
+    conv_ch = d_inner + 2 * N
+    if p["in_proj"].shape[-1] == d_inner + conv_ch + H:
+        return _Split(False, 0, H, 0, conv_ch)
+    n, r = pshard.model_parallel_size(), pshard.model_parallel_rank()
+    return _Split(True, r * (H // n), H // n, r * (conv_ch // n),
+                  conv_ch // n)
+
+
+def _split_proj(p, u, cfg: ModelConfig, sp: _Split):
+    """(z, xbc, dt) of the input projection: z and dt of the local heads
+    (views), xbc whole (gathered over "model" under `sp.tp`)."""
+    d_inner, H, P, N = _dims(cfg)
+    if sp.tp:
+        zxbcdt = pshard.gather_to_model(
+            pshard.copy_to_model(u) @ p["in_proj"], -1)
+    else:
+        zxbcdt = u @ p["in_proj"]
     z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * N, H], dim=-1)
-    return z, xbc, dt  # conv applies to xbc
+    return (z.narrow(-1, sp.h0 * P, sp.H * P), xbc,
+            dt.narrow(-1, sp.h0, sp.H))  # conv applies to xbc
+
+
+def _local(t: torch.Tensor, sp: _Split) -> torch.Tensor:
+    """A replicated per-head leaf ([..., H]) at the local heads (its
+    gradient gathered over "model" under `sp.tp`)."""
+    return pshard.scatter_to_model(t, -1) if sp.tp else t
+
+
+def _conv_out(conv: torch.Tensor, sp: _Split, cfg: ModelConfig):
+    """(x of the local heads, B, C) of the activated conv output on the
+    stored channels (gathered whole over "model" under `sp.tp`)."""
+    d_inner, H, P, N = _dims(cfg)
+    if sp.tp:
+        conv = pshard.gather_to_model(conv, -1)
+    x, B, C = torch.split(conv, [d_inner, N, N], dim=-1)
+    return x.narrow(-1, sp.h0 * P, sp.H * P), B, C
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -155,42 +215,54 @@ def ssd_sequential(x, a_log, B, C, initial_state=None):
     return torch.stack(ys, 1).to(x.dtype), s
 
 
-def _gated_out(p, y, z, u, cfg: ModelConfig):
-    """rms_norm(y ⊙ silu(z)) @ out_proj, in u's dtype."""
-    y = rms_norm(y * F.silu(z.float()).to(u.dtype), p["out_norm"],
-                 cfg.norm_eps)
-    return y @ p["out_proj"]
+def _gated_out(p, y, z, u, cfg: ModelConfig, sp: _Split):
+    """rms_norm(y ⊙ silu(z)) @ out_proj, in u's dtype.  Under `sp.tp` y and
+    z hold the local heads' channels: the norm's sum of squares over the
+    whole d_inner is summed over "model", and `out_proj`'s rows' partial
+    outputs too."""
+    y = y * F.silu(z.float()).to(u.dtype)
+    if not sp.tp:
+        return rms_norm(y, p["out_norm"], cfg.norm_eps) @ p["out_proj"]
+    y32 = y.float()
+    ss = pshard.sum_over_model(torch.sum(torch.square(y32), -1,
+                                         keepdim=True))
+    d_inner = _dims(cfg)[0]
+    y = (y32 * torch.rsqrt(ss / d_inner + cfg.norm_eps)
+         * p["out_norm"].float()).to(y.dtype)
+    return pshard.reduce_from_model(y @ p["out_proj"])
 
 
 def mamba_forward(p, u: torch.Tensor, cfg: ModelConfig, *,
                   sequential: bool = False, return_state: bool = False):
     """Full-sequence Mamba2 block. u: [B, S, d_model] -> [B, S, d_model]
     (and, with `return_state`, the MambaState a decode continues from: the
-    conv ring holds the last W-1 raw inputs, zero-padded on the left when
-    S < W-1)."""
+    conv ring holds the last W-1 raw inputs of the stored channels,
+    zero-padded on the left when S < W-1)."""
     b, S, _ = u.shape
     d_inner, H, P, N = _dims(cfg)
-    z, xbc_raw, dt = _split_proj(p, u, cfg)
-    xbc = _causal_conv(xbc_raw, p["conv_w"], p["conv_b"])
-    xbc = F.silu(xbc.float()).to(u.dtype)
-    x, B, C = torch.split(xbc, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])  # [b, S, H]
-    A = -torch.exp(p["A_log"])  # [H] negative
+    sp = _split(p, cfg)
+    z, xbc_raw, dt = _split_proj(p, u, cfg, sp)
+    raw = xbc_raw.narrow(-1, sp.c0, sp.C)  # the stored conv channels
+    conv = _causal_conv(raw, p["conv_w"], p["conv_b"])
+    x, B, C = _conv_out(F.silu(conv.float()).to(u.dtype), sp, cfg)
+    dt = F.softplus(dt.float() + _local(p["dt_bias"], sp))  # [b, S, H]
+    A = -torch.exp(_local(p["A_log"], sp))  # [H] negative
     a_log = dt * A  # [b, S, H]
-    xh = x.reshape(b, S, H, P)
+    xh = x.reshape(b, S, sp.H, P)
     x_scaled = (xh.float() * dt[..., None]).to(u.dtype)
     if sequential:
         y, ssm = ssd_sequential(x_scaled, a_log, B, C)
     else:
         y, ssm = ssd_chunked(x_scaled, a_log, B, C, cfg.ssm_chunk)
-    y = y.float() + xh.float() * p["D"][None, None, :, None]
-    out = _gated_out(p, y.reshape(b, S, d_inner).to(u.dtype), z, u, cfg)
+    y = y.float() + xh.float() * _local(p["D"], sp)[None, None, :, None]
+    out = _gated_out(p, y.reshape(b, S, sp.H * P).to(u.dtype), z, u, cfg,
+                     sp)
     if return_state:
         W = cfg.ssm_conv_width
         if S >= W - 1:
-            conv = xbc_raw[:, S - (W - 1):].clone()
+            conv = raw[:, S - (W - 1):].clone()
         else:
-            conv = F.pad(xbc_raw, (0, 0, W - 1 - S, 0))
+            conv = F.pad(raw, (0, 0, W - 1 - S, 0))
         return out, MambaState(ssm, conv)
     return out
 
@@ -209,25 +281,28 @@ def mamba_decode(p, u: torch.Tensor, state: MambaState, cfg: ModelConfig):
     """One-token decode. u: [B, 1, d_model].  Unlike the reference, which
     returns a new state, this one CONSUMES `state`: the new ssm state and
     the shifted conv ring are written into `state.ssm` / `state.conv` IN
-    PLACE, and the same MambaState comes back: (out [B, 1, d], state)."""
+    PLACE, and the same MambaState comes back: (out [B, 1, d], state).
+    Over "model" the ring holds the stored channels, whose conv the rank
+    computes from its own history (`_conv_out` gathers the rest)."""
     b = u.shape[0]
     d_inner, H, P, N = _dims(cfg)
-    z, xbc, dt = _split_proj(p, u, cfg)
+    sp = _split(p, cfg)
+    z, xbc, dt = _split_proj(p, u, cfg, sp)
+    xbc = xbc.narrow(-1, sp.c0, sp.C)  # the stored conv channels
     # conv over ring of last W-1 inputs + current
     hist = torch.cat([state.conv, xbc], dim=1)  # [b, W, C]
     conv_out = torch.einsum("bwc,wc->bc", hist.float(), p["conv_w"].float()) \
         + p["conv_b"].float()
-    xbc1 = F.silu(conv_out)[:, None, :].to(u.dtype)
-    x, B, C = torch.split(xbc1, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dt.float() + p["dt_bias"])[:, 0]  # [b, H]
-    A = -torch.exp(p["A_log"])
+    x, B, C = _conv_out(F.silu(conv_out)[:, None, :].to(u.dtype), sp, cfg)
+    dt = F.softplus(dt.float() + _local(p["dt_bias"], sp))[:, 0]  # [b, H]
+    A = -torch.exp(_local(p["A_log"], sp))
     a = torch.exp(dt * A)  # [b, H]
-    xh = x.reshape(b, H, P).float()
+    xh = x.reshape(b, sp.H, P).float()
     s = a[..., None, None] * state.ssm \
         + (xh * dt[..., None])[..., None] * B[:, 0][:, None, None, :].float()
     y = torch.einsum("bhpn,bn->bhp", s, C[:, 0].float())
-    y = y + xh * p["D"][None, :, None]
-    out = _gated_out(p, y.reshape(b, 1, d_inner).to(u.dtype), z, u, cfg)
+    y = y + xh * _local(p["D"], sp)[None, :, None]
+    out = _gated_out(p, y.reshape(b, 1, sp.H * P).to(u.dtype), z, u, cfg, sp)
     state.ssm.copy_(s)
     state.conv.copy_(hist[:, 1:])
     return out, state

@@ -20,20 +20,25 @@ axes with `all_reduce_mean`, which autograd differentiates.  Outside it
 `model_parallel(group, size, rank)` marks the span of a step whose ranks of
 one data row compute over the `"model"` axis (tensor / expert parallel, the
 compute GSPMD partitions by the param specs).  The model then computes on
-the local shards it is handed (heads, FFN columns, experts, vocab rows, read
-off the leaves' shapes) and crosses ranks only through the four operators of
-Megatron-style TP, each an autograd Function:
+the local shards it is handed (heads, channels, FFN columns, experts, vocab
+rows, read off the leaves' shapes) and crosses ranks only through the four
+operators of Megatron-style TP and two more, each an autograd Function:
 
   copy_to_model      forward identity,        backward all-reduce
   reduce_from_model  forward all-reduce,      backward identity
   scatter_to_model   forward the local slice, backward all-gather
   gather_from_model  forward all-gather,      backward the local slice
+  gather_to_model    forward all-gather,      backward all-reduce, local slice
+  sum_over_model     forward all-reduce,      backward all-reduce
 
 The loss is the same on every rank of the group, so a reduction's backward
-is the identity and a slice's an all-gather: an autograd-differentiated
-all-reduce (`_AllReduceSum`, right for the data axis, where each rank's
-loss differs) would scale the gradient by the group's size here.  Outside
-the context, or at size 1, every operator is the identity.
+is the identity and a slice's an all-gather, where what follows is computed
+the same on every rank.  Where it is not -- each rank reads its own part of
+a whole tensor (Mamba's projection, gathered, read for the rank's heads),
+or normalises its own channels by a statistic summed over all of them --
+each rank holds a partial gradient, and `gather_to_model` / `sum_over_model`
+sum those in their backward.  Outside the context, or at size 1, every
+operator is the identity.
 
 `sequence_parallel(shard)` marks one layer's attention in a mesh serving
 step whose KV cache is split over the sequence (flash-decoding split-K):
@@ -312,6 +317,23 @@ def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     if group is None:
         return x
     return _GatherFromModel.apply(x, dim, group, _MP[1], _MP[2])
+
+
+def gather_to_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' chunks along `dim` concatenated, for a use that differs
+    by rank (each reads its own part of the whole, and parts every rank
+    reads): the ranks' partial gradients are summed before the local
+    chunk is taken."""
+    return copy_to_model(gather_from_model(x, dim))
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum over "model" of per-rank partial statistics that every rank
+    then uses on its own shard (a norm's sum of squares over channels split
+    over "model"): each rank's gradient of the sum is partial, so the
+    backward sums too."""
+    group = _tp()
+    return x if group is None else _AllReduceSum.apply(x, [group])
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,14 @@ the only ones affected by the clamp.  The intra-chunk terms of every chunk
 are computed at once; only the cross-chunk state recurrence is a loop.
 The reference runs all of this as plain array ops (no Pallas kernel), and
 so does the port.
+
+Inside a tensor-parallel step (`pshard.model_parallel`) the time mix runs on
+the rank's wkv heads -- `wr` / `wk` / `wv` / `wg` and `w_lora_b` hold their
+columns, `wo` their rows, read off the leaves' shapes -- and the channel mix
+on the rank's hidden columns (`wk`) and rows (`wv`), each block's output
+summed over "model"; the replicated per-channel leaves (`w_base`, `u`,
+`ln_w`) are sliced to the rank's channels.  The wkv state then holds the
+rank's heads.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import pshard
 from repro_torch.models.common import ModelConfig, dense_init
 
 CLAMP = 60.0
@@ -84,11 +93,18 @@ def _lerp(x, xx, mu):
     return x + (xx - x) * mu.to(x.dtype)
 
 
-def _decay_log(p_tm, xw: torch.Tensor) -> torch.Tensor:
-    """log w_t in (-inf, 0), fp32. xw: [B, S, d] (already mu-mixed)."""
-    lora = torch.tanh(xw @ p_tm["w_lora_a"]).float() \
-        @ p_tm["w_lora_b"].float()
-    ww = p_tm["w_base"] + lora
+def _decay_log(p_tm, xw: torch.Tensor, tp: bool = False) -> torch.Tensor:
+    """log w_t in (-inf, 0), fp32. xw: [B, S, d] (already mu-mixed).  `tp`:
+    `w_lora_b` holds the rank's channels; the LoRA's hidden activation is
+    computed whole and read for them, so its gradient is summed over
+    "model" there, after the whole computation."""
+    lora = torch.tanh(xw @ p_tm["w_lora_a"])
+    if tp:
+        lora = pshard.copy_to_model(lora)
+    lora = lora.float() @ p_tm["w_lora_b"].float()
+    w_base = pshard.scatter_to_model(p_tm["w_base"], -1) if tp \
+        else p_tm["w_base"]
+    ww = w_base + lora
     return -torch.exp(torch.clamp(ww, -8.0, 4.0))  # clip keeps exp sane
 
 
@@ -189,36 +205,55 @@ def _group_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
 
 def time_mix_forward(p_tm, x: torch.Tensor, cfg: ModelConfig, *,
                      sequential: bool = False, last=None, state=None):
-    """x: [B, S, d] -> (y, final_wkv_state)."""
+    """x: [B, S, d] -> (y, final_wkv_state): the state over the heads `wr`
+    holds (all, or the rank's over "model")."""
     B, S, d = x.shape
-    H, P = _dims(cfg)
+    _, P = _dims(cfg)
+    d_loc = p_tm["wr"].shape[-1]
+    H = d_loc // P
+    tp = d_loc != d
     xx = _token_shift(x, last)
     xr = _lerp(x, xx, p_tm["mu_r"])
     xk = _lerp(x, xx, p_tm["mu_k"])
     xv = _lerp(x, xx, p_tm["mu_v"])
     xw = _lerp(x, xx, p_tm["mu_w"])
     xg = _lerp(x, xx, p_tm["mu_g"])
+    if tp:  # whole inputs to the rank's columns
+        xr, xk, xv, xg = map(pshard.copy_to_model, (xr, xk, xv, xg))
     r = (xr @ p_tm["wr"]).reshape(B, S, H, P)
     k = (xk @ p_tm["wk"]).reshape(B, S, H, P)
     v = (xv @ p_tm["wv"]).reshape(B, S, H, P)
     g = F.silu((xg @ p_tm["wg"]).float()).to(x.dtype)
-    logw = _decay_log(p_tm, xw).reshape(B, S, H, P)
-    u = p_tm["u"].reshape(H, P)
+    logw = _decay_log(p_tm, xw, tp).reshape(B, S, H, P)
+    u, ln_w = p_tm["u"], p_tm["ln_w"]
+    if tp:
+        u, ln_w = (pshard.scatter_to_model(t, -1) for t in (u, ln_w))
+    u = u.reshape(H, P)
     if sequential:
         y, fs = wkv_sequential(r, k, v, logw, u, state)
     else:
         y, fs = wkv_chunked(r, k, v, logw, u, cfg.ssm_chunk, state)
-    y = _group_norm(y.reshape(B, S, d), p_tm["ln_w"], cfg.norm_eps, H)
-    return (y * g) @ p_tm["wo"], fs
+    y = _group_norm(y.reshape(B, S, d_loc), ln_w, cfg.norm_eps, H)
+    out = (y * g) @ p_tm["wo"]
+    return (pshard.reduce_from_model(out) if tp else out), fs
 
 
 def channel_mix_forward(p_cm, x: torch.Tensor, cfg: ModelConfig, last=None):
+    """`wk` / `wv` may hold the rank's hidden columns / rows: the rows'
+    partial products are summed over "model" before they gate `rr`, which
+    the replicated `wr` gives whole."""
     xx = _token_shift(x, last)
     xk = _lerp(x, xx, p_cm["mu_k"])
     xr = _lerp(x, xx, p_cm["mu_r"])
+    tp = p_cm["wk"].shape[-1] != cfg.d_ff
+    if tp:
+        xk = pshard.copy_to_model(xk)
     kk = torch.square(torch.relu((xk @ p_cm["wk"]).float()))
     rr = torch.sigmoid((xr @ p_cm["wr"]).float())
-    return (rr * (kk.to(x.dtype) @ p_cm["wv"]).float()).to(x.dtype)
+    kv = kk.to(x.dtype) @ p_cm["wv"]
+    if tp:
+        kv = pshard.reduce_from_model(kv)
+    return (rr * kv.float()).to(x.dtype)
 
 
 def init_rwkv_state(cfg: ModelConfig, batch: int,

@@ -81,3 +81,20 @@ def close_trees(got, want, tol):
     for a, b in zip(g, w):
         assert tuple(a.shape) == tuple(b.shape)
         close(a, b, tol)
+
+
+def noisy_constants(params, seed):
+    """`params` (a numpy tree) with seeded noise (0.05 N(0, 1)) added to
+    each leaf whose elements are all equal, dtype kept."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(walk(v) for v in t)
+        t = np.asarray(t)
+        if t.size > 1 and np.all(t == t.flat[0]):
+            t = (t + 0.05 * rng.standard_normal(t.shape)).astype(t.dtype)
+        return t
+    return walk(params)

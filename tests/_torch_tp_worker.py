@@ -5,18 +5,23 @@ process group (CPU).
 
 Rendezvous through a `FileStore` at STORE_FILE.  INPUTS is the pickle of
 cases `test_torch_tp.py` makes; each rank writes what it saw to
-OUT_DIR/rank{RANK}.npz.  On each mesh of the pickle, for each case: 2
+OUT_DIR/rank{RANK}.npz (WORLD 1: the (1, 1) mesh's steps against the
+one-device step, `torch.equal`, to OUT_DIR/single.npz).  On each mesh of
+the pickle, for each case: 2
 `build_sharded_train_step` steps (metrics, the params gathered whole); one
 `sharded_value_and_grad` against the one-device gradient on the global
 batch (each leaf's stored shard, and the gradients of the leaves replicated
 over "model" for the test to compare across ranks); the dot FLOPs of the
 matmuls on the leaves computed over "model" against the one-device
 program's on the same batch shard; the peak live bytes of the step against
-the gather-everything step's; what reaches the kernels' wrappers.  On the
-2x2 mesh's model group: the four `pshard` operators against closed forms,
-the MoE layer at model 2 against model 1 (forward, and the gradients with
-and without a shared expert), a column-parallel projection against the
-one-device one.  Imports no jax.
+the one-device step's on the rank's batch shard; what reaches the kernels'
+wrappers.  On the 2x2 mesh's model group: the six `pshard` operators
+against closed forms and, where the pickle names a MoE case, the MoE layer
+at model 2 against model 1 (forward, and the gradients with and without a
+shared expert) and a column-parallel projection against the one-device
+one; where it names a Mamba case, on the 1x4 mesh's model group, the
+mixer's gated norm and out_proj on the rank's heads against one device.
+Imports no jax.
 """
 import os
 import pickle
@@ -183,16 +188,21 @@ def run_case(out, tag, case, mesh, rank):
     out[f"{tag}/flops"] = np.array([mode.watched_flops,
                                     one_mode.watched_flops])
 
-    # peak live bytes of a step: this one against the gather-everything one
-    peaks = []
-    for build in (ST.build_sharded_train_step, ST._gather_all_train_step):
-        cfg, params = _setup(case)
-        st = SH.distribute_tree(ST.TrainState(params, opt.init(params)),
-                                mesh, ST.state_specs(pspecs))
-        fn = build(api, opt, mesh, pspecs)
-        with OpAnalysis() as oa:
-            fn(st, batches[0])
-        peaks.append(oa.costs().peak_live_bytes)
+    # peak live bytes of a step: this one against the one-device step on
+    # the rank's batch shard
+    cfg, params = _setup(case)
+    st = SH.distribute_tree(ST.TrainState(params, opt.init(params)), mesh,
+                            ST.state_specs(pspecs))
+    fn = ST.build_sharded_train_step(api, opt, mesh, pspecs)
+    with OpAnalysis() as oa:
+        fn(st, batches[0])
+    peaks = [oa.costs().peak_live_bytes]
+    cfg, params = _setup(case)
+    one = ST.build_train_step(api, opt)
+    st = ST.TrainState(params, opt.init(params))
+    with OpAnalysis() as oa:
+        one(st, shard)
+    peaks.append(oa.costs().peak_live_bytes)
     out[f"{tag}/peak_live_bytes"] = np.array(peaks)
 
 
@@ -231,6 +241,27 @@ def check_operators(out, mesh):
         res["gather"] = torch.equal(
             y, torch.cat([(i + 1) * base for i in range(n)], 1)) \
             and torch.equal(x.grad, wide[:, r * 3:(r + 1) * 3])
+
+        # each rank reads its own column of the gathered whole: the
+        # gradient of every rank's chunk is the sum of the ranks' reads
+        x = ((r + 1) * base).requires_grad_(True)
+        y = pshard.gather_to_model(x, 1)
+        (y[:, r] * wts[:, 0]).sum().backward()
+        want = torch.zeros_like(base)
+        for j in range(n):  # rank j reads column j: rank j // 3's chunk
+            if j // 3 == r:
+                want[:, j % 3] += wts[:, 0]
+        res["gather_to"] = torch.equal(
+            y, torch.cat([(i + 1) * base for i in range(n)], 1)) \
+            and torch.equal(x.grad, want)
+
+        # a sum every rank uses with its own weight: the gradient is the
+        # sum of the weights
+        x = ((r + 1) * base).requires_grad_(True)
+        y = pshard.sum_over_model(x)
+        (y * (r + 1) * wts).sum().backward()
+        res["sum"] = torch.equal(y, total) and torch.equal(
+            x.grad, sum(range(1, n + 1)) * wts)
     for k, v in res.items():
         out[f"operators/{k}"] = np.array(v)
 
@@ -346,6 +377,74 @@ def check_moe_backward(out, case, mesh):
             sorted(errs), dtype=object)
 
 
+def check_mamba_norm(out, case, mesh):
+    """fp32, on the model group: the Mamba2 mixer's gated RMS norm and
+    out_proj on the rank's SSD heads (the sum of squares over the whole
+    d_inner summed over "model") against the one-device layer: the output
+    and the gradients of y, z, out_norm and out_proj, each the rank's
+    share; max abs error over each tensor's max magnitude."""
+    from repro_torch.models import mamba2 as MB
+    group = mesh.get_group(mesh.mesh_dim_names.index("model"))
+    r, n = dist.get_rank(group), dist.get_world_size(group)
+    cfg, _ = _setup(case)
+    d_inner, H, P, _ = MB._dims(cfg)
+    gen = torch.Generator().manual_seed(7)
+    b, S, d = 2, 8, cfg.d_model
+    t = {"y": torch.randn(b, S, d_inner, generator=gen),
+         "z": torch.randn(b, S, d_inner, generator=gen),
+         "out_norm": 1 + 0.1 * torch.randn(d_inner, generator=gen),
+         "out_proj": torch.randn(d_inner, d, generator=gen) / 8}
+    u = torch.zeros(b, S, d)
+    dy = torch.randn(b, S, d, generator=gen)
+
+    def run(ts, sp):
+        ins = {k: v.detach().clone().requires_grad_(True)
+               for k, v in ts.items()}
+        o = MB._gated_out(ins, ins["y"], ins["z"], u, cfg, sp)
+        g = torch.autograd.grad((o * dy).sum(), list(ins.values()))
+        return o.detach(), dict(zip(ins, g))
+
+    o_one, g_one = run(t, MB._Split(False, 0, H, 0, 0))
+    w = d_inner // n
+    local = {k: (v.narrow(0, r * w, w) if k == "out_proj"
+                 else v.narrow(-1, r * w, w)).contiguous()
+             for k, v in t.items()}
+    with pshard.model_parallel(group, n, r):
+        o, g = run(local, MB._Split(True, r * H // n, H // n, 0, 0))
+    errs = {k: float((g[k] - (v.narrow(0, r * w, w) if k == "out_proj"
+                               else v.narrow(-1, r * w, w))).abs().max())
+            / float(v.abs().max()) for k, v in g_one.items()}
+    errs["out"] = float((o - o_one).abs().max()) / float(o_one.abs().max())
+    out["local/mamba_norm_rel_err"] = np.array([errs[k]
+                                                for k in sorted(errs)])
+    out["local/mamba_norm_names"] = np.array(sorted(errs), dtype=object)
+
+
+def run_single(out, inp):
+    """Each case's 2 `build_sharded_train_step` steps on the (1, 1) mesh
+    against the one-device `build_train_step` on the same batches:
+    `torch.equal` of every metric and every leaf after each step."""
+    mesh = make_host_mesh(1, 1, device_type="cpu")
+    for name, case in inp["cases"].items():
+        cfg, params = _setup(case)
+        api, opt = build_api(cfg), AdamW(**case["opt"])
+        pspecs = SH.param_specs(params, cfg, mesh)
+        state = SH.distribute_tree(ST.TrainState(params, opt.init(params)),
+                                   mesh, ST.state_specs(pspecs))
+        step = ST.build_sharded_train_step(api, opt, mesh, pspecs)
+        _, params1 = _setup(case)
+        one_state = ST.TrainState(params1, opt.init(params1))
+        one = ST.build_train_step(api, opt)
+        equal = []
+        for b in case["batches"]:
+            state, m = step(state, _batch(b))
+            one_state, m1 = one(one_state, _batch(b))
+            equal += [torch.equal(m[k], m1[k]) for k in sorted(m1)]
+            equal += [torch.equal(p.to_local(), q) for p, q in
+                      zip(leaves(state.params), leaves(one_state.params))]
+        out[f"single/{name}"] = np.array(equal)
+
+
 def main():
     rank, world = int(sys.argv[1]), int(sys.argv[2])
     store, inputs, out_dir = sys.argv[3], sys.argv[4], sys.argv[5]
@@ -355,6 +454,15 @@ def main():
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     out = {}
+    if world == 1:  # the (1, 1) mesh against the one-device step
+        # one thread: a multi-threaded CPU backward sums some gradients in
+        # an order that varies from run to run (seamless's tied embedding
+        # differed by 7.5e-9 between two one-device runs on 8 threads)
+        torch.set_num_threads(1)
+        run_single(out, inp)
+        np.savez(os.path.join(out_dir, "single.npz"), **out)
+        dist.destroy_process_group()
+        return
     meshes = {}
     for data, model in inp["meshes"]:
         mesh = make_host_mesh(data, model, device_type="cpu")
@@ -362,8 +470,13 @@ def main():
         for name, case in inp["cases"].items():
             run_case(out, f"{data}x{model}/{name}", case, mesh, rank)
     check_operators(out, meshes[(2, 2)])
-    check_local_layers(out, inp["cases"][inp["moe_case"]], meshes[(2, 2)])
-    check_moe_backward(out, inp["cases"][inp["moe_case"]], meshes[(2, 2)])
+    if inp.get("moe_case"):
+        moe = inp["cases"][inp["moe_case"]]
+        check_local_layers(out, moe, meshes[(2, 2)])
+        check_moe_backward(out, moe, meshes[(2, 2)])
+    if inp.get("mamba_case"):
+        check_mamba_norm(out, inp["cases"][inp["mamba_case"]],
+                         meshes[(1, 4)])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
 

@@ -181,7 +181,8 @@ _FAKE = textwrap.dedent("""
 
 # the serving cells at smoke size on the fake 16x16 mesh, with `full_tree`
 # made to raise: the prefill and decode cells lower the mesh steps, which
-# gather no whole tree for the dense and MoE families
+# gather no whole tree for any family, and so do the recurrent, hybrid and
+# encoder-decoder families' train cells
 _SERVE = textwrap.dedent("""
     import json
     import torch
@@ -202,7 +203,13 @@ _SERVE = textwrap.dedent("""
     for arch, shape, opts in (("qwen3_moe_235b_a22b", "prefill_32k", MOE),
                               ("qwen3_moe_235b_a22b", "decode_32k", MOE),
                               ("gemma3_1b", "decode_32k", {}),
-                              ("gemma3_1b", "long_500k", {})):
+                              ("gemma3_1b", "long_500k", {}),
+                              ("rwkv6_7b", "decode_32k", {}),
+                              ("zamba2_1p2b", "long_500k", {}),
+                              ("seamless_m4t_large_v2", "decode_32k", {}),
+                              ("rwkv6_7b", "train_4k", {}),
+                              ("zamba2_1p2b", "train_4k", {}),
+                              ("seamless_m4t_large_v2", "train_4k", {})):
         out[f"{arch}/{shape}"] = run_cell(arch, shape, False, opts=opts,
                                           smoke=True)
     # the params a rank holds in a decode cell: its stored shards
@@ -299,7 +306,10 @@ def test_dryrun_cli_prices_at_the_h100(fake_runs):
 @pytest.mark.parametrize("cell", ["qwen3_moe_235b_a22b/prefill_32k",
                                   "qwen3_moe_235b_a22b/decode_32k",
                                   "gemma3_1b/decode_32k",
-                                  "gemma3_1b/long_500k"])
+                                  "gemma3_1b/long_500k",
+                                  "rwkv6_7b/decode_32k",
+                                  "zamba2_1p2b/long_500k",
+                                  "seamless_m4t_large_v2/decode_32k"])
 def test_serving_cells_lower_the_mesh_steps(fake_runs, cell):
     """The prefill and decode cells run `build_sharded_prefill_step` /
     `build_sharded_decode_step` (`full_tree` raises in that process): the
@@ -311,6 +321,19 @@ def test_serving_cells_lower_the_mesh_steps(fake_runs, cell):
     assert rec["collective_counts"]["all-reduce"] > 0
     if rec["kind"] == "decode":
         assert 0 < rec["mem"]["alias_mb"] <= rec["mem"]["argument_mb"]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6_7b", "zamba2_1p2b",
+                                  "seamless_m4t_large_v2"])
+def test_family_train_cells_lower_the_tp_step(fake_runs, arch):
+    """The recurrent, hybrid and encoder-decoder train cells lower
+    `build_sharded_train_step` on the fake 16x16 mesh with `full_tree`
+    raising: the layers' collectives over "model" are there (all-reduce)
+    and the batch axes' gathers too."""
+    rec = fake_runs[3][f"{arch}/train_4k"]
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["kind"] == "train" and rec["flops_per_device"] > 0
+    assert rec["collective_counts"]["all-reduce"] > 0
 
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_1b"])

@@ -241,6 +241,10 @@ def test_sharded_leaves_matmul_flops_are_one_over_model(runs, mesh, name):
 
 @pytest.mark.parametrize("mesh,name", RUNS, ids=IDS)
 def test_peak_live_bytes_below_the_gather_everything_step(runs, mesh, name):
+    """The step's peak live bytes a rank, below those of the one-device
+    step on the rank's batch shard: the program that holds every param
+    whole (the mesh steps' gather-everything program was that, plus its
+    collectives)."""
     for rr in runs["ranks"]:
         tp, gather_all = rr[f"{mesh}/{name}/peak_live_bytes"]
         assert 0 < tp < gather_all, (tp, gather_all)
@@ -295,7 +299,23 @@ def test_column_parallel_q_is_a_slice_of_the_one_device_q(runs):
 
 ARCHS = ["qwen3_moe_235b_a22b", "dbrx_132b", "deepseek_v32", "gemma3_1b",
          "qwen2_1p5b", "olmo_1b", "deepseek_coder_33b", "chameleon_34b",
-         "rwkv6_7b"]
+         "rwkv6_7b", "zamba2_1p2b", "seamless_m4t_large_v2"]
+# leaves each family must compute over "model" at 16x16, and leaves it
+# must gather there (path suffixes)
+KEPT = {"rwkv6_7b": ["time_mix/wr", "time_mix/wk", "time_mix/wv",
+                     "time_mix/wg", "time_mix/wo", "time_mix/w_lora_b",
+                     "channel_mix/wk", "channel_mix/wv"],
+        "zamba2_1p2b": ["mamba/in_proj", "mamba/conv_w", "mamba/out_norm",
+                        "mamba/out_proj", "shared_attn/attn/wq",
+                        "shared_attn/ffn/w_down"],
+        "seamless_m4t_large_v2": ["encoder/attn/wq", "encoder/attn/wo",
+                                  "encoder/ffn/w_up", "decoder/attn/wk",
+                                  "decoder/cross/wq", "decoder/cross/wv",
+                                  "decoder/cross/wo", "decoder/ffn/w_gate"]}
+GATHERED = {"zamba2_1p2b": ["shared_attn/in_proj"],
+            "seamless_m4t_large_v2": ["embed"]}  # 256206 rows: not by 16
+_TIME_MIX = ("wr", "wk", "wv", "wg", "wo", "w_lora_b")
+_MAMBA = ("in_proj", "conv_w", "conv_b", "out_norm", "out_proj")
 
 
 def _fake_params(cfg):
@@ -307,7 +327,9 @@ def _fake_params(cfg):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_compute_specs_on_the_production_mesh(arch):
     """16x16: no batch axis left; "model" kept where the leaf's spec has it
-    and the code computes whole units there, else gathered."""
+    and the code computes whole units there -- attention heads (self,
+    encoder, cross), RWKV and Mamba heads and channels, FFN columns,
+    experts, vocab rows -- else gathered."""
     mesh = AbstractMesh(("data", "model"), (16, 16))
     cfg = get_config(arch)
     params = _fake_params(cfg)
@@ -315,24 +337,44 @@ def test_compute_specs_on_the_production_mesh(arch):
     got = {"/".join(SH._path_names(p)): s for (p, _), s in zip(
         leaves_with_paths(params), leaves(SH.compute_specs(params, cfg,
                                                            mesh)))}
+    stored = dict(zip(got, pspecs))
     for s, (path, c) in zip(pspecs, got.items()):
         assert len(s) == len(c)
         for e, ce in zip(s, c):
             assert ce in (None, "model")
             if ce is not None:
                 assert "model" in SH._axes(e), (path, s, c)
-    tp = cfg.family in SH.TP_FAMILIES
-    heads = tp and cfg.num_heads % 16 == 0
+    heads = cfg.num_heads % 16 == 0
     kv = heads and cfg.num_kv_heads % 16 == 0
     for path, c in got.items():
         name = path.split("/")[-1]
         sharded = any(e is not None for e in c)
-        if "/attn/" in path and name in ("wq", "wo", "bq"):
+        has_model = any(e is not None and "model" in SH._axes(e)
+                        for e in stored[path])
+        if "/time_mix/" in path:
+            assert sharded == (name in _TIME_MIX
+                               and SH.rwkv_splits(cfg, 16)), (path, c)
+        elif "/channel_mix/" in path:
+            assert sharded == (name in ("wk", "wv")), (path, c)
+        elif "/mamba/" in path:
+            assert sharded == (name in _MAMBA
+                               and SH.mamba_splits(cfg, 16)), (path, c)
+        elif ("/attn/" in path or "/cross/" in path) \
+                and name in ("wq", "wo", "bq"):
             assert sharded == heads, (path, c)
-        elif "/attn/" in path and name in ("wk", "wv", "bk", "bv"):
+        elif ("/attn/" in path or "/cross/" in path) \
+                and name in ("wk", "wv", "bk", "bv"):
             assert sharded == kv, (path, c)
-        elif name == "embed" or "experts" in path:
-            assert sharded == (tp and cfg.vocab_size % 16 == 0
-                               if name == "embed" else tp), (path, c)
-        elif not tp:
+        elif name in ("embed", "lm_head") or "experts" in path \
+                or name in ("w_gate", "w_up", "w_down"):
+            assert sharded == has_model, (path, c)
+        else:  # norms, mus, biases, routers, zamba's shared in_proj
             assert not sharded, (path, c)
+    for suffix in KEPT.get(arch, []):
+        hits = [p for p in got if p.endswith(suffix)]
+        assert hits and all(any(e is not None for e in got[p])
+                            for p in hits), suffix
+    for suffix in GATHERED.get(arch, []):
+        hits = [p for p in got if p.endswith(suffix)]
+        assert hits and not any(e is not None for p in hits
+                                for e in got[p]), suffix

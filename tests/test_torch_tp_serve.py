@@ -13,7 +13,15 @@ steps on tokens from a seed, at (data, model) 2x2 and 1x4:
   * qwen2 (2 kv heads: over heads at 2x2, over the sequence at 1x4);
   * gemma3 at batch 1 on 2x2 (the batch does not shard: the sequence over
     data and model);
-  * zamba2, rwkv6 and seamless at 2x2 (the gather-everything steps).
+  * zamba2, rwkv6 and seamless at 2x2 and 1x4, over "model" like the
+    others: zamba2's 16 SSD heads and its shared block's 4 heads split, its
+    conv rings in chunks of 144 / 72 channels that are not its heads' (8
+    decode steps outlast the W-1 = 3 slots of a ring); rwkv6's 2 wkv heads
+    split at 2x2 and whole at 1x4 (its time mix gathered there, its channel
+    mix split), and with 32-wide heads (rwkv6_h4: 4 heads) split at 1x4
+    too; seamless's encoder, decoder and cross attention heads.  Their
+    constant leaves (zero biases, unit scales, decay and bonus vectors)
+    get seeded noise first, so a leaf read at the wrong channels shows.
 One module fixture starts the reference, the 4 ranks of
 `_torch_tp_serve_worker.py` and a rank of a world of 1 (the (1, 1) mesh)
 at once, rendezvous through `FileStore`s under tmp_path, with a join
@@ -37,7 +45,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import close, family_setup
+from _torch_port import close, family_setup, noisy_constants
 
 from repro_torch.configs import get_config
 from repro_torch.models import attention as A
@@ -56,15 +64,17 @@ CASES = {
     "zamba2": ("zamba2_1p2b", 3, {}),
     "rwkv6": ("rwkv6_7b", 4, {}),
     "seamless": ("seamless_m4t_large_v2", 5, {}),
+    "rwkv6_h4": ("rwkv6_7b", 6, dict(ssm_head_dim=32)),
 }
+FAMILIES = ("zamba2", "rwkv6", "seamless")
 # tag: (mesh, case, batch)
 RUNS = {f"{d}x{m}/{c}": ((d, m), c, 4) for d, m in ((2, 2), (1, 4))
         for c in ("qwen3", "gemma3", "qwen2")}
 RUNS.update({"2x2/gemma3_b1": ((2, 2), "gemma3", 1)})
-RUNS.update({f"2x2/{c}": ((2, 2), c, 4)
-             for c in ("zamba2", "rwkv6", "seamless")})
-TP_RUNS = [t for t, (_, c, _) in RUNS.items()
-           if c in ("qwen3", "gemma3", "qwen2")]
+RUNS.update({f"{d}x{m}/{c}": ((d, m), c, 4) for d, m in ((2, 2), (1, 4))
+             for c in FAMILIES})
+RUNS.update({"1x4/rwkv6_h4": ((1, 4), "rwkv6_h4", 4)})
+TP_RUNS = [t for t, (_, c, _) in RUNS.items() if not c.startswith("rwkv6")]
 # the runs whose caches split over the sequence (kv heads < model, or a
 # batch that does not shard)
 SEQ_RUNS = ["2x2/gemma3", "1x4/gemma3", "1x4/qwen2", "2x2/gemma3_b1"]
@@ -86,8 +96,10 @@ def _inputs():
     cases = {}
     for name, (arch, seed, replace) in CASES.items():
         _, jparams, _, _ = family_setup(arch, seed=seed, **replace)
-        cases[name] = dict(arch=arch, replace=replace,
-                           params=jax.tree.map(np.asarray, jparams))
+        params = jax.tree.map(np.asarray, jparams)
+        if name not in ("qwen3", "gemma3", "qwen2"):
+            params = noisy_constants(params, seed + 100)
+        cases[name] = dict(arch=arch, replace=replace, params=params)
     runs = {}
     for tag, (mesh, case, B) in RUNS.items():
         arch, seed, _ = CASES[case]
@@ -96,8 +108,9 @@ def _inputs():
                          batch=_batch(arch, seed + 10 + B, B),
                          tokens=rng.integers(0, 512, (STEPS, B)).astype(
                              np.int32))
-    # the (1, 1) mesh runs each case on its 2x2 run's inputs, 2 steps
-    single = {c: f"2x2/{c}" for c in CASES}
+    # the (1, 1) mesh runs each case on its first run's inputs
+    single = {c: next(t for t, (_, case, _) in RUNS.items() if case == c)
+              for c in CASES}
     return dict(cases=cases, runs=runs, max_len=MAX_LEN, single=single)
 
 
@@ -232,9 +245,10 @@ def test_sequence_split_decode_writes_each_token_on_one_rank(runs, tag):
 
 @pytest.mark.parametrize("tag", TP_RUNS)
 def test_flash_runs_on_the_local_heads(runs, tag):
-    """The prefill's flash calls get the rank's q heads (H / model), and no
-    DTensor nor non-contiguous view reaches a kernel wrapper; qwen3's MoE
-    layers go through the dispatch and combine wrappers."""
+    """The prefill's flash calls get the rank's q heads (H / model: zamba2's
+    shared block, seamless's decoder self attention too), and no DTensor
+    nor non-contiguous view reaches a kernel wrapper; qwen3's MoE layers go
+    through the dispatch and combine wrappers."""
     (_, model), case, _ = RUNS[tag]
     H = get_config(CASES[case][0]).smoke().num_heads
     for rr in runs["ranks"]:
