@@ -67,6 +67,7 @@ from repro_torch.core.placement_control import (PlacementController,
 from repro_torch.core.scheduler import Batch, LengthAwareBatcher
 from repro_torch.core.simulator import (AsapSim, SimConfig, SyncSim,
                                         drain_horizon)
+from repro_torch.core.spans import SPANS
 from repro_torch.core.trace import Request, TraceClock
 from repro_torch.kernels import _launch
 from repro_torch.models.lm import lm_head
@@ -822,6 +823,7 @@ class ExecutorEngine(ServingEngine):
         reqs: List[Request] = job.meta or []
         if not reqs:
             return
+        t_first = time.monotonic_ns() if SPANS.on else 0
         first = None
         if self.sample_first_token and job.result is not None:
             dev = job.result.device
@@ -834,7 +836,11 @@ class ExecutorEngine(ServingEngine):
             if first.is_cuda:
                 _launch.note_host_sync()
             first = first.cpu().numpy()
+        if t_first:
+            SPANS.add("first_token", t_first, time.monotonic_ns(),
+                      bid=job.bid)
         t_done = job.t_finished
+        won_reqs: List[Request] = []
         with self._done_cv:
             self._live_jobs = [j for j in self._live_jobs if j is not job]
             if job.failed is None and job.t_submitted is not None \
@@ -854,6 +860,7 @@ class ExecutorEngine(ServingEngine):
                     continue  # the hedged twin already finished this rid
                 self._completed_rids.add(r.rid)
                 won = True
+                won_reqs.append(r)
                 r.first_token_time = t_done
                 ttft = max(t_done - r.arrival, 0.0)
                 queue = min(max((job.t_started or t_done) - r.arrival, 0.0),
@@ -888,6 +895,33 @@ class ExecutorEngine(ServingEngine):
             if job.is_hedge and won:
                 self._hedge_wins += 1
             self._done_cv.notify_all()
+        if t_first:
+            self._request_spans(job, won_reqs)
+
+    def _request_spans(self, job: BatchJob, reqs: List[Request]):
+        """The admission thread's spans of a finished job: its wait for a
+        group ("admission_wait"), and for each request it completed the
+        "request" from its due time to its first token and, inside it, the
+        "batcher_hold" until its batch was emitted.  With the job's
+        "executor" span these tile the request; the first two sum to its
+        "queue" share."""
+        if job.t_submitted is None or job.t_started is None:
+            return
+        ns = self.clock.monotonic_ns
+        tid = self._admit_thread.native_id \
+            if self._admit_thread is not None else None
+        t_sub, t_start = ns(job.t_submitted), ns(job.t_started)
+        SPANS.add("admission_wait", t_sub, t_start, tid=tid, bid=job.bid,
+                  g=job.group)
+        if job.t_finished is None:
+            return
+        t_done = ns(job.t_finished)
+        for r in reqs:
+            t_due = ns(r.arrival)
+            SPANS.add("request", t_due, t_done, tid=tid, rid=r.rid,
+                      bid=job.bid)
+            SPANS.add("batcher_hold", t_due, t_sub, tid=tid, rid=r.rid,
+                      bid=job.bid)
 
     def _check_errors(self):
         if self._admit_error is not None:

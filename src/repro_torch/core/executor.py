@@ -113,6 +113,7 @@ from repro_torch.core.async_primitives import (AbortedError, AttnDeviceBuffer,
                                                MoEDeviceBuffer)
 from repro_torch.core.cost_model import Placement
 from repro_torch.core.faults import FaultInjector, FaultPlan, InjectedFault
+from repro_torch.core.spans import SPANS, clock_ns
 from repro_torch.kernels import _launch
 from repro_torch.kernels.super_gmm.ops import (pack_capacity_multi,
                                                round_capacity, super_moe_ffn,
@@ -381,6 +382,20 @@ class DisaggregatedExecutor:
         self._seen_buckets: List[set] = [set() for _ in range(E)]
         # guarded_by: protocol
         # (single-writer per element: same owner as bucket_hits/misses)
+        # for the spans: the bid of the job in each (group, dual-batch
+        # slot), the ids of the batch-layer group g combines, and the
+        # (bid, layer, g) of the regions device e launches
+        self._span_ids: List[Optional[Dict[str, Any]]] = [None] * D
+        # guarded_by: protocol
+        # (single-writer per element: group worker g)
+        self._span_regions: List[Optional[list]] = [None] * E
+        # guarded_by: protocol
+        # (single-writer per element: same owner as moe_busy)
+        self._slot_bids = [[None, None] for _ in range(D)]
+        # guarded_by: protocol
+        # (single-writer per element: group worker g fills its slots; a MoE
+        # worker reads a slot's cell only while it holds one of the slot's
+        # regions, before its combine, so the job cannot have left the slot)
 
     def _logev(self, *ev):
         with self._log_lock:
@@ -665,9 +680,20 @@ class DisaggregatedExecutor:
         The wait is bounded by `region_timeout` (wall seconds): a region
         lost to a fault (a dropped dispatch or combine, a failover longer
         than the bound) surfaces as TimeoutError, and the group worker
-        replays the batch through the retry path."""
+        replays the batch through the retry path.  With spans on, the wait
+        ("moe_wait") and the accumulation ("combine") carry the ids the
+        group worker left in `_span_ids[g]`."""
+        t_wait = time.monotonic_ns() if SPANS.on else 0
         payloads = self.attn_bufs[g][slot].combine_recv(
             timeout=self.region_timeout, stop=self.stop)
+        ids = None
+        if t_wait:
+            # taken once: ids left by a batch-layer begun while spans were
+            # off never label a later one
+            t_acc = time.monotonic_ns()
+            ids, self._span_ids[g] = self._span_ids[g], None  # race-ok: single-writer per group (group worker g)
+            if ids:
+                SPANS.add("moe_wait", t_wait, t_acc, **ids)
         Tn, d = xf.shape
         K = self.cfg.top_k
         host = self.combine_path == "host"
@@ -700,7 +726,10 @@ class DisaggregatedExecutor:
             acc = torch.from_numpy(acc).to(self.device)
         B, S, _ = h.shape
         self._logev("combine", g, slot, layer)
-        return h + acc.to(h.dtype).reshape(B, S, d)
+        out = h + acc.to(h.dtype).reshape(B, S, d)
+        if ids:
+            SPANS.add("combine", t_acc, time.monotonic_ns(), **ids)
+        return out
 
     # ----------------------------------------------------------- moe worker
     def prewarm_buckets(self, max_rows: int):
@@ -771,7 +800,13 @@ class DisaggregatedExecutor:
         as device data are the SUM of the merged regions' dispatch counts:
         every expert's buffer is as long as the hottest expert's, and the
         kernel skips the padding beyond each count.  Returns one [n_r, d]
-        output block per region, in input order."""
+        output block per region, in input order.  The spans name the
+        regions as `_compute` left them in `_span_regions[e]`."""
+        t_pack = time.monotonic_ns() if SPANS.on else 0
+        if t_pack:
+            # taken once, as `_combine` takes its ids
+            regions, self._span_regions[e] = self._span_regions[e], None  # race-ok: single-writer per device, as moe_busy
+            t_pack = t_pack if regions is not None else 0
         n_e = len(self.dev_experts[e])
         for rows in row_lists:
             for r in rows:
@@ -780,12 +815,23 @@ class DisaggregatedExecutor:
             [self._region_tokens(rows) for rows in row_lists], eid_list, n_e)
         counts = np.sum([rows[0].counts for rows in row_lists], 0)
         self._record_launch(e, C, len(row_lists), int(bounds[-1]), counts)
+        if t_pack:
+            ids = {"e": e, "regions": regions, "rows": int(bounds[-1]),
+                   "C": C}
+            t_launch = time.monotonic_ns()
+            SPANS.add("pack", t_pack, t_launch, **ids)
         # layer-oblivious: `layer` selects a one-element DEVICE tensor; the
         # kernel reads it and indexes the resident all-layer stack itself
         yb = super_moe_ffn(
             self._lid[layer:layer + 1], self.resident[e], xb, self.cfg,
             torch.as_tensor(counts.astype(np.int32), device=self.device))
-        return unpack_capacity_multi(yb, order, slots, bounds)
+        if t_pack:
+            t_unpack = time.monotonic_ns()
+            SPANS.add("launch", t_launch, t_unpack, **ids)
+        out = unpack_capacity_multi(yb, order, slots, bounds)
+        if t_pack:
+            SPANS.add("unpack", t_unpack, time.monotonic_ns(), **ids)
+        return out
 
     def _expert_ffn_eager(self, e: int, layer: int, tokens: torch.Tensor,
                           eids: np.ndarray) -> torch.Tensor:
@@ -914,6 +960,10 @@ class DisaggregatedExecutor:
             for layer in sorted(by_layer):
                 js = by_layer[layer]
                 if self.moe_path == "fused":
+                    if SPANS.on:
+                        self._span_regions[e] = [  # race-ok: single-writer per device, as moe_busy
+                            self._region(prep[j][0], prep[j][2], layer)
+                            for j in js]
                     blocks = self._expert_ffn_fused_multi(
                         e, layer, [prep[j][3] for j in js],
                         [prep[j][5] for j in js])
@@ -925,10 +975,21 @@ class DisaggregatedExecutor:
             # producer-side sync, one per chunk: the outputs are complete
             # when the combine flags go up, and the host-clocked busy time
             # below is device time
+            t_sync = time.monotonic_ns() if SPANS.on else 0
             self._sync_stream()
+            if t_sync:
+                js = [j for js in by_layer.values() for j in js]
+                SPANS.add("sync", t_sync, time.monotonic_ns(), e=e,
+                          regions=[self._region(prep[j][0], prep[j][2],
+                                                prep[j][1]) for j in js],
+                          rows=sum(len(prep[j][4]) for j in js))
             self.moe_busy[e] += self.clock() - t0  # race-ok: single-writer (worker e, or the supervisor once e is fenced out)
         return [(i, layer, slot, tids, eids, outs[j])
                 for j, (i, layer, slot, _, tids, eids) in enumerate(prep)]
+
+    def _region(self, g: int, slot: int, layer: int) -> tuple:
+        """A region's (bid, layer, g), as the MoE side's spans name it."""
+        return (self._slot_bids[g][slot], layer, g)  # race-ok: read while this region is held, before its combine (see _slot_bids)
 
     def _release_region(self, e: int, gen: int, i: int) -> bool:
         """Remove region i from `_moe_current[e]` before its combine, under
@@ -954,6 +1015,7 @@ class DisaggregatedExecutor:
         regions whose combine never happened."""
         for i, layer, slot, token_ids, eids, out in self._compute(e,
                                                                   entries):
+            t_send = time.monotonic_ns() if SPANS.on else 0
             self._logev("moe", e, i, slot, layer, len(token_ids))
             if not self._release_region(e, gen, i):
                 continue  # fenced out: the failover re-serves this region
@@ -963,10 +1025,14 @@ class DisaggregatedExecutor:
                 # replays -- the region is consumed exactly once
                 self._logev("drop-combine", e, i, slot, layer)
                 continue
+            region = self._region(i, slot, layer) if t_send else None
             self.attn_bufs[i][slot].combine_send(
                 e, CombinePayload(layer=layer, token_ids=token_ids,
                                   expert_ids=eids, outputs=out),
                 stop=self.stop)
+            if t_send:
+                SPANS.add("combine_send", t_send, time.monotonic_ns(), e=e,
+                          regions=[region], rows=len(token_ids))
 
     def _moe_worker(self, e: int, gen: int = 0):
         buf = self.moe_bufs[e]
@@ -1004,6 +1070,7 @@ class DisaggregatedExecutor:
                                     f"(scheduled t={ev.t})")
                             self._injected_sleep(e, gen, ev)
                             continue
+                    t_recv = time.monotonic_ns() if SPANS.on else 0
                     if self.moe_batch_window > 0:
                         entries = self._drain_window(buf, admit, on_take)
                     else:
@@ -1018,6 +1085,8 @@ class DisaggregatedExecutor:
                         if self.stop.is_set():
                             return
                         continue  # timeout or fence: the loop top decides
+                    if t_recv:
+                        SPANS.add("recv", t_recv, time.monotonic_ns(), e=e)
                     for chunk in self._chunk_by_row_cap(entries):
                         self._serve_batch(e, gen, chunk)
                     # after the WHOLE drain, not per chunk: a later chunk's
@@ -1115,6 +1184,8 @@ class DisaggregatedExecutor:
                     break
                 if job.t_started is None:
                     job.t_started = self.clock()
+                slot = free_slots.pop(0)
+                self._slot_bids[g][slot] = job.bid  # race-ok: single-writer (group worker g), see _slot_bids
                 tok = np.asarray(job.tokens)
                 # valid-position mask: pad rows compute but don't count
                 # toward measured router stats
@@ -1123,7 +1194,7 @@ class DisaggregatedExecutor:
                     valid = (np.arange(tok.shape[1])[None, :]
                              < np.asarray(job.lengths)[:, None]).reshape(-1)
                 active.append({"job": job, "h": self._embed(job), "layer": 0,
-                               "phase": "attn", "slot": free_slots.pop(0),
+                               "phase": "attn", "slot": slot,
                                "ctx": None, "seq": 0, "valid": valid,
                                "kv": []})
             if not active:
@@ -1133,13 +1204,22 @@ class DisaggregatedExecutor:
                 if st["phase"] != "attn":
                     continue
                 t0 = self.clock()
+                t_attn = time.monotonic_ns() if SPANS.on else 0
                 h, xf, w, idx, shared, kv = step(st["layer"], st["h"])
+                if t_attn:
+                    ids = {"bid": st["job"].bid, "layer": st["layer"],
+                           "slot": st["slot"], "g": g}
+                    t_read = time.monotonic_ns()
+                    SPANS.add("attn", t_attn, t_read, **ids)
                 if self.emit_kv:
                     st["kv"].append(kv)
                 # the one device-to-host read of the batch-layer: the router's
                 # expert ids, which placement routing needs on the host (the
                 # wait also makes the clocked time below device time)
                 idx_np = self._to_host(idx)
+                if t_attn:
+                    SPANS.add("router_read", t_read, time.monotonic_ns(),
+                              **ids)
                 dt = self.clock() - t0
                 st["job"].kernel_time += dt
                 self.group_busy[g] += dt  # race-ok: single-writer (group worker g accumulates its own cell)
@@ -1147,7 +1227,10 @@ class DisaggregatedExecutor:
                 st["ctx"] = (xf, w, shared)
                 self._logev("attn", g, st["slot"], st["layer"],
                             tuple(h.shape[:2]))
+                t_disp = time.monotonic_ns() if t_attn else 0
                 dispatch(g, st["slot"], st["layer"], xf, idx_np, st["valid"])
+                if t_disp:
+                    SPANS.add("dispatch", t_disp, time.monotonic_ns(), **ids)
                 st["phase"] = "wait"
                 st["seq"] = seq = seq + 1
             # block on the oldest outstanding combine
@@ -1157,6 +1240,10 @@ class DisaggregatedExecutor:
             st = min(waiting, key=lambda s: s["seq"])
             xf, w, shared = st["ctx"]
             t0 = self.clock()
+            if SPANS.on:
+                self._span_ids[g] = {"bid": st["job"].bid,  # race-ok: single-writer per group (group worker g)
+                                     "layer": st["layer"],
+                                     "slot": st["slot"], "g": g}
             try:
                 st["h"] = self._combine(g, st["slot"], st["h"], xf, w,
                                         shared)
@@ -1169,6 +1256,7 @@ class DisaggregatedExecutor:
             if st["layer"] >= self.L:
                 job = st["job"]
                 t0 = self.clock()
+                t_final = time.monotonic_ns() if SPANS.on else 0
                 result = apply_norm(st["h"], self.params["final_norm"],
                                     self.cfg)
                 if st["kv"]:
@@ -1180,7 +1268,12 @@ class DisaggregatedExecutor:
                 dt = self.clock() - t0
                 job.kernel_time += dt
                 self.group_busy[g] += dt  # race-ok: single-writer (group worker g accumulates its own cell)
+                if t_final:
+                    SPANS.add("final", t_final, time.monotonic_ns(),
+                              bid=job.bid, g=g)
                 job.t_finished = self.clock()
+                if t_final:
+                    self._executor_span(job)
                 free_slots.append(st["slot"])
                 active.remove(st)
                 if self.on_complete is not None:
@@ -1189,6 +1282,13 @@ class DisaggregatedExecutor:
                     self._done_cv.notify_all()
             else:
                 st["phase"] = "attn"
+
+    def _executor_span(self, job: BatchJob):
+        """The job's "executor" span, from its start on a group to its
+        finish, on the spans' clock."""
+        SPANS.add("executor", clock_ns(self.clock, job.t_started),
+                  clock_ns(self.clock, job.t_finished), bid=job.bid,
+                  g=job.group)
 
     def _embed(self, job: BatchJob) -> torch.Tensor:
         return embed_tokens(self.params,
@@ -1251,6 +1351,8 @@ class DisaggregatedExecutor:
                           f"{job.retries - 1} replays")
             job.result = None
             job.t_finished = self.clock()
+            if SPANS.on:
+                self._executor_span(job)
             free_slots.append(st["slot"])
             active.remove(st)
             if self.on_complete is not None:

@@ -129,6 +129,12 @@ class TraceClock:
             self.start()
         return (time.monotonic() - self._t0) * self.speed
 
+    def monotonic_ns(self, t: float) -> int:
+        """Trace time `t` as `time.monotonic_ns()` read it (or will)."""
+        if self._t0 is None:
+            self.start()
+        return int(round((self._t0 + t / self.speed) * 1e9))
+
     def wall_delay(self, trace_dt: float) -> float:
         """Wall seconds corresponding to `trace_dt` trace seconds."""
         return max(trace_dt, 0.0) / self.speed

@@ -29,6 +29,10 @@ and the sampled first token.
   PYTHONPATH=src python -m repro_torch.launch.serve --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 
+`--save-spans PATH` records the serving path's spans (`core/spans.py`: per
+request, job, batch-layer and MoE drain, with their ids) and writes them as
+Chrome-trace JSON, to open beside a `torch.profiler` trace of the same run.
+
 On the card the model is qwen3_moe_235b_a22b at its full width in bf16 with
 random weights from --seed, its depth cut to --layers (default 4; the full
 depth does not fit one card).  --smoke selects the small fp32 config instead;
@@ -103,6 +107,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import spans
 from repro_torch.core.cost_model import H100, Deployment, Placement
 from repro_torch.core.decode import (DecodeExecutor, ExecDecodeEngine,
                                      SimDecodeEngine)
@@ -330,6 +335,8 @@ def run_executor(args) -> int:
               + (f"(hot={placement.replicate_hot})"
                  if placement.replicate_hot else ""))
 
+    if args.save_spans:
+        spans.SPANS.start()
     out = serve_requests(cfg, params, lengths=[int(x) for x in lengths],
                          rps=args.rps, time_scale=args.time_scale,
                          seed=args.seed, device=device, D=D, E=E,
@@ -343,6 +350,12 @@ def run_executor(args) -> int:
                          max_queue=args.max_queue,
                          hedge_factor=args.hedge_factor,
                          engine_kw=engine_kw)
+    if args.save_spans:
+        spans.SPANS.stop()
+        taken = spans.SPANS.take()
+        with open(args.save_spans, "w") as f:
+            json.dump(spans.chrome_trace(taken), f)
+        print(f"{len(taken)} spans saved to {args.save_spans}")
     results, st = out["results"], out["stats"]
 
     # out-of-order completion evidence (the async-serving property)
@@ -838,6 +851,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     help="write EngineStats as JSON after the run")
     ap.add_argument("--save-router-stats", default=None, metavar="PATH",
                     help="write measured per-expert routing stats (JSON)")
+    ap.add_argument("--save-spans", default=None, metavar="PATH",
+                    help="record the serving path's spans and write them as "
+                         "Chrome-trace JSON (to open beside a torch.profiler "
+                         "trace)")
     ap.add_argument("--smoke", action="store_true",
                     help="the small fp32 config (3 layers, 8 experts top-2) "
                          "instead of the full-width model")
@@ -891,6 +908,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.rebalance_interval is not None \
             and args.rebalance_interval <= 0:
         ap.error("--rebalance-interval must be positive")
+    if args.save_spans and (args.engine == "sim" or args.mode == "pd"):
+        ap.error("--save-spans records the executor engine's prefill "
+                 "serving; it requires --engine executor without --mode pd")
     if args.engine == "sim":
         for flag, val, default in (
                 ("--request-deadline", args.request_deadline, None),
